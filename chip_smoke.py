@@ -1,0 +1,456 @@
+"""Chip smoke test of the PyTorch/CUDA port (spiht_tpu_torch) on one GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the kernels from spiht_tpu_torch/csrc with nvcc, holds each one
+against its plain version on the card, drives the port's main path (the
+single-image on-device round trip) at full width in two configurations,
+checks the outputs, and prints timings. Every phase must pass; any failure
+exits nonzero. The last line of standard output is
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
+before printing any result.
+
+Phases:
+  1. card, versions, kernel build time
+  2. kernels vs plain versions at small shapes (full streams, budget cuts,
+     odd-LL geometries routed to the seq decoder, byte-prefix decodes)
+  3. configuration A: bior2.2 / reflect / IPT, 3x512x512, 1.0 bpp
+  4. configuration B: bior4.4 / symmetric / RGB / level 3 (odd LL), 1.0 bpp
+  5. embedded stream: a quarter of A's bytes
+  6. timings: round trips end to end, each kernel alone, plain versions
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import spiht_tpu_torch as pt
+from spiht_tpu_torch import _build
+from spiht_tpu_torch.codec import decoder, encoder
+from spiht_tpu_torch.torch_transform import forward
+from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W), the bound's denominators: the
+# HBM rate, and the float32 rate outside the tensor cores, the nearest
+# published rate to the machines' scalar integer operations
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# operations per stream bit: the test that decides it and the shift/or that
+# writes (encoder) or reads (decoders) it
+OPS_PER_BIT = 2
+DEV = "cuda"  # every card-side call names it
+
+CONFIG_A = pt.SpihtSettings(
+    wavelet="bior2.2", mode="reflect", color_model="ipt",
+    per_channel_quant_scales=[100, 20, 20], quantization_scale=1.0,
+)
+CONFIG_B = pt.SpihtSettings(wavelet="bior4.4", mode="symmetric")
+GOLDEN = [  # tests/test_golden.py: (seed, settings, level, max_bits, digest)
+    (1, pt.SpihtSettings(), 3, 5000,
+     "a61cbfa506245869d3392bac4b79fe39f61b12ff9f2a4d6bcc1b2b501cce0d0f"),
+    (2, pt.SpihtSettings(wavelet="bior4.4", mode="symmetric"), 2, 4000,
+     "bdc2607aa590c1732f65dce9c5ba02782a52e0030f790d26b2dd8d71e7bc7bfb"),
+    (3, CONFIG_A, 3, 6000,
+     "b55146498451f72ee80b7977e3181f18fc9fb7131c699613bcd2ca80f924664c"),
+]
+KERNELS = {
+    "spiht_encode": dict(
+        wrapper=encoder.encode_machine,
+        source="spiht_tpu_torch/csrc/spiht_encode.cu",
+        replaces="spiht_tpu/codec/pallas_encoder.py:546",
+    ),
+    "spiht_decode_lsp": dict(
+        wrapper=decoder.decode_lsp,
+        source="spiht_tpu_torch/csrc/spiht_decode.cu",
+        replaces="spiht_tpu/codec/pallas_decoder.py:531",
+    ),
+    "spiht_decode_seq": dict(
+        wrapper=decoder.decode_seq,
+        source="spiht_tpu_torch/csrc/spiht_decode.cu",
+        replaces="spiht_tpu/codec/pallas_decoder.py:186",
+    ),
+}
+
+
+def image(seed, shape):
+    """tests/test_golden.py's seeded synthetic image."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0 : shape[1], 0 : shape[2]].astype(np.float64)
+    base = 0.5 + 0.3 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+    im = np.stack([base * (0.5 + 0.5 * c / shape[0]) for c in range(shape[0])])
+    im += 0.1 * rng.standard_normal(shape)
+    return np.clip(im, 0.0, 1.0)
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def reset_counts():
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+
+
+def counts():
+    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+
+
+# ---------------------------------------------------------------------------
+# kernel vs plain, one call each, on the same inputs
+# ---------------------------------------------------------------------------
+
+
+def to_cpu(args):
+    return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def max_abs(a, b) -> int:
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max(initial=0))
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def cmp_encode(arr, ll_h, ll_w, max_bits, stats=None):
+    """B1 on the card vs its plain version on the same array: words and
+    stat exactly equal. Returns (bytes, max_n)."""
+    args = encoder.machine_args(arr, ll_h, ll_w, max_bits)
+    kw, ks = encoder.encode_machine(*args)
+    torch.cuda.synchronize()
+    (pw, ps), plain_ms = timed(encoder.encode_machine, *to_cpu(args))
+    ks = encoder.check_stat(ks, "spiht_encode")
+    check(ks == ps.tolist(), f"B1 stat {ks} != plain {ps.tolist()}")
+    err = max_abs(kw.cpu().numpy().view(np.uint32), pw.numpy().view(np.uint32))
+    check(err == 0, "B1 words != plain words")
+    if stats is not None:
+        stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
+    return encoder.stream_bytes(kw, ks[0]), int(args[6])
+
+
+def cmp_decode(data, max_n, c, h, w, ll_h, ll_w, stats=None):
+    """The routed decode kernel on the card vs its plain version: stat,
+    LSP queues (B2) and rec exactly equal. Returns (rec, kernel name)."""
+    words, nbits = decoder.words_tensor(data, DEV)
+    args = decoder.machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
+    if decoder.has_duplicate_parents(h, w, ll_h, ll_w):
+        name, wrapper = "spiht_decode_seq", decoder.decode_seq
+    else:
+        name, wrapper = "spiht_decode_lsp", decoder.decode_lsp
+    kout = wrapper(*args)
+    torch.cuda.synchronize()
+    pout, plain_ms = timed(wrapper, *to_cpu(args))
+    ks = encoder.check_stat(kout[-1], name)
+    check(ks == pout[-1].tolist(), f"{name} stat {ks} != plain")
+    live = ks[0]
+    if name == "spiht_decode_seq":
+        krec, prec = kout[0].cpu(), pout[0]
+    else:
+        for kq, pq in zip(kout[:2], pout[:2]):
+            check(torch.equal(kq[:live].cpu(), pq[:live]), f"{name} LSP queue")
+        krec = decoder.scatter_rec(*kout, c * h * w).cpu()
+        prec = decoder.scatter_rec(*pout, c * h * w)
+    err = max_abs(krec.numpy(), prec.numpy())
+    check(err == 0, f"{name} rec != plain rec")
+    if stats is not None:
+        stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
+    return krec.reshape(c, h, w), name
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_small():
+    """Phase 2: every kernel vs its plain version at small shapes."""
+    dev = DEV
+    rng = np.random.default_rng(7)
+    cases = []
+    # 3x64x64 through the real transform (golden case 1's settings)
+    arr, ll_h, ll_w = forward(
+        torch.as_tensor(image(1, (3, 64, 64)), device=dev),
+        pt.SpihtSettings(), 3,
+    )
+    cases.append(("3x64x64", arr, ll_h, ll_w))
+    # odd LL: random 3x19x19 (LL 5x5), and bior2.2/reflect level 6 at 64^2
+    cases.append(("3x19x19", torch.as_tensor(
+        (rng.standard_normal((3, 19, 19)) * 2000).astype(np.int32),
+        device=dev), 5, 5))
+    arr, ll_h, ll_w = forward(
+        torch.as_tensor(image(2, (3, 64, 64)), device=dev),
+        pt.SpihtSettings(), 6,
+    )
+    check(tuple(arr.shape) == (3, 89, 89) and (ll_h, ll_w) == (5, 5),
+          f"bior2.2 L6 at 64^2 geometry {tuple(arr.shape)} LL {(ll_h, ll_w)}")
+    cases.append(("3x89x89", arr, ll_h, ll_w))
+    routes = set()
+    n_cmp = 0
+    for label, arr, ll_h, ll_w in cases:
+        c, h, w = arr.shape
+        odd = decoder.has_duplicate_parents(h, w, ll_h, ll_w)
+        check(odd == (label != "3x64x64"), f"{label} routing")
+        full, max_n = cmp_encode(arr, ll_h, ll_w, 2**31 - 2)
+        for mb in (1, 2, 3, 64, 333, 1001, 4999, len(full) * 8 - 1):
+            data, _ = cmp_encode(arr, ll_h, ll_w, mb)
+            check(data[: mb // 8] == full[: mb // 8],
+                  f"{label} cut {mb} not a prefix")
+            n_cmp += 1
+        for cut in sorted({0, 1, 7, len(full) // 3, len(full) // 2, len(full)}):
+            rec, name = cmp_decode(full[:cut], max_n, c, h, w, ll_h, ll_w)
+            routes.add(name)
+            n_cmp += 1
+        print(f"  {label}: LL {ll_h}x{ll_w}, {len(full)} bytes, "
+              f"decoder {'seq' if odd else 'lsp'}: kernels == plain")
+    check(routes == {"spiht_decode_lsp", "spiht_decode_seq"}, "both decoders")
+    print(f"phase 2 ok: {n_cmp} exact kernel-vs-plain comparisons")
+
+
+def main_path(label, settings, level, im, max_bits, expect_dec):
+    """Phases 3/4: encode_image_device + decode_image_device on the card
+    with the launch counts set to 0 just before and read just after."""
+    dev = DEV
+    reset_counts()
+    er = pt.encode_image_device(im, settings, level, max_bits, device=dev)
+    out = pt.decode_image_device(er, settings, device=dev)
+    torch.cuda.synchronize()
+    n = counts()
+    check(n["spiht_encode"] >= 1, f"{label}: B1 not launched on the path")
+    check(n[expect_dec] >= 1, f"{label}: {expect_dec} not launched")
+    c, h, w = im.shape
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+    check(out.shape[0] == c and out.shape[1] >= h and out.shape[2] >= w,
+          f"{label} image shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{label} image not finite")
+    # the card's coefficients; the plain encoder on them gives the bytes
+    arr, _, _ = forward(torch.as_tensor(im, device=dev), settings, level)
+    enc_stats, dec_stats = {}, {}
+    data, max_n = cmp_encode(arr, ll_h, ll_w, max_bits, enc_stats)
+    check(data == er.encoded_bytes and max_n == er.max_n,
+          f"{label}: stream != plain encoder's on the card's coefficients")
+    rec, name = cmp_decode(er.encoded_bytes, er.max_n, c, enc_h, enc_w,
+                           ll_h, ll_w, dec_stats)
+    check(name == expect_dec, f"{label}: routed to {name}")
+    # against the port on the CPU
+    arr_cpu, _, _ = forward(torch.as_tensor(im), settings, level)
+    n_diff = int((arr_cpu != arr.cpu()).sum())
+    er_cpu = pt.encode_image_device(im, settings, level, max_bits, device="cpu")
+    out_cpu = pt.decode_image_device(er, settings, device="cpu")
+    img_err = float((out.cpu() - out_cpu).abs().max())
+    ref = torch.as_tensor(im)
+    mse = float(((out.cpu()[:, :h, :w] - ref) ** 2).mean())
+    psnr = 10 * np.log10(1.0 / mse)
+    print(json.dumps({
+        "phase": label, "geometry": [c, enc_h, enc_w], "ll": [ll_h, ll_w],
+        "bytes": len(er.encoded_bytes), "max_n": er.max_n,
+        "launches": n, "coeffs_differing_card_vs_cpu": n_diff,
+        "stream_equals_cpu_port": er_cpu.encoded_bytes == er.encoded_bytes,
+        "image_max_abs_diff_card_vs_cpu_decode": img_err,
+        "psnr_db": psnr,
+    }))
+    return er, n, enc_stats, dec_stats, er_cpu
+
+
+def bound_ms(name, stats):
+    """(least ms for the kernel's work on this run's data, what bounds it):
+    the larger of the bytes it must move (each input word it needs read
+    once, each output written once) over the HBM rate, and its operations
+    (OPS_PER_BIT for each stream bit) over the scalar rate."""
+    s, args = stats["stat"], stats["args"]
+    if name == "spiht_encode":
+        # t1 and t3s of every coefficient the run tested (each ends in the
+        # LIP or the LSP), t1 of the sets left in the LIS, the initial
+        # queues, the stream written
+        n_init = 4 * (args[3].numel() + args[4].numel())
+        nbytes = 8 * (s[2] + s[4]) + 4 * s[3] + n_init + (s[0] + 7) // 8
+        nbits = s[0]
+    else:
+        n_init = 4 * (args[4].numel() + args[5].numel())
+        # the stream bits read, the initial queues, and the output: two
+        # LSP words per commit (B2) or rec written whole (B3)
+        out = 8 * s[0] if name == "spiht_decode_lsp" else 4 * args[3].numel()
+        nbytes = (s[5] + 7) // 8 + n_init + out
+        nbits = s[5]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_BIT * nbits / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernel(wrapper, args, reps=5):
+    """ms per launch by CUDA events over ``reps`` launches after a warm-up."""
+    wrapper(*args)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        wrapper(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def profile_round_trip(label, im, er, settings, level):
+    """Where one round trip's time goes: torch.profiler's device time by
+    kernel, and the device's idle share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pt.encode_image_device(im, settings, level, 512 * 512, device=DEV)
+        pt.decode_image_device(er, settings, device=DEV)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device-side entries only (kernels, copies): a CPU op's own entry
+    # would count its kernels' time a second time
+    rows = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(json.dumps({
+        "profile": f"{label} round trip (encode + decode) under "
+                   "torch.profiler, whose overhead inflates wall_ms",
+        "wall_ms": wall,
+        "device_busy_ms": busy if rows else "not measured",
+        "device_idle_share": 1 - busy / wall if rows else "not measured",
+        "top_device_ms": [[k, ms, n] for k, ms, n in rows[:8]],
+    }))
+
+
+def median_ms(fn, reps=5):
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def run_phases() -> list:
+    """Phases 2-6; returns the kernels' rows of the result line."""
+    phase_small()
+
+    # golden digests through the card (the repo's own locked streams)
+    for seed, s, lvl, mb, want in GOLDEN:
+        er = pt.encode_image_device(image(seed, (3, 64, 64)), s, lvl, mb,
+                                    device=DEV)
+        h = hashlib.sha256(er.encoded_bytes + bytes([er.max_n])).hexdigest()
+        if s.color_model is None:
+            check(h == want, f"golden case {seed} digest on the card")
+        print(f"golden case {seed}: {'match' if h == want else 'DIFFERS'}"
+              f"{'' if s.color_model is None else ' (IPT: reported only)'}")
+
+    # ---- phase 3: configuration A ----
+    im_a = image(1, (3, 512, 512))
+    er_a, n_a, enc_a, dec_a, _ = main_path(
+        "A", CONFIG_A, None, im_a, 512 * 512, "spiht_decode_lsp")
+    # ---- phase 4: configuration B (odd LL) ----
+    im_b = image(2, (3, 512, 512))
+    er_b, n_b, enc_b, dec_b, er_b_cpu = main_path(
+        "B", CONFIG_B, 3, im_b, 512 * 512, "spiht_decode_seq")
+    check(er_b_cpu.encoded_bytes == er_b.encoded_bytes,
+          "B: card stream != CPU port stream (no colour model: must agree)")
+
+    # ---- phase 5: embedded stream ----
+    quarter = er_a.encoded_bytes[: len(er_a.encoded_bytes) // 4]
+    c, h, w = im_a.shape
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, CONFIG_A, None)
+    ll = (slices[0][1].stop, slices[0][2].stop)
+    cmp_decode(quarter, er_a.max_n, c, enc_h, enc_w, *ll)
+    er_q = pt.EncodingResult(quarter, h, w, c, er_a.max_n, None)
+    prev = pt.decode_image_device(er_q, CONFIG_A, device=DEV)
+    check(bool(torch.isfinite(prev).all()), "embedded preview not finite")
+    print(f"phase 5 ok: {len(quarter)}-byte prefix decodes equal on card "
+          "and plain")
+
+    # ---- phase 6: timings ----
+    timing = {"timing": "round trip, median of 5, host clock to sync"}
+    for label, im, er, settings, level in (
+        ("A", im_a, er_a, CONFIG_A, None), ("B", im_b, er_b, CONFIG_B, 3),
+    ):
+        timing[f"{label}_encode_ms"] = median_ms(
+            lambda: pt.encode_image_device(im, settings, level, 512 * 512,
+                                           device=DEV))
+        timing[f"{label}_decode_ms"] = median_ms(
+            lambda: pt.decode_image_device(er, settings, device=DEV))
+    print(json.dumps(timing))
+    profile_round_trip("A", im_a, er_a, CONFIG_A, None)
+    profile_round_trip("B", im_b, er_b, CONFIG_B, 3)
+    runs = {
+        "spiht_encode": (enc_a, n_a["spiht_encode"]),
+        "spiht_decode_lsp": (dec_a, n_a["spiht_decode_lsp"]),
+        "spiht_decode_seq": (dec_b, n_b["spiht_decode_seq"]),
+    }
+    rows = []
+    for name, (stats, launches) in runs.items():
+        k = KERNELS[name]
+        ms = time_kernel(k["wrapper"], stats["args"])
+        bound, bound_by = bound_ms(name, stats)
+        rows.append({
+            "name": name, "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"], "launches": launches,
+            "max_abs_err": stats["max_abs_err"], "ms": ms,
+            "plain_ms": stats["plain_ms"],
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None,
+        })
+        print(json.dumps({"kernel_timing": name, "ms": ms,
+                          "plain_ms": stats["plain_ms"],
+                          "launches_per_round_trip": launches}))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    # ---- phase 1 ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}")
+    secs, log = _build.build_all()
+    for name in ("spiht_encode", "spiht_decode"):
+        _build.load(name)
+    print(f"kernel build: {secs:.2f} s (nvcc, all sources in parallel)")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print("  " + line.strip())
+
+    rows = run_phases()
+    print(json.dumps({"library_ms": None,
+                      "why": "no PyTorch call computes a SPIHT bit machine"}))
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,347 @@
+"""SPIHT decode machines: routing, the CUDA kernels' wrappers and their
+plain versions. The port of ``spiht_tpu/codec/pallas_decoder.py``
+(``_has_duplicate_parents`` :138-146, ``pallas_decode_fn`` :149-182, the
+rec scatter :1339-1368, ``pallas_decode`` :2104).
+
+* ``decode_lsp`` (kernel B2, ``csrc/spiht_decode.cu``) decodes geometries
+  without duplicate parents. It writes the LSP queues (node, and
+  sgn<<31 | magnitude) and a count; ``scatter_rec`` then builds rec.
+* ``decode_seq`` (kernel B3) decodes odd-LL geometries, whose parity
+  offspring map has duplicate parents: a node may be committed several
+  times and every LSP instance refines one shared rec value, so rec lives
+  in the kernel.
+
+Each wrapper takes its plain version (``_decode_machine_plain``, the same
+state layout) for CPU tensors only; for CUDA tensors it launches the
+kernel or raises. Both honour byte-prefix truncation exactly.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .encoder import (
+    MAX_CELLS, STAT_LEN, _Stop, _check_i32, check_geometry, check_stat,
+    machine_caps,
+)
+from .geom import machine_tables, words_of
+from .tree_bounds import queue_bounds
+
+__all__ = [
+    "has_duplicate_parents",
+    "decode_lsp",
+    "decode_seq",
+    "scatter_rec",
+    "machine_args",
+    "decode_coeffs",
+    "decode",
+]
+
+
+@lru_cache(maxsize=None)
+def has_duplicate_parents(h: int, w: int, ll_h: int, ll_w: int) -> bool:
+    """Odd LL dims make the parity offspring map overlap (closed form,
+    ``tree_bounds``); such geometries go to the seq machine."""
+    return queue_bounds(1, h, w, ll_h, ll_w).has_duplicate_parents
+
+
+def _decode_machine_plain(
+    words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap, lsp_cap,
+    seq, n_rec,
+):
+    """The plain version of kernels B2 (seq=False) and B3 (seq=True) on
+    CPU tensors (lists inside)."""
+    raw = words.numpy().view(np.uint8)
+    bits = np.unpackbits(raw, bitorder="little")[:nbits].tolist()
+    geo = geo.tolist()
+    lip = lip0.tolist()
+    lis = lis0.tolist()
+    lsp, lsp_val = [], []
+    rec = [0] * n_rec if seq else None
+    off = (0, 1, w, w + 1)
+    err = 0
+    cur = 0
+
+    def get():
+        nonlocal cur
+        if cur >= nbits:
+            raise _Stop
+        cur += 1
+        return bits[cur - 1]
+
+    def commit(node, s, mag):
+        nonlocal err
+        if len(lsp) >= lsp_cap:
+            err = 4
+            raise _Stop
+        if seq:
+            rec[node] = mag if s else -mag
+        else:
+            lsp_val.append((s << 31) | mag)
+        lsp.append(node)
+
+    try:
+        for n in range(max_n, -1, -1):
+            lsp_snap = len(lsp)
+            mag0 = 1 if n == 0 else (1 << (n - 1)) + (1 << n)
+            keep = []
+            for node in lip:
+                if get():
+                    commit(node, get(), mag0)
+                else:
+                    keep.append(node)
+            lip = keep
+
+            keep = []
+            r = 0
+            while r < len(lis):
+                e = lis[r]
+                r += 1
+                g = geo[e >> 1]
+                if not get():
+                    keep.append(e)
+                elif e & 1:
+                    if (g >> 1) & 1:
+                        c0 = g >> 2
+                        for o in off:
+                            if get():
+                                commit(c0 + o, get(), mag0)
+                            else:
+                                if len(lip) >= lip_cap:
+                                    err = 2
+                                    raise _Stop
+                                lip.append(c0 + o)
+                    if g & 1:
+                        if len(lis) >= lis_cap:
+                            err = 3
+                            raise _Stop
+                        lis.append(e & ~1)
+                elif (g >> 1) & 1:
+                    c0 = g >> 2
+                    if len(lis) + 4 > lis_cap:
+                        err = 3
+                        raise _Stop
+                    lis.extend(((c0 + o) << 1) | 1 for o in off)
+            lis = keep
+
+            bit = 1 << n
+            for r in range(lsp_snap):
+                b = get()
+                if seq:
+                    node = lsp[r]
+                    x = rec[node]
+                    mag = (abs(x) | bit) if b else (abs(x) & ~bit)
+                    rec[node] = mag if x >= 0 else -mag
+                else:
+                    v = lsp_val[r]
+                    lsp_val[r] = (v | bit) if b else (v & ~bit)
+    except _Stop:
+        pass
+    stat = torch.tensor(
+        [len(lsp), err, len(lip), len(lis), len(lsp), cur], dtype=torch.int32
+    )
+    if seq:
+        return torch.tensor(rec, dtype=torch.int32), stat
+    cap = max(lsp_cap, 1)
+    node_q = torch.zeros(cap, dtype=torch.int32)
+    val_q = torch.zeros(cap, dtype=torch.int32)
+    node_q[: len(lsp)] = torch.tensor(lsp, dtype=torch.int32)
+    val_q[: len(lsp)] = torch.tensor(
+        np.asarray(lsp_val, np.int64).astype(np.uint32).view(np.int32)
+    )
+    return node_q, val_q, stat
+
+
+def _check_inputs(words, nbits, geo, lip0, lis0, caps):
+    dev = words.device
+    for name, x in (("words", words), ("geo", geo), ("lip0", lip0),
+                    ("lis0", lis0)):
+        _check_i32(name, x, dev)
+    if not 0 <= nbits <= words.numel() * 32:
+        raise ValueError("nbits must lie in [0, 32 * len(words)]")
+    if geo.numel() >= MAX_CELLS:
+        raise ValueError("geometry beyond the machines' packing (2^29 cells)")
+    lip_cap, lis_cap, _ = caps
+    if lip0.numel() > lip_cap or lis0.numel() > lis_cap:
+        raise ValueError("initial queues exceed their capacities")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def decode_lsp(
+    words: torch.Tensor,
+    nbits: int,
+    max_n: int,
+    geo: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    caps: Tuple[int, int, int],
+):
+    """Kernel B2 (or, for CPU tensors, its plain version).
+
+    words: int32 stream words (LSB-first bits); geo: int32[N]
+    ``child0<<2 | hc<<1 | hg``; lip0/lis0: initial entries; caps: (lip,
+    lis, lsp) capacities. Returns (lsp nodes int32[cap], lsp values int32
+    [cap] as sgn<<31 | magnitude, stat int32[STAT_LEN]); stat[0] counts
+    the live LSP entries.
+    """
+    dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
+    lip_cap, lis_cap, lsp_cap = caps
+    if dev.type == "cpu":
+        return _decode_machine_plain(
+            words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap,
+            lsp_cap, False, 0,
+        )
+    from .. import _build
+
+    lib = _build.load("spiht_decode")
+    lip = torch.empty(lip_cap, dtype=torch.int32, device=dev)
+    lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
+    lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
+    lsp_val = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
+    stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
+    rc = lib.spiht_decode_lsp_launch(
+        words.data_ptr(), nbits, int(max_n), geo.data_ptr(),
+        lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
+        lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
+        lsp.data_ptr(), lsp_val.data_ptr(), lsp_cap, stat.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"spiht_decode_lsp launch failed: CUDA error {rc}")
+    decode_lsp.launches += 1
+    return lsp, lsp_val, stat
+
+
+decode_lsp.launches = 0
+
+
+def decode_seq(
+    words: torch.Tensor,
+    nbits: int,
+    max_n: int,
+    geo: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    caps: Tuple[int, int, int],
+):
+    """Kernel B3 (or, for CPU tensors, its plain version): the same
+    inputs as ``decode_lsp``; returns (rec int32[N], stat)."""
+    dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
+    lip_cap, lis_cap, lsp_cap = caps
+    n_rec = geo.numel()
+    if dev.type == "cpu":
+        return _decode_machine_plain(
+            words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap,
+            lsp_cap, True, n_rec,
+        )
+    from .. import _build
+
+    lib = _build.load("spiht_decode")
+    lip = torch.empty(lip_cap, dtype=torch.int32, device=dev)
+    lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
+    lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
+    rec = torch.empty(n_rec, dtype=torch.int32, device=dev)
+    # per-node refinement claims (plane tag << 32 | LSP index)
+    last = torch.empty(n_rec, dtype=torch.int64, device=dev)
+    stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
+    rc = lib.spiht_decode_seq_launch(
+        words.data_ptr(), nbits, int(max_n), geo.data_ptr(),
+        lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
+        lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
+        lsp.data_ptr(), lsp_cap, rec.data_ptr(), last.data_ptr(), n_rec,
+        stat.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"spiht_decode_seq launch failed: CUDA error {rc}")
+    decode_seq.launches += 1
+    return rec, stat
+
+
+decode_seq.launches = 0
+
+
+def scatter_rec(
+    lsp: torch.Tensor, lsp_val: torch.Tensor, stat: torch.Tensor, n: int
+) -> torch.Tensor:
+    """rec int32[n] from B2's LSP queues: one scatter of the first
+    stat[0] entries, with no host sync (entries past the count go to a
+    dropped slot)."""
+    live = torch.arange(lsp.numel(), device=lsp.device) < stat[0]
+    mag = lsp_val & 0x7FFFFFFF
+    vals = torch.where(lsp_val < 0, mag, -mag)
+    tgt = torch.where(live, lsp.long(), n)
+    rec = torch.zeros(n + 1, dtype=torch.int32, device=lsp.device)
+    rec.index_put_((tgt,), torch.where(live, vals, 0))
+    return rec[:n]
+
+
+def decode_coeffs(
+    words: torch.Tensor,
+    nbits: int,
+    max_n: int,
+    c: int,
+    h: int,
+    w: int,
+    ll_h: int,
+    ll_w: int,
+    out_dtype: torch.dtype = torch.int32,
+) -> torch.Tensor:
+    """Decode stream words on their device -> rec (c, h, w), routed as
+    ``pallas_decode_fn``: B3 for duplicate-parent geometries, else B2
+    plus the scatter. ``out_dtype=torch.int16`` is value-identical for
+    max_n <= 13 (|rec| < 2^(max_n+1)) and halves the bytes."""
+    if out_dtype not in (torch.int32, torch.int16):
+        raise ValueError("out_dtype must be torch.int32 or torch.int16")
+    if out_dtype == torch.int16 and max_n > 13:
+        raise ValueError("int16 rec needs max_n <= 13")
+    args = machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
+    if has_duplicate_parents(h, w, ll_h, ll_w):
+        rec, stat = decode_seq(*args)
+        check_stat(stat, "spiht_decode_seq")
+    else:
+        lsp, lsp_val, stat = decode_lsp(*args)
+        check_stat(stat, "spiht_decode_lsp")
+        rec = scatter_rec(lsp, lsp_val, stat, c * h * w)
+    return rec.reshape(c, h, w).to(out_dtype)
+
+
+def machine_args(
+    words: torch.Tensor, nbits: int, max_n: int,
+    c: int, h: int, w: int, ll_h: int, ll_w: int,
+):
+    """``decode_lsp``/``decode_seq``'s arguments for stream words on their
+    device: the geometry tables and the queue capacities narrowed to the
+    stream's length."""
+    check_geometry(c, h, w)
+    tabs = machine_tables(c, h, w, ll_h, ll_w, words.device)
+    caps = machine_caps(c, h, w, ll_h, ll_w, words.numel())
+    return (words, nbits, int(max_n), tabs["geo"], tabs["lip0"],
+            tabs["lis0"], w, caps)
+
+
+def words_tensor(data: bytes, device) -> Tuple[torch.Tensor, int]:
+    """(int32 word tensor on ``device``, nbits) of stream bytes; nbits is
+    the byte-padded length, as the wire format reads it."""
+    nbits = len(data) * 8
+    cap_words = max((nbits + 31) // 32, 1)
+    words = words_of(data, cap_words).view(np.int32).copy()
+    return torch.from_numpy(words).to(device), nbits
+
+
+def decode(
+    data: bytes, max_n: int, c: int, h: int, w: int, ll_h: int, ll_w: int,
+    device=None,
+) -> torch.Tensor:
+    """Decode stream bytes -> (c, h, w) int32 rec on the device (the
+    port's counterpart of ``pallas_decode``). Prefix-tolerant."""
+    words, nbits = words_tensor(data, resolve_device(device))
+    return decode_coeffs(words, nbits, int(max_n), c, h, w, ll_h, ll_w)

@@ -1,0 +1,348 @@
+"""SPIHT encode machine: host glue, the CUDA kernel's wrapper and its plain
+version. The port of ``spiht_tpu/codec/pallas_encoder.py`` (``_hybrid_fn``
+and its wrapper :1214-1260, ``_cap_words_for`` :1265, ``_narrowed_caps``
+:1272, ``pallas_encode`` :2349).
+
+The kernel (``csrc/spiht_encode.cu``, B1) and ``_encode_machine_plain``
+compute the same function on the same state layout: the tables ``t1``,
+``t3s``, ``child0`` and the queues LIP, LIS, LSP. The wrapper
+``encode_machine`` takes the plain version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises.
+
+The word buffer is sized from the real budget, ``cap_words_for(c, h, w,
+max_bits)``, so the stream cannot outgrow it; the stream-capacity error is
+kept as a check and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .geom import machine_tables
+from .maps import significance_maps
+from .maxn import device_max_n
+from .tree_bounds import narrowed_caps, queue_bounds
+
+__all__ = [
+    "MAX_CELLS",
+    "STAT_LEN",
+    "cap_words_for",
+    "machine_caps",
+    "encode_tables",
+    "encode_machine",
+    "machine_args",
+    "encode_coeffs",
+    "encode",
+    "check_stat",
+    "stream_bytes",
+]
+
+# bits per coefficient cell that provably cover any stream
+_CAP_BITS_PER_CELL = 40
+# c*h*w bound of the port's machines: the decoders' geometry word packs
+# child0 << 2 into an int32 and LIS entries are node << 1 | type
+MAX_CELLS = 1 << 29
+STAT_LEN = 6  # csrc/spiht_common.cuh SPIHT_STAT_LEN
+
+_ERRORS = {
+    1: "the stream outgrew the word buffer",
+    2: "the LIP outgrew its capacity",
+    3: "the LIS outgrew its capacity",
+    4: "the LSP outgrew its capacity",
+}
+
+
+class _Stop(Exception):
+    """The plain machines' way out: budget spent or stream exhausted."""
+
+
+def check_stat(stat: torch.Tensor, what: str) -> list:
+    """stat as a host list; raises on a machine error (syncs the device)."""
+    s = stat.tolist()
+    if s[1] != 0:
+        raise RuntimeError(f"{what}: {_ERRORS.get(s[1], s[1])} (stat {s})")
+    return s
+
+
+def cap_words_for(c: int, h: int, w: int, max_bits: int) -> int:
+    cap_bits = min(int(max_bits), c * h * w * _CAP_BITS_PER_CELL + 1024)
+    return max((cap_bits + 31) // 32, 1)
+
+
+def machine_caps(
+    c: int, h: int, w: int, ll_h: int, ll_w: int, cap_words: int
+) -> Tuple[int, int, int]:
+    """Budget-narrowed (lip, lis, lsp) queue capacities: safe for any
+    stream of <= cap_words*32 bits, because every queue append is charged
+    to a bit (``tree_bounds.narrowed_caps``)."""
+    return narrowed_caps(queue_bounds(c, h, w, ll_h, ll_w), cap_words)
+
+
+def check_geometry(c: int, h: int, w: int) -> None:
+    if c * h * w >= MAX_CELLS:
+        raise ValueError(
+            f"{c}x{h}x{w} has c*h*w >= 2^29, beyond the machines' packing"
+        )
+
+
+def encode_tables(
+    arr: torch.Tensor, ll_h: int, ll_w: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t1, t3s) of an int32 (c, h, w) array, flat int32 on its device:
+    t1 = (M+1) | (D+1)<<5 | (G+1)<<10 | sgn<<15 | hc<<16 | hg<<17 and
+    t3s = sgn<<31 | |x| (the Pallas machine's standard layout)."""
+    c, h, w = arr.shape
+    m, d, g = significance_maps(arr, ll_h, ll_w)
+    flat = arr.reshape(-1)
+    sgn = (flat >= 0).to(torch.int32)
+    absx = torch.abs(flat)
+    hc_flags = machine_tables(c, h, w, ll_h, ll_w, arr.device)["hc_flags"]
+    t1 = (
+        (m.reshape(-1).to(torch.int32) + 1)
+        | ((d.reshape(-1).to(torch.int32) + 1) << 5)
+        | ((g.reshape(-1).to(torch.int32) + 1) << 10)
+        | (sgn << 15)
+        | hc_flags
+    )
+    t3s = torch.where(sgn.bool(), absx | -(2**31), absx).to(torch.int32)
+    return t1, t3s
+
+
+def _encode_machine_plain(
+    t1, t3s, child0, lip0, lis0, w, max_n, max_bits, capped,
+    lip_cap, lis_cap, lsp_cap, cap_words,
+):
+    """The plain version of kernel B1 on CPU tensors (lists inside)."""
+    t1 = t1.tolist()
+    t3s = t3s.tolist()
+    child0 = child0.tolist()
+    max_n = int(max_n)
+    lip = lip0.tolist()
+    lis = lis0.tolist()
+    lsp = []
+    bits = []
+    off = (0, 1, w, w + 1)
+    err = 0
+
+    def put(b):
+        if len(bits) >= max_bits:
+            raise _Stop
+        bits.append(b)
+
+    try:
+        for n in range(max_n, -1, -1):
+            lsp_snap = len(lsp)
+            keep = []
+            for node in lip:
+                sig = (t1[node] & 31) - 1 >= n
+                put(sig)
+                if sig:
+                    put((t3s[node] >> 31) & 1)
+                    if len(lsp) >= lsp_cap:
+                        err = 4
+                        raise _Stop
+                    lsp.append(node)
+                else:
+                    keep.append(node)
+            lip = keep
+
+            keep = []
+            r = 0
+            while r < len(lis):
+                e = lis[r]
+                r += 1
+                node = e >> 1
+                t = t1[node]
+                if e & 1:
+                    dsig = ((t >> 5) & 31) - 1 >= n
+                    put(dsig)
+                    if not dsig:
+                        keep.append(e)
+                        continue
+                    c0 = child0[node]
+                    for o in off:
+                        ch = c0 + o
+                        sig = (t1[ch] & 31) - 1 >= n
+                        put(sig)
+                        if sig:
+                            put((t3s[ch] >> 31) & 1)
+                            if len(lsp) >= lsp_cap:
+                                err = 4
+                                raise _Stop
+                            lsp.append(ch)
+                        else:
+                            if len(lip) >= lip_cap:
+                                err = 2
+                                raise _Stop
+                            lip.append(ch)
+                    if (t >> 17) & 1:
+                        if len(lis) >= lis_cap:
+                            err = 3
+                            raise _Stop
+                        lis.append(node << 1)
+                else:
+                    lsig = ((t >> 10) & 31) - 1 >= n
+                    put(lsig)
+                    if not lsig:
+                        keep.append(e)
+                        continue
+                    c0 = child0[node]
+                    if len(lis) + 4 > lis_cap:
+                        err = 3
+                        raise _Stop
+                    lis.extend(((c0 + o) << 1) | 1 for o in off)
+            lis = keep
+
+            for node in lsp[:lsp_snap]:
+                put(((t3s[node] & 0x7FFFFFFF) >> n) & 1)
+    except _Stop:
+        if err == 0 and capped:
+            err = 1
+    packed = np.packbits(np.asarray(bits, np.uint8), bitorder="little")
+    buf = np.zeros(cap_words * 4, np.uint8)
+    buf[: packed.size] = packed
+    words = torch.from_numpy(buf.view(np.int32).copy())
+    stat = torch.tensor(
+        [len(bits), err, len(lip), len(lis), len(lsp), 0], dtype=torch.int32
+    )
+    return words, stat
+
+
+def _check_i32(name: str, x: torch.Tensor, device: torch.device, ndim=1):
+    if x.dtype != torch.int32 or x.device != device or x.dim() != ndim:
+        raise ValueError(
+            f"{name}: want int32, {ndim}-D, on {device}; got {x.dtype}, "
+            f"{x.dim()}-D, on {x.device}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def encode_machine(
+    t1: torch.Tensor,
+    t3s: torch.Tensor,
+    child0: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    max_n,
+    max_bits: int,
+    capped: bool,
+    caps: Tuple[int, int, int],
+    cap_words: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 (or, for CPU tensors, its plain version).
+
+    t1/t3s/child0: int32[N]; lip0: int32 initial LIP nodes; lis0: int32
+    initial LIS entries (node << 1 | 1); w: row length; max_n: int32 0-d
+    tensor (or int, CPU only); max_bits: budget, already <= cap_words*32;
+    capped: whether the caller's budget was clamped to the buffer; caps:
+    (lip, lis, lsp) queue capacities. Returns (words int32[cap_words],
+    stat int32[STAT_LEN]), stat = [bits, error, lip, lis, lsp, 0].
+    """
+    dev = t1.device
+    N = t1.numel()
+    for name, x in (("t1", t1), ("t3s", t3s), ("child0", child0),
+                    ("lip0", lip0), ("lis0", lis0)):
+        _check_i32(name, x, dev)
+    if t3s.numel() != N or child0.numel() != N:
+        raise ValueError("t1, t3s and child0 must have one entry per cell")
+    if N >= MAX_CELLS:
+        raise ValueError("geometry beyond the machines' packing (2^29 cells)")
+    if not 0 <= max_bits <= cap_words * 32:
+        raise ValueError("max_bits must lie in [0, cap_words*32]")
+    lip_cap, lis_cap, lsp_cap = caps
+    if lip0.numel() > lip_cap or lis0.numel() > lis_cap:
+        raise ValueError("initial queues exceed their capacities")
+    if dev.type == "cpu":
+        return _encode_machine_plain(
+            t1, t3s, child0, lip0, lis0, w, max_n, max_bits, capped,
+            lip_cap, lis_cap, lsp_cap, cap_words,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not isinstance(max_n, torch.Tensor):
+        max_n = torch.tensor(int(max_n), dtype=torch.int32, device=dev)
+    _check_i32("max_n", max_n.reshape(1), dev)
+    from .. import _build
+
+    lib = _build.load("spiht_encode")
+    lip = torch.empty(lip_cap, dtype=torch.int32, device=dev)
+    lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
+    lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
+    words = torch.empty(cap_words, dtype=torch.int32, device=dev)
+    stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.spiht_encode_launch(
+        t1.data_ptr(), t3s.data_ptr(), child0.data_ptr(),
+        lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(),
+        w, max_n.data_ptr(), max_bits, int(bool(capped)),
+        lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
+        lsp.data_ptr(), lsp_cap, words.data_ptr(), cap_words,
+        stat.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"spiht_encode launch failed: CUDA error {rc}")
+    encode_machine.launches += 1
+    return words, stat
+
+
+encode_machine.launches = 0
+
+
+def machine_args(arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int):
+    """``encode_machine``'s arguments for an int32 (c, h, w) array on its
+    device: the tables, max_n, the budget clamped to a buffer sized from
+    it, and the narrowed queue capacities."""
+    if arr.dtype != torch.int32 or arr.dim() != 3:
+        raise ValueError("arr must be an int32 (c, h, w) tensor")
+    c, h, w = arr.shape
+    check_geometry(c, h, w)
+    arr = arr.contiguous()
+    max_bits = min(int(max_bits), 2**31 - 2)
+    cap_words = cap_words_for(c, h, w, max_bits)
+    mb = min(max_bits, cap_words * 32)
+    tabs = machine_tables(c, h, w, ll_h, ll_w, arr.device)
+    t1, t3s = encode_tables(arr, ll_h, ll_w)
+    return (t1, t3s, tabs["child0"], tabs["lip0"], tabs["lis0"], w,
+            device_max_n(arr), mb, max_bits > mb,
+            machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
+
+
+def encode_coeffs(
+    arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2
+):
+    """Encode an int32 (c, h, w) coefficient array on its device.
+
+    Returns (words int32[cap_words], stat, max_n 0-d int32), all on the
+    array's device; nothing is read back, so no host sync happens here.
+    """
+    args = machine_args(arr, ll_h, ll_w, max_bits)
+    words, stat = encode_machine(*args)
+    return words, stat, args[6]
+
+
+def stream_bytes(words: torch.Tensor, total: int) -> bytes:
+    """The first ``total`` bits of an int32 word buffer, as bytes."""
+    nw = (total + 31) // 32
+    raw = words[:nw].cpu().numpy().view(np.uint8)
+    return raw[: (total + 7) // 8].tobytes()
+
+
+def encode(
+    arr, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2, device=None,
+) -> Tuple[bytes, int]:
+    """(bytes, max_n) of a (c, h, w) int32 coefficient array (numpy or
+    tensor): the port's counterpart of ``pallas_encode``."""
+    dev = resolve_device(device)
+    if isinstance(arr, torch.Tensor):
+        arr = arr.to(device=dev, dtype=torch.int32)
+    else:
+        arr = torch.as_tensor(np.asarray(arr, dtype=np.int32), device=dev)
+    words, stat, max_n = encode_coeffs(arr, ll_h, ll_w, max_bits)
+    total = check_stat(stat, "spiht_encode")[0]
+    return stream_bytes(words, total), int(max_n)

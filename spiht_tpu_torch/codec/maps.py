@@ -1,0 +1,81 @@
+"""Significance level maps in PyTorch, the port of
+``spiht_tpu/codec/maps.py:45-104``.
+
+  M[k,i,j] = floor(log2 |x|)   (-1 for 0)          element level
+  D[k,i,j] = max over all strict descendants of M   set level
+  G[k,i,j] = max over children of D                 L-set level
+
+Every bit-plane test of the encoder is then one comparison:
+``M >= n``, ``D >= n``, ``G >= n``. M comes from 31 integer thresholds;
+D is the fixpoint of "child-max of max(M, D)" over ``tree_height``
+rounds, each a 2x2 max-pool plus the LL parity gather.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["significance_maps", "tree_height"]
+
+
+@lru_cache(maxsize=None)
+def _ll_child_index(ll_h: int, ll_w: int):
+    """Child-block origins (oi, oj) and the no-child mask of LL roots."""
+    i = np.arange(ll_h)[:, None]
+    j = np.arange(ll_w)[None, :]
+    oi = (i % 2) * ll_h + (i // 2) * 2
+    oj = (j % 2) * ll_w + (j // 2) * 2
+    oi, oj = np.broadcast_arrays(oi, oj)
+    nochild = (i % 2 == 0) & (j % 2 == 0)
+    return oi.copy(), oj.copy(), np.broadcast_to(nochild, (ll_h, ll_w)).copy()
+
+
+def tree_height(h: int, w: int, ll_h: int, ll_w: int) -> int:
+    """Rounds needed for the descendant-max fixpoint (tree height + slack)."""
+    r = max(h / max(ll_h, 1), w / max(ll_w, 1), 2.0)
+    return int(np.ceil(np.log2(r))) + 2
+
+
+def _child_max(X: torch.Tensor, ll_h: int, ll_w: int) -> torch.Tensor:
+    """max over spatial-orientation-tree children of X, per cell (-1 if
+    none). X: (..., H, W) integer tensor."""
+    h, w = X.shape[-2], X.shape[-1]
+    hh, ww = h // 2, w // 2
+    out = torch.full_like(X, -1)
+    if hh > 0 and ww > 0:
+        blk = X[..., : 2 * hh, : 2 * ww].reshape(
+            tuple(X.shape[:-2]) + (hh, 2, ww, 2)
+        )
+        out[..., :hh, :ww] = blk.amax(dim=(-3, -1))
+    oi, oj, nochild = _ll_child_index(ll_h, ll_w)
+    dev = X.device
+    oi = torch.as_tensor(oi, dtype=torch.long, device=dev)
+    oj = torch.as_tensor(oj, dtype=torch.long, device=dev)
+    g = torch.maximum(
+        torch.maximum(X[..., oi, oj], X[..., oi, oj + 1]),
+        torch.maximum(X[..., oi + 1, oj], X[..., oi + 1, oj + 1]),
+    )
+    g = g.masked_fill(torch.as_tensor(nochild, device=dev), -1)
+    out[..., :ll_h, :ll_w] = g
+    return out
+
+
+def significance_maps(
+    arr: torch.Tensor, ll_h: int, ll_w: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(M, D, G) int8 level maps of an int32 packed coefficient array
+    (..., H, W)."""
+    h, w = arr.shape[-2], arr.shape[-1]
+    absx = torch.abs(arr)
+    m = torch.full(arr.shape, -1, dtype=torch.int8, device=arr.device)
+    for k in range(31):
+        m += (absx >= (1 << k)).to(torch.int8)
+    d = torch.full_like(m, -1)
+    for _ in range(tree_height(h, w, ll_h, ll_w)):
+        d = _child_max(torch.maximum(m, d), ll_h, ll_w)
+    g = _child_max(d, ll_h, ll_w)
+    return m, d, g

@@ -1,0 +1,52 @@
+"""The stream's starting bit plane ``max_n`` on the device, the port of
+``spiht_tpu/codec/device_encoder.py:638-683`` (``_max_n_thresholds``,
+``device_max_n``).
+
+The reference computes ``(max as f32).log2() as u8``. Here the abs max is
+cast to float32 (round to nearest, as the host cast does), its exponent is
+read from the bits, and its mantissa is compared with a per-exponent
+threshold where float32 ``log2`` truncation jumps to e+1: integer
+operations only, no ``log2`` on the device.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+__all__ = ["max_n_thresholds", "device_max_n"]
+
+
+@lru_cache(maxsize=None)
+def max_n_thresholds() -> tuple:
+    """Per-exponent mantissa threshold where float32 log2 truncation
+    jumps to e+1, found by binary search against numpy's float32 log2."""
+    th = []
+    for e in range(32):
+        lo, hi = 0, 1 << 23
+        while lo < hi:
+            mid = (lo + hi) // 2
+            x = np.array([((e + 127) << 23) | mid], np.uint32).view(
+                np.float32
+            )[0]
+            if float(np.log2(x)) >= e + 1:
+                hi = mid
+            else:
+                lo = mid + 1
+        th.append(lo)
+    return tuple(th)
+
+
+def device_max_n(arr: torch.Tensor) -> torch.Tensor:
+    """max_n of an int32 coefficient array as a 0-d int32 tensor on the
+    array's device, bit-exact with ``oracle.compute_max_n``."""
+    m = torch.abs(arr).max().to(torch.int32)
+    bits = m.to(torch.float32).view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    m23 = bits & 0x7FFFFF
+    th = torch.tensor(max_n_thresholds(), dtype=torch.int32, device=arr.device)
+    n = e + (m23 >= th[e.clamp(0, 31).long()]).to(torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=arr.device)
+    return torch.where(m <= 0, zero, n.clamp(0, 255)).to(torch.int32)

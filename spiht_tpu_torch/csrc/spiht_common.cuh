@@ -1,0 +1,128 @@
+// Shared pieces of the SPIHT bit machines (spiht_encode.cu, spiht_decode.cu).
+//
+// Each kernel is one thread block per stream. The list machine's decisions
+// run in warp 0; all threads of the block first gather what the next chunk
+// of queue entries will need into shared memory, so warp 0 decides from
+// shared memory instead of waiting on L2 once per entry. Control flow
+// around every barrier is uniform: the values it depends on are read from
+// shared memory after a barrier.
+//
+// The machines are plain functions of (tid, nthreads) (SPIHT_HD is
+// __device__ under nvcc and inline otherwise), so the same source also
+// compiles as host C++: the host build supplies the block barrier and warp
+// 0's collectives (spiht_host_*) and runs host threads as the block
+// (tests/test_torch_kernel_source.py).
+//
+// Bit order is the wire format of the reference codec: bits are packed
+// LSB-first into 32-bit little-endian words.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define SPIHT_HD __device__ __forceinline__
+#define SPIHT_SYNC() __syncthreads()
+// warp-level collectives of warp 0 (lane = its lane id)
+#define WARP_BALLOT(lane, p) __ballot_sync(0xFFFFFFFFu, (p))
+#define WARP_SHFL(lane, v, src) __shfl_sync(0xFFFFFFFFu, (v), (src))
+#define WARP_SHFL_UP(lane, v, d) __shfl_up_sync(0xFFFFFFFFu, (v), (d))
+#define POPC(x) __popc(x)
+#define CTZ(x) (__ffs(x) - 1)
+#define ATOMIC_OR(p, v) atomicOr((p), (v))
+#else
+#define SPIHT_HD inline
+// the host build's block barrier and warp-0 collectives
+void spiht_host_sync();
+uint32_t spiht_host_ballot(int lane, bool p);
+int32_t spiht_host_shfl(int lane, int32_t v, int src);
+int32_t spiht_host_shfl_up(int lane, int32_t v, int d);
+#define SPIHT_SYNC() spiht_host_sync()
+#define WARP_BALLOT(lane, p) spiht_host_ballot((lane), (p))
+#define WARP_SHFL(lane, v, src) spiht_host_shfl((lane), (v), (src))
+#define WARP_SHFL_UP(lane, v, d) spiht_host_shfl_up((lane), (v), (d))
+#define POPC(x) __builtin_popcount(x)
+#define CTZ(x) __builtin_ctz(x)
+#define ATOMIC_OR(p, v) __atomic_fetch_or((p), (v), __ATOMIC_RELAXED)
+#endif
+
+// stat[1] error codes (0 = none). Every one is a fault the wrapper raises.
+enum SpihtError : int32_t {
+  SPIHT_OK = 0,
+  SPIHT_ERR_STREAM_CAP = 1,  // encoder: the stream needed more than the word buffer
+  SPIHT_ERR_LIP_CAP = 2,     // a queue outgrew its capacity
+  SPIHT_ERR_LIS_CAP = 3,
+  SPIHT_ERR_LSP_CAP = 4,
+};
+
+// stat layout written by every machine (int32[SPIHT_STAT_LEN]):
+//   [0] encoder: bits emitted; decoders: LSP entries committed
+//   [1] error code
+//   [2] final LIP length  [3] final LIS length  [4] final LSP length
+//   [5] decoders: bits consumed; encoder: 0
+#define SPIHT_STAT_LEN 6
+
+// Queue entries gathered per chunk, and the block size of every kernel.
+#define SPIHT_CHUNK 512
+#define SPIHT_THREADS 256
+#define SPIHT_WARP 32
+
+// Values thread 0 publishes to the block (read by all after a barrier).
+struct Published {
+  int32_t lip_n, lis_n, lsp_n, stop;
+};
+
+// The encoder's output: bits go into a zeroed word buffer with atomic ORs,
+// so the lanes of warp 0 can write disjoint bit ranges of one word at once.
+struct BitWriter {
+  uint32_t* words;
+  int32_t pos;
+  int32_t limit;
+};
+
+// OR the low `len` bits of v (len <= 32) into the stream at bit `pos`.
+SPIHT_HD void or_bits(uint32_t* words, int32_t pos, uint32_t v, int len) {
+  if (!v) return;
+  const int sh = pos & 31;
+  ATOMIC_OR(&words[pos >> 5], v << sh);
+  if (sh && sh + len > 32) ATOMIC_OR(&words[(pos >> 5) + 1], v >> (32 - sh));
+}
+
+// Append one bit. Returns false (and writes nothing) once `limit` bits are
+// out: the caller stops exactly there, mid-symbol if need be.
+SPIHT_HD bool put_bit(BitWriter& bw, uint32_t bit) {
+  if (bw.pos >= bw.limit) return false;
+  if (bit) ATOMIC_OR(&bw.words[bw.pos >> 5], 1u << (bw.pos & 31));
+  ++bw.pos;
+  return true;
+}
+
+// Inclusive sum over lanes 0..lane of warp 0.
+SPIHT_HD int32_t warp_scan(int lane, int32_t v) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const int32_t u = WARP_SHFL_UP(lane, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// Bit `i` of the stream (the caller knows i < nbits).
+SPIHT_HD int stream_bit(const uint32_t* words, int32_t i) {
+  return (words[i >> 5] >> (i & 31)) & 1;
+}
+
+// The next min(32, nbits - cur) stream bits from bit `cur`, zero above.
+SPIHT_HD uint32_t stream_window(const uint32_t* words, int32_t cur,
+                                int32_t nbits) {
+  const int32_t i = cur >> 5, sh = cur & 31, avail = nbits - cur;
+  uint32_t w = words[i] >> sh;
+  if (sh && cur - sh + 32 < nbits) w |= words[i + 1] << (32 - sh);
+  return avail < 32 ? w & ((1u << avail) - 1) : w;
+}
+
+// Magnitude a decoder commits for a coefficient found significant at plane
+// n: 1.5 * 2^n (1 at n = 0), as in the reference decoder.
+SPIHT_HD int32_t commit_mag(int n) {
+  return n == 0 ? 1 : ((1 << (n - 1)) + (1 << n));
+}
+
+SPIHT_HD int32_t min32(int32_t a, int32_t b) { return a < b ? a : b; }

@@ -1,0 +1,129 @@
+"""Transform pipelines in PyTorch, the port of ``spiht_tpu/jax_transform.py``.
+
+* ``forward`` (``_forward_jit`` :66-85): colour model -> packed multilevel
+  DWT -> per-channel scales -> ``* quantization_scale`` -> truncating int32
+  cast.
+* ``inverse`` (``_inverse_jit`` :149-193): ``/ per-channel scales``,
+  ``/ quantization_scale``, ``waverec2``, inverse colour, optional uint8.
+  No crop to (h, w): like the reference, the output can exceed the
+  original dims for odd sizes.
+* ``encode_pipeline_fn`` / ``decode_pipeline_fn`` (:343-389, :242-293): the
+  whole encode (image -> stream words) and decode (stream words -> image)
+  on one device, through the bit-machine kernels.
+
+The working dtype defaults to float64 on every device, so streams equal
+the host float64 path. float32 is accepted with the JAX float32 path's
+caveat: borderline truncations may flip.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .codec.decoder import decode_coeffs
+from .codec.encoder import encode_coeffs
+from .color import torch_models
+from .settings import SpihtSettings
+from .wavelets import dwt
+from .wavelets.geometry import get_slices_and_h_w
+
+__all__ = [
+    "forward",
+    "inverse",
+    "encode_pipeline_fn",
+    "decode_pipeline_fn",
+]
+
+
+def _mults(pcs, x: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(pcs, dtype=x.dtype, device=x.device)[:, None, None]
+
+
+def forward(
+    image: torch.Tensor,
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+) -> Tuple[torch.Tensor, int, int]:
+    """(C, H, W) image -> (int32 packed coefficients, ll_h, ll_w), on the
+    image's device."""
+    image = image.to(dtype)
+    if settings.color_model is not None:
+        image = torch_models.convert(image, "RGB", settings.color_model)
+    arr, ll_h, ll_w = dwt.wavedec2_packed(
+        image, settings.wavelet, settings.mode, level
+    )
+    if settings.per_channel_quant_scales is not None:
+        arr = arr * _mults(settings.per_channel_quant_scales, arr)
+    # truncate toward zero, as the reference's integer cast
+    arr = (arr * float(settings.quantization_scale)).to(torch.int32)
+    return arr, ll_h, ll_w
+
+
+def inverse(
+    rec_arr: torch.Tensor,
+    h: int,
+    w: int,
+    level: Optional[int],
+    settings: SpihtSettings,
+    dtype: torch.dtype = torch.float64,
+    as_uint8: bool = False,
+) -> torch.Tensor:
+    """Packed (C, enc_h, enc_w) coefficients -> image on their device."""
+    slices, _, _ = get_slices_and_h_w(h, w, settings, level)
+    rec = rec_arr.to(dtype)
+    if settings.per_channel_quant_scales is not None:
+        rec = rec / _mults(settings.per_channel_quant_scales, rec)
+    rec = rec / float(settings.quantization_scale)
+    coeffs = [rec[(...,) + slices[0][1:]]]
+    for d in slices[1:]:
+        coeffs.append({k: rec[(...,) + v[1:]] for k, v in d.items()})
+    image = dwt.waverec2(coeffs, settings.wavelet, settings.mode)
+    if settings.color_model is not None:
+        image = torch_models.convert(image, settings.color_model, "RGB")
+    if as_uint8:
+        image = torch.round(torch.clamp(image, 0.0, 1.0) * 255.0).to(
+            torch.uint8
+        )
+    return image
+
+
+def encode_pipeline_fn(
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+):
+    """fn(image (C,H,W) tensor, max_bits) -> (words int32, stat, max_n),
+    all on the image's device: colour -> DWT -> quantize -> max_n (exact
+    float32-truncation semantics, no log2) -> maps -> kernel B1. Nothing
+    is read back to the host."""
+
+    def fn(image: torch.Tensor, max_bits: int):
+        arr, ll_h, ll_w = forward(image, settings, level, dtype)
+        return encode_coeffs(arr, ll_h, ll_w, max_bits)
+
+    return fn
+
+
+def decode_pipeline_fn(
+    settings: SpihtSettings,
+    h: int,
+    w: int,
+    level: Optional[int],
+    c: int,
+    dtype: torch.dtype = torch.float64,
+    as_uint8: bool = False,
+):
+    """fn(words int32 tensor, nbits, max_n) -> image on the words' device:
+    kernel B2 (+ rec scatter) or B3 -> dequantize -> ``waverec2`` ->
+    inverse colour."""
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+
+    def fn(words: torch.Tensor, nbits: int, max_n: int):
+        rec = decode_coeffs(words, nbits, max_n, c, enc_h, enc_w, ll_h, ll_w)
+        return inverse(rec, h, w, level, settings, dtype, as_uint8)
+
+    return fn

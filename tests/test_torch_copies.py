@@ -1,0 +1,169 @@
+"""The port's copies of the JAX package's JAX-free modules equal the
+originals: their code, filter taps, subband geometry, queue bounds, the bit
+machines' geometry tables, the max_n threshold table, colour constants and
+the settings containers."""
+
+import ast
+import dataclasses
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from spiht_tpu.codec import device_decoder as jdd
+from spiht_tpu.codec import device_encoder as jde
+from spiht_tpu.codec import tree_bounds as jtb
+from spiht_tpu.color import models as jcm
+from spiht_tpu import settings as jset
+from spiht_tpu.wavelets import _coif_tables as jcoif
+from spiht_tpu.wavelets import filters as jf
+from spiht_tpu.wavelets import geometry as jgeo
+from spiht_tpu.wavelets import ref_dwt as jref
+
+from spiht_tpu_torch import settings as tset
+from spiht_tpu_torch.codec import geom as tgeom
+from spiht_tpu_torch.codec import maxn as tmaxn
+from spiht_tpu_torch.codec import tree_bounds as ttb
+from spiht_tpu_torch.color import models as tcm
+from spiht_tpu_torch.wavelets import _coif_tables as tcoif
+from spiht_tpu_torch.wavelets import filters as tf
+from spiht_tpu_torch.wavelets import geometry as tgeo
+from spiht_tpu_torch.wavelets import ref_dwt as tref
+
+torch.set_num_threads(1)
+
+GEOMS = [
+    # (c, h, w, ll_h, ll_w)
+    (1, 16, 16, 4, 4),
+    (3, 24, 32, 6, 8),
+    (2, 34, 18, 4, 2),
+    (1, 19, 19, 5, 5),
+    (2, 21, 13, 3, 2),
+    (3, 89, 89, 5, 5),
+    (3, 70, 70, 12, 12),
+]
+
+
+# db21-db38 (mpmath root finding) and coif5 (Gauss-Newton) take ~20 s to
+# derive per package; their taps are covered by test_copied_code_identical,
+# which holds the deriving code itself equal
+_HEAVY = {f"db{n}" for n in range(21, 39)} | {"coif5"}
+
+
+def _code(module) -> str:
+    """The module's AST without docstrings."""
+    tree = ast.parse(inspect.getsource(module))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("pair", [
+    (jf, tf), (jcoif, tcoif), (jref, tref), (jgeo, tgeo), (jtb, ttb),
+    (jset, tset),
+], ids=lambda p: p[0].__name__)
+def test_copied_code_identical(pair):
+    assert _code(pair[0]) == _code(pair[1])
+
+
+def test_wavelist_identical():
+    assert tf.wavelist() == jf.wavelist()
+
+
+@pytest.mark.parametrize(
+    "name", [n for n in jf.wavelist() if n not in _HEAVY]
+)
+def test_filter_taps_identical(name):
+    a, b = jf.build_wavelet(name), tf.build_wavelet(name)
+    for field in ("dec_lo", "dec_hi", "rec_lo", "rec_hi"):
+        assert np.array_equal(
+            np.asarray(getattr(a, field)), np.asarray(getattr(b, field))
+        ), (name, field)
+
+
+def test_dwt_helpers_identical():
+    for n in (1, 2, 7, 64, 513):
+        for f in (2, 6, 10, 18):
+            assert tf.dwt_max_level(n, f) == jf.dwt_max_level(n, f)
+            for mode in ("reflect", "periodization", "zero"):
+                assert tf.dwt_coeff_len(n, f, mode) == jf.dwt_coeff_len(
+                    n, f, mode
+                )
+
+
+@pytest.mark.parametrize(
+    "wavelet,mode", [("bior2.2", "reflect"), ("bior4.4", "symmetric"),
+                     ("db3", "periodization"), ("haar", "zero")]
+)
+def test_slices_identical(wavelet, mode):
+    js = jset.SpihtSettings(wavelet=wavelet, mode=mode)
+    ts = tset.SpihtSettings(wavelet=wavelet, mode=mode)
+    for h, w in ((64, 64), (33, 47), (512, 512), (17, 90)):
+        for level in (None, 1, 3):
+            assert tgeo.get_slices_and_h_w(h, w, ts, level) == (
+                jgeo.get_slices_and_h_w(h, w, js, level)
+            )
+            assert tref.wavedecn_shapes(
+                (1, h, w), wavelet, mode, level, (-2, -1)
+            ) == jref.wavedecn_shapes((1, h, w), wavelet, mode, level,
+                                      (-2, -1))
+
+
+@pytest.mark.parametrize("geo", GEOMS)
+def test_queue_bounds_identical(geo):
+    c, h, w, ll_h, ll_w = geo
+    a, b = jtb.queue_bounds(*geo), ttb.queue_bounds(*geo)
+    for f in a.__slots__:
+        assert getattr(a, f) == getattr(b, f), f
+    for cap_words in (1, 64, 8192, 10**6):
+        assert ttb.narrowed_caps(b, cap_words) == jtb.narrowed_caps(
+            a, cap_words
+        )
+
+
+@pytest.mark.parametrize("geo", GEOMS)
+def test_dec_geom_identical(geo):
+    a, b = jdd._dec_geom(*geo), tgeom.dec_geom(*geo)
+    assert set(a) == set(b)
+    for k in a:
+        if isinstance(a[k], int):
+            assert a[k] == b[k], k
+        else:
+            assert np.array_equal(np.asarray(a[k]), b[k]), k
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 8, 33])
+def test_words_of_identical(n):
+    data = bytes(np.random.default_rng(n).integers(0, 256, n, np.uint8))
+    cap = max((n * 8 + 31) // 32, 1) + 1
+    assert np.array_equal(
+        np.asarray(jdd._words_of(data, cap)), tgeom.words_of(data, cap)
+    )
+
+
+def test_max_n_thresholds_identical():
+    assert tmaxn.max_n_thresholds() == jde._max_n_thresholds()
+
+
+def test_colour_constants_identical():
+    for name in tcm.__all__:
+        a, b = getattr(jcm, name), getattr(tcm, name)
+        assert np.array_equal(np.asarray(a), np.asarray(b)), name
+
+
+def test_settings_identical():
+    assert tset.ENCODER_DECODER_VERSION == jset.ENCODER_DECODER_VERSION
+    for cls in ("SpihtSettings", "EncodingResult"):
+        fa = [(f.name, f.default) for f in
+              dataclasses.fields(getattr(jset, cls))]
+        fb = [(f.name, f.default) for f in
+              dataclasses.fields(getattr(tset, cls))]
+        assert fa == fb
+    er = tset.EncodingResult(b"\x01\x02", 5, 6, 3, 9, 2)
+    assert jset.EncodingResult.from_dict(er.to_dict()).to_dict() == er.to_dict()

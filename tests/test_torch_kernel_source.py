@@ -1,0 +1,195 @@
+"""The CUDA kernels' sources, built as host C++, against their plain
+versions.
+
+There is no nvcc here, but the machines in ``spiht_tpu_torch/csrc/*.cu``
+are plain functions of (thread id, thread count) with the kernel and its
+launch behind ``#ifdef __CUDACC__``. This test compiles them with g++, runs
+each machine with 64 host threads as the block (std::barrier for
+``__syncthreads``, warp 0's ballot/shuffle emulated across its 32 threads)
+and holds words, LSP queues, rec and stat equal to the plain versions'.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from spiht_tpu.codec import api as japi
+
+from spiht_tpu_torch.codec import decoder, encoder
+
+torch.set_num_threads(1)
+
+CSRC = Path(__file__).resolve().parent.parent / "spiht_tpu_torch" / "csrc"
+THREADS = 64
+
+HARNESS = r"""
+#include <string.h>
+#include <barrier>
+#include <memory>
+#include <thread>
+#include <vector>
+static std::unique_ptr<std::barrier<>> g_bar, g_wbar;
+static int64_t g_x[32];
+void spiht_host_sync() { g_bar->arrive_and_wait(); }
+uint32_t spiht_host_ballot(int lane, bool p) {
+  g_x[lane] = p;
+  g_wbar->arrive_and_wait();
+  uint32_t m = 0;
+  for (int i = 0; i < 32; ++i) m |= (uint32_t)(g_x[i] != 0) << i;
+  g_wbar->arrive_and_wait();
+  return m;
+}
+int32_t spiht_host_shfl(int lane, int32_t v, int src) {
+  g_x[lane] = v;
+  g_wbar->arrive_and_wait();
+  const int32_t r = (int32_t)g_x[src];
+  g_wbar->arrive_and_wait();
+  return r;
+}
+int32_t spiht_host_shfl_up(int lane, int32_t v, int d) {
+  g_x[lane] = v;
+  g_wbar->arrive_and_wait();
+  const int32_t r = lane >= d ? (int32_t)g_x[lane - d] : v;
+  g_wbar->arrive_and_wait();
+  return r;
+}
+#include "spiht_encode.cu"
+#include "spiht_decode.cu"
+template <class F> static void run_block(int nt, F f) {
+  g_bar = std::make_unique<std::barrier<>>(nt);
+  g_wbar = std::make_unique<std::barrier<>>(32);
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nt; ++t) ts.emplace_back([&, t] { f(t, nt); });
+  for (auto& t : ts) t.join();
+}
+extern "C" void host_encode(int nt, const int32_t* t1, const int32_t* t3s,
+    const int32_t* child0, const int32_t* lip0, int32_t n_lip0,
+    const int32_t* lis0, int32_t n_lis0, int32_t w, int32_t max_n,
+    int32_t max_bits, int32_t capped, int32_t* lip, int32_t lip_cap,
+    int32_t* lis, int32_t lis_cap, int32_t* lsp, int32_t lsp_cap,
+    uint32_t* words, int32_t cap_words, int32_t* stat) {
+  memset(words, 0, 4 * (size_t)cap_words);
+  memcpy(lip, lip0, 4 * (size_t)n_lip0);
+  memcpy(lis, lis0, 4 * (size_t)n_lis0);
+  EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, max_n, max_bits, capped,
+            lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
+  auto sh = std::make_unique<EncShared>();
+  run_block(nt, [&](int tid, int n) { encode_machine(a, *sh, tid, n); });
+}
+extern "C" void host_decode(int nt, int seq, const uint32_t* words,
+    int32_t nbits, int32_t max_n, const int32_t* geo, const int32_t* lip0,
+    int32_t n_lip0, const int32_t* lis0, int32_t n_lis0, int32_t w,
+    int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
+    int32_t* lsp, int32_t* lsp_val, int32_t lsp_cap, int32_t* rec,
+    int32_t n_rec, int32_t* stat) {
+  memcpy(lip, lip0, 4 * (size_t)n_lip0);
+  memcpy(lis, lis0, 4 * (size_t)n_lis0);
+  std::vector<uint64_t> last(n_rec, 0);
+  if (seq) memset(rec, 0, 4 * (size_t)n_rec);
+  DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
+            lis, lis_cap, lsp, lsp_cap, lsp_val, rec, last.data(), stat};
+  auto sh = std::make_unique<DecShared>();
+  run_block(nt, [&](int tid, int n) {
+    if (seq) decode_machine<true>(a, *sh, tid, n);
+    else decode_machine<false>(a, *sh, tid, n);
+  });
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel sources as host C++")
+    d = tmp_path_factory.mktemp("host_kernels")
+    (d / "harness.cpp").write_text(HARNESS)
+    so = d / "libhost_kernels.so"
+    subprocess.run(
+        [gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
+         "-Wno-unknown-pragmas", "-I", str(CSRC), "-o", str(so),
+         str(d / "harness.cpp")],
+        check=True, capture_output=True, text=True,
+    )
+    return ctypes.CDLL(str(so))
+
+
+def _p(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _i(v):
+    return ctypes.c_int32(int(v))
+
+
+def _host_encode(lib, arr, ll_h, ll_w, max_bits):
+    args = encoder.machine_args(torch.as_tensor(arr), ll_h, ll_w, max_bits)
+    t1, t3s, child0, lip0, lis0, w, max_n, mb, capped, caps, cw = args
+    lip, lis, lsp = (torch.empty(max(c, 1), dtype=torch.int32) for c in caps)
+    words = torch.empty(cw, dtype=torch.int32)
+    stat = torch.empty(encoder.STAT_LEN, dtype=torch.int32)
+    lib.host_encode(
+        ctypes.c_int(THREADS), _p(t1), _p(t3s), _p(child0), _p(lip0),
+        _i(lip0.numel()), _p(lis0), _i(lis0.numel()), _i(w), _i(max_n),
+        _i(mb), _i(capped), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
+        _p(lsp), _i(caps[2]), _p(words), _i(cw), _p(stat),
+    )
+    pw, ps = encoder.encode_machine(*args)
+    assert stat.tolist() == ps.tolist()
+    assert torch.equal(words, pw)
+    return encoder.stream_bytes(pw, int(ps[0])), int(max_n)
+
+
+def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w):
+    words, nbits = decoder.words_tensor(data, "cpu")
+    args = decoder.machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
+    _, _, _, geo, lip0, lis0, _, caps = args
+    seq = decoder.has_duplicate_parents(h, w, ll_h, ll_w)
+    lip, lis, lsp, lsp_val = (
+        torch.empty(max(n, 1), dtype=torch.int32)
+        for n in (caps[0], caps[1], caps[2], caps[2])
+    )
+    rec = torch.empty(geo.numel(), dtype=torch.int32)
+    stat = torch.empty(encoder.STAT_LEN, dtype=torch.int32)
+    lib.host_decode(
+        ctypes.c_int(THREADS), ctypes.c_int(int(seq)), _p(words), _i(nbits),
+        _i(max_n), _p(geo), _p(lip0), _i(lip0.numel()), _p(lis0),
+        _i(lis0.numel()), _i(w), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
+        _p(lsp), _p(lsp_val), _i(caps[2]), _p(rec), _i(geo.numel()),
+        _p(stat),
+    )
+    if seq:
+        prec, ps = decoder.decode_seq(*args)
+        assert stat.tolist() == ps.tolist()
+        assert torch.equal(rec, prec)
+        return
+    pl, pv, ps = decoder.decode_lsp(*args)
+    assert stat.tolist() == ps.tolist()
+    live = int(ps[0])
+    assert torch.equal(lsp[:live], pl[:live])
+    assert torch.equal(lsp_val[:live], pv[:live])
+
+
+@pytest.mark.parametrize(
+    "shape,ll",
+    [
+        ((3, 24, 32), (6, 8)),
+        ((2, 34, 18), (4, 2)),
+        ((3, 19, 19), (5, 5)),  # odd LL: duplicate parents, seq decoder
+        ((1, 70, 70), (12, 12)),
+    ],
+)
+def test_kernel_sources_equal_plain_versions(host_lib, shape, ll):
+    rng = np.random.default_rng(sum(shape))
+    arr = (rng.standard_normal(shape) * 900).astype(np.int32)
+    full, max_n = _host_encode(host_lib, arr, *ll, 2**31 - 2)
+    assert (full, max_n) == japi.encode(arr, *ll, 2**31 - 2)
+    for mb in (1, 2, 3, 333, 1001, len(full) * 8 - 5):
+        _host_encode(host_lib, arr, *ll, mb)
+    for nbytes in sorted({0, 1, 7, len(full) // 3, len(full) - 1, len(full)}):
+        _host_decode(host_lib, full[:nbytes], max_n, *shape, *ll)
