@@ -5,10 +5,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the kernels from spiht_tpu_torch/csrc with nvcc, holds each one
-against its plain version on the card, drives the port's main path (the
-single-image on-device round trip) at full width in two configurations,
-checks the outputs, and prints timings. Every phase must pass; any failure
-exits nonzero. The last line of standard output is
+against its plain version on the card, drives the port's main paths (the
+single-image and the batched on-device round trips) at full width in two
+configurations, checks the outputs, and prints timings. Every phase must
+pass; any failure exits nonzero. The last line of standard output is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 before printing any result.
 
@@ -20,6 +20,12 @@ Phases:
   4. configuration B: bior4.4 / symmetric / RGB / level 3 (odd LL), 1.0 bpp
   5. embedded stream: a quarter of A's bytes
   6. timings: round trips end to end, each kernel alone, plain versions
+  7. batched kernels (B4, B5, batched B3) vs plain versions and vs the
+     single-stream kernels at small shapes
+  8. configuration A batched: 16 images, budgets of 1, 1/2, 1/4 bpp and
+     one bit short of 1 bpp
+  9. configuration B batched (odd LL): 8 images at 1.0 bpp
+  10. throughput at configuration A, batches of 16 and 128 images
 """
 
 from __future__ import annotations
@@ -79,7 +85,27 @@ KERNELS = {
         source="spiht_tpu_torch/csrc/spiht_decode.cu",
         replaces="spiht_tpu/codec/pallas_decoder.py:186",
     ),
+    # B3 over a grid: odd-LL batches (the TPU ran _seq_fn in a lax.map)
+    "spiht_decode_seq_batch": dict(
+        wrapper=decoder.decode_seq_batch,
+        source="spiht_tpu_torch/csrc/spiht_decode.cu",
+        replaces="spiht_tpu/codec/pallas_decoder.py:186",
+    ),
+    "spiht_encode_batch": dict(
+        wrapper=encoder.encode_machine_batch,
+        source="spiht_tpu_torch/csrc/spiht_encode.cu",
+        replaces="spiht_tpu/codec/pallas_encoder.py:1350",
+    ),
+    "spiht_decode_lsp_batch": dict(
+        wrapper=decoder.decode_lsp_batch,
+        source="spiht_tpu_torch/csrc/spiht_decode.cu",
+        replaces="spiht_tpu/codec/pallas_decoder.py:1422",
+    ),
 }
+FULL = 2**31 - 2
+# phase 8's budgets, cycled over the batch: 1, 1/2 and 1/4 bpp at 512^2,
+# and one bit short of 1 bpp (a cut inside a symbol)
+BUDGETS_A = (262144, 131072, 65536, 262143)
 
 
 def image(seed, shape):
@@ -168,6 +194,55 @@ def cmp_decode(data, max_n, c, h, w, ll_h, ll_w, stats=None):
     if stats is not None:
         stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
     return krec.reshape(c, h, w), name
+
+
+def cmp_encode_batch(arrs, ll_h, ll_w, max_bits, stats=None):
+    """B4 on the card vs its plain version on the same batch: words and
+    stat exactly equal. Returns [(bytes, max_n)] per stream."""
+    args = encoder.batch_machine_args(arrs, ll_h, ll_w, max_bits)
+    kw, ks = encoder.encode_machine_batch(*args)
+    torch.cuda.synchronize()
+    (pw, ps), plain_ms = timed(encoder.encode_machine_batch, *to_cpu(args))
+    ks = encoder.check_stat(ks, "spiht_encode_batch")
+    check(ks == ps.tolist(), f"B4 stat {ks} != plain {ps.tolist()}")
+    err = max_abs(kw.cpu().numpy().view(np.uint32), pw.numpy().view(np.uint32))
+    check(err == 0, "B4 words != plain words")
+    if stats is not None:
+        stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
+    datas = encoder.batch_stream_bytes(kw, [row[0] for row in ks])
+    return list(zip(datas, args[6].tolist()))
+
+
+def cmp_decode_batch(datas, max_ns, c, h, w, ll_h, ll_w, stats=None):
+    """The routed batched decode kernel (B5, or batched B3 for odd LL) on
+    the card vs its plain version: stat, LSP queues (B5) and rec exactly
+    equal. Returns (rec (B, c, h, w) on the host, kernel name)."""
+    words, nbits = decoder.words_batch(datas, DEV)
+    args = decoder.batch_machine_args(words, nbits, max_ns, c, h, w,
+                                      ll_h, ll_w)
+    if decoder.has_duplicate_parents(h, w, ll_h, ll_w):
+        name, wrapper = "spiht_decode_seq_batch", decoder.decode_seq_batch
+    else:
+        name, wrapper = "spiht_decode_lsp_batch", decoder.decode_lsp_batch
+    kout = wrapper(*args)
+    torch.cuda.synchronize()
+    pout, plain_ms = timed(wrapper, *to_cpu(args))
+    ks = encoder.check_stat(kout[-1], name)
+    check(ks == pout[-1].tolist(), f"{name} stat {ks} != plain")
+    if name == "spiht_decode_seq_batch":
+        krec, prec = kout[0].cpu(), pout[0]
+    else:
+        for b, row in enumerate(ks):
+            for kq, pq in zip(kout[:2], pout[:2]):
+                check(torch.equal(kq[b, : row[0]].cpu(), pq[b, : row[0]]),
+                      f"{name} stream {b} LSP queue")
+        krec = decoder.scatter_rec(*kout, c * h * w).cpu()
+        prec = decoder.scatter_rec(*pout, c * h * w)
+    err = max_abs(krec.numpy(), prec.numpy())
+    check(err == 0, f"{name} rec != plain rec")
+    if stats is not None:
+        stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
+    return krec.reshape(-1, c, h, w), name
 
 
 # ---------------------------------------------------------------------------
@@ -269,22 +344,28 @@ def bound_ms(name, stats):
     """(least ms for the kernel's work on this run's data, what bounds it):
     the larger of the bytes it must move (each input word it needs read
     once, each output written once) over the HBM rate, and its operations
-    (OPS_PER_BIT for each stream bit) over the scalar rate."""
-    s, args = stats["stat"], stats["args"]
-    if name == "spiht_encode":
-        # t1 and t3s of every coefficient the run tested (each ends in the
-        # LIP or the LSP), t1 of the sets left in the LIS, the initial
-        # queues, the stream written
-        n_init = 4 * (args[3].numel() + args[4].numel())
-        nbytes = 8 * (s[2] + s[4]) + 4 * s[3] + n_init + (s[0] + 7) // 8
-        nbits = s[0]
-    else:
-        n_init = 4 * (args[4].numel() + args[5].numel())
-        # the stream bits read, the initial queues, and the output: two
-        # LSP words per commit (B2) or rec written whole (B3)
-        out = 8 * s[0] if name == "spiht_decode_lsp" else 4 * args[3].numel()
-        nbytes = (s[5] + 7) // 8 + n_init + out
-        nbits = s[5]
+    (OPS_PER_BIT for each stream bit) over the scalar rate. A batch's
+    work is the sum of its streams'."""
+    args = stats["args"]
+    rows = stats["stat"] if isinstance(stats["stat"][0], list) else [
+        stats["stat"]]
+    nbytes = nbits = 0
+    for s in rows:
+        if name.startswith("spiht_encode"):
+            # t1 and t3s of every coefficient the run tested (each ends in
+            # the LIP or the LSP), t1 of the sets left in the LIS, the
+            # initial queues, the stream written
+            n_init = 4 * (args[3].numel() + args[4].numel())
+            nbytes += 8 * (s[2] + s[4]) + 4 * s[3] + n_init + (s[0] + 7) // 8
+            nbits += s[0]
+        else:
+            n_init = 4 * (args[4].numel() + args[5].numel())
+            # the stream bits read, the initial queues, and the output: two
+            # LSP words per commit (B2, B5) or rec written whole (B3)
+            lsp = name.startswith("spiht_decode_lsp")
+            out = 8 * s[0] if lsp else 4 * args[3].numel()
+            nbytes += (s[5] + 7) // 8 + n_init + out
+            nbits += s[5]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = OPS_PER_BIT * nbits / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -304,16 +385,16 @@ def time_kernel(wrapper, args, reps=5):
     return e0.elapsed_time(e1) / reps
 
 
-def profile_round_trip(label, im, er, settings, level):
-    """Where one round trip's time goes: torch.profiler's device time by
-    kernel, and the device's idle share of the wall time."""
+def profile_round_trip(label, round_trip):
+    """Where one round trip's time goes (``round_trip()`` encodes and
+    decodes): torch.profiler's device time by kernel, and the device's
+    idle share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pt.encode_image_device(im, settings, level, 512 * 512, device=DEV)
-        pt.decode_image_device(er, settings, device=DEV)
+        round_trip()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side entries only (kernels, copies): a CPU op's own entry
@@ -345,8 +426,160 @@ def median_ms(fn, reps=5):
     return statistics.median(ts)
 
 
+def phase_batch_small():
+    """Phase 7: the batched kernels vs their plain versions and, stream by
+    stream, vs the single-stream kernels, at small shapes."""
+    rng = np.random.default_rng(9)
+    n_cmp = 0
+    for shape, ll, scales, mbs, dec in (
+        # B4 with a zero image and budgets cut mid-symbol; B5 on streams of
+        # different lengths (whole, 1 and 7 byte prefixes, half)
+        ((3, 24, 32), (6, 8), (400, 9000, 60, 0), [FULL, 1, 333, 2897],
+         "spiht_decode_lsp_batch"),
+        # odd LL: B4 and batched B3
+        ((3, 19, 19), (5, 5), (3000, 7, 900), [13, 222, FULL],
+         "spiht_decode_seq_batch"),
+    ):
+        arrs = torch.as_tensor(np.stack([
+            (rng.standard_normal(shape) * s).astype(np.int32) for s in scales
+        ]), device=DEV)
+        got = cmp_encode_batch(arrs, *ll, mbs)
+        for b, mb in enumerate(mbs):
+            check(got[b] == cmp_encode(arrs[b], *ll, mb),
+                  f"{shape} stream {b}: B4 != B1")
+        full = cmp_encode_batch(arrs, *ll, [FULL] * len(mbs))
+        cuts = (None, 1, 7, len(full[-1][0]) // 2)
+        datas = [d[: cuts[b % 4]] for b, (d, _) in enumerate(full)]
+        mns = [mn for _, mn in full]
+        rec, name = cmp_decode_batch(datas, mns, *shape, *ll)
+        check(name == dec, f"{shape} routed to {name}")
+        for b in range(len(datas)):
+            one, _ = cmp_decode(datas[b], mns[b], *shape, *ll)
+            check(torch.equal(rec[b], one.cpu()),
+                  f"{shape} stream {b}: {name} != the single-stream kernel")
+        n_cmp += 3 + 2 * len(mbs)
+        print(f"  {shape}: B={len(mbs)}, streams {[len(d) for d in datas]} "
+              f"bytes: B4 and {name} == plain == single-stream kernels")
+    print(f"phase 7 ok: {n_cmp} exact batched comparisons")
+
+
+def batch_main_path(label, settings, level, ims, mbs, expect_dec):
+    """Phases 8/9: encode_images_device + decode_images_device on the card,
+    the launch counts set to 0 just before and read just after, then every
+    stream held against the plain versions on the card's coefficients and
+    against the single-image entry points."""
+    dev = DEV
+    reset_counts()
+    ers = pt.encode_images_device(ims, settings, level, mbs, device=dev)
+    outs = pt.decode_images_device(ers, settings, device=dev)
+    torch.cuda.synchronize()
+    n = counts()
+    want = {k: 0 for k in n}
+    want.update({"spiht_encode_batch": 1, expect_dec: 1})
+    check(n == want, f"{label}: launches {n}, want {want}")
+    B = len(ims)
+    c, h, w = ims[0].shape
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+    check(len(outs) == B and all(
+        o.shape[0] == c and o.shape[1] >= h and o.shape[2] >= w
+        and bool(torch.isfinite(o).all()) for o in outs),
+        f"{label}: images' shape or values")
+    # the card's coefficients; the plain machines on them
+    arrs, _, _ = forward(torch.as_tensor(np.stack(ims), device=dev),
+                         settings, level)
+    enc_stats, dec_stats = {}, {}
+    got = cmp_encode_batch(arrs, ll_h, ll_w, mbs, enc_stats)
+    check(got == [(er.encoded_bytes, er.max_n) for er in ers],
+          f"{label}: streams != plain encoder's on the card's coefficients")
+    _, name = cmp_decode_batch([er.encoded_bytes for er in ers],
+                               [er.max_n for er in ers], c, enc_h, enc_w,
+                               ll_h, ll_w, dec_stats)
+    check(name == expect_dec, f"{label}: routed to {name}")
+    # each stream and image as the single-image entry points give it
+    psnr = []
+    for b in range(B):
+        one = pt.encode_image_device(ims[b], settings, level, mbs[b],
+                                     device=dev)
+        check(one.encoded_bytes == ers[b].encoded_bytes
+              and one.max_n == ers[b].max_n,
+              f"{label} stream {b}: batch != encode_image_device")
+        img = pt.decode_image_device(ers[b], settings, device=dev)
+        check(torch.equal(img, outs[b]),
+              f"{label} image {b}: batch != decode_image_device")
+        mse = float(((outs[b][:, :h, :w].cpu() - torch.as_tensor(ims[b]))
+                     ** 2).mean())
+        psnr.append(10 * np.log10(1.0 / mse))
+    print(json.dumps({
+        "phase": label, "batch": B, "geometry": [c, enc_h, enc_w],
+        "ll": [ll_h, ll_w], "budgets": sorted(set(mbs)),
+        "bytes": [len(er.encoded_bytes) for er in ers],
+        "max_n": sorted({er.max_n for er in ers}), "launches": n,
+        "streams_equal_plain_and_single": True,
+        "images_equal_single": True,
+        "psnr_db_min_max": [min(psnr), max(psnr)],
+    }))
+    return ers, n, enc_stats, dec_stats
+
+
+def phase_throughput(ims16, mbs16, ers16, enc16, dec16):
+    """Phase 10: images/s of the batched round trip at configuration A for
+    B = 16 and B = 128 (phase 8's images and budgets tiled), each batched
+    kernel alone, and the device's idle share of one profiled batch."""
+    c, h, w = ims16[0].shape
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, CONFIG_A, None)
+    ll = (slices[0][1].stop, slices[0][2].stop)
+    for B in (16, 128):
+        ims = ims16 * (B // 16)
+        mbs = mbs16 * (B // 16)
+        ers = pt.encode_images_device(ims, CONFIG_A, None, mbs, device=DEV)
+        check(all(er.encoded_bytes == ers16[b % 16].encoded_bytes
+                  for b, er in enumerate(ers)),
+              f"B={B}: a stream differs from phase 8's of the same image")
+        enc_ms = median_ms(lambda: pt.encode_images_device(
+            ims, CONFIG_A, None, mbs, device=DEV))
+        dec_ms = median_ms(lambda: pt.decode_images_device(
+            ers, CONFIG_A, device=DEV))
+        arrs, _, _ = forward(torch.as_tensor(np.stack(ims), device=DEV),
+                             CONFIG_A, None)
+        eargs = encoder.batch_machine_args(arrs, *ll, mbs)
+        words, nbits = decoder.words_batch([er.encoded_bytes for er in ers],
+                                           DEV)
+        dargs = decoder.batch_machine_args(
+            words, nbits, [er.max_n for er in ers], c, enc_h, enc_w, *ll)
+        k_enc = time_kernel(encoder.encode_machine_batch, eargs)
+        k_dec = time_kernel(decoder.decode_lsp_batch, dargs)
+        bounds = {
+            name: bound_ms(name, {"args": args, "stat": encoder.check_stat(
+                wrapper(*args)[-1], name)})[0]
+            for name, wrapper, args in (
+                ("spiht_encode_batch", encoder.encode_machine_batch, eargs),
+                ("spiht_decode_lsp_batch", decoder.decode_lsp_batch, dargs))
+        }
+        print(json.dumps({
+            "throughput": "A batch, median of 5, host clock to sync",
+            "batch": B, "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "encode_images_per_s": B / enc_ms * 1e3,
+            "decode_images_per_s": B / dec_ms * 1e3,
+            "per_image_encode_ms": enc_ms / B,
+            "per_image_decode_ms": dec_ms / B,
+            "kernel_ms": {"spiht_encode_batch": k_enc,
+                          "spiht_decode_lsp_batch": k_dec},
+            "bound_ms": bounds,
+            "launches_per_batch": {"spiht_encode_batch": 1,
+                                   "spiht_decode_lsp_batch": 1},
+            "plain_ms_b16": {"spiht_encode_batch": enc16["plain_ms"],
+                             "spiht_decode_lsp_batch": dec16["plain_ms"]},
+        }))
+        del arrs, eargs, words, dargs
+        profile_round_trip(f"A batch of {B}", lambda: (
+            pt.decode_images_device(pt.encode_images_device(
+                ims, CONFIG_A, None, mbs, device=DEV), CONFIG_A,
+                device=DEV)))
+
+
 def run_phases() -> list:
-    """Phases 2-6; returns the kernels' rows of the result line."""
+    """Phases 2-10; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -393,12 +626,33 @@ def run_phases() -> list:
         timing[f"{label}_decode_ms"] = median_ms(
             lambda: pt.decode_image_device(er, settings, device=DEV))
     print(json.dumps(timing))
-    profile_round_trip("A", im_a, er_a, CONFIG_A, None)
-    profile_round_trip("B", im_b, er_b, CONFIG_B, 3)
+    for label, im, er, settings, level in (
+        ("A", im_a, er_a, CONFIG_A, None), ("B", im_b, er_b, CONFIG_B, 3),
+    ):
+        profile_round_trip(label, lambda: (
+            pt.encode_image_device(im, settings, level, 512 * 512,
+                                   device=DEV),
+            pt.decode_image_device(er, settings, device=DEV)))
+
+    # ---- phases 7-10: the batched codec ----
+    phase_batch_small()
+    ims_a = [image(100 + b, (3, 512, 512)) for b in range(16)]
+    mbs_a = [BUDGETS_A[b % 4] for b in range(16)]
+    ers_a, nb_a, encb_a, decb_a = batch_main_path(
+        "A batch", CONFIG_A, None, ims_a, mbs_a, "spiht_decode_lsp_batch")
+    ims_b = [image(200 + b, (3, 512, 512)) for b in range(8)]
+    _, nb_b, _, decb_b = batch_main_path(
+        "B batch", CONFIG_B, 3, ims_b, [512 * 512] * 8,
+        "spiht_decode_seq_batch")
+    phase_throughput(ims_a, mbs_a, ers_a, encb_a, decb_a)
+
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),
         "spiht_decode_lsp": (dec_a, n_a["spiht_decode_lsp"]),
         "spiht_decode_seq": (dec_b, n_b["spiht_decode_seq"]),
+        "spiht_decode_seq_batch": (decb_b, nb_b["spiht_decode_seq_batch"]),
+        "spiht_encode_batch": (encb_a, nb_a["spiht_encode_batch"]),
+        "spiht_decode_lsp_batch": (decb_a, nb_a["spiht_decode_lsp_batch"]),
     }
     rows = []
     for name, (stats, launches) in runs.items():
@@ -415,6 +669,7 @@ def run_phases() -> list:
         })
         print(json.dumps({"kernel_timing": name, "ms": ms,
                           "plain_ms": stats["plain_ms"],
+                          "bound_ms": bound,
                           "launches_per_round_trip": launches}))
     return rows
 
@@ -437,7 +692,8 @@ def main() -> int:
         _build.load(name)
     print(f"kernel build: {secs:.2f} s (nvcc, all sources in parallel)")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "Compiling entry" in line):
             print("  " + line.strip())
 
     rows = run_phases()

@@ -9,11 +9,17 @@ kernels' plain versions; the kernels are built with ``nvcc`` at first use
 (``_build.py``).
 
 Ported so far: the single-image on-device round trip,
-``encode_image_device`` / ``decode_image_device``.
+``encode_image_device`` / ``decode_image_device``, and the batched one,
+``encode_images_device`` / ``decode_images_device``.
 """
 
 from . import interop
-from .codec.api import decode_image_device, encode_image_device
+from .codec.api import (
+    decode_image_device,
+    decode_images_device,
+    encode_image_device,
+    encode_images_device,
+)
 from .settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
 
 __all__ = [
@@ -21,7 +27,9 @@ __all__ = [
     "EncodingResult",
     "SpihtSettings",
     "decode_image_device",
+    "decode_images_device",
     "encode_image_device",
+    "encode_images_device",
     "interop",
 ]
 

@@ -39,6 +39,10 @@ SIGNATURES = {
             _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
         ],
+        "spiht_encode_batch_launch": [
+            _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P,
+            _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
+        ],
     },
     "spiht_decode": {
         "spiht_decode_lsp_launch": [
@@ -48,6 +52,10 @@ SIGNATURES = {
         "spiht_decode_seq_launch": [
             _P, _I, _I, _P, _P, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P,
+        ],
+        "spiht_decode_batch_launch": [
+            _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+            _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
         ],
     },
 }

@@ -1,7 +1,8 @@
 """SPIHT decode machines: routing, the CUDA kernels' wrappers and their
 plain versions. The port of ``spiht_tpu/codec/pallas_decoder.py``
 (``_has_duplicate_parents`` :138-146, ``pallas_decode_fn`` :149-182, the
-rec scatter :1339-1368, ``pallas_decode`` :2104).
+rec scatter :1339-1368 and its batched form :2086-2099, ``pallas_decode``
+:2104, ``pallas_decode_batch`` :2160).
 
 * ``decode_lsp`` (kernel B2, ``csrc/spiht_decode.cu``) decodes geometries
   without duplicate parents. It writes the LSP queues (node, and
@@ -11,9 +12,15 @@ rec scatter :1339-1368, ``pallas_decode`` :2104).
   times and every LSP instance refines one shared rec value, so rec lives
   in the kernel.
 
+* ``decode_lsp_batch`` (kernel B5) and ``decode_seq_batch`` (B3 over a
+  grid) decode B streams of one geometry in one launch, one block per
+  stream, each stopping at its own length; ``decode_coeffs_batch`` routes
+  a batch as ``decode_coeffs`` routes one stream.
+
 Each wrapper takes its plain version (``_decode_machine_plain``, the same
-state layout) for CPU tensors only; for CUDA tensors it launches the
-kernel or raises. Both honour byte-prefix truncation exactly.
+state layout, stream by stream for a batch) for CPU tensors only; for
+CUDA tensors it launches the kernel or raises. All honour byte-prefix
+truncation exactly.
 """
 
 from __future__ import annotations
@@ -36,10 +43,16 @@ __all__ = [
     "has_duplicate_parents",
     "decode_lsp",
     "decode_seq",
+    "decode_lsp_batch",
+    "decode_seq_batch",
     "scatter_rec",
     "machine_args",
+    "batch_machine_args",
     "decode_coeffs",
+    "decode_coeffs_batch",
     "decode",
+    "decode_batch",
+    "words_batch",
 ]
 
 
@@ -157,6 +170,24 @@ def _decode_machine_plain(
     return node_q, val_q, stat
 
 
+def _decode_machine_batch_plain(
+    words, nbits, max_n, geo, lip0, lis0, w, caps, seq,
+):
+    """The plain version of kernel B5 (seq=False) and of batched B3
+    (seq=True) on CPU tensors: the plain machine stream by stream, each
+    held to its own length within its row, as ``dec_stream_args`` does.
+    Returns the per-stream outputs stacked along a new first dim."""
+    cap_bits = words.shape[1] * 32
+    outs = [
+        _decode_machine_plain(
+            words[b], min(max(nb, 0), cap_bits), mn, geo, lip0, lis0, w,
+            *caps, seq, geo.numel() if seq else 0,
+        )
+        for b, (nb, mn) in enumerate(zip(nbits.tolist(), max_n.tolist()))
+    ]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def _check_inputs(words, nbits, geo, lip0, lis0, caps):
     dev = words.device
     for name, x in (("words", words), ("geo", geo), ("lip0", lip0),
@@ -269,19 +300,125 @@ def decode_seq(
 decode_seq.launches = 0
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _decode_batch(
+    seq, words, nbits, max_n, geo, lip0, lis0, w, caps,
+):
+    """B5 (seq=False) or batched B3 (seq=True); see ``decode_lsp_batch``."""
+    dev = words.device
+    for name, x, nd in (("words", words, 2), ("nbits", nbits, 1),
+                        ("max_n", max_n, 1), ("geo", geo, 1),
+                        ("lip0", lip0, 1), ("lis0", lis0, 1)):
+        _check_i32(name, x, dev, nd)
+    B, cap_words = words.shape
+    if B < 1 or nbits.numel() != B or max_n.numel() != B:
+        raise ValueError("need B >= 1 word rows and one nbits, max_n each")
+    if geo.numel() >= MAX_CELLS:
+        raise ValueError("geometry beyond the machines' packing (2^29 cells)")
+    lip_cap, lis_cap, lsp_cap = caps
+    if lip0.numel() > lip_cap or lis0.numel() > lis_cap:
+        raise ValueError("initial queues exceed their capacities")
+    if dev.type == "cpu":
+        return _decode_machine_batch_plain(
+            words, nbits, max_n, geo, lip0, lis0, w, caps, seq,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .. import _build
+
+    lib = _build.load("spiht_decode")
+    n = geo.numel()
+    lip, lis, lsp = (
+        torch.empty(B, max(cap, 1), dtype=torch.int32, device=dev)
+        for cap in caps
+    )
+    stat = torch.empty(B, STAT_LEN, dtype=torch.int32, device=dev)
+    if seq:
+        lsp_val = None
+        rec = torch.empty(B, n, dtype=torch.int32, device=dev)
+        # per-node refinement claims (plane tag << 32 | LSP index)
+        last = torch.empty(B, n, dtype=torch.int64, device=dev)
+    else:
+        lsp_val = torch.empty_like(lsp)
+        rec = last = None
+    rc = lib.spiht_decode_batch_launch(
+        int(seq), B, words.data_ptr(), cap_words, nbits.data_ptr(),
+        max_n.data_ptr(), geo.data_ptr(), lip0.data_ptr(), lip0.numel(),
+        lis0.data_ptr(), lis0.numel(), n, w, lip.data_ptr(), lip_cap,
+        lis.data_ptr(), lis_cap, lsp.data_ptr(), lsp_cap, _ptr(lsp_val),
+        _ptr(rec), _ptr(last), stat.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        what = "spiht_decode_seq_batch" if seq else "spiht_decode_lsp_batch"
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+    (decode_seq_batch if seq else decode_lsp_batch).launches += 1
+    return (rec, stat) if seq else (lsp, lsp_val, stat)
+
+
+def decode_lsp_batch(
+    words: torch.Tensor,
+    nbits: torch.Tensor,
+    max_n: torch.Tensor,
+    geo: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    caps: Tuple[int, int, int],
+):
+    """Kernel B5 (or, for CPU tensors, its plain version): B streams of a
+    duplicate-free geometry in one launch, one block per stream.
+
+    words: int32 (B, cap_words), each row a stream zero-padded to the
+    longest; nbits, max_n: int32 (B,) on the same device (each stream
+    stops at its own nbits, held to its row); geo, lip0, lis0: shared, as
+    for ``decode_lsp``. Returns (lsp nodes, lsp values, both int32
+    (B, cap), stat (B, STAT_LEN)), row b as ``decode_lsp`` returns it.
+    """
+    return _decode_batch(False, words, nbits, max_n, geo, lip0, lis0, w, caps)
+
+
+decode_lsp_batch.launches = 0
+
+
+def decode_seq_batch(
+    words: torch.Tensor,
+    nbits: torch.Tensor,
+    max_n: torch.Tensor,
+    geo: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    caps: Tuple[int, int, int],
+):
+    """Kernel B3 over a grid (or, for CPU tensors, its plain version): B
+    streams of an odd-LL geometry in one launch, one block per stream, each
+    with its own rec and claims rows. The same inputs as
+    ``decode_lsp_batch``; returns (rec int32 (B, N), stat (B, STAT_LEN))."""
+    return _decode_batch(True, words, nbits, max_n, geo, lip0, lis0, w, caps)
+
+
+decode_seq_batch.launches = 0
+
+
 def scatter_rec(
     lsp: torch.Tensor, lsp_val: torch.Tensor, stat: torch.Tensor, n: int
 ) -> torch.Tensor:
-    """rec int32[n] from B2's LSP queues: one scatter of the first
-    stat[0] entries, with no host sync (entries past the count go to a
-    dropped slot)."""
-    live = torch.arange(lsp.numel(), device=lsp.device) < stat[0]
+    """rec int32 (..., n) from B2's or B5's LSP queues (..., cap) and stat
+    (..., STAT_LEN): one scatter of each stream's first stat[0] entries,
+    with no host sync (entries past the count go to a dropped slot)."""
+    live = torch.arange(lsp.shape[-1], device=lsp.device) < stat[..., :1]
     mag = lsp_val & 0x7FFFFFFF
     vals = torch.where(lsp_val < 0, mag, -mag)
     tgt = torch.where(live, lsp.long(), n)
-    rec = torch.zeros(n + 1, dtype=torch.int32, device=lsp.device)
-    rec.index_put_((tgt,), torch.where(live, vals, 0))
-    return rec[:n]
+    rec = torch.zeros(
+        tuple(lsp.shape[:-1]) + (n + 1,), dtype=torch.int32, device=lsp.device
+    )
+    rec.scatter_(-1, tgt, torch.where(live, vals, 0))
+    return rec[..., :n]
 
 
 def decode_coeffs(
@@ -314,6 +451,61 @@ def decode_coeffs(
     return rec.reshape(c, h, w).to(out_dtype)
 
 
+def decode_coeffs_batch(
+    words: torch.Tensor,
+    nbits,
+    max_ns,
+    c: int,
+    h: int,
+    w: int,
+    ll_h: int,
+    ll_w: int,
+    out_dtype: torch.dtype = torch.int32,
+) -> torch.Tensor:
+    """Decode B streams of one geometry on their device -> rec (B, c, h, w)
+    in one launch, routed as ``decode_coeffs``: batched B3 for
+    duplicate-parent geometries, else B5 plus one scatter. words: int32
+    (B, cap_words); nbits, max_ns: B host ints. ``out_dtype=torch.int16``
+    needs every max_n <= 13."""
+    if out_dtype not in (torch.int32, torch.int16):
+        raise ValueError("out_dtype must be torch.int32 or torch.int16")
+    if out_dtype == torch.int16 and max(max_ns, default=0) > 13:
+        raise ValueError("int16 rec needs max_n <= 13")
+    args = batch_machine_args(words, nbits, max_ns, c, h, w, ll_h, ll_w)
+    if has_duplicate_parents(h, w, ll_h, ll_w):
+        rec, stat = decode_seq_batch(*args)
+        check_stat(stat, "spiht_decode_seq_batch")
+    else:
+        lsp, lsp_val, stat = decode_lsp_batch(*args)
+        check_stat(stat, "spiht_decode_lsp_batch")
+        rec = scatter_rec(lsp, lsp_val, stat, c * h * w)
+    return rec.reshape(-1, c, h, w).to(out_dtype)
+
+
+def batch_machine_args(
+    words: torch.Tensor, nbits, max_ns,
+    c: int, h: int, w: int, ll_h: int, ll_w: int,
+):
+    """``decode_lsp_batch``/``decode_seq_batch``'s arguments for B word
+    rows on their device and B host ints each of nbits and max_n: those
+    two as int32 (B,) tensors (one copy), the geometry tables, and queue
+    capacities narrowed to the row length."""
+    check_geometry(c, h, w)
+    if words.dim() != 2:
+        raise ValueError("words must be (B, cap_words)")
+    B, cap_words = words.shape
+    nbits, max_ns = [int(v) for v in nbits], [int(v) for v in max_ns]
+    if len(nbits) != B or len(max_ns) != B:
+        raise ValueError(f"need {B} nbits and max_n values")
+    if not all(0 <= nb <= cap_words * 32 for nb in nbits):
+        raise ValueError("nbits must lie in [0, 32 * cap_words]")
+    sc = torch.tensor([nbits, max_ns], dtype=torch.int32).to(words.device)
+    tabs = machine_tables(c, h, w, ll_h, ll_w, words.device)
+    caps = machine_caps(c, h, w, ll_h, ll_w, cap_words)
+    return (words, sc[0], sc[1], tabs["geo"], tabs["lip0"], tabs["lis0"], w,
+            caps)
+
+
 def machine_args(
     words: torch.Tensor, nbits: int, max_n: int,
     c: int, h: int, w: int, ll_h: int, ll_w: int,
@@ -337,6 +529,16 @@ def words_tensor(data: bytes, device) -> Tuple[torch.Tensor, int]:
     return torch.from_numpy(words).to(device), nbits
 
 
+def words_batch(datas, device) -> Tuple[torch.Tensor, list]:
+    """(int32 (B, cap_words) tensor on ``device``, B nbits) of B streams'
+    bytes: rows zero-padded to the longest stream, each nbits the
+    byte-padded length of its own stream."""
+    nbits = [len(d) * 8 for d in datas]
+    cap_words = max(max((nb + 31) // 32 for nb in nbits), 1)
+    words = np.stack([words_of(d, cap_words) for d in datas]).view(np.int32)
+    return torch.from_numpy(words).to(device), nbits
+
+
 def decode(
     data: bytes, max_n: int, c: int, h: int, w: int, ll_h: int, ll_w: int,
     device=None,
@@ -345,3 +547,19 @@ def decode(
     port's counterpart of ``pallas_decode``). Prefix-tolerant."""
     words, nbits = words_tensor(data, resolve_device(device))
     return decode_coeffs(words, nbits, int(max_n), c, h, w, ll_h, ll_w)
+
+
+def decode_batch(
+    datas, max_ns, c: int, h: int, w: int, ll_h: int, ll_w: int,
+    device=None, out_dtype: torch.dtype = torch.int32,
+) -> torch.Tensor:
+    """Decode B streams' bytes of one geometry -> (B, c, h, w) rec on the
+    device, in one launch (the port's counterpart of
+    ``pallas_decode_batch``). ``max_ns`` is one int for every stream or
+    a list of B. Prefix-tolerant, each stream on its own length."""
+    datas = list(datas)
+    words, nbits = words_batch(datas, resolve_device(device))
+    if np.isscalar(max_ns):
+        max_ns = [max_ns] * len(datas)
+    return decode_coeffs_batch(words, nbits, max_ns, c, h, w, ll_h, ll_w,
+                               out_dtype)

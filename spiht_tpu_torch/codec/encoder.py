@@ -1,13 +1,17 @@
-"""SPIHT encode machine: host glue, the CUDA kernel's wrapper and its plain
-version. The port of ``spiht_tpu/codec/pallas_encoder.py`` (``_hybrid_fn``
-and its wrapper :1214-1260, ``_cap_words_for`` :1265, ``_narrowed_caps``
-:1272, ``pallas_encode`` :2349).
+"""SPIHT encode machine: host glue, the CUDA kernels' wrappers and their
+plain versions. The port of ``spiht_tpu/codec/pallas_encoder.py``
+(``_hybrid_fn`` and its wrapper :1214-1260, ``_cap_words_for`` :1265,
+``_narrowed_caps`` :1272, ``pallas_encode`` :2349; the batched
+``_interleaved_fn`` and its wrapper :2089-2144, ``pallas_encode_batch``
+:2192).
 
 The kernel (``csrc/spiht_encode.cu``, B1) and ``_encode_machine_plain``
 compute the same function on the same state layout: the tables ``t1``,
-``t3s``, ``child0`` and the queues LIP, LIS, LSP. The wrapper
-``encode_machine`` takes the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+``t3s``, ``child0`` and the queues LIP, LIS, LSP. Kernel B4 runs that
+machine over a batch, one block per stream; its plain version runs
+``_encode_machine_plain`` stream by stream. The wrappers
+``encode_machine`` and ``encode_machine_batch`` take the plain versions
+for CPU tensors only; for CUDA tensors they launch the kernel or raise.
 
 The word buffer is sized from the real budget, ``cap_words_for(c, h, w,
 max_bits)``, so the stream cannot outgrow it; the stream-capacity error is
@@ -34,11 +38,16 @@ __all__ = [
     "machine_caps",
     "encode_tables",
     "encode_machine",
+    "encode_machine_batch",
     "machine_args",
+    "batch_machine_args",
     "encode_coeffs",
+    "encode_coeffs_batch",
     "encode",
+    "encode_batch",
     "check_stat",
     "stream_bytes",
+    "batch_stream_bytes",
 ]
 
 # bits per coefficient cell that provably cover any stream
@@ -61,10 +70,16 @@ class _Stop(Exception):
 
 
 def check_stat(stat: torch.Tensor, what: str) -> list:
-    """stat as a host list; raises on a machine error (syncs the device)."""
+    """stat as a host list, a list of rows for a (B, STAT_LEN) batch;
+    raises on a machine error in any stream (syncs the device)."""
     s = stat.tolist()
-    if s[1] != 0:
-        raise RuntimeError(f"{what}: {_ERRORS.get(s[1], s[1])} (stat {s})")
+    rows = s if stat.dim() == 2 else [s]
+    for b, row in enumerate(rows):
+        if row[1] != 0:
+            at = f" stream {b}" if stat.dim() == 2 else ""
+            raise RuntimeError(
+                f"{what}{at}: {_ERRORS.get(row[1], row[1])} (stat {row})"
+            )
     return s
 
 
@@ -92,19 +107,22 @@ def check_geometry(c: int, h: int, w: int) -> None:
 def encode_tables(
     arr: torch.Tensor, ll_h: int, ll_w: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(t1, t3s) of an int32 (c, h, w) array, flat int32 on its device:
+    """(t1, t3s) of an int32 (..., c, h, w) array, int32 on its device and
+    flat per array: (N,) for one (c, h, w) array, (B, N) for a batch.
     t1 = (M+1) | (D+1)<<5 | (G+1)<<10 | sgn<<15 | hc<<16 | hg<<17 and
-    t3s = sgn<<31 | |x| (the Pallas machine's standard layout)."""
-    c, h, w = arr.shape
+    t3s = sgn<<31 | |x| (the Pallas machine's standard layout); the
+    geometry bits hc, hg are shared by every array of a batch."""
+    c, h, w = arr.shape[-3:]
+    lead = tuple(arr.shape[:-3])
     m, d, g = significance_maps(arr, ll_h, ll_w)
-    flat = arr.reshape(-1)
+    flat = arr.reshape(lead + (-1,))
     sgn = (flat >= 0).to(torch.int32)
     absx = torch.abs(flat)
     hc_flags = machine_tables(c, h, w, ll_h, ll_w, arr.device)["hc_flags"]
     t1 = (
-        (m.reshape(-1).to(torch.int32) + 1)
-        | ((d.reshape(-1).to(torch.int32) + 1) << 5)
-        | ((g.reshape(-1).to(torch.int32) + 1) << 10)
+        (m.reshape(lead + (-1,)).to(torch.int32) + 1)
+        | ((d.reshape(lead + (-1,)).to(torch.int32) + 1) << 5)
+        | ((g.reshape(lead + (-1,)).to(torch.int32) + 1) << 10)
         | (sgn << 15)
         | hc_flags
     )
@@ -212,6 +230,23 @@ def _encode_machine_plain(
     return words, stat
 
 
+def _encode_machine_batch_plain(
+    t1, t3s, child0, lip0, lis0, w, max_n, max_bits, caps, cap_words,
+):
+    """The plain version of kernel B4 on CPU tensors: the plain B1 machine
+    stream by stream, each with its budget clamped to the shared buffer
+    (``capped`` where the clamp cut it), as ``enc_stream_args`` does."""
+    cap_bits = cap_words * 32
+    outs = [
+        _encode_machine_plain(
+            t1[b], t3s[b], child0, lip0, lis0, w, mn, min(mb, cap_bits),
+            mb > cap_bits, *caps, cap_words,
+        )
+        for b, (mn, mb) in enumerate(zip(max_n.tolist(), max_bits.tolist()))
+    ]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
 def _check_i32(name: str, x: torch.Tensor, device: torch.device, ndim=1):
     if x.dtype != torch.int32 or x.device != device or x.dim() != ndim:
         raise ValueError(
@@ -294,6 +329,75 @@ def encode_machine(
 encode_machine.launches = 0
 
 
+def encode_machine_batch(
+    t1: torch.Tensor,
+    t3s: torch.Tensor,
+    child0: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    max_n: torch.Tensor,
+    max_bits: torch.Tensor,
+    caps: Tuple[int, int, int],
+    cap_words: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B4 (or, for CPU tensors, its plain version): B streams in one
+    launch, one block per stream.
+
+    t1/t3s: int32 (B, N); child0: int32[N] and the initial queues lip0,
+    lis0, shared by the streams; max_n, max_bits: int32 (B,) on the same
+    device (the budgets >= 0, each clamped in the kernel to cap_words*32,
+    with the stream-capacity error where that cut it); caps: (lip, lis,
+    lsp) capacities of every stream's queues. Returns (words int32
+    (B, cap_words), stat int32 (B, STAT_LEN)), row b as ``encode_machine``
+    returns it for stream b.
+    """
+    dev = t1.device
+    for name, x, nd in (("t1", t1, 2), ("t3s", t3s, 2), ("child0", child0, 1),
+                        ("lip0", lip0, 1), ("lis0", lis0, 1),
+                        ("max_n", max_n, 1), ("max_bits", max_bits, 1)):
+        _check_i32(name, x, dev, nd)
+    B, N = t1.shape
+    if B < 1 or t3s.shape != (B, N) or child0.numel() != N:
+        raise ValueError("t1 and t3s must be (B, N), B >= 1, child0 (N,)")
+    if max_n.numel() != B or max_bits.numel() != B:
+        raise ValueError("max_n and max_bits need one entry per stream")
+    if N >= MAX_CELLS:
+        raise ValueError("geometry beyond the machines' packing (2^29 cells)")
+    lip_cap, lis_cap, lsp_cap = caps
+    if lip0.numel() > lip_cap or lis0.numel() > lis_cap:
+        raise ValueError("initial queues exceed their capacities")
+    if dev.type == "cpu":
+        return _encode_machine_batch_plain(
+            t1, t3s, child0, lip0, lis0, w, max_n, max_bits, caps, cap_words,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .. import _build
+
+    lib = _build.load("spiht_encode")
+    lip, lis, lsp = (
+        torch.empty(B, max(cap, 1), dtype=torch.int32, device=dev)
+        for cap in caps
+    )
+    words = torch.empty(B, cap_words, dtype=torch.int32, device=dev)
+    stat = torch.empty(B, STAT_LEN, dtype=torch.int32, device=dev)
+    rc = lib.spiht_encode_batch_launch(
+        B, t1.data_ptr(), t3s.data_ptr(), child0.data_ptr(),
+        lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), N, w,
+        max_n.data_ptr(), max_bits.data_ptr(), lip.data_ptr(), lip_cap,
+        lis.data_ptr(), lis_cap, lsp.data_ptr(), lsp_cap, words.data_ptr(),
+        cap_words, stat.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"spiht_encode_batch launch failed: CUDA error {rc}")
+    encode_machine_batch.launches += 1
+    return words, stat
+
+
+encode_machine_batch.launches = 0
+
+
 def machine_args(arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int):
     """``encode_machine``'s arguments for an int32 (c, h, w) array on its
     device: the tables, max_n, the budget clamped to a buffer sized from
@@ -313,6 +417,29 @@ def machine_args(arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int):
             machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
 
 
+def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
+    """``encode_machine_batch``'s arguments for an int32 (B, c, h, w) batch
+    on its device and B budgets: the tables, the per-stream max_n, the
+    budgets as an int32 tensor, the queue capacities, and one word buffer
+    size for every stream, sized from the largest budget (as
+    ``pallas_encode_batch`` sizes it)."""
+    if arrs.dtype != torch.int32 or arrs.dim() != 4:
+        raise ValueError("arrs must be an int32 (B, c, h, w) tensor")
+    B, c, h, w = arrs.shape
+    check_geometry(c, h, w)
+    mbs = [min(int(m), 2**31 - 2) for m in max_bits]
+    if len(mbs) != B or min(mbs, default=0) < 0:
+        raise ValueError(f"need {B} budgets >= 0, got {list(max_bits)}")
+    arrs = arrs.contiguous()
+    cap_words = cap_words_for(c, h, w, max(mbs, default=0))
+    tabs = machine_tables(c, h, w, ll_h, ll_w, arrs.device)
+    t1, t3s = encode_tables(arrs, ll_h, ll_w)
+    return (t1, t3s, tabs["child0"], tabs["lip0"], tabs["lis0"], w,
+            device_max_n(arrs),
+            torch.tensor(mbs, dtype=torch.int32).to(arrs.device),
+            machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
+
+
 def encode_coeffs(
     arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2
 ):
@@ -326,6 +453,18 @@ def encode_coeffs(
     return words, stat, args[6]
 
 
+def encode_coeffs_batch(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
+    """Encode an int32 (B, c, h, w) batch on its device in one launch of
+    kernel B4, with one budget per stream (a list of B ints).
+
+    Returns (words int32 (B, cap_words), stat (B, STAT_LEN), max_n (B,)),
+    all on the batch's device; nothing is read back.
+    """
+    args = batch_machine_args(arrs, ll_h, ll_w, max_bits)
+    words, stat = encode_machine_batch(*args)
+    return words, stat, args[6]
+
+
 def stream_bytes(words: torch.Tensor, total: int) -> bytes:
     """The first ``total`` bits of an int32 word buffer, as bytes."""
     nw = (total + 31) // 32
@@ -333,16 +472,41 @@ def stream_bytes(words: torch.Tensor, total: int) -> bytes:
     return raw[: (total + 7) // 8].tobytes()
 
 
+def batch_stream_bytes(words: torch.Tensor, totals) -> list:
+    """Stream b's first ``totals[b]`` bits of a (B, cap_words) int32 word
+    buffer, as bytes, for every b (one copy to the host)."""
+    nw = (max(totals, default=0) + 31) // 32
+    raw = words[:, :nw].cpu().numpy().view(np.uint8)
+    return [raw[b, : (t + 7) // 8].tobytes() for b, t in enumerate(totals)]
+
+
+def _as_coeffs(arr, dev: torch.device) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=dev, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(arr, dtype=np.int32), device=dev)
+
+
 def encode(
     arr, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2, device=None,
 ) -> Tuple[bytes, int]:
     """(bytes, max_n) of a (c, h, w) int32 coefficient array (numpy or
     tensor): the port's counterpart of ``pallas_encode``."""
-    dev = resolve_device(device)
-    if isinstance(arr, torch.Tensor):
-        arr = arr.to(device=dev, dtype=torch.int32)
-    else:
-        arr = torch.as_tensor(np.asarray(arr, dtype=np.int32), device=dev)
+    arr = _as_coeffs(arr, resolve_device(device))
     words, stat, max_n = encode_coeffs(arr, ll_h, ll_w, max_bits)
     total = check_stat(stat, "spiht_encode")[0]
     return stream_bytes(words, total), int(max_n)
+
+
+def encode_batch(
+    arrs, ll_h: int, ll_w: int, max_bits=2**31 - 2, device=None,
+) -> list:
+    """[(bytes, max_n)] of a (B, c, h, w) int32 coefficient batch (numpy
+    or tensor), in one launch of kernel B4: the port's counterpart of
+    ``pallas_encode_batch``. ``max_bits`` is one budget for every stream
+    or a list of B."""
+    arrs = _as_coeffs(arrs, resolve_device(device))
+    B = arrs.shape[0] if arrs.dim() == 4 else 0
+    mbs = [max_bits] * B if np.isscalar(max_bits) else list(max_bits)
+    words, stat, max_ns = encode_coeffs_batch(arrs, ll_h, ll_w, mbs)
+    totals = [row[0] for row in check_stat(stat, "spiht_encode_batch")]
+    return list(zip(batch_stream_bytes(words, totals), max_ns.tolist()))

@@ -1,6 +1,7 @@
 """The stream's starting bit plane ``max_n`` on the device, the port of
 ``spiht_tpu/codec/device_encoder.py:638-683`` (``_max_n_thresholds``,
-``device_max_n``).
+``device_max_n``), and of its per-image ``jax.vmap`` over a batch
+(``jax_transform.py:591``).
 
 The reference computes ``(max as f32).log2() as u8``. Here the abs max is
 cast to float32 (round to nearest, as the host cast does), its exponent is
@@ -40,9 +41,11 @@ def max_n_thresholds() -> tuple:
 
 
 def device_max_n(arr: torch.Tensor) -> torch.Tensor:
-    """max_n of an int32 coefficient array as a 0-d int32 tensor on the
-    array's device, bit-exact with ``oracle.compute_max_n``."""
-    m = torch.abs(arr).max().to(torch.int32)
+    """max_n of an int32 coefficient array (..., c, h, w), one per array
+    over its last three dims (a 0-d tensor for one (c, h, w) array, (B,)
+    for a batch), int32 on the array's device, bit-exact with
+    ``oracle.compute_max_n``. No host sync."""
+    m = torch.abs(arr).amax(dim=(-3, -2, -1)).to(torch.int32)
     bits = m.to(torch.float32).view(torch.int32)
     e = ((bits >> 23) & 0xFF) - 127
     m23 = bits & 0x7FFFFF

@@ -1,6 +1,8 @@
 // Shared pieces of the SPIHT bit machines (spiht_encode.cu, spiht_decode.cu).
 //
-// Each kernel is one thread block per stream. The list machine's decisions
+// Each kernel is one thread block per stream (the batched kernels B4, B5 and
+// batched B3 launch one block per stream of the batch, blockIdx.x being the
+// stream). The list machine's decisions
 // run in warp 0; all threads of the block first gather what the next chunk
 // of queue entries will need into shared memory, so warp 0 decides from
 // shared memory instead of waiting on L2 once per entry. Control flow
@@ -126,3 +128,7 @@ SPIHT_HD int32_t commit_mag(int n) {
 }
 
 SPIHT_HD int32_t min32(int32_t a, int32_t b) { return a < b ? a : b; }
+
+// Row stride of a per-stream queue of capacity `cap` in a batched launch
+// (every row holds at least one entry; the wrappers allocate the same).
+SPIHT_HD int64_t queue_stride(int32_t cap) { return cap > 0 ? cap : 1; }

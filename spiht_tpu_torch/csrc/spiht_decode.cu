@@ -1,4 +1,5 @@
-// SPIHT decode machines (kernels B2 and B3).
+// SPIHT decode machines (kernels B2 and B3; at the end, kernel B5 and the
+// batched launch of B3 run them over a batch of streams).
 //
 //   spiht_decode_lsp  replaces spiht_tpu/codec/pallas_decoder.py:_hybrid_fn,
 //                     the decoder of duplicate-free geometries. It writes
@@ -399,6 +400,94 @@ out:
   a.stat[5] = st.cur;
 }
 
+// Load the initial queues (B3: zero rec and the claims), by every thread
+// of the block; a barrier must follow before the machine starts.
+template <bool SEQ>
+SPIHT_HD void dec_prologue(const DecArgs& a, const int32_t* lip0,
+                           const int32_t* lis0, int32_t n_rec, int tid,
+                           int nt) {
+  for (int32_t i = tid; i < a.n_lip0; i += nt) a.lip[i] = lip0[i];
+  for (int32_t i = tid; i < a.n_lis0; i += nt) a.lis[i] = lis0[i];
+  if (SEQ) {
+    for (int32_t i = tid; i < n_rec; i += nt) {
+      a.rec[i] = 0;
+      a.last[i] = 0;
+    }
+  }
+}
+
+// ---- kernel B5 and batched B3: B streams in one launch ----
+//
+// B5 replaces spiht_tpu/codec/pallas_decoder.py:_interleaved_fn, which
+// stepped B chains of the B2 machine in lockstep on one TPU core. Odd-LL
+// batches, which that kernel refuses, went through a lax.map of
+// pallas_decoder.py:_seq_fn one stream after another; the batched B3
+// launch runs them all at once. Each block is one stream: block b builds
+// stream b's DecArgs (dec_stream_args) and runs decode_machine<SEQ>, so
+// every stream decodes exactly as B2 or B3 decodes it alone. Each stream
+// stops at its own nbits: the word rows are zero-padded to the longest
+// stream, and nothing past a stream's length is read.
+//
+// What bounds them on an H100: per stream the same dependent chain of bit
+// decisions as B2/B3; across streams, how many blocks the SMs hold at once
+// (DecShared is about 5 KB, so the 256-thread block size, eight blocks an
+// SM, is the limit: up to ~1000 streams in one wave). The design spreads
+// the streams over the SMs and shares the geometry tables through L2.
+struct DecBatch {
+  const uint32_t* words;  // (B, cap_words), zero-padded rows
+  int32_t cap_words;
+  const int32_t* nbits;   // (B) each stream's length in bits
+  const int32_t* max_n;   // (B)
+  const int32_t* geo;     // (n_cells), shared by every stream
+  const int32_t* lip0;    // shared initial queues
+  int32_t n_lip0;
+  const int32_t* lis0;
+  int32_t n_lis0;
+  int32_t n_cells;
+  int32_t w;
+  int32_t* lip;           // (B, queue_stride(lip_cap))
+  int32_t lip_cap;
+  int32_t* lis;           // (B, queue_stride(lis_cap))
+  int32_t lis_cap;
+  int32_t* lsp;           // (B, queue_stride(lsp_cap))
+  int32_t lsp_cap;
+  int32_t* lsp_val;       // B5: (B, queue_stride(lsp_cap)); B3: null
+  int32_t* rec;           // B3: (B, n_cells); B5: null
+  uint64_t* last;         // B3: (B, n_cells); B5: null
+  int32_t* stat;          // (B, SPIHT_STAT_LEN)
+};
+
+// Stream b's arguments. Offsets are 64-bit (B * n_cells passes 2^31 at
+// large batches); nbits is held to [0, the row's bits], so a stream never
+// reads past its own row.
+SPIHT_HD DecArgs dec_stream_args(const DecBatch& g, int32_t b) {
+  const int64_t cells = (int64_t)b * g.n_cells;
+  const int64_t lsp_row = b * queue_stride(g.lsp_cap);
+  const int64_t cap_bits = (int64_t)g.cap_words * 32, nb = g.nbits[b];
+  return DecArgs{
+      g.words + (int64_t)b * g.cap_words,
+      (int32_t)(nb < 0 ? 0 : nb < cap_bits ? nb : cap_bits),
+      g.max_n[b], g.geo, g.n_lip0, g.n_lis0, g.w,
+      g.lip + b * queue_stride(g.lip_cap), g.lip_cap,
+      g.lis + b * queue_stride(g.lis_cap), g.lis_cap,
+      g.lsp + lsp_row, g.lsp_cap,
+      g.lsp_val ? g.lsp_val + lsp_row : nullptr,
+      g.rec ? g.rec + cells : nullptr,
+      g.last ? g.last + cells : nullptr,
+      g.stat + (int64_t)b * SPIHT_STAT_LEN};
+}
+
+// Stream b's whole block: prologue, barrier, machine (run by the kernel
+// with b = blockIdx.x, and by the host build once per stream).
+template <bool SEQ>
+SPIHT_HD void decode_stream(const DecBatch& g, int32_t b, DecShared& sh,
+                            int tid, int nt) {
+  const DecArgs a = dec_stream_args(g, b);
+  dec_prologue<SEQ>(a, g.lip0, g.lis0, g.n_cells, tid, nt);
+  SPIHT_SYNC();
+  decode_machine<SEQ>(a, sh, tid, nt);
+}
+
 #ifdef __CUDACC__
 
 #include <cuda_runtime.h>
@@ -408,17 +497,16 @@ __global__ void __launch_bounds__(SPIHT_THREADS)
 spiht_decode_kernel(DecArgs a, const int32_t* __restrict__ lip0,
                     const int32_t* __restrict__ lis0, int32_t n_rec) {
   __shared__ DecShared sh;
-  // prologue: load the initial queues (B3: zero rec and the claims)
-  for (int32_t i = threadIdx.x; i < a.n_lip0; i += blockDim.x) a.lip[i] = lip0[i];
-  for (int32_t i = threadIdx.x; i < a.n_lis0; i += blockDim.x) a.lis[i] = lis0[i];
-  if (SEQ) {
-    for (int32_t i = threadIdx.x; i < n_rec; i += blockDim.x) {
-      a.rec[i] = 0;
-      a.last[i] = 0;
-    }
-  }
+  dec_prologue<SEQ>(a, lip0, lis0, n_rec, threadIdx.x, blockDim.x);
   __syncthreads();
   decode_machine<SEQ>(a, sh, threadIdx.x, blockDim.x);
+}
+
+template <bool SEQ>
+__global__ void __launch_bounds__(SPIHT_THREADS)
+spiht_decode_batch_kernel(DecBatch g) {
+  __shared__ DecShared sh;
+  decode_stream<SEQ>(g, blockIdx.x, sh, threadIdx.x, blockDim.x);
 }
 
 extern "C" int spiht_decode_lsp_launch(
@@ -444,6 +532,28 @@ extern "C" int spiht_decode_seq_launch(
             lis, lis_cap, lsp, lsp_cap, nullptr, rec, last, stat};
   spiht_decode_kernel<true><<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(
       a, lip0, lis0, n_rec);
+  return (int)cudaGetLastError();
+}
+
+// B5 (seq = 0: lsp_val set, rec and last null) or batched B3 (seq = 1:
+// rec and last set, lsp_val null), one block per stream.
+extern "C" int spiht_decode_batch_launch(
+    int32_t seq, int32_t n_streams, const uint32_t* words, int32_t cap_words,
+    const int32_t* nbits, const int32_t* max_n, const int32_t* geo,
+    const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
+    int32_t n_cells, int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis,
+    int32_t lis_cap, int32_t* lsp, int32_t lsp_cap, int32_t* lsp_val,
+    int32_t* rec, uint64_t* last, int32_t* stat, void* stream) {
+  DecBatch g{words, cap_words, nbits, max_n, geo, lip0, n_lip0, lis0,
+             n_lis0, n_cells, w, lip, lip_cap, lis, lis_cap, lsp, lsp_cap,
+             lsp_val, rec, last, stat};
+  if (seq) {
+    spiht_decode_batch_kernel<true><<<n_streams, SPIHT_THREADS, 0,
+                                      (cudaStream_t)stream>>>(g);
+  } else {
+    spiht_decode_batch_kernel<false><<<n_streams, SPIHT_THREADS, 0,
+                                       (cudaStream_t)stream>>>(g);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-// SPIHT encode machine (kernel B1).
+// SPIHT encode machine (kernel B1; kernel B4 at the end runs it over a batch).
 //
-// Replaces spiht_tpu/codec/pallas_encoder.py:_hybrid_fn (all three of its
+// B1 replaces spiht_tpu/codec/pallas_encoder.py:_hybrid_fn (all three of its
 // layouts: standard, compact, compact_hbm, which were VMEM economies; one
 // kernel computes their common function here).
 //
@@ -380,6 +380,81 @@ out:
   a.stat[5] = 0;
 }
 
+// Zero the stream and load the initial queues, by every thread of the
+// block; a barrier must follow before the machine starts.
+SPIHT_HD void enc_prologue(const EncArgs& a, const int32_t* lip0,
+                           const int32_t* lis0, int32_t cap_words, int tid,
+                           int nt) {
+  for (int32_t i = tid; i < cap_words; i += nt) a.words[i] = 0u;
+  for (int32_t i = tid; i < a.n_lip0; i += nt) a.lip[i] = lip0[i];
+  for (int32_t i = tid; i < a.n_lis0; i += nt) a.lis[i] = lis0[i];
+}
+
+// ---- kernel B4: B streams in one launch, one block per stream ----
+//
+// Replaces spiht_tpu/codec/pallas_encoder.py:_interleaved_fn, which stepped
+// B chains in lockstep on one TPU core, finished chains inert. Here each
+// chain is one block of the grid: block b builds stream b's EncArgs
+// (enc_stream_args) and runs the machine above, so every stream is
+// byte-identical to B1's on the same coefficients.
+//
+// What bounds it on an H100: per stream the same dependent chain as B1;
+// across streams, how many blocks the SMs hold at once. EncShared is about
+// 24 KB, so eight blocks of SPIHT_THREADS fit on an SM and up to ~1000
+// streams run in one wave on the 132 SMs. The design adds nothing to the
+// machine: it spreads the streams over the SMs, with the geometry tables
+// (child0, the initial queues) shared and read through L2.
+struct EncBatch {
+  const int32_t* t1;      // (B, n_cells)
+  const int32_t* t3s;     // (B, n_cells)
+  const int32_t* child0;  // (n_cells), shared by every stream
+  const int32_t* lip0;    // shared initial queues
+  int32_t n_lip0;
+  const int32_t* lis0;
+  int32_t n_lis0;
+  int32_t n_cells;
+  int32_t w;
+  const int32_t* max_n;     // (B), computed on the device
+  const int32_t* max_bits;  // (B), the callers' budgets, >= 0
+  int32_t* lip;             // (B, queue_stride(lip_cap))
+  int32_t lip_cap;
+  int32_t* lis;             // (B, queue_stride(lis_cap))
+  int32_t lis_cap;
+  int32_t* lsp;             // (B, queue_stride(lsp_cap))
+  int32_t lsp_cap;
+  uint32_t* words;          // (B, cap_words), one buffer size for all
+  int32_t cap_words;
+  int32_t* stat;            // (B, SPIHT_STAT_LEN)
+};
+
+// Stream b's arguments. Offsets are 64-bit (B * n_cells passes 2^31 at
+// large batches). The budget is clamped to the shared word buffer, and
+// `capped` says whether the clamp cut it: the overflow rule is per stream,
+// as it was per chain on the TPU.
+SPIHT_HD EncArgs enc_stream_args(const EncBatch& g, int32_t b) {
+  const int64_t cells = (int64_t)b * g.n_cells;
+  const int64_t cap_bits = (int64_t)g.cap_words * 32;
+  const int64_t mb = g.max_bits[b];
+  return EncArgs{g.t1 + cells, g.t3s + cells, g.child0, g.n_lip0, g.n_lis0,
+                 g.w, g.max_n[b], (int32_t)(mb < cap_bits ? mb : cap_bits),
+                 (int32_t)(mb > cap_bits),
+                 g.lip + b * queue_stride(g.lip_cap), g.lip_cap,
+                 g.lis + b * queue_stride(g.lis_cap), g.lis_cap,
+                 g.lsp + b * queue_stride(g.lsp_cap), g.lsp_cap,
+                 g.words + (int64_t)b * g.cap_words,
+                 g.stat + (int64_t)b * SPIHT_STAT_LEN};
+}
+
+// Stream b's whole block: prologue, barrier, machine (run by the kernel
+// with b = blockIdx.x, and by the host build once per stream).
+SPIHT_HD void encode_stream(const EncBatch& g, int32_t b, EncShared& sh,
+                            int tid, int nt) {
+  const EncArgs a = enc_stream_args(g, b);
+  enc_prologue(a, g.lip0, g.lis0, g.cap_words, tid, nt);
+  SPIHT_SYNC();
+  encode_machine(a, sh, tid, nt);
+}
+
 #ifdef __CUDACC__
 
 #include <cuda_runtime.h>
@@ -389,13 +464,16 @@ spiht_encode_kernel(EncArgs a, const int32_t* __restrict__ max_n,
                     const int32_t* __restrict__ lip0,
                     const int32_t* __restrict__ lis0, int32_t cap_words) {
   __shared__ EncShared sh;
-  // prologue: zero the stream, load the initial queues
-  for (int32_t i = threadIdx.x; i < cap_words; i += blockDim.x) a.words[i] = 0u;
-  for (int32_t i = threadIdx.x; i < a.n_lip0; i += blockDim.x) a.lip[i] = lip0[i];
-  for (int32_t i = threadIdx.x; i < a.n_lis0; i += blockDim.x) a.lis[i] = lis0[i];
+  enc_prologue(a, lip0, lis0, cap_words, threadIdx.x, blockDim.x);
   a.max_n = *max_n;  // computed on the device: read here, no host sync
   __syncthreads();
   encode_machine(a, sh, threadIdx.x, blockDim.x);
+}
+
+__global__ void __launch_bounds__(SPIHT_THREADS)
+spiht_encode_batch_kernel(EncBatch g) {
+  __shared__ EncShared sh;
+  encode_stream(g, blockIdx.x, sh, threadIdx.x, blockDim.x);
 }
 
 extern "C" int spiht_encode_launch(
@@ -409,6 +487,22 @@ extern "C" int spiht_encode_launch(
             lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
   spiht_encode_kernel<<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(
       a, max_n, lip0, lis0, cap_words);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spiht_encode_batch_launch(
+    int32_t n_streams, const int32_t* t1, const int32_t* t3s,
+    const int32_t* child0, const int32_t* lip0, int32_t n_lip0,
+    const int32_t* lis0, int32_t n_lis0, int32_t n_cells, int32_t w,
+    const int32_t* max_n, const int32_t* max_bits, int32_t* lip,
+    int32_t lip_cap, int32_t* lis, int32_t lis_cap, int32_t* lsp,
+    int32_t lsp_cap, uint32_t* words, int32_t cap_words, int32_t* stat,
+    void* stream) {
+  EncBatch g{t1, t3s, child0, lip0, n_lip0, lis0, n_lis0, n_cells, w,
+             max_n, max_bits, lip, lip_cap, lis, lis_cap, lsp, lsp_cap,
+             words, cap_words, stat};
+  spiht_encode_batch_kernel<<<n_streams, SPIHT_THREADS, 0,
+                              (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 

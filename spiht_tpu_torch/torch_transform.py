@@ -10,6 +10,13 @@
 * ``encode_pipeline_fn`` / ``decode_pipeline_fn`` (:343-389, :242-293): the
   whole encode (image -> stream words) and decode (stream words -> image)
   on one device, through the bit-machine kernels.
+* ``encode_pipeline_batch_fn`` / ``decode_pipeline_batch_fn`` (:535-662,
+  :393-500): the same over a (B, C, H, W) batch of one shape, through the
+  batched kernels (B4; B5 or batched B3), one launch per direction.
+
+``forward`` and ``inverse`` take leading batch dims: every step is
+elementwise or works along H and W, so no value depends on the batch and
+each image of a batch gets exactly what it gets alone.
 
 The working dtype defaults to float64 on every device, so streams equal
 the host float64 path. float32 is accepted with the JAX float32 path's
@@ -22,8 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .codec.decoder import decode_coeffs
-from .codec.encoder import encode_coeffs
+from .codec.decoder import decode_coeffs, decode_coeffs_batch
+from .codec.encoder import encode_coeffs, encode_coeffs_batch
 from .color import torch_models
 from .settings import SpihtSettings
 from .wavelets import dwt
@@ -34,6 +41,8 @@ __all__ = [
     "inverse",
     "encode_pipeline_fn",
     "decode_pipeline_fn",
+    "encode_pipeline_batch_fn",
+    "decode_pipeline_batch_fn",
 ]
 
 
@@ -47,8 +56,8 @@ def forward(
     level: Optional[int] = None,
     dtype: torch.dtype = torch.float64,
 ) -> Tuple[torch.Tensor, int, int]:
-    """(C, H, W) image -> (int32 packed coefficients, ll_h, ll_w), on the
-    image's device."""
+    """(..., C, H, W) image(s) -> (int32 packed coefficients (..., C,
+    enc_h, enc_w), ll_h, ll_w), on the images' device."""
     image = image.to(dtype)
     if settings.color_model is not None:
         image = torch_models.convert(image, "RGB", settings.color_model)
@@ -71,7 +80,8 @@ def inverse(
     dtype: torch.dtype = torch.float64,
     as_uint8: bool = False,
 ) -> torch.Tensor:
-    """Packed (C, enc_h, enc_w) coefficients -> image on their device."""
+    """Packed (..., C, enc_h, enc_w) coefficients -> image(s) on their
+    device."""
     slices, _, _ = get_slices_and_h_w(h, w, settings, level)
     rec = rec_arr.to(dtype)
     if settings.per_channel_quant_scales is not None:
@@ -124,6 +134,46 @@ def decode_pipeline_fn(
 
     def fn(words: torch.Tensor, nbits: int, max_n: int):
         rec = decode_coeffs(words, nbits, max_n, c, enc_h, enc_w, ll_h, ll_w)
+        return inverse(rec, h, w, level, settings, dtype, as_uint8)
+
+    return fn
+
+
+def encode_pipeline_batch_fn(
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+):
+    """fn(images (B,C,H,W) tensor, max_bits: B ints) -> (words (B,
+    cap_words), stat (B, STAT_LEN), max_n (B,)), all on the images'
+    device: the batched transform -> per-image max_n -> maps -> kernel B4.
+    Nothing is read back to the host."""
+
+    def fn(images: torch.Tensor, max_bits):
+        arr, ll_h, ll_w = forward(images, settings, level, dtype)
+        return encode_coeffs_batch(arr, ll_h, ll_w, max_bits)
+
+    return fn
+
+
+def decode_pipeline_batch_fn(
+    settings: SpihtSettings,
+    h: int,
+    w: int,
+    level: Optional[int],
+    c: int,
+    dtype: torch.dtype = torch.float64,
+    as_uint8: bool = False,
+):
+    """fn(words int32 (B, cap_words), nbits: B ints, max_n: B ints) ->
+    images (B, ...) on the words' device: kernel B5 (+ one rec scatter) or
+    batched B3 -> dequantize -> ``waverec2`` -> inverse colour."""
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+
+    def fn(words: torch.Tensor, nbits, max_ns):
+        rec = decode_coeffs_batch(words, nbits, max_ns, c, enc_h, enc_w,
+                                  ll_h, ll_w)
         return inverse(rec, h, w, level, settings, dtype, as_uint8)
 
     return fn

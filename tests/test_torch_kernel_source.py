@@ -7,6 +7,10 @@ launch behind ``#ifdef __CUDACC__``. This test compiles them with g++, runs
 each machine with 64 host threads as the block (std::barrier for
 ``__syncthreads``, warp 0's ballot/shuffle emulated across its 32 threads)
 and holds words, LSP queues, rec and stat equal to the plain versions'.
+The batched kernels' per-stream setup (``encode_stream``,
+``decode_stream``: stream offsets, per-stream scalars, the capacity rule)
+runs the same way, one host block per stream, against the batched plain
+versions.
 """
 
 import ctypes
@@ -98,6 +102,39 @@ extern "C" void host_decode(int nt, int seq, const uint32_t* words,
     if (seq) decode_machine<true>(a, *sh, tid, n);
     else decode_machine<false>(a, *sh, tid, n);
   });
+}
+extern "C" void host_encode_batch(int nt, int32_t n_streams,
+    const int32_t* t1, const int32_t* t3s, const int32_t* child0,
+    const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
+    int32_t n_cells, int32_t w, const int32_t* max_n, const int32_t* max_bits,
+    int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
+    int32_t* lsp, int32_t lsp_cap, uint32_t* words, int32_t cap_words,
+    int32_t* stat) {
+  EncBatch g{t1, t3s, child0, lip0, n_lip0, lis0, n_lis0, n_cells, w,
+             max_n, max_bits, lip, lip_cap, lis, lis_cap, lsp, lsp_cap,
+             words, cap_words, stat};
+  auto sh = std::make_unique<EncShared>();
+  for (int32_t b = 0; b < n_streams; ++b)
+    run_block(nt, [&](int tid, int n) { encode_stream(g, b, *sh, tid, n); });
+}
+extern "C" void host_decode_batch(int nt, int seq, int32_t n_streams,
+    const uint32_t* words, int32_t cap_words, const int32_t* nbits,
+    const int32_t* max_n, const int32_t* geo, const int32_t* lip0,
+    int32_t n_lip0, const int32_t* lis0, int32_t n_lis0, int32_t n_cells,
+    int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
+    int32_t* lsp, int32_t lsp_cap, int32_t* lsp_val, int32_t* rec,
+    int32_t* stat) {
+  std::vector<uint64_t> last(seq ? (size_t)n_streams * n_cells : 0);
+  DecBatch g{words, cap_words, nbits, max_n, geo, lip0, n_lip0, lis0,
+             n_lis0, n_cells, w, lip, lip_cap, lis, lis_cap, lsp, lsp_cap,
+             seq ? nullptr : lsp_val, seq ? rec : nullptr,
+             seq ? last.data() : nullptr, stat};
+  auto sh = std::make_unique<DecShared>();
+  for (int32_t b = 0; b < n_streams; ++b)
+    run_block(nt, [&](int tid, int n) {
+      if (seq) decode_stream<true>(g, b, *sh, tid, n);
+      else decode_stream<false>(g, b, *sh, tid, n);
+    });
 }
 """
 
@@ -193,3 +230,72 @@ def test_kernel_sources_equal_plain_versions(host_lib, shape, ll):
         _host_encode(host_lib, arr, *ll, mb)
     for nbytes in sorted({0, 1, 7, len(full) // 3, len(full) - 1, len(full)}):
         _host_decode(host_lib, full[:nbytes], max_n, *shape, *ll)
+
+
+@pytest.mark.parametrize(
+    "shape,ll",
+    [
+        ((3, 24, 32), (6, 8)),  # B5
+        ((3, 19, 19), (5, 5)),  # odd LL: batched B3
+    ],
+)
+def test_batched_setup_equals_plain_versions(host_lib, shape, ll):
+    """Three streams of different budgets (one cut by the shared buffer,
+    which sets its capacity error) and different lengths in one batch."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    arrs = torch.as_tensor(np.stack([
+        (rng.standard_normal(shape) * s).astype(np.int32)
+        for s in (900, 3, 40000)
+    ]))
+    args = list(encoder.batch_machine_args(arrs, *ll, [333, 7, 2100]))
+    t1, t3s, child0, lip0, lis0, w, max_n, max_bits, caps, cw = args
+    args[7] = max_bits = torch.tensor([333, 7, 2**31 - 2], dtype=torch.int32)
+    B, N = t1.shape
+    lip, lis, lsp = (torch.empty(B, max(c, 1), dtype=torch.int32)
+                     for c in caps)
+    words = torch.empty(B, cw, dtype=torch.int32)
+    stat = torch.empty(B, encoder.STAT_LEN, dtype=torch.int32)
+    host_lib.host_encode_batch(
+        ctypes.c_int(THREADS), _i(B), _p(t1), _p(t3s), _p(child0), _p(lip0),
+        _i(lip0.numel()), _p(lis0), _i(lis0.numel()), _i(N), _i(w),
+        _p(max_n), _p(max_bits), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
+        _p(lsp), _i(caps[2]), _p(words), _i(cw), _p(stat),
+    )
+    pw, ps = encoder.encode_machine_batch(*args)
+    assert stat.tolist() == ps.tolist()
+    assert ps[:, 1].tolist() == [0, 0, 1]  # the third budget exceeds cw*32
+    assert torch.equal(words, pw)
+
+    full = [
+        japi.encode(a, *ll, 2**31 - 2) for a in arrs.numpy()
+    ]
+    datas = [full[0][0][:7], full[1][0], full[2][0][: len(full[2][0]) // 2]]
+    dw, nbits = decoder.words_batch(datas, "cpu")
+    dargs = decoder.batch_machine_args(dw, nbits, [m for _, m in full],
+                                       *shape, *ll)
+    _, nb_t, mn_t, geo, lip0, lis0, _, caps = dargs
+    seq = decoder.has_duplicate_parents(*shape[1:], *ll)
+    lip, lis, lsp, lsp_val = (
+        torch.empty(B, max(c, 1), dtype=torch.int32)
+        for c in (caps[0], caps[1], caps[2], caps[2])
+    )
+    rec = torch.empty(B, N, dtype=torch.int32)
+    stat = torch.empty(B, encoder.STAT_LEN, dtype=torch.int32)
+    host_lib.host_decode_batch(
+        ctypes.c_int(THREADS), ctypes.c_int(int(seq)), _i(B), _p(dw),
+        _i(dw.shape[1]), _p(nb_t), _p(mn_t), _p(geo), _p(lip0),
+        _i(lip0.numel()), _p(lis0), _i(lis0.numel()), _i(N), _i(w), _p(lip),
+        _i(caps[0]), _p(lis), _i(caps[1]), _p(lsp), _i(caps[2]),
+        _p(lsp_val), _p(rec), _p(stat),
+    )
+    if seq:
+        prec, ps = decoder.decode_seq_batch(*dargs)
+        assert stat.tolist() == ps.tolist()
+        assert torch.equal(rec, prec)
+        return
+    pl, pv, ps = decoder.decode_lsp_batch(*dargs)
+    assert stat.tolist() == ps.tolist()
+    for b in range(B):
+        live = int(ps[b, 0])
+        assert torch.equal(lsp[b, :live], pl[b, :live])
+        assert torch.equal(lsp_val[b, :live], pv[b, :live])
