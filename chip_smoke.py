@@ -26,6 +26,16 @@ Phases:
      one bit short of 1 bpp
   9. configuration B batched (odd LL): 8 images at 1.0 bpp
   10. throughput at configuration A, batches of 16 and 128 images
+  11. kernels B2-log (the metadata trace's event log), B6 (fused quantize)
+      and B7 (sequential encoder) vs their plain versions at small shapes,
+      with budget cuts and byte prefixes
+  12. the metadata trace at A, 1.0 bpp (a 262,145 x 8 trace): equal to
+      the plain version's and to the native scheduler's, its rec to the
+      on-device decode's; B7 encoding A at 1.0 bpp, equal to B1
+  13. the host-scheduled batch codec at A, 16 images: encode_images on the
+      B6 path (float32) and on the budget path, streams equal to
+      encode_images_device's; decode_images equal to decode_images_device;
+      images/s of both codecs
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -42,9 +53,11 @@ import torch
 
 import spiht_tpu_torch as pt
 from spiht_tpu_torch import _build
-from spiht_tpu_torch.codec import decoder, encoder
-from spiht_tpu_torch.torch_transform import forward
-from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
+from spiht_tpu_torch.codec import decoder, encoder, meta_expand
+from spiht_tpu_torch.native import runtime as native
+from spiht_tpu_torch.ops.quantize_kernels import quantize_compact
+from spiht_tpu_torch.torch_transform import _scaled_coeffs, forward
+from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W), the bound's denominators: the
 # HBM rate, and the float32 rate outside the tensor cores, the nearest
@@ -100,6 +113,22 @@ KERNELS = {
         wrapper=decoder.decode_lsp_batch,
         source="spiht_tpu_torch/csrc/spiht_decode.cu",
         replaces="spiht_tpu/codec/pallas_decoder.py:1422",
+    ),
+    # B2's with_log variant (the metadata trace's event log)
+    "spiht_decode_lsp_log": dict(
+        wrapper=decoder.decode_lsp_log,
+        source="spiht_tpu_torch/csrc/spiht_decode.cu",
+        replaces="spiht_tpu/codec/pallas_decoder.py:571",
+    ),
+    "spiht_quantize_compact": dict(
+        wrapper=quantize_compact,
+        source="spiht_tpu_torch/csrc/spiht_quantize.cu",
+        replaces="spiht_tpu/ops/pallas_kernels.py:36",
+    ),
+    "spiht_encode_seq": dict(
+        wrapper=encoder.encode_machine_seq,
+        source="spiht_tpu_torch/csrc/spiht_encode.cu",
+        replaces="spiht_tpu/codec/pallas_encoder.py:221",
     ),
 }
 FULL = 2**31 - 2
@@ -347,6 +376,11 @@ def bound_ms(name, stats):
     (OPS_PER_BIT for each stream bit) over the scalar rate. A batch's
     work is the sum of its streams'."""
     args = stats["args"]
+    if name == "spiht_quantize_compact":
+        # 4 bytes read, 4 + 2 + 1 written per element; a few integer
+        # operations per element, far below the byte time
+        t_bytes = args[0].numel() * 11 / HBM_BYTES_PER_S * 1e3
+        return t_bytes, "bytes"
     rows = stats["stat"] if isinstance(stats["stat"][0], list) else [
         stats["stat"]]
     nbytes = nbits = 0
@@ -364,6 +398,8 @@ def bound_ms(name, stats):
             # LSP words per commit (B2, B5) or rec written whole (B3)
             lsp = name.startswith("spiht_decode_lsp")
             out = 8 * s[0] if lsp else 4 * args[3].numel()
+            if name == "spiht_decode_lsp_log":  # and the nbits + 1 log words
+                out += 4 * (args[1] + 1)
             nbytes += (s[5] + 7) // 8 + n_init + out
             nbits += s[5]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -371,12 +407,19 @@ def bound_ms(name, stats):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernel(wrapper, args, reps=5):
-    """ms per launch by CUDA events over ``reps`` launches after a warm-up."""
-    wrapper(*args)
-    torch.cuda.synchronize()
+def time_kernel(wrapper, args, min_ms=50.0, max_reps=200):
+    """ms per launch by CUDA events over at least 5 launches after a
+    warm-up, more for a short kernel (enough for ~``min_ms`` in all, at
+    most ``max_reps``)."""
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    wrapper(*args)
+    e0.record()
+    wrapper(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    reps = min(max(5, int(min_ms / max(e0.elapsed_time(e1), 1e-3))),
+               max_reps)
     e0.record()
     for _ in range(reps):
         wrapper(*args)
@@ -578,6 +621,288 @@ def phase_throughput(ims16, mbs16, ers16, enc16, dec16):
                 device=DEV)))
 
 
+def cmp_decode_log(data, max_n, c, h, w, ll_h, ll_w, stats=None):
+    """B2-log on the card vs its plain version on the same stream: stat,
+    LSP queues and every event word exactly equal."""
+    words, nbits = decoder.words_tensor(data, DEV)
+    args = decoder.machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
+    kout = decoder.decode_lsp_log(*args)
+    torch.cuda.synchronize()
+    pout, plain_ms = timed(decoder.decode_lsp_log, *to_cpu(args))
+    ks = encoder.check_stat(kout[2], "spiht_decode_lsp_log")
+    check(ks == pout[2].tolist(), f"B2-log stat {ks} != plain")
+    for kq, pq in zip(kout[:2], pout[:2]):
+        check(torch.equal(kq[: ks[0]].cpu(), pq[: ks[0]]), "B2-log LSP queue")
+    err = max_abs(kout[3].cpu().numpy(), pout[3].numpy())
+    check(err == 0, "B2-log event log != plain event log")
+    if stats is not None:
+        stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
+    return kout
+
+
+def cmp_encode_seq(arr, ll_h, ll_w, max_bits, stats=None):
+    """B7 on the card vs its plain version and vs B1 on the same array:
+    words and stat exactly equal. Returns (bytes, max_n)."""
+    args = encoder.machine_args(arr, ll_h, ll_w, max_bits)
+    kw, ks = encoder.encode_machine_seq(*args)
+    bw, bs = encoder.encode_machine(*args)
+    torch.cuda.synchronize()
+    (pw, ps), plain_ms = timed(encoder.encode_machine_seq, *to_cpu(args))
+    ks = encoder.check_stat(ks, "spiht_encode_seq")
+    check(ks == ps.tolist() == bs.tolist(), f"B7 stat {ks} != plain or B1")
+    err = max_abs(kw.cpu().numpy().view(np.uint32), pw.numpy().view(np.uint32))
+    check(err == 0 and torch.equal(kw, bw), "B7 words != plain or B1 words")
+    if stats is not None:
+        stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
+    return encoder.stream_bytes(kw, ks[0]), int(args[6])
+
+
+def cmp_quantize(x, scale, stats=None):
+    """B6 on the card vs its plain version on the same float32 input: all
+    four outputs exactly equal."""
+    kout = quantize_compact(x, scale)
+    torch.cuda.synchronize()
+    pout, plain_ms = timed(quantize_compact, x.cpu(), scale)
+    err = max(max_abs(k.cpu().numpy(), p.numpy()) for k, p in zip(kout, pout))
+    check(err == 0, "B6 outputs != plain outputs")
+    if stats is not None:
+        stats.update(args=(x, scale), plain_ms=plain_ms, max_abs_err=err)
+    return kout
+
+
+def phase_new_kernels_small():
+    """Phase 11: B2-log, B7 and B6 vs their plain versions at small
+    shapes: B7 at budgets cut inside a symbol (and equal to B1), B2-log on
+    those streams and on byte prefixes of the full one, B6 with its
+    overflow flag set and clear."""
+    rng = np.random.default_rng(11)
+    arr, ll_h, ll_w = forward(
+        torch.as_tensor(image(1, (3, 64, 64)), device=DEV),
+        pt.SpihtSettings(), 3)
+    c, h, w = arr.shape
+    check(not decoder.has_duplicate_parents(h, w, ll_h, ll_w), "3x64x64 LL")
+    full, max_n = cmp_encode_seq(arr, ll_h, ll_w, FULL)
+    n_cmp = 1
+    for mb in (1, 2, 3, 64, 333, 1001, 4999, len(full) * 8 - 1):
+        data, _ = cmp_encode_seq(arr, ll_h, ll_w, mb)
+        cmp_decode_log(data, max_n, c, h, w, ll_h, ll_w)
+        n_cmp += 2
+    for cut in sorted({0, 1, 7, len(full) // 3, len(full) // 2, len(full)}):
+        cmp_decode_log(full[:cut], max_n, c, h, w, ll_h, ll_w)
+        n_cmp += 1
+    odd = torch.as_tensor(
+        (rng.standard_normal((3, 19, 19)) * 2000).astype(np.int32), device=DEV)
+    for mb in (FULL, 13, 222):
+        cmp_encode_seq(odd, 5, 5, mb)
+        n_cmp += 1
+    for spread, shape in ((3.0, (3, 64, 64)), (900.0, (3, 77, 77)),
+                          (40000.0, (5, 333))):
+        x = torch.as_tensor(
+            (rng.standard_normal(shape) * spread).astype(np.float32),
+            device=DEV)
+        out = cmp_quantize(x, 1.7)
+        check(bool(out[3]) == (spread > 10000), f"B6 overflow at {spread}")
+        n_cmp += 1
+    print(f"phase 11 ok: {n_cmp} exact comparisons of B2-log, B7 and B6 "
+          "with their plain versions (B7 also with B1)")
+
+
+def phase_metadata(im_a, er_a):
+    """Phase 12: the metadata trace at A (1.0 bpp) through the API on the
+    card, the counts set to 0 just before and read just after; equal to
+    the plain version's trace and to the native scheduler's, its rec to
+    the on-device decode's. Then B7 encodes A through the API."""
+    c, h, w = im_a.shape
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, CONFIG_A, None)
+    ll = (slices[0][1].stop, slices[0][2].stop)
+    geo = (c, enc_h, enc_w, *ll)
+    wire = slices_to_wire(slices)
+    data, mn = er_a.encoded_bytes, er_a.max_n
+    reset_counts()
+    rec, meta = pt.decode_with_metadata(data, mn, *geo, *wire, device=DEV)
+    torch.cuda.synchronize()
+    n = counts()
+    want = {k: 0 for k in n}
+    want["spiht_decode_lsp_log"] = 1
+    check(n == want, f"metadata trace: launches {n}, want {want}")
+    check(meta.shape == (len(data) * 8 + 1, 8), f"trace shape {meta.shape}")
+    (prec, pmeta), plain_trace_ms = timed(
+        pt.decode_with_metadata, data, mn, *geo, *wire, "cpu")
+    check(np.array_equal(rec, prec) and np.array_equal(meta, pmeta),
+          "trace on the card != the plain version's")
+    nrec, nmeta = native.load().decode_with_metadata(data, mn, *geo, *wire)
+    check(np.array_equal(rec, nrec) and np.array_equal(meta, nmeta),
+          "trace on the card != the native scheduler's")
+    drec = decoder.decode(data, mn, *geo, device=DEV).cpu().numpy()
+    check(np.array_equal(rec, drec), "trace rec != decode_image_device's rec")
+    log_stats = {}
+    cmp_decode_log(data, mn, *geo, log_stats)
+    trace_ms = median_ms(lambda: pt.decode_with_metadata(
+        data, mn, *geo, *wire, device=DEV))
+    rec_ms = median_ms(lambda: decoder.decode(data, mn, *geo, device=DEV))
+    print(json.dumps({
+        "phase": "12 metadata trace at A", "bits": len(data) * 8,
+        "trace_rows": meta.shape[0], "events": int((meta != 0).any(1).sum()),
+        "launches": n, "equal_plain_native_and_rec": True,
+        "trace_ms_median_of_5": trace_ms,
+        "decode_rec_ms_median_of_5": rec_ms,
+        "plain_trace_ms": plain_trace_ms,
+    }))
+    # B7 at A's 1.0 bpp, through the raw encode entry point
+    arr, _, _ = forward(torch.as_tensor(im_a, device=DEV), CONFIG_A, None)
+    reset_counts()
+    data7, mn7 = pt.encode(arr, *ll, 512 * 512, device=DEV, machine="seq")
+    torch.cuda.synchronize()
+    n7 = counts()
+    want = {k: 0 for k in n7}
+    want["spiht_encode_seq"] = 1
+    check(n7 == want, f"B7 at A: launches {n7}, want {want}")
+    check((data7, mn7) == (er_a.encoded_bytes, er_a.max_n),
+          "B7's stream at A != encode_image_device's")
+    seq_stats = {}
+    cmp_encode_seq(arr, *ll, 512 * 512, seq_stats)
+    print(json.dumps({"phase": "12 B7 at A", "bytes": len(data7),
+                      "launches": n7, "equals_b1_and_plain": True}))
+    return (log_stats, n["spiht_decode_lsp_log"], seq_stats,
+            n7["spiht_encode_seq"])
+
+
+def host_batch_stages(ims, mbs, ers):
+    """Where encode_images / decode_images spend their time at A in the
+    float32 working dtype: each stage alone, median of 5, host clock to a
+    sync (the card's stages) or to the native call's return."""
+    from spiht_tpu_torch.codec import api as tapi
+    from spiht_tpu_torch.torch_transform import (
+        forward_compact, forward_plan, inverse,
+    )
+
+    f32 = torch.float32
+    nat = native.load()
+    c, h, w = ims[0].shape
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, CONFIG_A, None)
+    ll = (slices[0][1].stop, slices[0][2].stop)
+    batch = tapi._device_batch(ims, DEV)
+    arr16 = forward_compact(batch, CONFIG_A, None, f32)[0]
+    arrs = list(arr16.cpu().numpy().astype(np.int32))
+    recs = nat.decode_batch([e.encoded_bytes for e in ers],
+                            [e.max_n for e in ers], [c] * len(ers),
+                            [enc_h] * len(ers), [enc_w] * len(ers),
+                            [ll[0]] * len(ers), [ll[1]] * len(ers))
+    rec_batch = tapi._device_batch(recs, DEV)
+    return {
+        "upload_images_ms": median_ms(lambda: tapi._device_batch(ims, DEV)),
+        "forward_compact_b6_ms": median_ms(
+            lambda: forward_compact(batch, CONFIG_A, None, f32)),
+        "int16_to_host_ms": median_ms(lambda: arr16.cpu()),
+        "native_encode_batch_ms": median_ms(lambda: nat.encode_batch(
+            arrs, [ll[0]] * len(arrs), [ll[1]] * len(arrs),
+            [2**62] * len(arrs), use_maps=True)),
+        "forward_plan_ms": median_ms(
+            lambda: forward_plan(batch, CONFIG_A, None, f32)),
+        "native_encode_batch_budgets_ms": median_ms(lambda: nat.encode_batch(
+            arrs, [ll[0]] * len(arrs), [ll[1]] * len(arrs), mbs,
+            use_maps=True)),
+        "native_decode_batch_ms": median_ms(lambda: nat.decode_batch(
+            [e.encoded_bytes for e in ers], [e.max_n for e in ers],
+            [c] * len(ers), [enc_h] * len(ers), [enc_w] * len(ers),
+            [ll[0]] * len(ers), [ll[1]] * len(ers))),
+        "upload_rec_ms": median_ms(lambda: tapi._device_batch(recs, DEV)),
+        "inverse_to_host_ms": median_ms(lambda: inverse(
+            rec_batch, h, w, None, CONFIG_A).cpu()),
+        "host_cores": len(__import__("os").sched_getaffinity(0)),
+    }
+
+
+def phase_host_batch(ims, mbs):
+    """Phase 13: encode_images / decode_images at A, 16 images, float32
+    working dtype: the B6 path (no budget) and the budget path (phase 8's
+    budgets), each with the counts set to 0 just before and read just
+    after; streams equal to encode_images_device's at the same budgets,
+    images equal to decode_images_device's; images/s of both codecs."""
+    from spiht_tpu_torch.codec import api as tapi
+
+    f32 = torch.float32
+    B = len(ims)
+    reset_counts()
+    ers = pt.encode_images(ims, CONFIG_A, None, None, device=DEV, dtype=f32)
+    torch.cuda.synchronize()
+    n6 = counts()
+    want = {k: 0 for k in n6}
+    want["spiht_quantize_compact"] = 1
+    check(n6 == want, f"encode_images B6 path: launches {n6}, want {want}")
+    dev_ers = pt.encode_images_device(ims, CONFIG_A, None, None, device=DEV,
+                                      dtype=f32)
+    check([(e.encoded_bytes, e.max_n) for e in ers]
+          == [(e.encoded_bytes, e.max_n) for e in dev_ers],
+          "encode_images (B6 path) != encode_images_device")
+    # the budget path: the planner and the narrowing on the card, no
+    # kernel of the port, then the native scheduler
+    real, took = tapi._encode_images_budget, []
+
+    def spy(*a):  # records whether the budget path returned the streams
+        out = real(*a)
+        took.append(out is not None)
+        return out
+
+    tapi._encode_images_budget = spy
+    try:
+        reset_counts()
+        ers_b = pt.encode_images(ims, CONFIG_A, None, mbs, device=DEV,
+                                 dtype=f32)
+        torch.cuda.synchronize()
+        nb = counts()
+    finally:
+        tapi._encode_images_budget = real
+    check(took == [True], f"budget path returned nothing ({took})")
+    check(all(v == 0 for v in nb.values()), f"budget path launches {nb}")
+    dev_b = pt.encode_images_device(ims, CONFIG_A, None, mbs, device=DEV,
+                                    dtype=f32)
+    check([(e.encoded_bytes, e.max_n) for e in ers_b]
+          == [(e.encoded_bytes, e.max_n) for e in dev_b],
+          "encode_images (budget path) != encode_images_device")
+    for streams in (ers, ers_b):
+        imgs = pt.decode_images(streams, CONFIG_A, device=DEV)
+        ref = pt.decode_images_device(streams, CONFIG_A, device=DEV)
+        check(all(np.array_equal(a, b.cpu().numpy())
+                  for a, b in zip(imgs, ref)),
+              "decode_images != decode_images_device")
+    # B6 alone on the batch's scaled float32 coefficients
+    coeffs = _scaled_coeffs(tapi._device_batch(ims, DEV), CONFIG_A, None,
+                            f32)[0].to(f32)
+    q_stats = {}
+    cmp_quantize(coeffs, CONFIG_A.quantization_scale, q_stats)
+    del coeffs
+    t = {
+        "encode_images_b6_path_ms": lambda: pt.encode_images(
+            ims, CONFIG_A, None, None, device=DEV, dtype=f32),
+        "encode_images_device_f32_ms": lambda: pt.encode_images_device(
+            ims, CONFIG_A, None, None, device=DEV, dtype=f32),
+        "encode_images_budget_path_ms": lambda: pt.encode_images(
+            ims, CONFIG_A, None, mbs, device=DEV, dtype=f32),
+        "encode_images_device_f32_budgets_ms": lambda: pt.encode_images_device(
+            ims, CONFIG_A, None, mbs, device=DEV, dtype=f32),
+        "decode_images_ms": lambda: pt.decode_images(
+            ers_b, CONFIG_A, device=DEV),
+        "decode_images_device_ms": lambda: pt.decode_images_device(
+            ers_b, CONFIG_A, device=DEV),
+    }
+    ms = {k: median_ms(fn) for k, fn in t.items()}
+    print(json.dumps({**host_batch_stages(ims, mbs, ers_b),
+                      "phase": "13 stages of the host-scheduled batch"}))
+    print(json.dumps({
+        "phase": "13 host-scheduled batch at A", "batch": B,
+        "timing": "median of 5, host clock to sync; decode_images returns "
+                  "host arrays, decode_images_device device tensors",
+        **ms,
+        **{k.replace("_ms", "_images_per_s"): B / v * 1e3
+           for k, v in ms.items()},
+        "launches": {"b6_path": n6, "budget_path": nb},
+        "streams_equal_encode_images_device": True,
+        "images_equal_decode_images_device": True,
+    }))
+    return q_stats, n6["spiht_quantize_compact"]
+
+
 def run_phases() -> list:
     """Phases 2-10; returns the kernels' rows of the result line."""
     phase_small()
@@ -646,6 +971,11 @@ def run_phases() -> list:
         "spiht_decode_seq_batch")
     phase_throughput(ims_a, mbs_a, ers_a, encb_a, decb_a)
 
+    # ---- phases 11-13: B2-log, B6, B7 and the paths that run them ----
+    phase_new_kernels_small()
+    log_a, n_log, seq_a, n_seq = phase_metadata(im_a, er_a)
+    q_a, n_q = phase_host_batch(ims_a, mbs_a)
+
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),
         "spiht_decode_lsp": (dec_a, n_a["spiht_decode_lsp"]),
@@ -653,6 +983,9 @@ def run_phases() -> list:
         "spiht_decode_seq_batch": (decb_b, nb_b["spiht_decode_seq_batch"]),
         "spiht_encode_batch": (encb_a, nb_a["spiht_encode_batch"]),
         "spiht_decode_lsp_batch": (decb_a, nb_a["spiht_decode_lsp_batch"]),
+        "spiht_decode_lsp_log": (log_a, n_log),
+        "spiht_quantize_compact": (q_a, n_q),
+        "spiht_encode_seq": (seq_a, n_seq),
     }
     rows = []
     for name, (stats, launches) in runs.items():
@@ -670,7 +1003,7 @@ def run_phases() -> list:
         print(json.dumps({"kernel_timing": name, "ms": ms,
                           "plain_ms": stats["plain_ms"],
                           "bound_ms": bound,
-                          "launches_per_round_trip": launches}))
+                          "launches_on_its_main_path": launches}))
     return rows
 
 
@@ -687,10 +1020,27 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    # the native scheduler (g++) builds beside the kernels (nvcc)
+    native_err = []
+
+    def build_native():
+        try:
+            native.load()
+        except Exception as e:  # re-raised below, in the main thread
+            native_err.append(e)
+
+    t0 = time.perf_counter()
+    native_build = threading.Thread(target=build_native)
+    native_build.start()
     secs, log = _build.build_all()
-    for name in ("spiht_encode", "spiht_decode"):
+    for name in _build.SIGNATURES:
         _build.load(name)
-    print(f"kernel build: {secs:.2f} s (nvcc, all sources in parallel)")
+    native_build.join()
+    if native_err:
+        raise native_err[0]
+    print(f"kernel build: {secs:.2f} s (nvcc, all sources in parallel); "
+          f"with the native scheduler (g++): "
+          f"{time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
         if ("registers" in line or "spill" in line or "error" in line
                 or "Compiling entry" in line):
@@ -698,7 +1048,10 @@ def main() -> int:
 
     rows = run_phases()
     print(json.dumps({"library_ms": None,
-                      "why": "no PyTorch call computes a SPIHT bit machine"}))
+                      "why": "no PyTorch call computes a SPIHT bit machine "
+                             "(B1-B5, B2-log, B7), and no single PyTorch call "
+                             "computes B6's four outputs (int32 quantize, "
+                             "int16 clip, level map, overflow flag)"}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

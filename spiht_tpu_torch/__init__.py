@@ -10,14 +10,28 @@ kernels' plain versions; the kernels are built with ``nvcc`` at first use
 
 Ported so far: the single-image on-device round trip,
 ``encode_image_device`` / ``decode_image_device``, and the batched one,
-``encode_images_device`` / ``decode_images_device``.
+``encode_images_device`` / ``decode_images_device``; the host-shaped API
+(``encode`` / ``decode`` / ``decode_with_metadata``, ``encode_image`` /
+``decode_image`` with the metadata trace, ``decode_rec_array`` /
+``decode_from_rec_arr``); and the host-scheduled batch codec
+``encode_images`` / ``decode_images`` over the native C++ scheduler
+(``native/``, built with g++ at first use).
 """
 
 from . import interop
 from .codec.api import (
+    decode,
+    decode_from_rec_arr,
+    decode_image,
     decode_image_device,
+    decode_images,
     decode_images_device,
+    decode_rec_array,
+    decode_with_metadata,
+    encode,
+    encode_image,
     encode_image_device,
+    encode_images,
     encode_images_device,
 )
 from .settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
@@ -26,9 +40,18 @@ __all__ = [
     "ENCODER_DECODER_VERSION",
     "EncodingResult",
     "SpihtSettings",
+    "decode",
+    "decode_from_rec_arr",
+    "decode_image",
     "decode_image_device",
+    "decode_images",
     "decode_images_device",
+    "decode_rec_array",
+    "decode_with_metadata",
+    "encode",
+    "encode_image",
     "encode_image_device",
+    "encode_images",
     "encode_images_device",
     "interop",
 ]

@@ -32,10 +32,15 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int32
+_I64 = ctypes.c_int64
 # argtypes of each C entry point: every pointer and the stream are c_void_p
 SIGNATURES = {
     "spiht_encode": {
         "spiht_encode_launch": [
+            _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
+            _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
+        ],
+        "spiht_encode_seq_launch": [
             _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
         ],
@@ -49,6 +54,10 @@ SIGNATURES = {
             _P, _I, _I, _P, _P, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _P, _I, _P, _P,
         ],
+        "spiht_decode_lsp_log_launch": [
+            _P, _I, _I, _P, _P, _I, _P, _I, _I,
+            _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+        ],
         "spiht_decode_seq_launch": [
             _P, _I, _I, _P, _P, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P,
@@ -56,6 +65,11 @@ SIGNATURES = {
         "spiht_decode_batch_launch": [
             _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+        ],
+    },
+    "spiht_quantize": {
+        "spiht_quantize_compact_launch": [
+            _P, _I64, ctypes.c_float, _P, _P, _P, _P, _P,
         ],
     },
 }

@@ -1,22 +1,37 @@
-"""Public on-device codec, the port of ``spiht_tpu/codec/api.py:176-215``
-(``encode_image_device``), ``:218-274`` (``encode_images_device``),
-``:635-678`` (``decode_image_device``) and ``:681-728``
-(``decode_images_device``).
+"""Public codec API, the port of ``spiht_tpu/codec/api.py``.
 
-Both run on the CUDA card unless the caller passes ``device="cpu"`` (the
-plain versions, as the tests use them). There is no host fallback: the
-word buffer is sized from the real budget, so the stream cannot overflow
-it, and a machine that reports an error raises.
+* The on-device codec: ``encode_image_device`` (:176-215),
+  ``encode_images_device`` (:218-274), ``decode_image_device``
+  (:635-678) and ``decode_images_device`` (:681-728). They return
+  tensors on the device.
+* The host-shaped surface, with the JAX signatures and results (numpy
+  arrays, ``bytes``, ``EncodingResult``), so a caller can swap packages:
+  the raw ``encode`` (:53; B1, or B7 for ``machine="seq"``), ``decode``
+  (:82; B2 or B3) and ``decode_with_metadata`` (:105; B2-log and the
+  log's expansion); ``encode_image`` (:153), ``decode_rec_array`` (:573),
+  ``decode_from_rec_arr`` (:623) and ``decode_image`` (:731); and the
+  host-scheduled batch codec ``encode_images`` (:351, with the
+  budget-narrowed path :277-348) and ``decode_images`` (:497), whose
+  serial bit scheduling runs in the native C++ scheduler's threads
+  (``native/runtime.py``) around transforms on the device (kernel B6 in
+  the float32 working dtype).
+
+Everything runs on the CUDA card unless the caller passes
+``device="cpu"`` (the plain versions, as the tests use them). There is no
+host fallback: the word buffer is sized from the real budget, so the
+stream cannot overflow it, a machine that reports an error raises, and
+the native scheduler raises if it cannot be built.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..native import runtime as native
 from ..device import resolve_device
 from ..settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
 from ..torch_transform import (
@@ -24,11 +39,29 @@ from ..torch_transform import (
     decode_pipeline_fn,
     encode_pipeline_batch_fn,
     encode_pipeline_fn,
+    forward,
+    forward_compact,
+    forward_plan,
+    inverse,
+    narrow,
 )
+from ..wavelets.geometry import get_slices_and_h_w, slices_to_wire
+from . import decoder, encoder, meta_expand
 from .decoder import words_batch, words_tensor
 from .encoder import batch_stream_bytes, check_stat, stream_bytes
+from .maxn import device_max_n
+from .planning import cut_plane_np, plan_supported
 
 __all__ = [
+    "encode",
+    "decode",
+    "decode_with_metadata",
+    "encode_image",
+    "decode_image",
+    "encode_images",
+    "decode_images",
+    "decode_rec_array",
+    "decode_from_rec_arr",
     "encode_image_device",
     "decode_image_device",
     "encode_images_device",
@@ -36,6 +69,350 @@ __all__ = [
 ]
 
 _MAX_BITS = 2**31 - 2  # the most an int32 bit count holds
+_MAX_BITS_DEFAULT = 99999999999999999  # the JAX API's "no budget"
+
+
+def encode(
+    arr: np.ndarray, ll_h: int, ll_w: int, max_bits: int = _MAX_BITS_DEFAULT,
+    device=None, machine: Optional[str] = None,
+) -> Tuple[bytes, int]:
+    """SPIHT-encode a (C,H,W) int32 coefficient array -> (bytes, max_n),
+    on the device: kernel B1, or B7 for ``machine="seq"``."""
+    return encoder.encode(arr, ll_h, ll_w, max_bits, device, machine)
+
+
+def decode(
+    data: bytes, n: int, c: int, h: int, w: int, ll_h: int, ll_w: int,
+    device=None,
+) -> np.ndarray:
+    """Decode bytes -> (C,H,W) int32 coefficient array (prefix-tolerant),
+    on the device: kernel B2, or B3 for odd-LL geometries."""
+    return decoder.decode(data, n, c, h, w, ll_h, ll_w, device).cpu().numpy()
+
+
+def decode_with_metadata(
+    data: bytes,
+    n: int,
+    c: int,
+    h: int,
+    w: int,
+    ll_h: int,
+    ll_w: int,
+    top_slice,
+    other_slices,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode bytes and emit the per-bit decoder-state trace array, on the
+    device (kernel B2-log, then the log's expansion): (rec (C,H,W) int32,
+    trace (len(data)*8 + 1, 8) int32). Raises ValueError for
+    duplicate-parent (odd-LL) geometries and for c*h*w >= 2^24."""
+    rec, meta = meta_expand.decode_with_metadata(
+        data, n, c, h, w, ll_h, ll_w, top_slice, other_slices,
+        resolve_device(device),
+    )
+    return rec.cpu().numpy(), meta.cpu().numpy()
+
+
+def _validate_image(image) -> None:
+    if image.ndim != 3:
+        raise ValueError("image ndim must be 3: c,h,w")
+
+
+def encode_image(
+    image,
+    spiht_settings: SpihtSettings = SpihtSettings(),
+    level: Optional[int] = None,
+    max_bits: Optional[int] = None,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+) -> EncodingResult:
+    """DWT + quantize + SPIHT-encode a (C,H,W) image: the torch forward
+    transform on the device, then kernel B1. The port has no host
+    transform, so this is ``encode_image_device``'s pipeline."""
+    return encode_image_device(
+        image, spiht_settings, level, max_bits, device, dtype
+    )
+
+
+def decode_rec_array(
+    encoding_result: EncodingResult,
+    spiht_settings: SpihtSettings,
+    return_metadata: bool = False,
+    device=None,
+):
+    """Decode to the packed coefficient array (reference CS2, first half):
+    a dict of ``rec_arr`` (numpy int32), ``slices``, ``spiht_metadata``
+    (the trace, or None), ``h``, ``w`` and ``level``."""
+    if encoding_result._encoding_version != ENCODER_DECODER_VERSION:
+        raise ValueError(encoding_result._encoding_version)
+    h, w, c = encoding_result.h, encoding_result.w, encoding_result.c
+    slices, enc_h, enc_w = get_slices_and_h_w(
+        h, w, spiht_settings, encoding_result.level
+    )
+    ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+    args = (encoding_result.encoded_bytes, encoding_result.max_n, c, enc_h,
+            enc_w, ll_h, ll_w)
+    if return_metadata:
+        rec_arr, spiht_metadata = decode_with_metadata(
+            *args, *slices_to_wire(slices), device=device
+        )
+    else:
+        rec_arr, spiht_metadata = decode(*args, device=device), None
+    return dict(
+        rec_arr=rec_arr,
+        slices=slices,
+        spiht_metadata=spiht_metadata,
+        h=h,
+        w=w,
+        level=encoding_result.level,
+    )
+
+
+def decode_from_rec_arr(
+    rec_arr: np.ndarray,
+    h: int,
+    w: int,
+    level,
+    spiht_settings: SpihtSettings,
+    slices=None,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+) -> np.ndarray:
+    """Un-quantize + inverse DWT + inverse colour (reference CS2, second
+    half), on the device; ``slices`` are recomputed from the settings."""
+    del slices
+    rec = torch.as_tensor(np.ascontiguousarray(rec_arr)).to(
+        resolve_device(device)
+    )
+    return inverse(rec, h, w, level, spiht_settings, dtype).cpu().numpy()
+
+
+def decode_image(
+    encoding_result: EncodingResult,
+    spiht_settings: SpihtSettings,
+    return_metadata: bool = False,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+) -> Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]:
+    """Decode an EncodingResult back to a (C,H,W) float image, with the
+    metadata trace if ``return_metadata``."""
+    d = decode_rec_array(encoding_result, spiht_settings, return_metadata,
+                         device)
+    spiht_metadata = d.pop("spiht_metadata", None)
+    image = decode_from_rec_arr(
+        **d, spiht_settings=spiht_settings, device=device, dtype=dtype
+    )
+    if return_metadata:
+        return image, spiht_metadata
+    return image
+
+
+def _device_batch(ims, dev: torch.device) -> torch.Tensor:
+    """One (B, C, H, W) tensor on ``dev`` of same-shape images (numpy or
+    tensors), each copied straight in: no host-side stack of the batch
+    (at 128 images of 3x512x512 that copy alone costs more than the
+    transform on the card)."""
+    ims = [
+        im if isinstance(im, torch.Tensor)
+        else torch.as_tensor(np.ascontiguousarray(im))
+        for im in ims
+    ]
+    batch = torch.empty(
+        (len(ims),) + tuple(ims[0].shape), device=dev,
+        dtype=functools.reduce(torch.promote_types, (im.dtype for im in ims)),
+    )
+    for b, im in enumerate(ims):
+        batch[b].copy_(im)
+    return batch
+
+
+def _ll(shape, settings, level):
+    slices, _, _ = get_slices_and_h_w(shape[-2], shape[-1], settings, level)
+    return slices[0][1].stop, slices[0][2].stop
+
+
+def _encode_images_budget(images, groups, mb, settings, level, nat, dev,
+                          dtype):
+    """The budget-narrowed path of ``encode_images`` (api.py:277-348): the
+    device plans each stream's cut plane from exact per-plane bit counts,
+    then ships only the magnitude bits at or above it (int8 or int16),
+    which the host shifts back and hands to the native scheduler with
+    max_n forced to the full array's. Bits below the cut plane are never
+    emitted within the budget, so the streams are the standard path's.
+    Returns None, and the standard path runs, for an odd-LL geometry or
+    where the narrowed magnitudes pass int16."""
+    results = [None] * len(images)
+    for shape, idxs in groups.items():
+        ll_h, ll_w = _ll(shape, settings, level)
+        if not plan_supported(ll_h, ll_w):
+            return None
+        c = shape[0]
+        # planes above the device's exact max(M) emit one all-zero test
+        # per initial LIP/LIS entity
+        n_ee = ((ll_h + 1) // 2) * ((ll_w + 1) // 2)
+        n_init = c * ll_h * ll_w + c * (ll_h * ll_w - n_ee)
+        batch = _device_batch([images[i] for i in idxs], dev)
+        arr_dev, mx, counts, max_n_dev, _, _ = forward_plan(
+            batch, settings, level, dtype
+        )
+        # the stream's max_n: the reference's f32 rule on each max |x|
+        max_ns = device_max_n(arr_dev).cpu().numpy()
+        mx = mx.cpu().numpy()
+        counts = counts.cpu().numpy().astype(np.int64)
+        max_n_dev = max_n_dev.cpu().numpy()
+
+        shifts = np.zeros(len(idxs), dtype=np.int32)
+        for bi, i in enumerate(idxs):
+            max_n = int(max_ns[bi])
+            ci = counts[bi].copy()
+            ci[max_n_dev[bi] + 1 : max_n + 1] = n_init
+            plane, _ = cut_plane_np(ci, max_n, int(mb[i]))
+            shifts[bi] = max(plane, 0)
+        wmax = int(np.max(mx >> shifts)) if len(idxs) else 0
+        if wmax <= 127:
+            out_dtype = torch.int8
+        elif wmax <= 32767:
+            out_dtype = torch.int16
+        else:
+            return None  # narrowing doesn't pay; standard path
+        hi = narrow(arr_dev, torch.as_tensor(shifts, device=dev), out_dtype)
+        hi = hi.cpu().numpy()
+        mag = np.abs(hi.astype(np.int32)) << shifts[:, None, None, None]
+        arr = np.where(hi >= 0, mag, -mag).astype(np.int32)
+
+        encoded = nat.encode_batch(
+            list(arr),
+            [ll_h] * len(idxs),
+            [ll_w] * len(idxs),
+            [mb[i] for i in idxs],
+            use_maps=True,
+            forced_max_ns=max_ns.astype(np.int32),
+        )
+        for bi, i in enumerate(idxs):
+            ci_, h, w = images[i].shape
+            results[i] = EncodingResult(
+                encoded[bi][0], h, w, ci_, int(encoded[bi][1]), level
+            )
+    return results
+
+
+def encode_images(
+    images,
+    spiht_settings: SpihtSettings = SpihtSettings(),
+    level: Optional[int] = None,
+    max_bits=None,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+):
+    """Batched encode: list of (C,H,W) float images -> list of
+    EncodingResult, the host-scheduled throughput path.
+
+    Images are grouped by shape; each group's transform runs as one batch
+    on the device, and the serial bit scheduling for all images runs
+    concurrently in the native scheduler's threads. With every budget
+    below 2^40 the budget-narrowed path runs first; it hands back to the
+    standard path (the int16-compacted transform, kernel B6 in the float32
+    working dtype, and the int32 transform where a coefficient passes
+    int16) only where the JAX package's does. ``max_bits``: None, a
+    scalar applied to all, or a per-image sequence.
+    """
+    images = [np.asarray(im) for im in images]
+    n = len(images)
+    if max_bits is None:
+        mb = [_MAX_BITS_DEFAULT] * n
+    elif np.isscalar(max_bits):
+        mb = [int(max_bits)] * n
+    else:
+        mb = [int(v) if v is not None else _MAX_BITS_DEFAULT for v in max_bits]
+    if len(mb) != n:
+        raise ValueError("max_bits sequence length != number of images")
+    for im in images:
+        _validate_image(im)
+    dev = resolve_device(device)
+    nat = native.load()
+
+    groups = {}
+    for idx, im in enumerate(images):
+        groups.setdefault(im.shape, []).append(idx)
+
+    if all(m < 2**40 for m in mb):
+        done = _encode_images_budget(
+            images, groups, mb, spiht_settings, level, nat, dev, dtype
+        )
+        if done is not None:
+            return done
+
+    # int16-compacted transform: every group is dispatched before any is
+    # read back
+    launched = []
+    for shape, idxs in groups.items():
+        batch = _device_batch([images[i] for i in idxs], dev)
+        arr16, overflow, ll_h, ll_w = forward_compact(
+            batch, spiht_settings, level, dtype
+        )
+        launched.append((idxs, ll_h, ll_w, batch, arr16, overflow))
+    arrs = [None] * n
+    lls = [None] * n
+    for idxs, ll_h, ll_w, batch, arr16, overflow in launched:
+        if bool(overflow):
+            # rare: coefficients exceed int16; the full int32 transform
+            arr = forward(batch, spiht_settings, level, dtype)[0]
+            arr = arr.cpu().numpy()
+        else:
+            arr = arr16.cpu().numpy().astype(np.int32)
+        for bi, i in enumerate(idxs):
+            arrs[i] = arr[bi]
+            lls[i] = (ll_h, ll_w)
+
+    encoded = nat.encode_batch(
+        arrs, [ll[0] for ll in lls], [ll[1] for ll in lls], mb, use_maps=True
+    )
+    results = [None] * n
+    for i, (data, max_n) in enumerate(encoded):
+        c, h, w = images[i].shape
+        results[i] = EncodingResult(data, h, w, c, int(max_n), level)
+    return results
+
+
+def decode_images(
+    encoding_results,
+    spiht_settings: SpihtSettings,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+):
+    """Batched decode: list of EncodingResult -> list of (C,H,W) float
+    images (numpy).
+
+    Streams are decoded concurrently in the native scheduler's threads;
+    the inverse transforms run as one batch on the device per (shape, h,
+    w, level) group.
+    """
+    n = len(encoding_results)
+    geo = []
+    for er in encoding_results:
+        if er._encoding_version != ENCODER_DECODER_VERSION:
+            raise ValueError(er._encoding_version)
+        slices, enc_h, enc_w = get_slices_and_h_w(
+            er.h, er.w, spiht_settings, er.level
+        )
+        geo.append((enc_h, enc_w, slices[0][1].stop, slices[0][2].stop))
+    dev = resolve_device(device)
+    recs = native.load().decode_batch(
+        [er.encoded_bytes for er in encoding_results],
+        [er.max_n for er in encoding_results],
+        [er.c for er in encoding_results],
+        *([g[k] for g in geo] for k in range(4)),
+    )
+    groups = {}
+    for i, er in enumerate(encoding_results):
+        groups.setdefault((recs[i].shape, er.h, er.w, er.level), []).append(i)
+    images = [None] * n
+    for (_, h, w, level), idxs in groups.items():
+        batch = _device_batch([recs[i] for i in idxs], dev)
+        out = inverse(batch, h, w, level, spiht_settings, dtype).cpu().numpy()
+        for bi, i in enumerate(idxs):
+            images[i] = out[bi]
+    return images
 
 
 def _as_image(image, device: torch.device) -> torch.Tensor:
@@ -136,15 +513,7 @@ def encode_images_device(
             for im, mb in zip(ims, mbs)
         ]
     c, h, w = ims[0].shape
-    # each image straight into one device batch: no host-side stack of the
-    # whole batch (at 128 images of 3x512x512 that copy alone costs more
-    # than the transform on the card)
-    batch = torch.empty(
-        (len(ims), c, h, w), device=dev,
-        dtype=functools.reduce(torch.promote_types, (im.dtype for im in ims)),
-    )
-    for b, im in enumerate(ims):
-        batch[b].copy_(im)
+    batch = _device_batch(ims, dev)
     fn = encode_pipeline_batch_fn(spiht_settings, level, dtype)
     words, stat, max_ns = fn(batch, mbs)
     totals = [row[0] for row in check_stat(stat, "spiht_encode_batch")]

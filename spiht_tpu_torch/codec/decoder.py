@@ -7,6 +7,9 @@ rec scatter :1339-1368 and its batched form :2086-2099, ``pallas_decode``
 * ``decode_lsp`` (kernel B2, ``csrc/spiht_decode.cu``) decodes geometries
   without duplicate parents. It writes the LSP queues (node, and
   sgn<<31 | magnitude) and a count; ``scatter_rec`` then builds rec.
+  ``decode_lsp_log`` (B2-log, the port of the ``with_log`` variant
+  :571-579) also writes the metadata trace's compact event log
+  (``meta_expand.py`` expands it).
 * ``decode_seq`` (kernel B3) decodes odd-LL geometries, whose parity
   offspring map has duplicate parents: a node may be committed several
   times and every LSP instance refines one shared rec value, so rec lives
@@ -36,12 +39,17 @@ from .encoder import (
     MAX_CELLS, STAT_LEN, _Stop, _check_i32, check_geometry, check_stat,
     machine_caps,
 )
-from .geom import machine_tables, words_of
+from .geom import (
+    A_DESC, A_LIP, A_LIPSIGN, A_LSIG, A_OFF, A_OFFSIGN, A_REF,
+    machine_tables, words_of,
+)
 from .tree_bounds import queue_bounds
 
 __all__ = [
     "has_duplicate_parents",
+    "LOG_MAX_CELLS",
     "decode_lsp",
+    "decode_lsp_log",
     "decode_seq",
     "decode_lsp_batch",
     "decode_seq_batch",
@@ -56,6 +64,10 @@ __all__ = [
 ]
 
 
+# c*h*w bound of the event log: its word keeps a 24-bit node field
+LOG_MAX_CELLS = 1 << 24
+
+
 @lru_cache(maxsize=None)
 def has_duplicate_parents(h: int, w: int, ll_h: int, ll_w: int) -> bool:
     """Odd LL dims make the parity offspring map overlap (closed form,
@@ -65,10 +77,13 @@ def has_duplicate_parents(h: int, w: int, ll_h: int, ll_w: int) -> bool:
 
 def _decode_machine_plain(
     words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap, lsp_cap,
-    seq, n_rec,
+    seq, n_rec, log=False,
 ):
-    """The plain version of kernels B2 (seq=False) and B3 (seq=True) on
-    CPU tensors (lists inside)."""
+    """The plain version of kernels B2 (seq=False), B2-log (log=True) and
+    B3 (seq=True) on CPU tensors (lists inside). With ``log`` it also
+    returns the event log: nbits + 1 words, word t the event of the bit
+    attempted at offset t (``node | action << 24 | (n+1) << 27``; the row at
+    nbits is the first read that found the stream empty)."""
     raw = words.numpy().view(np.uint8)
     bits = np.unpackbits(raw, bitorder="little")[:nbits].tolist()
     geo = geo.tolist()
@@ -76,12 +91,16 @@ def _decode_machine_plain(
     lis = lis0.tolist()
     lsp, lsp_val = [], []
     rec = [0] * n_rec if seq else None
+    events = [0] * (nbits + 1) if log else None
     off = (0, 1, w, w + 1)
     err = 0
     cur = 0
 
-    def get():
+    def get(node, action):
+        # the event is logged before the read, as the reference trace's row
         nonlocal cur
+        if log:
+            events[cur] = node | (action << 24) | ((n + 1) << 27)
         if cur >= nbits:
             raise _Stop
         cur += 1
@@ -104,8 +123,8 @@ def _decode_machine_plain(
             mag0 = 1 if n == 0 else (1 << (n - 1)) + (1 << n)
             keep = []
             for node in lip:
-                if get():
-                    commit(node, get(), mag0)
+                if get(node, A_LIP):
+                    commit(node, get(node, A_LIPSIGN), mag0)
                 else:
                     keep.append(node)
             lip = keep
@@ -116,14 +135,14 @@ def _decode_machine_plain(
                 e = lis[r]
                 r += 1
                 g = geo[e >> 1]
-                if not get():
+                if not get(e >> 1, A_DESC if e & 1 else A_LSIG):
                     keep.append(e)
                 elif e & 1:
                     if (g >> 1) & 1:
                         c0 = g >> 2
                         for o in off:
-                            if get():
-                                commit(c0 + o, get(), mag0)
+                            if get(c0 + o, A_OFF):
+                                commit(c0 + o, get(c0 + o, A_OFFSIGN), mag0)
                             else:
                                 if len(lip) >= lip_cap:
                                     err = 2
@@ -144,7 +163,7 @@ def _decode_machine_plain(
 
             bit = 1 << n
             for r in range(lsp_snap):
-                b = get()
+                b = get(lsp[r], A_REF)
                 if seq:
                     node = lsp[r]
                     x = rec[node]
@@ -167,6 +186,9 @@ def _decode_machine_plain(
     val_q[: len(lsp)] = torch.tensor(
         np.asarray(lsp_val, np.int64).astype(np.uint32).view(np.int32)
     )
+    if log:
+        ev = np.asarray(events, np.int64).astype(np.uint32).view(np.int32)
+        return node_q, val_q, stat, torch.from_numpy(ev.copy())
     return node_q, val_q, stat
 
 
@@ -205,6 +227,46 @@ def _check_inputs(words, nbits, geo, lip0, lis0, caps):
     return dev
 
 
+def _decode_lsp(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
+    """B2 (log=False) or B2-log (log=True); see ``decode_lsp``."""
+    dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
+    if log and geo.numel() >= LOG_MAX_CELLS:
+        raise ValueError("the event log's node field takes c*h*w < 2^24")
+    if log and not 0 <= max_n <= 30:
+        raise ValueError("the event log's plane field takes max_n <= 30")
+    lip_cap, lis_cap, lsp_cap = caps
+    if dev.type == "cpu":
+        return _decode_machine_plain(
+            words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap,
+            lsp_cap, False, 0, log=log,
+        )
+    from .. import _build
+
+    lib = _build.load("spiht_decode")
+    lip = torch.empty(lip_cap, dtype=torch.int32, device=dev)
+    lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
+    lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
+    lsp_val = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
+    stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
+    args = [
+        words.data_ptr(), nbits, int(max_n), geo.data_ptr(),
+        lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
+        lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
+        lsp.data_ptr(), lsp_val.data_ptr(), lsp_cap, stat.data_ptr(),
+    ]
+    if log:
+        events = torch.zeros(nbits + 1, dtype=torch.int32, device=dev)
+        args.append(events.data_ptr())
+    launch = (lib.spiht_decode_lsp_log_launch if log
+              else lib.spiht_decode_lsp_launch)
+    rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        what = "spiht_decode_lsp_log" if log else "spiht_decode_lsp"
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+    (decode_lsp_log if log else decode_lsp).launches += 1
+    return (lsp, lsp_val, stat, events) if log else (lsp, lsp_val, stat)
+
+
 def decode_lsp(
     words: torch.Tensor,
     nbits: int,
@@ -223,35 +285,36 @@ def decode_lsp(
     [cap] as sgn<<31 | magnitude, stat int32[STAT_LEN]); stat[0] counts
     the live LSP entries.
     """
-    dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
-    lip_cap, lis_cap, lsp_cap = caps
-    if dev.type == "cpu":
-        return _decode_machine_plain(
-            words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap,
-            lsp_cap, False, 0,
-        )
-    from .. import _build
-
-    lib = _build.load("spiht_decode")
-    lip = torch.empty(lip_cap, dtype=torch.int32, device=dev)
-    lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
-    lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
-    lsp_val = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
-    stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
-    rc = lib.spiht_decode_lsp_launch(
-        words.data_ptr(), nbits, int(max_n), geo.data_ptr(),
-        lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
-        lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
-        lsp.data_ptr(), lsp_val.data_ptr(), lsp_cap, stat.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"spiht_decode_lsp launch failed: CUDA error {rc}")
-    decode_lsp.launches += 1
-    return lsp, lsp_val, stat
+    return _decode_lsp(False, words, nbits, max_n, geo, lip0, lis0, w, caps)
 
 
 decode_lsp.launches = 0
+
+
+def decode_lsp_log(
+    words: torch.Tensor,
+    nbits: int,
+    max_n: int,
+    geo: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    caps: Tuple[int, int, int],
+):
+    """Kernel B2-log (or, for CPU tensors, its plain version): B2 that also
+    writes the metadata trace's compact event log.
+
+    The same inputs as ``decode_lsp``; returns (lsp nodes, lsp values,
+    stat, log int32[nbits + 1]): log[t] is the event of the bit attempted
+    at stream offset t, ``node | action << 24 | (n+1) << 27`` (0 where no
+    bit was attempted), the row at nbits the read that found the stream
+    empty. The event word's 24-bit node field bounds the geometry to
+    c*h*w < 2^24 and its 5-bit plane field max_n to <= 30.
+    """
+    return _decode_lsp(True, words, nbits, max_n, geo, lip0, lis0, w, caps)
+
+
+decode_lsp_log.launches = 0
 
 
 def decode_seq(

@@ -7,7 +7,10 @@ plain versions. The port of ``spiht_tpu/codec/pallas_encoder.py``
 
 The kernel (``csrc/spiht_encode.cu``, B1) and ``_encode_machine_plain``
 compute the same function on the same state layout: the tables ``t1``,
-``t3s``, ``child0`` and the queues LIP, LIS, LSP. Kernel B4 runs that
+``t3s``, ``child0`` and the queues LIP, LIS, LSP. Kernel B7
+(``encode_machine_seq``, the port of ``_seq_fn`` :221, which
+``pallas_encode_fn`` :185-217 runs for ``machine="seq"``) computes it one
+entry per iteration, with the same plain version. Kernel B4 runs that
 machine over a batch, one block per stream; its plain version runs
 ``_encode_machine_plain`` stream by stream. The wrappers
 ``encode_machine`` and ``encode_machine_batch`` take the plain versions
@@ -37,7 +40,9 @@ __all__ = [
     "cap_words_for",
     "machine_caps",
     "encode_tables",
+    "MACHINES",
     "encode_machine",
+    "encode_machine_seq",
     "encode_machine_batch",
     "machine_args",
     "batch_machine_args",
@@ -257,28 +262,11 @@ def _check_i32(name: str, x: torch.Tensor, device: torch.device, ndim=1):
         raise ValueError(f"{name} must be contiguous")
 
 
-def encode_machine(
-    t1: torch.Tensor,
-    t3s: torch.Tensor,
-    child0: torch.Tensor,
-    lip0: torch.Tensor,
-    lis0: torch.Tensor,
-    w: int,
-    max_n,
-    max_bits: int,
-    capped: bool,
-    caps: Tuple[int, int, int],
-    cap_words: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B1 (or, for CPU tensors, its plain version).
-
-    t1/t3s/child0: int32[N]; lip0: int32 initial LIP nodes; lis0: int32
-    initial LIS entries (node << 1 | 1); w: row length; max_n: int32 0-d
-    tensor (or int, CPU only); max_bits: budget, already <= cap_words*32;
-    capped: whether the caller's budget was clamped to the buffer; caps:
-    (lip, lis, lsp) queue capacities. Returns (words int32[cap_words],
-    stat int32[STAT_LEN]), stat = [bits, error, lip, lis, lsp, 0].
-    """
+def _encode_machine(
+    seq, t1, t3s, child0, lip0, lis0, w, max_n, max_bits, capped, caps,
+    cap_words,
+):
+    """B1 (seq=False) or B7 (seq=True); see ``encode_machine``."""
     dev = t1.device
     N = t1.numel()
     for name, x in (("t1", t1), ("t3s", t3s), ("child0", child0),
@@ -312,7 +300,8 @@ def encode_machine(
     words = torch.empty(cap_words, dtype=torch.int32, device=dev)
     stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.spiht_encode_launch(
+    launch = lib.spiht_encode_seq_launch if seq else lib.spiht_encode_launch
+    rc = launch(
         t1.data_ptr(), t3s.data_ptr(), child0.data_ptr(),
         lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(),
         w, max_n.data_ptr(), max_bits, int(bool(capped)),
@@ -321,12 +310,66 @@ def encode_machine(
         stat.data_ptr(), stream,
     )
     if rc != 0:
-        raise RuntimeError(f"spiht_encode launch failed: CUDA error {rc}")
-    encode_machine.launches += 1
+        what = "spiht_encode_seq" if seq else "spiht_encode"
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+    (encode_machine_seq if seq else encode_machine).launches += 1
     return words, stat
 
 
+def encode_machine(
+    t1: torch.Tensor,
+    t3s: torch.Tensor,
+    child0: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    max_n,
+    max_bits: int,
+    capped: bool,
+    caps: Tuple[int, int, int],
+    cap_words: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 (or, for CPU tensors, its plain version).
+
+    t1/t3s/child0: int32[N]; lip0: int32 initial LIP nodes; lis0: int32
+    initial LIS entries (node << 1 | 1); w: row length; max_n: int32 0-d
+    tensor (or int, CPU only); max_bits: budget, already <= cap_words*32;
+    capped: whether the caller's budget was clamped to the buffer; caps:
+    (lip, lis, lsp) queue capacities. Returns (words int32[cap_words],
+    stat int32[STAT_LEN]), stat = [bits, error, lip, lis, lsp, 0].
+    """
+    return _encode_machine(False, t1, t3s, child0, lip0, lis0, w, max_n,
+                           max_bits, capped, caps, cap_words)
+
+
 encode_machine.launches = 0
+
+
+def encode_machine_seq(
+    t1: torch.Tensor,
+    t3s: torch.Tensor,
+    child0: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    max_n,
+    max_bits: int,
+    capped: bool,
+    caps: Tuple[int, int, int],
+    cap_words: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B7, the sequential machine (or, for CPU tensors, its plain
+    version, which is B1's): one entry per iteration in one thread. The
+    same arguments and results as ``encode_machine``, the same bytes."""
+    return _encode_machine(True, t1, t3s, child0, lip0, lis0, w, max_n,
+                           max_bits, capped, caps, cap_words)
+
+
+encode_machine_seq.launches = 0
+
+# pallas_encode_fn's machine names: "seq" is B7; every other layout is B1,
+# whose one kernel computes the function of all of them
+MACHINES = (None, "hybrid", "compact", "compact_hbm", "seq")
 
 
 def encode_machine_batch(
@@ -441,15 +484,20 @@ def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
 
 
 def encode_coeffs(
-    arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2
+    arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2,
+    machine=None,
 ):
-    """Encode an int32 (c, h, w) coefficient array on its device.
+    """Encode an int32 (c, h, w) coefficient array on its device, with B1
+    or, for ``machine="seq"``, B7 (routed as ``pallas_encode_fn``).
 
     Returns (words int32[cap_words], stat, max_n 0-d int32), all on the
     array's device; nothing is read back, so no host sync happens here.
     """
+    if machine not in MACHINES:
+        raise ValueError(f"machine must be one of {MACHINES}, got {machine!r}")
     args = machine_args(arr, ll_h, ll_w, max_bits)
-    words, stat = encode_machine(*args)
+    run = encode_machine_seq if machine == "seq" else encode_machine
+    words, stat = run(*args)
     return words, stat, args[6]
 
 
@@ -488,11 +536,13 @@ def _as_coeffs(arr, dev: torch.device) -> torch.Tensor:
 
 def encode(
     arr, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2, device=None,
+    machine=None,
 ) -> Tuple[bytes, int]:
     """(bytes, max_n) of a (c, h, w) int32 coefficient array (numpy or
-    tensor): the port's counterpart of ``pallas_encode``."""
+    tensor): the port's counterpart of ``pallas_encode``; ``machine="seq"``
+    runs B7, any other machine name B1."""
     arr = _as_coeffs(arr, resolve_device(device))
-    words, stat, max_n = encode_coeffs(arr, ll_h, ll_w, max_bits)
+    words, stat, max_n = encode_coeffs(arr, ll_h, ll_w, max_bits, machine)
     total = check_stat(stat, "spiht_encode")[0]
     return stream_bytes(words, total), int(max_n)
 

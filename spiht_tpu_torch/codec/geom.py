@@ -1,5 +1,6 @@
 """Per-node tree geometry of the bit machines, copied into numpy from
-``spiht_tpu/codec/device_decoder.py:63 _dec_geom`` and ``:944 _words_of``.
+``spiht_tpu/codec/device_decoder.py:63 _dec_geom``, ``:944 _words_of`` and
+``:179 _rect_table``, with its action and filter ids (:57-59).
 
 Child-based (reference ``_offspring`` semantics, SURVEY.md 3.4), so odd LL
 dims work. The initial LIP and LIS orders are channel-innermost
@@ -15,7 +16,10 @@ import torch
 
 from .tree_bounds import queue_bounds
 
-__all__ = ["dec_geom", "words_of", "machine_tables"]
+__all__ = ["dec_geom", "words_of", "machine_tables", "rect_table"]
+
+# action ids of the metadata trace (reference taxonomy)
+A_LIP, A_LIPSIGN, A_DESC, A_OFF, A_OFFSIGN, A_LSIG, A_REF = range(7)
 
 _F_LL, _F_DA, _F_AD, _F_DD = 0, 1, 2, 3
 
@@ -70,6 +74,34 @@ def dec_geom(c: int, h: int, w: int, ll_h: int, ll_w: int) -> dict:
         ent_bound=qb.ent_bound,
         lis_bound=qb.lis_bound,
     )
+
+
+def rect_table(level: int, ll_h: int, ll_w: int, slices) -> np.ndarray:
+    """(level+1, 4, 4) table of subband rects (r0, rlen, c0, clen) by
+    (depth, filter) for the metadata local-position math."""
+    tab = np.zeros((level + 1, 4, 4), np.int32)
+    tab[level, :, :] = [0, ll_h, 0, ll_w]
+    if slices is not None:
+        top, other = slices
+        tab[level, :, :] = [
+            top[0][0],
+            top[0][1] - top[0][0],
+            top[1][0],
+            top[1][1] - top[1][0],
+        ]
+        for depth in range(level):
+            da, ad, dd = other[level - 1 - depth]
+            for f, r in ((_F_DA, da), (_F_AD, ad), (_F_DD, dd)):
+                tab[depth, f] = [
+                    r[0][0],
+                    r[0][1] - r[0][0],
+                    r[1][0],
+                    r[1][1] - r[1][0],
+                ]
+    # avoid div-by-zero on unused rows
+    tab[:, :, 1] = np.maximum(tab[:, :, 1], 1)
+    tab[:, :, 3] = np.maximum(tab[:, :, 3], 1)
+    return tab
 
 
 def words_of(data: bytes, cap_words: int) -> np.ndarray:

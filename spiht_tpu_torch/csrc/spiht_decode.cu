@@ -5,6 +5,10 @@
 //                     the decoder of duplicate-free geometries. It writes
 //                     the LSP queues (node, sgn<<31 | magnitude) and a count;
 //                     rec is one scatter after the kernel (codec/decoder.py).
+//   spiht_decode_lsp_log  replaces the with_log variant of the same _hybrid_fn
+//                     (pallas_decoder.py:571-579): B2's machine with the LOG
+//                     flag, which also writes the compact event log of the
+//                     metadata trace (below).
 //   spiht_decode_seq  replaces spiht_tpu/codec/pallas_decoder.py:_seq_fn,
 //                     the decoder every odd-LL (duplicate-parent) geometry
 //                     goes to. It keeps rec in the kernel: a node may be
@@ -20,6 +24,16 @@
 //   lip[] holds node indices, lis[] node<<1 | type_A; in-place FIFOs as in
 //   the encoder. The commit magnitude is 1.5 * 2^n; refinement sets or
 //   clears bit n of the magnitude and keeps the sign.
+//
+// The event log (LOG = true, B2 only): one int32 word per attempted bit at
+// that bit's stream offset, node | action << 24 | (n+1) << 27, with the
+// reference's action ids (EV_* below). The reference trace writes its row
+// before each read, so the read that finds the stream empty gets a row too,
+// at offset nbits, and nothing follows it: the log holds nbits + 1 words,
+// zeroed by the caller (an unwritten word is 0; a written one is not, as
+// n+1 >= 1). The log keeps B2's structure: a zero run's entries are logged
+// across the lanes, the 8 bits after a type-A fire by lanes 0-3, and the
+// refinement by the whole block, each word at the offset of its bit.
 //
 // What bounds them on an H100: neither bytes nor arithmetic but the chain
 // of bit decisions in the LIP and LIS passes (each bit's meaning depends on
@@ -58,7 +72,32 @@ struct DecArgs {
   int32_t* __restrict__ rec;       // B3: (N) coefficients, zeroed; B2: unused
   uint64_t* __restrict__ last;     // B3: (N) refinement claims, zeroed
   int32_t* __restrict__ stat;
+  int32_t* __restrict__ log;       // LOG: (nbits + 1) event words, zeroed
 };
+
+// Action ids of the event log (the reference metadata taxonomy).
+enum SpihtEvent : int32_t {
+  EV_LIP = 0,       // a LIP entry's significance bit
+  EV_LIP_SIGN = 1,  // its sign bit
+  EV_DESC = 2,      // a type-A LIS entry's descendant-significance bit
+  EV_OFF = 3,       // an offspring's significance bit after a type-A fire
+  EV_OFF_SIGN = 4,  // its sign bit
+  EV_LSIG = 5,      // a type-B LIS entry's grandchild-significance bit
+  EV_REF = 6,       // a refinement bit
+};
+
+// The plane field of an event word at plane n (n <= 30).
+SPIHT_HD int32_t plane_event(int n) { return (int32_t)((uint32_t)(n + 1) << 27); }
+
+// The log word of an event; ev = plane_event(n).
+SPIHT_HD int32_t event(int32_t node, int32_t action, int32_t ev) {
+  return node | (action << 24) | ev;
+}
+
+// The log word of a LIS entry's first bit (by its type).
+SPIHT_HD int32_t lis_event(int32_t e, int32_t ev) {
+  return event(e >> 1, (e & 1) ? EV_DESC : EV_LSIG, ev);
+}
 
 struct DecShared {
   int32_t e[SPIHT_CHUNK];  // the queue entry
@@ -193,17 +232,26 @@ SPIHT_HD void retain_run(int32_t* q, int32_t keep, const int32_t* e,
   for (int32_t j = lane; j < run; j += SPIHT_WARP) q[keep + j] = e[j];
 }
 
-template <bool SEQ>
+template <bool SEQ, bool LOG>
 SPIHT_HD bool dec_lip_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
-                            int32_t mag, DecState& st, int lane) {
+                            int32_t mag, int32_t ev, DecState& st, int lane) {
   for (int32_t k = 0; k < m;) {
     const int32_t run = min32(zero_run(a, st), m - k);
     if (run > 0) {  // insignificant entries: retained
+      if (LOG) {
+        for (int32_t j = lane; j < run; j += SPIHT_WARP)
+          a.log[st.cur + j] = event(sh.e[k + j], EV_LIP, ev);
+      }
       retain_run(a.lip, st.keep, sh.e + k, run, lane);
       st.keep += run;
       skip_bits(st, run);
       k += run;
       continue;
+    }
+    if (LOG && lane == 0) {  // entry k's significance bit and its sign bit
+      // (the first attempt past the stream's end is logged, at nbits)
+      a.log[st.cur] = event(sh.e[k], EV_LIP, ev);
+      if (st.have >= 1) a.log[st.cur + 1] = event(sh.e[k], EV_LIP_SIGN, ev);
     }
     if (st.have < 2) {  // the sign bit is missing: nothing is committed
       next_bit(a, st);
@@ -217,20 +265,25 @@ SPIHT_HD bool dec_lip_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
   return true;
 }
 
-template <bool SEQ>
+template <bool SEQ, bool LOG>
 SPIHT_HD bool dec_lis_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
-                            int32_t mag, DecState& st, int lane) {
+                            int32_t mag, int32_t ev, DecState& st, int lane) {
   for (int32_t k = 0; k < m;) {
     const int32_t run = min32(zero_run(a, st), m - k);
     if (run > 0) {  // unfired entries: retained
+      if (LOG) {
+        for (int32_t j = lane; j < run; j += SPIHT_WARP)
+          a.log[st.cur + j] = lis_event(sh.e[k + j], ev);
+      }
       retain_run(a.lis, st.keep, sh.e + k, run, lane);
       st.keep += run;
       skip_bits(st, run);
       k += run;
       continue;
     }
-    if (next_bit(a, st) < 0) return false;  // else entry k fired
     const int32_t e = sh.e[k], g = sh.g[k];
+    if (LOG && lane == 0) a.log[st.cur] = lis_event(e, ev);
+    if (next_bit(a, st) < 0) return false;  // else entry k fired
     ++k;
     if (e & 1) {  // type A: code the 4 offspring
       if ((g >> 1) & 1) {
@@ -244,6 +297,11 @@ SPIHT_HD bool dec_lis_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
           if (lane < 4) {
             const int32_t ch = c0 + (lane & 1) + (lane >> 1) * a.w;
             const int32_t below = (1 << lane) - 1;
+            if (LOG) {  // child q's bits start after those of children < q
+              const int32_t at = st.cur + lane + POPC(sig & below);
+              a.log[at] = event(ch, EV_OFF, ev);
+              if ((sig >> lane) & 1) a.log[at + 1] = event(ch, EV_OFF_SIGN, ev);
+            }
             if ((sig >> lane) & 1) {
               commit_at<SEQ>(a, st.lsp_n + POPC(sig & below), ch,
                              (code >> (4 + lane)) & 1, mag);
@@ -257,9 +315,11 @@ SPIHT_HD bool dec_lis_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
         } else {  // bit by bit: near the stream's end, or a queue is full
           for (int q = 0; q < 4; ++q) {
             const int32_t ch = c0 + st.off[q];
+            if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF, ev);
             const int b = next_bit(a, st);
             if (b < 0) return false;
             if (b) {
+              if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF_SIGN, ev);
               const int s = next_bit(a, st);
               if (s < 0 || !commit<SEQ>(a, st, ch, s, mag, lane)) return false;
             } else {
@@ -288,11 +348,18 @@ SPIHT_HD bool dec_lis_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
 }
 
 // Refinement of snapshot entries [0, avail) of plane n, whose bits are
-// stream bits cur .. cur+avail-1; run by every thread.
-template <bool SEQ>
-SPIHT_HD void dec_refine(const DecArgs& a, int32_t avail, int32_t cur, int n,
-                         int tid, int nt) {
+// stream bits cur .. cur+avail-1; run by every thread. With LOG, entry
+// `avail` < snap, whose read found the stream empty, is logged at nbits.
+template <bool SEQ, bool LOG>
+SPIHT_HD void dec_refine(const DecArgs& a, int32_t avail, int32_t snap,
+                         int32_t cur, int n, int tid, int nt) {
   const int32_t bit = 1 << n;
+  if (LOG) {
+    const int32_t ev = plane_event(n);
+    for (int32_t i = tid; i < avail; i += nt)
+      a.log[cur + i] = event(a.lsp[i], EV_REF, ev);
+    if (tid == 0 && avail < snap) a.log[cur + avail] = event(a.lsp[avail], EV_REF, ev);
+  }
   if (!SEQ) {
     for (int32_t i = tid; i < avail; i += nt) {
       const int32_t v = a.lsp_val[i];
@@ -315,8 +382,8 @@ SPIHT_HD void dec_refine(const DecArgs& a, int32_t avail, int32_t cur, int n,
 
 // One machine for both kernels, run by every thread of the block (tid in
 // [0, nt)): SEQ selects where a commit and a refinement land (the LSP value
-// queue for B2, the shared rec array for B3).
-template <bool SEQ>
+// queue for B2, the shared rec array for B3); LOG adds the event log.
+template <bool SEQ, bool LOG>
 SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
                              int nt) {
   DecState st{0, 0, 0, SPIHT_OK, a.n_lip0, a.n_lis0, 0, 0,
@@ -328,7 +395,7 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
 
   for (int n = a.max_n; n >= 0; --n) {
     const int32_t lip_len = sh.pub.lip_n, lsp_snap = sh.pub.lsp_n;
-    const int32_t mag = commit_mag(n);
+    const int32_t mag = commit_mag(n), ev = plane_event(n);
 
     // ---- LIP pass ----
     st.keep = 0;
@@ -336,7 +403,8 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
       const int32_t m = min32(SPIHT_CHUNK, lip_len - r0);
       for (int32_t i = tid; i < m; i += nt) sh.e[i] = a.lip[r0 + i];
       SPIHT_SYNC();
-      if (warp0 && !dec_lip_chunk<SEQ>(a, sh, m, mag, st, tid) && tid == 0)
+      if (warp0 && !dec_lip_chunk<SEQ, LOG>(a, sh, m, mag, ev, st, tid) &&
+          tid == 0)
         sh.pub.stop = 1;
       SPIHT_SYNC();
       if (sh.pub.stop) goto out;
@@ -356,7 +424,7 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
       }
       SPIHT_SYNC();
       if (warp0) {
-        const bool ok = dec_lis_chunk<SEQ>(a, sh, m, mag, st, tid);
+        const bool ok = dec_lis_chunk<SEQ, LOG>(a, sh, m, mag, ev, st, tid);
         if (tid == 0) {
           if (!ok) sh.pub.stop = 1;
           sh.pub.lis_n = st.lis_n;
@@ -378,7 +446,7 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
     {
       const int32_t cur = sh.cur;
       const int32_t avail = min32(lsp_snap, a.nbits - cur);
-      dec_refine<SEQ>(a, avail, cur, n, tid, nt);
+      dec_refine<SEQ, LOG>(a, avail, lsp_snap, cur, n, tid, nt);
       seek(st, cur + avail);
       if (tid == 0) {
         if (avail < lsp_snap) sh.pub.stop = 1;  // the stream ended inside
@@ -423,7 +491,7 @@ SPIHT_HD void dec_prologue(const DecArgs& a, const int32_t* lip0,
 // batches, which that kernel refuses, went through a lax.map of
 // pallas_decoder.py:_seq_fn one stream after another; the batched B3
 // launch runs them all at once. Each block is one stream: block b builds
-// stream b's DecArgs (dec_stream_args) and runs decode_machine<SEQ>, so
+// stream b's DecArgs (dec_stream_args) and runs decode_machine<SEQ, false>, so
 // every stream decodes exactly as B2 or B3 decodes it alone. Each stream
 // stops at its own nbits: the word rows are zero-padded to the longest
 // stream, and nothing past a stream's length is read.
@@ -474,7 +542,7 @@ SPIHT_HD DecArgs dec_stream_args(const DecBatch& g, int32_t b) {
       g.lsp_val ? g.lsp_val + lsp_row : nullptr,
       g.rec ? g.rec + cells : nullptr,
       g.last ? g.last + cells : nullptr,
-      g.stat + (int64_t)b * SPIHT_STAT_LEN};
+      g.stat + (int64_t)b * SPIHT_STAT_LEN, nullptr};
 }
 
 // Stream b's whole block: prologue, barrier, machine (run by the kernel
@@ -485,21 +553,21 @@ SPIHT_HD void decode_stream(const DecBatch& g, int32_t b, DecShared& sh,
   const DecArgs a = dec_stream_args(g, b);
   dec_prologue<SEQ>(a, g.lip0, g.lis0, g.n_cells, tid, nt);
   SPIHT_SYNC();
-  decode_machine<SEQ>(a, sh, tid, nt);
+  decode_machine<SEQ, false>(a, sh, tid, nt);
 }
 
 #ifdef __CUDACC__
 
 #include <cuda_runtime.h>
 
-template <bool SEQ>
+template <bool SEQ, bool LOG>
 __global__ void __launch_bounds__(SPIHT_THREADS)
 spiht_decode_kernel(DecArgs a, const int32_t* __restrict__ lip0,
                     const int32_t* __restrict__ lis0, int32_t n_rec) {
   __shared__ DecShared sh;
   dec_prologue<SEQ>(a, lip0, lis0, n_rec, threadIdx.x, blockDim.x);
   __syncthreads();
-  decode_machine<SEQ>(a, sh, threadIdx.x, blockDim.x);
+  decode_machine<SEQ, LOG>(a, sh, threadIdx.x, blockDim.x);
 }
 
 template <bool SEQ>
@@ -516,9 +584,24 @@ extern "C" int spiht_decode_lsp_launch(
     int32_t* lsp, int32_t* lsp_val, int32_t lsp_cap, int32_t* stat,
     void* stream) {
   DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
-            lis, lis_cap, lsp, lsp_cap, lsp_val, nullptr, nullptr, stat};
-  spiht_decode_kernel<false><<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(
-      a, lip0, lis0, 0);
+            lis, lis_cap, lsp, lsp_cap, lsp_val, nullptr, nullptr, stat,
+            nullptr};
+  spiht_decode_kernel<false, false>
+      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, 0);
+  return (int)cudaGetLastError();
+}
+
+// B2 with the event log: `log` holds nbits + 1 zeroed words.
+extern "C" int spiht_decode_lsp_log_launch(
+    const uint32_t* words, int32_t nbits, int32_t max_n, const int32_t* geo,
+    const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
+    int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
+    int32_t* lsp, int32_t* lsp_val, int32_t lsp_cap, int32_t* stat,
+    int32_t* log, void* stream) {
+  DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
+            lis, lis_cap, lsp, lsp_cap, lsp_val, nullptr, nullptr, stat, log};
+  spiht_decode_kernel<false, true>
+      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, 0);
   return (int)cudaGetLastError();
 }
 
@@ -529,9 +612,9 @@ extern "C" int spiht_decode_seq_launch(
     int32_t* lsp, int32_t lsp_cap, int32_t* rec, uint64_t* last,
     int32_t n_rec, int32_t* stat, void* stream) {
   DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
-            lis, lis_cap, lsp, lsp_cap, nullptr, rec, last, stat};
-  spiht_decode_kernel<true><<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(
-      a, lip0, lis0, n_rec);
+            lis, lis_cap, lsp, lsp_cap, nullptr, rec, last, stat, nullptr};
+  spiht_decode_kernel<true, false>
+      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, n_rec);
   return (int)cudaGetLastError();
 }
 

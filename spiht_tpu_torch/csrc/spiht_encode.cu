@@ -1,4 +1,5 @@
-// SPIHT encode machine (kernel B1; kernel B4 at the end runs it over a batch).
+// SPIHT encode machine (kernel B1; kernel B4 at the end runs it over a batch;
+// kernel B7, the sequential machine, after it).
 //
 // B1 replaces spiht_tpu/codec/pallas_encoder.py:_hybrid_fn (all three of its
 // layouts: standard, compact, compact_hbm, which were VMEM economies; one
@@ -390,6 +391,108 @@ SPIHT_HD void enc_prologue(const EncArgs& a, const int32_t* lip0,
   for (int32_t i = tid; i < a.n_lis0; i += nt) a.lis[i] = lis0[i];
 }
 
+// ---- kernel B7: the sequential machine, one entry per iteration ----
+//
+// Replaces spiht_tpu/codec/pallas_encoder.py:_seq_fn (the encoder that
+// pallas_encode_fn runs for machine="seq"). It computes B1's function on
+// B1's own tables and queues (EncArgs), with the same exact mid-symbol
+// max_bits cut and the same stat words, one queue entry at a time in one
+// thread, straight from global memory.
+//
+// What bounds it on an H100: the one thread's chain of dependent loads
+// (entry -> t1 -> child0 -> the children's t1/t3s) and branches, a few
+// hundred cycles an entry; bytes and arithmetic are a thousandth of that.
+// The design does nothing about it on purpose: it is the simple machine,
+// kept as the reference point for B1's warp-parallel one.
+
+// One LIS entry of plane n, as the sequential machine runs it (appends at
+// the live tails, retention at s.keep). False when the machine stops.
+SPIHT_HD bool enc_seq_lis_entry(const EncArgs& a, int32_t e, int n,
+                                EncState& s) {
+  const int32_t node = e >> 1, t = a.t1[node];
+  if (e & 1) {  // type A: any descendant significant?
+    const uint32_t dsig = level_d(t) >= n;
+    if (!put_bit(s.bw, dsig)) return false;
+    if (!dsig) {
+      a.lis[s.keep++] = e;
+      return true;
+    }
+    const int32_t c0 = a.child0[node];
+    for (int q = 0; q < 4; ++q) {
+      const int32_t ch = c0 + s.off[q];
+      const uint32_t sig = level_m(a.t1[ch]) >= n;
+      if (!put_bit(s.bw, sig)) return false;
+      if (sig) {
+        if (!put_bit(s.bw, (uint32_t)a.t3s[ch] >> 31)) return false;
+        if (s.lsp_n >= a.lsp_cap) { s.err = SPIHT_ERR_LSP_CAP; return false; }
+        a.lsp[s.lsp_n++] = ch;
+      } else {
+        if (s.lip_n >= a.lip_cap) { s.err = SPIHT_ERR_LIP_CAP; return false; }
+        a.lip[s.lip_n++] = ch;
+      }
+    }
+    if ((t >> 17) & 1) {  // has grandchildren: re-append as type B
+      if (s.lis_n >= a.lis_cap) { s.err = SPIHT_ERR_LIS_CAP; return false; }
+      a.lis[s.lis_n++] = e & ~1;
+    }
+    return true;
+  }
+  const uint32_t lsig = level_g(t) >= n;  // type B: any grandchild subtree?
+  if (!put_bit(s.bw, lsig)) return false;
+  if (!lsig) {
+    a.lis[s.keep++] = e;
+    return true;
+  }
+  const int32_t c0 = a.child0[node];
+  if (s.lis_n + 4 > a.lis_cap) { s.err = SPIHT_ERR_LIS_CAP; return false; }
+  for (int q = 0; q < 4; ++q) a.lis[s.lis_n++] = ((c0 + s.off[q]) << 1) | 1;
+  return true;
+}
+
+// Every plane from max_n down; false when the machine stops.
+SPIHT_HD bool enc_seq_planes(const EncArgs& a, EncState& s) {
+  for (int n = a.max_n; n >= 0; --n) {
+    const int32_t lsp_snap = s.lsp_n;
+    s.keep = 0;  // ---- LIP pass ----
+    for (int32_t r = 0; r < s.lip_n; ++r) {
+      const int32_t node = a.lip[r];
+      const uint32_t sig = level_m(a.t1[node]) >= n;
+      if (!put_bit(s.bw, sig)) return false;
+      if (sig) {
+        if (!put_bit(s.bw, (uint32_t)a.t3s[node] >> 31)) return false;
+        if (s.lsp_n >= a.lsp_cap) { s.err = SPIHT_ERR_LSP_CAP; return false; }
+        a.lsp[s.lsp_n++] = node;
+      } else {
+        a.lip[s.keep++] = node;
+      }
+    }
+    s.lip_n = s.keep;
+    s.keep = 0;  // ---- LIS pass (worklist: appends are visited now) ----
+    for (int32_t r = 0; r < s.lis_n; ++r)
+      if (!enc_seq_lis_entry(a, a.lis[r], n, s)) return false;
+    s.lis_n = s.keep;
+    for (int32_t r = 0; r < lsp_snap; ++r)  // ---- refinement ----
+      if (!put_bit(s.bw, ((a.t3s[a.lsp[r]] & 0x7FFFFFFF) >> n) & 1)) return false;
+  }
+  return true;
+}
+
+// The sequential machine in one thread; lip/lis hold their initial entries
+// and the word buffer is zeroed on entry.
+SPIHT_HD void encode_seq_machine(const EncArgs& a) {
+  EncState s{BitWriter{a.words, 0, a.max_bits}, SPIHT_OK,
+             a.n_lip0, a.n_lis0, 0, 0, {0, 1, a.w, a.w + 1}};
+  // a put_bit refused: the budget is spent (or a queue overflowed)
+  if (!enc_seq_planes(a, s) && s.err == SPIHT_OK && a.capped)
+    s.err = SPIHT_ERR_STREAM_CAP;
+  a.stat[0] = s.bw.pos;
+  a.stat[1] = s.err;
+  a.stat[2] = s.lip_n;
+  a.stat[3] = s.lis_n;
+  a.stat[4] = s.lsp_n;
+  a.stat[5] = 0;
+}
+
 // ---- kernel B4: B streams in one launch, one block per stream ----
 //
 // Replaces spiht_tpu/codec/pallas_encoder.py:_interleaved_fn, which stepped
@@ -470,6 +573,17 @@ spiht_encode_kernel(EncArgs a, const int32_t* __restrict__ max_n,
   encode_machine(a, sh, threadIdx.x, blockDim.x);
 }
 
+// B7: the block zeroes the stream and loads the queues, thread 0 encodes.
+__global__ void __launch_bounds__(SPIHT_THREADS)
+spiht_encode_seq_kernel(EncArgs a, const int32_t* __restrict__ max_n,
+                        const int32_t* __restrict__ lip0,
+                        const int32_t* __restrict__ lis0, int32_t cap_words) {
+  enc_prologue(a, lip0, lis0, cap_words, threadIdx.x, blockDim.x);
+  a.max_n = *max_n;
+  __syncthreads();
+  if (threadIdx.x == 0) encode_seq_machine(a);
+}
+
 __global__ void __launch_bounds__(SPIHT_THREADS)
 spiht_encode_batch_kernel(EncBatch g) {
   __shared__ EncShared sh;
@@ -486,6 +600,21 @@ extern "C" int spiht_encode_launch(
   EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, 0, max_bits, capped,
             lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
   spiht_encode_kernel<<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(
+      a, max_n, lip0, lis0, cap_words);
+  return (int)cudaGetLastError();
+}
+
+// B7, with B1's arguments.
+extern "C" int spiht_encode_seq_launch(
+    const int32_t* t1, const int32_t* t3s, const int32_t* child0,
+    const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
+    int32_t w, const int32_t* max_n, int32_t max_bits, int32_t capped,
+    int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
+    int32_t* lsp, int32_t lsp_cap, uint32_t* words, int32_t cap_words,
+    int32_t* stat, void* stream) {
+  EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, 0, max_bits, capped,
+            lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
+  spiht_encode_seq_kernel<<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(
       a, max_n, lip0, lis0, cap_words);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,14 @@
   :393-500): the same over a (B, C, H, W) batch of one shape, through the
   batched kernels (B4; B5 or batched B3), one launch per direction.
 
+* ``forward_compact`` (``_forward_compact_jit`` :103-146): the forward
+  transform to int16 coefficients and an overflow flag, for the
+  host-scheduled batch codec; with the float32 working dtype the quantize
+  step is kernel B6 (``ops/quantize_kernels.py``).
+* ``forward_plan`` and ``narrow`` (``_forward_plan_jit`` :701-733,
+  ``_narrow_jit`` :736-746): the two device phases of the budget-narrowed
+  batch encode.
+
 ``forward`` and ``inverse`` take leading batch dims: every step is
 elementwise or works along H and W, so no value depends on the batch and
 each image of a batch gets exactly what it gets alone.
@@ -31,6 +39,9 @@ import torch
 
 from .codec.decoder import decode_coeffs, decode_coeffs_batch
 from .codec.encoder import encode_coeffs, encode_coeffs_batch
+from .codec.maps import significance_maps
+from .codec.planning import bits_per_plane_from_maps
+from .ops.quantize_kernels import quantize_compact
 from .color import torch_models
 from .settings import SpihtSettings
 from .wavelets import dwt
@@ -38,6 +49,9 @@ from .wavelets.geometry import get_slices_and_h_w
 
 __all__ = [
     "forward",
+    "forward_compact",
+    "forward_plan",
+    "narrow",
     "inverse",
     "encode_pipeline_fn",
     "decode_pipeline_fn",
@@ -50,14 +64,8 @@ def _mults(pcs, x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(pcs, dtype=x.dtype, device=x.device)[:, None, None]
 
 
-def forward(
-    image: torch.Tensor,
-    settings: SpihtSettings,
-    level: Optional[int] = None,
-    dtype: torch.dtype = torch.float64,
-) -> Tuple[torch.Tensor, int, int]:
-    """(..., C, H, W) image(s) -> (int32 packed coefficients (..., C,
-    enc_h, enc_w), ll_h, ll_w), on the images' device."""
+def _scaled_coeffs(image, settings, level, dtype):
+    """Colour model -> packed DWT -> per-channel scales, in ``dtype``."""
     image = image.to(dtype)
     if settings.color_model is not None:
         image = torch_models.convert(image, "RGB", settings.color_model)
@@ -66,9 +74,78 @@ def forward(
     )
     if settings.per_channel_quant_scales is not None:
         arr = arr * _mults(settings.per_channel_quant_scales, arr)
+    return arr, ll_h, ll_w
+
+
+def forward(
+    image: torch.Tensor,
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+) -> Tuple[torch.Tensor, int, int]:
+    """(..., C, H, W) image(s) -> (int32 packed coefficients (..., C,
+    enc_h, enc_w), ll_h, ll_w), on the images' device."""
+    arr, ll_h, ll_w = _scaled_coeffs(image, settings, level, dtype)
     # truncate toward zero, as the reference's integer cast
     arr = (arr * float(settings.quantization_scale)).to(torch.int32)
     return arr, ll_h, ll_w
+
+
+def forward_compact(
+    image: torch.Tensor,
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """(..., C, H, W) image(s) -> (int16 coefficients clipped to +-32767,
+    overflow 0-d bool: whether any |coefficient| > 32767, ll_h, ll_w), on
+    the images' device; no host sync.
+
+    With the float32 working dtype the quantize, the clip and the
+    overflow check are one pass of kernel B6 over the scaled float32
+    coefficients, as the JAX package's TPU path runs them; otherwise they
+    are torch ops on ``forward``'s int32 array (B6 quantizes in float32,
+    which could flip a borderline truncation of the float64 path)."""
+    if dtype == torch.float32:
+        coeffs, ll_h, ll_w = _scaled_coeffs(image, settings, level, dtype)
+        _, arr16, _, overflow = quantize_compact(
+            coeffs.to(torch.float32), settings.quantization_scale
+        )
+        return arr16, overflow, ll_h, ll_w
+    arr, ll_h, ll_w = forward(image, settings, level, dtype)
+    overflow = (torch.abs(arr) > 32767).any()
+    return torch.clamp(arr, -32767, 32767).to(torch.int16), overflow, ll_h, ll_w
+
+
+def forward_plan(
+    images: torch.Tensor,
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+):
+    """Device phase 1 of the budget-narrowed batch encode: (B, C, H, W)
+    images -> (arr int32 (B, C, enc_h, enc_w), mx (B,) max |x| per image,
+    counts (B, 32) exact full-stream bits per plane, max_n_dev (B,),
+    ll_h, ll_w), all on the images' device. The counts are computed at
+    the exact per-image max(M) (max_n_dev); the caller extends them to
+    the reference's f32-rule max_n (the planes in between emit one
+    all-zero test per initial LIP/LIS entity). Even LL dims only."""
+    arr, ll_h, ll_w = forward(images, settings, level, dtype)
+    mx = torch.abs(arr).amax(dim=(-3, -2, -1))
+    m, d, g = significance_maps(arr, ll_h, ll_w)
+    max_n_dev = m.amax(dim=(-3, -2, -1)).to(torch.int32).clamp(min=0)
+    counts = bits_per_plane_from_maps(m, d, g, ll_h, ll_w, max_n_dev)
+    return arr, mx, counts, max_n_dev, ll_h, ll_w
+
+
+def narrow(
+    arr: torch.Tensor, shifts: torch.Tensor, out_dtype: torch.dtype
+) -> torch.Tensor:
+    """Device phase 2: each image's magnitudes shifted right by its
+    shift, sign kept, narrowed to ``out_dtype``. arr (B, C, H, W) int32;
+    shifts (B,) int32 on arr's device."""
+    mag = torch.abs(arr) >> shifts.reshape(-1, 1, 1, 1)
+    return torch.where(arr >= 0, mag, -mag).to(out_dtype)
 
 
 def inverse(

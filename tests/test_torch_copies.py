@@ -1,11 +1,14 @@
 """The port's copies of the JAX package's JAX-free modules equal the
 originals: their code, filter taps, subband geometry, queue bounds, the bit
 machines' geometry tables, the max_n threshold table, colour constants and
-the settings containers."""
+the settings containers; the native scheduler's C++ sources, its ctypes
+bindings and its outputs; the metadata trace's rect and node tables; the
+planner's numpy functions."""
 
 import ast
 import dataclasses
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,7 +16,10 @@ import torch
 
 from spiht_tpu.codec import device_decoder as jdd
 from spiht_tpu.codec import device_encoder as jde
+from spiht_tpu.codec import meta_expand as jme
+from spiht_tpu.codec import planning as jplan
 from spiht_tpu.codec import tree_bounds as jtb
+from spiht_tpu.native import runtime as jrt
 from spiht_tpu.color import models as jcm
 from spiht_tpu import settings as jset
 from spiht_tpu.wavelets import _coif_tables as jcoif
@@ -24,7 +30,10 @@ from spiht_tpu.wavelets import ref_dwt as jref
 from spiht_tpu_torch import settings as tset
 from spiht_tpu_torch.codec import geom as tgeom
 from spiht_tpu_torch.codec import maxn as tmaxn
+from spiht_tpu_torch.codec import meta_expand as tme
+from spiht_tpu_torch.codec import planning as tplan
 from spiht_tpu_torch.codec import tree_bounds as ttb
+from spiht_tpu_torch.native import runtime as trt
 from spiht_tpu_torch.color import models as tcm
 from spiht_tpu_torch.wavelets import _coif_tables as tcoif
 from spiht_tpu_torch.wavelets import filters as tf
@@ -167,3 +176,106 @@ def test_settings_identical():
         assert fa == fb
     er = tset.EncodingResult(b"\x01\x02", 5, 6, 3, 9, 2)
     assert jset.EncodingResult.from_dict(er.to_dict()).to_dict() == er.to_dict()
+
+
+@pytest.mark.parametrize("name", ["spiht_kernel.cpp", "dwt_kernel.cpp"])
+def test_native_sources_identical(name):
+    src = Path(jrt.__file__).parent / name
+    dst = Path(trt.__file__).parent / name
+    assert src.read_bytes() == dst.read_bytes()
+
+
+def test_native_bindings_identical():
+    def tree(obj):
+        return ast.dump(ast.parse(inspect.getsource(obj)))
+
+    assert tree(trt._Kernel) == tree(jrt._Kernel)
+    assert trt._EXT_MODES == jrt._EXT_MODES
+
+
+def test_native_library_is_the_ports_own():
+    """The port builds its own library under spiht_tpu_torch/build and
+    never loads the JAX package's."""
+    root = Path(trt.__file__).resolve().parent.parent
+    assert trt._so_path().parent == root / "build"
+    assert "spiht_tpu_torch" in str(trt._so_path())
+
+
+@pytest.mark.parametrize("geo", [(3, 24, 32, 6, 8), (1, 19, 19, 5, 5),
+                                 (2, 34, 18, 4, 2)])
+def test_native_outputs_identical(geo):
+    """Encode (single and batch), decode (single, batch, with metadata)
+    and the maps of both packages' native schedulers agree."""
+    c, h, w, ll_h, ll_w = geo
+    rng = np.random.default_rng(sum(geo))
+    arrs = [(rng.standard_normal((c, h, w)) * s).astype(np.int32)
+            for s in (900, 7)]
+    jn, tn = jrt.load(), trt.load()
+    for a in arrs:
+        for mb in (2**62, 333):
+            assert tn.encode(a, ll_h, ll_w, mb) == jn.encode(a, ll_h, ll_w, mb)
+        for x, y in zip(tn.compute_maps(a, ll_h, ll_w),
+                        jn.compute_maps(a, ll_h, ll_w)):
+            np.testing.assert_array_equal(x, y)
+    mbs = [2**62, 1001]
+    enc = tn.encode_batch(arrs, [ll_h] * 2, [ll_w] * 2, mbs)
+    assert enc == jn.encode_batch(arrs, [ll_h] * 2, [ll_w] * 2, mbs)
+    datas = [d[:cut] for (d, _), cut in zip(enc, (None, 40))]
+    ns = [m for _, m in enc]
+    for d, n in zip(datas, ns):
+        np.testing.assert_array_equal(tn.decode(d, n, c, h, w, ll_h, ll_w),
+                                      jn.decode(d, n, c, h, w, ll_h, ll_w))
+        top = [(0, ll_h), (0, ll_w)]
+        other = [[[(0, ll_h), (ll_w, 2 * ll_w)], [(ll_h, 2 * ll_h), (0, ll_w)],
+                  [(ll_h, 2 * ll_h), (ll_w, 2 * ll_w)]]]
+        for x, y in zip(
+            tn.decode_with_metadata(d, n, c, h, w, ll_h, ll_w, top, other),
+            jn.decode_with_metadata(d, n, c, h, w, ll_h, ll_w, top, other),
+        ):
+            np.testing.assert_array_equal(x, y)
+    args = (datas, ns, [c] * 2, [h] * 2, [w] * 2, [ll_h] * 2, [ll_w] * 2)
+    for x, y in zip(tn.decode_batch(*args), jn.decode_batch(*args)):
+        np.testing.assert_array_equal(x, y)
+
+
+def _wire(level, ll_h, ll_w):
+    """(top_slice, other_slices) of a dyadic packing of ``level`` levels."""
+    top = ((0, ll_h), (0, ll_w))
+    other = []
+    h, w = ll_h, ll_w
+    for _ in range(level):
+        other.append((((0, h), (w, 2 * w)), ((h, 2 * h), (0, w)),
+                      ((h, 2 * h), (w, 2 * w))))
+        h, w = 2 * h, 2 * w
+    return top, tuple(other)
+
+
+@pytest.mark.parametrize("level,ll", [(0, (4, 4)), (2, (6, 8)), (3, (12, 12))])
+def test_rect_table_identical(level, ll):
+    wire = _wire(level, *ll)
+    for slices in (wire, None):
+        np.testing.assert_array_equal(
+            tgeom.rect_table(level, *ll, slices),
+            jdd._rect_table(level, *ll, slices))
+
+
+@pytest.mark.parametrize("c,level,ll", [(1, 2, (4, 4)), (3, 2, (6, 8)),
+                                        (2, 3, (12, 12))])
+def test_static_node_tables_identical(c, level, ll):
+    h, w = ll[0] << level, ll[1] << level
+    key = tuple(map(tuple, jdd._rect_table(
+        level, *ll, _wire(level, *ll)).reshape(-1, 4)))
+    a = jme._static_node_tables(c, h, w, *ll, level, key)
+    b = tme._static_node_tables(c, h, w, *ll, level, key)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("name", ["plan_supported", "_static_geometry",
+                                  "bits_per_plane_from_maps_np",
+                                  "cut_plane_np"])
+def test_planning_numpy_copies_identical(name):
+    def tree(fn):
+        return ast.dump(ast.parse(inspect.getsource(fn)))
+
+    assert tree(getattr(tplan, name)) == tree(getattr(jplan, name))

@@ -83,3 +83,114 @@ def test_batched_wrappers_count_launches(cuda):
     decoder.decode_batch([d for d, _ in got], [m for _, m in got], 1, 16, 16,
                          4, 4, device=cuda)
     assert decoder.decode_lsp_batch.launches == n0 + 1
+
+
+def _event_log_case(cuda, cut):
+    arr = (np.random.default_rng(2).standard_normal((3, 24, 32)) * 900
+           ).astype(np.int32)
+    data, mn = encoder.encode(arr, 6, 8, device="cpu")
+    data = data[:cut]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        words, nbits = decoder.words_tensor(data, dev)
+        out.append(decoder.decode_lsp_log(
+            *decoder.machine_args(words, nbits, mn, 3, 24, 32, 6, 8)))
+    return out
+
+
+@pytest.mark.parametrize("cut", [None, 0, 1, 7, 100])
+def test_log_kernel_equals_plain_version(cuda, cut):
+    """B2-log: stat, LSP queues and every event word, the row at nbits
+    included, equal the plain version's."""
+    (kl, kv, ks, klog), (pl, pv, ps, plog) = _event_log_case(cuda, cut)
+    assert ks.tolist() == ps.tolist()
+    live = int(ps[0])
+    assert torch.equal(kl[:live].cpu(), pl[:live])
+    assert torch.equal(kv[:live].cpu(), pv[:live])
+    assert torch.equal(klog.cpu(), plog)
+
+
+@pytest.mark.parametrize("shape,ll", [((3, 24, 32), (6, 8)),
+                                      ((3, 19, 19), (5, 5))])
+def test_seq_encoder_kernel_equals_plain_version(cuda, shape, ll):
+    arr = (np.random.default_rng(3).standard_normal(shape) * 400).astype(
+        np.int32)
+    for mb in (2**31 - 2, 1, 333, 1000):
+        got = encoder.encode(arr, *ll, mb, device=cuda, machine="seq")
+        assert got == encoder.encode(arr, *ll, mb, device="cpu")
+        assert got == encoder.encode(arr, *ll, mb, device=cuda)
+
+
+@pytest.mark.parametrize("spread", [3.0, 900.0, 40000.0])
+def test_quantize_kernel_equals_plain_version(cuda, spread):
+    from spiht_tpu_torch.ops.quantize_kernels import quantize_compact
+
+    x = torch.as_tensor((np.random.default_rng(4).standard_normal(
+        (3, 61, 37)) * spread).astype(np.float32))
+    k = quantize_compact(x.to(cuda), 1.7)
+    p = quantize_compact(x, 1.7)
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b)
+    assert bool(k[3]) == (spread > 10000)
+
+
+def test_new_wrappers_count_launches(cuda):
+    from spiht_tpu_torch.ops.quantize_kernels import quantize_compact
+
+    n0 = decoder.decode_lsp_log.launches
+    _event_log_case(cuda, None)
+    assert decoder.decode_lsp_log.launches == n0 + 1
+    n0 = encoder.encode_machine_seq.launches
+    encoder.encode(np.ones((1, 16, 16), np.int32), 4, 4, device=cuda,
+                   machine="seq")
+    assert encoder.encode_machine_seq.launches == n0 + 1
+    n0 = quantize_compact.launches
+    quantize_compact(torch.ones(5, device=cuda), 3.0)
+    assert quantize_compact.launches == n0 + 1
+
+
+def test_host_scheduled_batch_codec_on_the_card(cuda):
+    """encode_images / decode_images with the card's transforms (B6 in
+    float32) equal the same functions on the CPU where the arithmetic is
+    the same (float64), and decode the card's streams exactly as
+    decode_images_device does."""
+    import spiht_tpu_torch as pt
+
+    rng = np.random.default_rng(5)
+    ims = [rng.random((3, 40, 48)) for _ in range(3)]
+    s = pt.SpihtSettings()
+    for mb in (None, 900):
+        got = pt.encode_images(ims, s, 2, mb, device=cuda)
+        want = pt.encode_images(ims, s, 2, mb, device="cpu")
+        assert [e.encoded_bytes for e in got] == [
+            e.encoded_bytes for e in want]
+    f32 = pt.encode_images(ims, s, 2, None, device=cuda, dtype=torch.float32)
+    dev = pt.encode_images_device(ims, s, 2, None, device=cuda,
+                                  dtype=torch.float32)
+    assert [e.encoded_bytes for e in f32] == [e.encoded_bytes for e in dev]
+    imgs = pt.decode_images(got, s, device=cuda)
+    ref = pt.decode_images_device(got, s, device=cuda)
+    for a, b in zip(imgs, ref):
+        np.testing.assert_array_equal(a, b.cpu().numpy())
+
+
+def test_metadata_trace_on_the_card(cuda):
+    import spiht_tpu_torch as pt
+    from spiht_tpu_torch.wavelets.geometry import (
+        get_slices_and_h_w, slices_to_wire,
+    )
+
+    s = pt.SpihtSettings()
+    im = np.random.default_rng(6).random((2, 64, 64))
+    er = pt.encode_image(im, s, 3, 6000, device=cuda)
+    slices, ph, pw = get_slices_and_h_w(64, 64, s, 3)
+    ll = (slices[0][1].stop, slices[0][2].stop)
+    wire = slices_to_wire(slices)
+    for cut in (None, 1, 37):
+        data = er.encoded_bytes[:cut]
+        k = pt.decode_with_metadata(data, er.max_n, 2, ph, pw, *ll, *wire,
+                                    device=cuda)
+        p = pt.decode_with_metadata(data, er.max_n, 2, ph, pw, *ll, *wire,
+                                    device="cpu")
+        np.testing.assert_array_equal(k[0], p[0])
+        np.testing.assert_array_equal(k[1], p[1])

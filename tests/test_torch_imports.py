@@ -23,9 +23,25 @@ def _imports(path):
 
 
 def test_scan_covers_the_package():
-    names = {p.name for p in FILES}
-    assert {"chip_smoke.py", "__init__.py", "encoder.py", "decoder.py",
-            "dwt.py", "torch_transform.py"} <= names
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"chip_smoke.py", "spiht_tpu_torch/__init__.py",
+            "spiht_tpu_torch/codec/encoder.py",
+            "spiht_tpu_torch/codec/decoder.py",
+            "spiht_tpu_torch/codec/meta_expand.py",
+            "spiht_tpu_torch/codec/planning.py",
+            "spiht_tpu_torch/native/__init__.py",
+            "spiht_tpu_torch/native/runtime.py",
+            "spiht_tpu_torch/ops/quantize_kernels.py",
+            "spiht_tpu_torch/wavelets/dwt.py",
+            "spiht_tpu_torch/torch_transform.py"} <= names
+
+
+def test_no_path_to_the_reference_packages_library():
+    """No file of the port names the JAX package's built library
+    (spiht_tpu/native/libspiht_kernel.so): the port builds its own, under
+    a name that covers its sources (tests/test_torch_copies.py)."""
+    for path in FILES:
+        assert "libspiht_kernel.so" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -10,7 +10,9 @@ and holds words, LSP queues, rec and stat equal to the plain versions'.
 The batched kernels' per-stream setup (``encode_stream``,
 ``decode_stream``: stream offsets, per-stream scalars, the capacity rule)
 runs the same way, one host block per stream, against the batched plain
-versions.
+versions. B2-log's machine (``decode_machine<false, true>``) is held to the
+plain version's event log, B7's one-thread machine to B1's plain version,
+and B6's element body (``quantize_at``) to its plain torch version.
 """
 
 import ctypes
@@ -64,6 +66,7 @@ int32_t spiht_host_shfl_up(int lane, int32_t v, int d) {
 }
 #include "spiht_encode.cu"
 #include "spiht_decode.cu"
+#include "spiht_quantize.cu"
 template <class F> static void run_block(int nt, F f) {
   g_bar = std::make_unique<std::barrier<>>(nt);
   g_wbar = std::make_unique<std::barrier<>>(32);
@@ -83,6 +86,10 @@ extern "C" void host_encode(int nt, const int32_t* t1, const int32_t* t3s,
   EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, max_n, max_bits, capped,
             lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
   auto sh = std::make_unique<EncShared>();
+  if (nt == 1) {  // B7: the sequential machine in one thread
+    encode_seq_machine(a);
+    return;
+  }
   run_block(nt, [&](int tid, int n) { encode_machine(a, *sh, tid, n); });
 }
 extern "C" void host_decode(int nt, int seq, const uint32_t* words,
@@ -90,18 +97,27 @@ extern "C" void host_decode(int nt, int seq, const uint32_t* words,
     int32_t n_lip0, const int32_t* lis0, int32_t n_lis0, int32_t w,
     int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
     int32_t* lsp, int32_t* lsp_val, int32_t lsp_cap, int32_t* rec,
-    int32_t n_rec, int32_t* stat) {
+    int32_t n_rec, int32_t* stat, int32_t* log) {
   memcpy(lip, lip0, 4 * (size_t)n_lip0);
   memcpy(lis, lis0, 4 * (size_t)n_lis0);
   std::vector<uint64_t> last(n_rec, 0);
   if (seq) memset(rec, 0, 4 * (size_t)n_rec);
+  if (log) memset(log, 0, 4 * (size_t)(nbits + 1));
   DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
-            lis, lis_cap, lsp, lsp_cap, lsp_val, rec, last.data(), stat};
+            lis, lis_cap, lsp, lsp_cap, lsp_val, rec, last.data(), stat,
+            log};
   auto sh = std::make_unique<DecShared>();
   run_block(nt, [&](int tid, int n) {
-    if (seq) decode_machine<true>(a, *sh, tid, n);
-    else decode_machine<false>(a, *sh, tid, n);
+    if (seq) decode_machine<true, false>(a, *sh, tid, n);
+    else if (log) decode_machine<false, true>(a, *sh, tid, n);
+    else decode_machine<false, false>(a, *sh, tid, n);
   });
+}
+extern "C" int32_t host_quantize(const float* x, int64_t n, float scale,
+    int32_t* arr, int16_t* a16, int8_t* m) {
+  bool over = false;
+  for (int64_t i = 0; i < n; ++i) over |= quantize_at(x, scale, i, arr, a16, m);
+  return over;
 }
 extern "C" void host_encode_batch(int nt, int32_t n_streams,
     const int32_t* t1, const int32_t* t3s, const int32_t* child0,
@@ -164,14 +180,15 @@ def _i(v):
     return ctypes.c_int32(int(v))
 
 
-def _host_encode(lib, arr, ll_h, ll_w, max_bits):
+def _host_encode(lib, arr, ll_h, ll_w, max_bits, threads=THREADS):
+    """B1's machine on ``threads`` host threads, or B7's with one."""
     args = encoder.machine_args(torch.as_tensor(arr), ll_h, ll_w, max_bits)
     t1, t3s, child0, lip0, lis0, w, max_n, mb, capped, caps, cw = args
     lip, lis, lsp = (torch.empty(max(c, 1), dtype=torch.int32) for c in caps)
     words = torch.empty(cw, dtype=torch.int32)
     stat = torch.empty(encoder.STAT_LEN, dtype=torch.int32)
     lib.host_encode(
-        ctypes.c_int(THREADS), _p(t1), _p(t3s), _p(child0), _p(lip0),
+        ctypes.c_int(threads), _p(t1), _p(t3s), _p(child0), _p(lip0),
         _i(lip0.numel()), _p(lis0), _i(lis0.numel()), _i(w), _i(max_n),
         _i(mb), _i(capped), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
         _p(lsp), _i(caps[2]), _p(words), _i(cw), _p(stat),
@@ -182,11 +199,13 @@ def _host_encode(lib, arr, ll_h, ll_w, max_bits):
     return encoder.stream_bytes(pw, int(ps[0])), int(max_n)
 
 
-def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w):
+def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False):
+    """B2's or B3's machine (B2-log's with ``log``) on host threads."""
     words, nbits = decoder.words_tensor(data, "cpu")
     args = decoder.machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
     _, _, _, geo, lip0, lis0, _, caps = args
     seq = decoder.has_duplicate_parents(h, w, ll_h, ll_w)
+    events = torch.empty(nbits + 1, dtype=torch.int32) if log else None
     lip, lis, lsp, lsp_val = (
         torch.empty(max(n, 1), dtype=torch.int32)
         for n in (caps[0], caps[1], caps[2], caps[2])
@@ -198,14 +217,18 @@ def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w):
         _i(max_n), _p(geo), _p(lip0), _i(lip0.numel()), _p(lis0),
         _i(lis0.numel()), _i(w), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
         _p(lsp), _p(lsp_val), _i(caps[2]), _p(rec), _i(geo.numel()),
-        _p(stat),
+        _p(stat), ctypes.c_void_p(events.data_ptr() if log else None),
     )
     if seq:
         prec, ps = decoder.decode_seq(*args)
         assert stat.tolist() == ps.tolist()
         assert torch.equal(rec, prec)
         return
-    pl, pv, ps = decoder.decode_lsp(*args)
+    if log:
+        pl, pv, ps, plog = decoder.decode_lsp_log(*args)
+        assert torch.equal(events, plog)
+    else:
+        pl, pv, ps = decoder.decode_lsp(*args)
     assert stat.tolist() == ps.tolist()
     live = int(ps[0])
     assert torch.equal(lsp[:live], pl[:live])
@@ -230,6 +253,68 @@ def test_kernel_sources_equal_plain_versions(host_lib, shape, ll):
         _host_encode(host_lib, arr, *ll, mb)
     for nbytes in sorted({0, 1, 7, len(full) // 3, len(full) - 1, len(full)}):
         _host_decode(host_lib, full[:nbytes], max_n, *shape, *ll)
+
+
+@pytest.mark.parametrize(
+    "shape,ll",
+    [
+        ((3, 24, 32), (6, 8)),
+        ((2, 34, 18), (4, 2)),
+        ((1, 70, 70), (12, 12)),
+    ],
+)
+def test_log_machine_equals_plain_event_log(host_lib, shape, ll):
+    """B2-log's machine: the LSP queues, stat and every event word equal
+    the plain version's, on full streams, byte prefixes and prefixes cut
+    inside a symbol (the log's row at nbits)."""
+    rng = np.random.default_rng(sum(shape) + 2)
+    arr = (rng.standard_normal(shape) * 900).astype(np.int32)
+    full, max_n = japi.encode(arr, *ll, 2**31 - 2)
+    for nbytes in sorted({0, 1, 2, 7, 13, len(full) // 3, len(full) // 2,
+                          len(full) - 1, len(full)}):
+        _host_decode(host_lib, full[:nbytes], max_n, *shape, *ll, log=True)
+
+
+@pytest.mark.parametrize(
+    "shape,ll",
+    [
+        ((3, 24, 32), (6, 8)),
+        ((3, 19, 19), (5, 5)),
+    ],
+)
+def test_seq_encoder_source_equals_plain_version(host_lib, shape, ll):
+    """B7's one-thread machine: words and stat equal B1's plain version,
+    full and cut inside a symbol, and the budget-capped error."""
+    rng = np.random.default_rng(sum(shape) + 3)
+    arr = (rng.standard_normal(shape) * 900).astype(np.int32)
+    full, max_n = _host_encode(host_lib, arr, *ll, 2**31 - 2, threads=1)
+    assert (full, max_n) == japi.encode(arr, *ll, 2**31 - 2)
+    for mb in (1, 2, 3, 333, 1001, len(full) * 8 - 5):
+        _host_encode(host_lib, arr, *ll, mb, threads=1)
+
+
+@pytest.mark.parametrize("spread", [3.0, 900.0, 40000.0])
+def test_quantize_source_equals_plain_version(host_lib, spread):
+    """B6's element body: all four outputs equal the plain version's, the
+    overflow flag set (spread 40000) and clear."""
+    from spiht_tpu_torch.ops import quantize_kernels
+
+    rng = np.random.default_rng(int(spread))
+    x = torch.as_tensor((rng.standard_normal((3, 37, 29)) * spread)
+                        .astype(np.float32))
+    x[0, 0, :3] = torch.tensor([0.0, -0.99, 0.99])
+    n = x.numel()
+    arr = torch.empty(x.shape, dtype=torch.int32)
+    a16 = torch.empty(x.shape, dtype=torch.int16)
+    m = torch.empty(x.shape, dtype=torch.int8)
+    host_lib.host_quantize.restype = ctypes.c_int32
+    over = host_lib.host_quantize(_p(x), ctypes.c_int64(n),
+                                  ctypes.c_float(1.7), _p(arr), _p(a16),
+                                  _p(m))
+    q, p16, pm, pover = quantize_kernels.quantize_compact(x, 1.7)
+    assert torch.equal(arr, q) and torch.equal(a16, p16)
+    assert torch.equal(m, pm)
+    assert bool(over) == bool(pover) == (spread > 10000)
 
 
 @pytest.mark.parametrize(
