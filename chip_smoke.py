@@ -36,6 +36,11 @@ Phases:
       B6 path (float32) and on the budget path, streams equal to
       encode_images_device's; decode_images equal to decode_images_device;
       images/s of both codecs
+  14. byte-prefix sweep of A's stream through B2, B2-log and B5, and of B's
+      through B3 and batched B3 (64 cuts each: near the start, through the
+      stream, in the last word), each equal to its plain version: the cut
+      falls inside warp steps, so the decoders' bit-by-bit edge path runs;
+      random words (no encoder's stream) through B3 and batched B3
 """
 
 from __future__ import annotations
@@ -903,6 +908,66 @@ def phase_host_batch(ims, mbs):
     return q_stats, n6["spiht_quantize_compact"]
 
 
+def sweep_cuts(nbytes, n=64):
+    """n byte cuts of an nbytes stream: the first 9 and the last 9 (the
+    last word among them), the rest spread between, seeded."""
+    ends = set(range(9)) | set(range(nbytes - 8, nbytes + 1))
+    rng = np.random.default_rng(14)
+    mid = rng.choice(np.arange(9, nbytes - 8), n - len(ends), replace=False)
+    return sorted(ends | {int(c) for c in mid})
+
+
+def phase_prefix_sweep(er_a, er_b):
+    """Phase 14: A's stream cut at 64 byte prefixes through B2, B2-log and
+    B5 (the 64 prefixes as one batch), B's through B3 and batched B3, then
+    random words through B3 and batched B3, each equal to its plain
+    version (stat, LSP queues, rec, event log)."""
+    n_cmp = 0
+    for label, er, settings, level in (("A", er_a, CONFIG_A, None),
+                                        ("B", er_b, CONFIG_B, 3)):
+        c, h, w = er.c, er.h, er.w
+        slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+        ll = (slices[0][1].stop, slices[0][2].stop)
+        data = er.encoded_bytes
+        cuts = sweep_cuts(len(data))
+        check(len(cuts) == 64, f"{label}: {len(cuts)} cuts")
+        for cut in cuts:
+            cmp_decode(data[:cut], er.max_n, c, enc_h, enc_w, *ll)
+            if label == "A":
+                cmp_decode_log(data[:cut], er.max_n, c, enc_h, enc_w, *ll)
+                n_cmp += 1
+        _, name = cmp_decode_batch([data[:cut] for cut in cuts],
+                                   [er.max_n] * len(cuts), c, enc_h, enc_w,
+                                   *ll)
+        n_cmp += len(cuts) + 1
+        print(f"  {label}: {len(cuts)} prefixes of {len(data)} bytes "
+              f"(cuts {cuts[:3]}..{cuts[-3:]}): "
+              f"{'B2, B2-log' if label == 'A' else 'B3'} and {name} == plain")
+    # random words at an odd LL: nodes committed or refined by several LSP
+    # instances, with bits no encoder would write; stat (error included)
+    # and rec equal the plain version's
+    shape, ll, max_ns = (3, 19, 19), (5, 5), [4, 7, 11, 11]
+    rng = np.random.default_rng(14)
+    datas = [rng.integers(0, 256, 400, dtype=np.uint8).tobytes()
+             for _ in max_ns]
+    for data, mn in zip(datas, max_ns):
+        words, nbits = decoder.words_tensor(data[: 100 * mn // 4], DEV)
+        args = decoder.machine_args(words, nbits, mn, *shape, *ll)
+        got, want = decoder.decode_seq(*args), decoder.decode_seq(*to_cpu(args))
+        check(all(torch.equal(k.cpu(), p) for k, p in zip(got, want)),
+              f"B3 on random words (max_n {mn}) != plain")
+    words, nbits = decoder.words_batch(datas, DEV)
+    args = decoder.batch_machine_args(words, nbits, max_ns, *shape, *ll)
+    got = decoder.decode_seq_batch(*args)
+    want = decoder.decode_seq_batch(*to_cpu(args))
+    check(all(torch.equal(k.cpu(), p) for k, p in zip(got, want)),
+          "batched B3 on random words != plain")
+    n_cmp += len(max_ns) + 1
+    print(f"  random words: {len(max_ns)} streams through B3 and batched B3 "
+          "== plain")
+    print(f"phase 14 ok: {n_cmp} exact comparisons")
+
+
 def run_phases() -> list:
     """Phases 2-10; returns the kernels' rows of the result line."""
     phase_small()
@@ -975,6 +1040,9 @@ def run_phases() -> list:
     phase_new_kernels_small()
     log_a, n_log, seq_a, n_seq = phase_metadata(im_a, er_a)
     q_a, n_q = phase_host_batch(ims_a, mbs_a)
+
+    # ---- phase 14: the decoders' step edges on the card ----
+    phase_prefix_sweep(er_a, er_b)
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),

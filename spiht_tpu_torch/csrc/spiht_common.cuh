@@ -2,12 +2,18 @@
 //
 // Each kernel is one thread block per stream (the batched kernels B4, B5 and
 // batched B3 launch one block per stream of the batch, blockIdx.x being the
-// stream). The list machine's decisions
-// run in warp 0; all threads of the block first gather what the next chunk
-// of queue entries will need into shared memory, so warp 0 decides from
-// shared memory instead of waiting on L2 once per entry. Control flow
-// around every barrier is uniform: the values it depends on are read from
-// shared memory after a barrier.
+// stream). The list machine's decisions run in warp 0, 32 queue entries (or,
+// in the decoders' LIP pass, 32 stream bits) a warp step: ballots, shuffles
+// and one warp scan give every lane its entry's bits and write positions
+// (B7, the sequential encoder, is one thread). What bounds every machine on
+// an H100 is the dependent chain of bit decisions, paid in instruction and
+// shared-memory latency, not bytes: a warp step decides up to 32 at once.
+// All threads of the block first gather what the next chunk of queue
+// entries will need into shared memory (the decoders also stage the stream
+// words the chunk can reach), so warp 0 decides from shared memory instead
+// of waiting on L2 inside a chunk. Control flow around every barrier and
+// every warp collective is uniform: the values it depends on are read from
+// shared memory after a barrier, or are the same in every lane.
 //
 // The machines are plain functions of (tid, nthreads) (SPIHT_HD is
 // __device__ under nvcc and inline otherwise), so the same source also
@@ -28,6 +34,7 @@
 #define WARP_BALLOT(lane, p) __ballot_sync(0xFFFFFFFFu, (p))
 #define WARP_SHFL(lane, v, src) __shfl_sync(0xFFFFFFFFu, (v), (src))
 #define WARP_SHFL_UP(lane, v, d) __shfl_up_sync(0xFFFFFFFFu, (v), (d))
+#define WARP_SYNC(lane) __syncwarp()
 #define POPC(x) __popc(x)
 #define CTZ(x) (__ffs(x) - 1)
 #define ATOMIC_OR(p, v) atomicOr((p), (v))
@@ -38,10 +45,12 @@ void spiht_host_sync();
 uint32_t spiht_host_ballot(int lane, bool p);
 int32_t spiht_host_shfl(int lane, int32_t v, int src);
 int32_t spiht_host_shfl_up(int lane, int32_t v, int d);
+void spiht_host_syncwarp(int lane);
 #define SPIHT_SYNC() spiht_host_sync()
 #define WARP_BALLOT(lane, p) spiht_host_ballot((lane), (p))
 #define WARP_SHFL(lane, v, src) spiht_host_shfl((lane), (v), (src))
 #define WARP_SHFL_UP(lane, v, d) spiht_host_shfl_up((lane), (v), (d))
+#define WARP_SYNC(lane) spiht_host_syncwarp(lane)
 #define POPC(x) __builtin_popcount(x)
 #define CTZ(x) __builtin_ctz(x)
 #define ATOMIC_OR(p, v) __atomic_fetch_or((p), (v), __ATOMIC_RELAXED)

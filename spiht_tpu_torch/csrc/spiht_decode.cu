@@ -15,7 +15,7 @@
 //                     committed by several parents, and every LSP instance
 //                     refines the one shared rec value in place.
 //
-// Both honour byte-prefix truncation exactly: the machine stops at the
+// All honour byte-prefix truncation exactly: the machine stops at the
 // first bit it cannot read, and a symbol cut short has no effect (a
 // significance bit whose sign bit is missing commits nothing).
 //
@@ -31,26 +31,43 @@
 // before each read, so the read that finds the stream empty gets a row too,
 // at offset nbits, and nothing follows it: the log holds nbits + 1 words,
 // zeroed by the caller (an unwritten word is 0; a written one is not, as
-// n+1 >= 1). The log keeps B2's structure: a zero run's entries are logged
-// across the lanes, the 8 bits after a type-A fire by lanes 0-3, and the
-// refinement by the whole block, each word at the offset of its bit.
+// n+1 >= 1). Each word is written by the lane (or, in refinement, the
+// thread) that decides its bit.
 //
 // What bounds them on an H100: neither bytes nor arithmetic but the chain
 // of bit decisions in the LIP and LIS passes (each bit's meaning depends on
-// every earlier one), paid in one thread's instruction latency and
-// branches (the kernels' times are over a thousand times their byte
-// bounds; PERF.md, chip_smoke.py). The design shortens the chain. The
-// block gathers each chunk's queue entries and their geometry words into
-// shared memory; warp
-// 0 then walks the chunk, all lanes computing the same state, and skips a
-// run of zero bits (insignificant LIP entries, unfired LIS entries: one
-// zero bit each) with one look at a 32-bit stream window, copying the
-// retained run across the lanes. Only significant and fired entries take
-// the bit-by-bit path. Refinement has no chain at all: entry i of the
-// snapshot reads stream bit cur+i, so the whole block refines in parallel.
-// In B3 several LSP instances of one node refine the same value and the
-// last one in queue order sets the bit, so each instance first claims its
-// node with an atomic max of (plane tag, index) and only the winner writes.
+// every earlier one), paid in instruction latency (the kernels' times are
+// thousands of times their byte bounds; PERF.md, chip_smoke.py). The TPU
+// kernel tokenizes the LIP 128 bits at a time with a log-depth scan of the
+// grammar {0, 1s} (pallas_decoder.py token_heads) and parses two LIS fires
+// per 64-bit window; this design does the same work with a warp's ballots,
+// shuffles and scans:
+//   - the block gathers each chunk of 512 queue entries, their geometry
+//     words and the stream words the chunk can reach into shared memory,
+//     so warp 0 never waits on global memory inside a chunk;
+//   - the LIP pass takes 32 stream bits a warp step: the tokens' starts
+//     follow from the bits with carry arithmetic (dec_lip_chunk), and one
+//     popc of the lanes below gives each token its entry and its place in
+//     the LSP or the retained LIP;
+//   - the LIS pass takes 32 entries a warp step: a table of what a fire
+//     adds at each offset, one chain over the step's type-A entries (one
+//     shared load and one add each, the only serial part left), and one
+//     warp scan of four packed counts (dec_lis_chunk);
+//   - the step that meets the stream's end or a full queue runs bit by bit
+//     (at most once a stream), which keeps every edge exact;
+//   - refinement has no chain at all: entry i of the snapshot reads stream
+//     bit cur+i, so the whole block refines in parallel.
+// In B3 a node may be committed or refined by several LSP instances, and
+// the last one in queue order wins. The passes append node | sgn<<31 to the
+// LSP queue and the block sets rec from them after the passes; there, and
+// in refinement, each instance claims its node with an atomic max of
+// (plane tag, index) and only the winner writes (dec_commit_rec,
+// dec_refine).
+//
+// What holds them back now (PERF.md): at configuration A about a third of
+// a LIS step is the chain over its type-A entries (~48 cycles each), a
+// quarter the table and a third the scan and the scattered stores; the
+// per-chunk gathers and barriers are ~4% of the time.
 
 #include "spiht_common.cuh"
 
@@ -99,12 +116,24 @@ SPIHT_HD int32_t lis_event(int32_t e, int32_t ev) {
   return event(e >> 1, (e & 1) ? EV_DESC : EV_LSIG, ev);
 }
 
+// Stream words staged a chunk: an LIS entry reads at most 9 bits, a LIP
+// entry 2, and an LIS step loads the 11 words from its first bit on.
+#define SPIHT_STAGE (9 * SPIHT_CHUNK / 32 + 16)
+// Offsets of an LIS step's bits: 32 entries of at most 9 bits.
+#define SPIHT_SPAN (9 * SPIHT_WARP)
+
+// 6,780 bytes a block.
 struct DecShared {
-  int32_t e[SPIHT_CHUNK];  // the queue entry
-  int32_t g[SPIHT_CHUNK];  // geo of its node (LIS)
-  int32_t kids[256];       // child_code of every 8-bit stream window
+  int32_t e[SPIHT_CHUNK];      // the queue entry
+  int32_t g[SPIHT_CHUNK];      // geo of its node (LIS)
+  uint32_t sw[SPIHT_STAGE];    // stream words sw0.. (zero past nbits)
+  int32_t kids[256];           // child_code of every 8-bit stream window
+  uint8_t inc[SPIHT_SPAN];     // LIS step, by offset: the bits a type-A
+  uint16_t tab[SPIHT_SPAN];    //   fire adds there; bit | child_code << 1
+  int32_t va[SPIHT_WARP + 1];  // LIS step: the lanes of its type-A entries
   Published pub;
-  int32_t cur;             // bits consumed, published for refinement
+  int32_t cur;                 // bits consumed, published after each chunk
+  int32_t sw0;
 };
 
 // What the 8 stream bits after a type-A fire say about its 4 offspring:
@@ -124,52 +153,57 @@ SPIHT_HD int32_t child_code(uint32_t bits) {
 
 // The machine state, held identically by every lane of warp 0.
 struct DecState {
-  int32_t cur;    // bits consumed
-  uint64_t win;   // stream bits cur .. cur+have-1, LSB first
-  int32_t have;
+  int32_t cur;   // bits consumed
   int32_t err;
   int32_t lip_n, lis_n, lsp_n;
   int32_t keep;  // retain cursor of the pass in progress
-  int32_t off[4];
 };
 
-// Top the window up to at least 32 bits (fewer only at the stream's end).
-SPIHT_HD void refill(const DecArgs& a, DecState& st) {
-  const int32_t at = st.cur + st.have;
-  if (st.have < 32 && at < a.nbits) {
-    st.win |= (uint64_t)stream_window(a.words, at, a.nbits) << st.have;
-    st.have += min32(32, a.nbits - at);
+// Stage the stream words that `reach` bits from bit `cur` can touch, with
+// a 64-bit window's slack, by every thread. Bits past nbits read as 0; the
+// machines never take them for stream bits (they check nbits).
+SPIHT_HD void stage_stream(const DecArgs& a, DecShared& sh, int32_t cur,
+                           int32_t reach, int tid, int nt) {
+  const int32_t w0 = cur >> 5;
+  const int32_t nw = min32(((cur + reach + 63) >> 5) - w0 + 1, SPIHT_STAGE);
+  for (int32_t i = tid; i < nw; i += nt) {
+    const int32_t bit0 = (w0 + i) * 32, left = a.nbits - bit0;
+    const uint32_t v = left > 0 ? a.words[w0 + i] : 0;
+    sh.sw[i] = left >= 32 ? v : v & ((1u << (left > 0 ? left : 0)) - 1);
   }
+  if (tid == 0) sh.sw0 = w0;
+}
+
+// Bits s .. s+31 of the 64 bits hi:lo (s < 32).
+SPIHT_HD uint32_t funnel(uint32_t lo, uint32_t hi, int s) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> s);
+}
+
+// Staged stream bits pos .. pos+63 (sw0 = sh.sw0).
+SPIHT_HD uint64_t staged64(const DecShared& sh, int32_t sw0, int32_t pos) {
+  const int32_t i = (pos >> 5) - sw0, s = pos & 31;
+  const uint64_t lo = ((uint64_t)sh.sw[i + 1] << 32) | sh.sw[i];
+  return s ? (lo >> s) | ((uint64_t)sh.sw[i + 2] << (64 - s)) : lo;
 }
 
 // Next bit (0/1), or -1 once the stream is exhausted.
-SPIHT_HD int next_bit(const DecArgs& a, DecState& st) {
-  if (st.have == 0) refill(a, st);
-  if (st.have == 0) return -1;
-  const int b = (int)(st.win & 1);
-  st.win >>= 1;
-  --st.have;
-  ++st.cur;
-  return b;
+SPIHT_HD int next_bit(const DecArgs& a, const DecShared& sh, DecState& st) {
+  if (st.cur >= a.nbits) return -1;
+  const int32_t c = st.cur++;
+  return (int)(sh.sw[(c >> 5) - sh.sw0] >> (c & 31)) & 1;
 }
 
-// Consume `n` bits known to be in the window.
-SPIHT_HD void skip_bits(DecState& st, int32_t n) {
-  st.win = n < 64 ? st.win >> n : 0;
-  st.have -= n;
-  st.cur += n;
-}
-
-// Jump the cursor to `cur` (after the block consumed bits in parallel).
-SPIHT_HD void seek(DecState& st, int32_t cur) {
-  st.cur = cur;
-  st.win = 0;
-  st.have = 0;
-}
-
+// B3's LSP entries carry the commit's sign bit above the node.
+#define NODE_BITS 0x7FFFFFFF
+// Set in a claim (claim_tag below) when an instance refined in this plane
+// read a 0 bit (LSP indices are below 2^29).
+#define CLEARED (1ull << 31)
 #ifdef __CUDACC__
 __device__ __forceinline__ void claim(uint64_t* p, uint64_t v) {
   atomicMax((unsigned long long*)p, (unsigned long long)v);
+}
+__device__ __forceinline__ void mark_cleared(uint64_t* p) {
+  atomicOr((unsigned long long*)p, (unsigned long long)CLEARED);
 }
 #else
 inline void claim(uint64_t* p, uint64_t v) {
@@ -178,155 +212,149 @@ inline void claim(uint64_t* p, uint64_t v) {
                         p, &old, v, true, __ATOMIC_RELAXED, __ATOMIC_RELAXED)) {
   }
 }
+inline void mark_cleared(uint64_t* p) {
+  __atomic_fetch_or(p, (uint64_t)CLEARED, __ATOMIC_RELAXED);
+}
 #endif
 
-// The LIP and LIS passes run in warp 0, every lane computing the same state
-// from the same data (so every branch is uniform); single stores are lane
-// 0's, and a run of retained entries is copied across the lanes. Each chunk
-// function returns false when the machine stops (stream exhausted, or a
-// queue would overflow: st.err says which).
+// A commit at LSP index `at`: B2 writes the node and sgn<<31 | mag; B3
+// writes node | sgn<<31, and sets rec from it after the passes
+// (dec_commit_rec).
+template <bool SEQ>
+SPIHT_HD void commit_at(const DecArgs& a, int32_t at, int32_t node, int s,
+                        int32_t mag) {
+  const int32_t sgn = (int32_t)((uint32_t)s << 31);
+  a.lsp[at] = SEQ ? node | sgn : node;
+  if (!SEQ) a.lsp_val[at] = sgn | mag;
+}
 
-// Commit node as significant with sign bit s at plane magnitude mag.
+// Commit node with sign bit s, from lane 0 (the bit-by-bit path).
 template <bool SEQ>
 SPIHT_HD bool commit(const DecArgs& a, DecState& st, int32_t node, int s,
                      int32_t mag, int lane) {
   if (st.lsp_n >= a.lsp_cap) { st.err = SPIHT_ERR_LSP_CAP; return false; }
-  if (lane == 0) {
-    if (SEQ) {
-      a.rec[node] = s ? mag : -mag;
-    } else {
-      a.lsp_val[st.lsp_n] = (int32_t)((uint32_t)s << 31) | mag;
-    }
-    a.lsp[st.lsp_n] = node;
-  }
+  if (lane == 0) commit_at<SEQ>(a, st.lsp_n, node, s, mag);
   ++st.lsp_n;
   return true;
 }
 
-// Commit node at LSP index `at` (the caller has checked the capacity).
-template <bool SEQ>
-SPIHT_HD void commit_at(const DecArgs& a, int32_t at, int32_t node, int s,
-                        int32_t mag) {
-  if (SEQ) {
-    a.rec[node] = s ? mag : -mag;
-  } else {
-    a.lsp_val[at] = (int32_t)((uint32_t)s << 31) | mag;
-  }
-  a.lsp[at] = node;
-}
+// The LIP and LIS passes run in warp 0, all lanes holding the same state.
+// A step decides 32 tokens (LIP) or 32 entries (LIS) at once and runs in
+// parallel when every bit it reads lies before nbits and no queue would
+// overflow; otherwise that step runs bit by bit (the *_serial functions),
+// which stops the machine exactly where the plain version stops (this
+// happens at most once a stream). Each chunk function returns false when
+// the machine stops (stream exhausted, or a queue would overflow: st.err
+// says which).
 
-// Zero bits at the front of the window (an insignificant LIP entry or an
-// unfired LIS entry reads one zero bit; a run of them is skipped at once).
-// 0 means the next bit is a 1, or the stream has ended (have == 0).
-SPIHT_HD int32_t zero_run(const DecArgs& a, DecState& st) {
-  refill(a, st);
-  if (st.win == 0) return st.have;
-  const uint32_t lo = (uint32_t)st.win;
-  const int32_t z = lo ? CTZ(lo) : 32 + CTZ((uint32_t)(st.win >> 32));
-  return min32(z, st.have);
-}
-
-// Retain entries sh.e[k .. k+run) into q[keep ..], across the lanes.
-SPIHT_HD void retain_run(int32_t* q, int32_t keep, const int32_t* e,
-                         int32_t run, int lane) {
-  for (int32_t j = lane; j < run; j += SPIHT_WARP) q[keep + j] = e[j];
-}
-
+// Entries k.. of a LIP chunk, bit by bit, lane 0 storing.
 template <bool SEQ, bool LOG>
-SPIHT_HD bool dec_lip_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
-                            int32_t mag, int32_t ev, DecState& st, int lane) {
-  for (int32_t k = 0; k < m;) {
-    const int32_t run = min32(zero_run(a, st), m - k);
-    if (run > 0) {  // insignificant entries: retained
-      if (LOG) {
-        for (int32_t j = lane; j < run; j += SPIHT_WARP)
-          a.log[st.cur + j] = event(sh.e[k + j], EV_LIP, ev);
-      }
-      retain_run(a.lip, st.keep, sh.e + k, run, lane);
-      st.keep += run;
-      skip_bits(st, run);
-      k += run;
+SPIHT_HD bool dec_lip_serial(const DecArgs& a, const DecShared& sh,
+                             int32_t k, int32_t m, int32_t mag, int32_t ev,
+                             DecState& st, int lane) {
+  for (; k < m; ++k) {
+    const int32_t node = sh.e[k];
+    // the read that finds the stream empty is logged too, at nbits
+    if (LOG && lane == 0) a.log[st.cur] = event(node, EV_LIP, ev);
+    const int b = next_bit(a, sh, st);
+    if (b < 0) return false;
+    if (!b) {
+      if (lane == 0) a.lip[st.keep] = node;
+      ++st.keep;
       continue;
     }
-    if (LOG && lane == 0) {  // entry k's significance bit and its sign bit
-      // (the first attempt past the stream's end is logged, at nbits)
-      a.log[st.cur] = event(sh.e[k], EV_LIP, ev);
-      if (st.have >= 1) a.log[st.cur + 1] = event(sh.e[k], EV_LIP_SIGN, ev);
-    }
-    if (st.have < 2) {  // the sign bit is missing: nothing is committed
-      next_bit(a, st);
-      return false;
-    }
-    const int s = (int)(st.win >> 1) & 1;  // entry k is significant
-    skip_bits(st, 2);
-    if (!commit<SEQ>(a, st, sh.e[k], s, mag, lane)) return false;
-    ++k;
+    if (LOG && lane == 0) a.log[st.cur] = event(node, EV_LIP_SIGN, ev);
+    const int s = next_bit(a, sh, st);
+    if (s < 0 || !commit<SEQ>(a, st, node, s, mag, lane)) return false;
   }
   return true;
 }
 
+// The 64-bit mask of even bit positions.
+#define EVEN64 0x5555555555555555ull
+
+// The LIP pass, 32 stream bits a step. Every LIP token is `0` or `1s`, so
+// the tokens' starts follow from the bits alone: in a run of ones, the
+// ones an even distance from the run's first bit are significance bits
+// (the others, and the zero after an odd-length run, are sign bits).
+// Lane p owns the token starting at bit p of the window, if any.
 template <bool SEQ, bool LOG>
-SPIHT_HD bool dec_lis_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
+SPIHT_HD bool dec_lip_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
                             int32_t mag, int32_t ev, DecState& st, int lane) {
+  const uint32_t below = (1u << lane) - 1;
+  const int32_t sw0 = sh.sw0;
   for (int32_t k = 0; k < m;) {
-    const int32_t run = min32(zero_run(a, st), m - k);
-    if (run > 0) {  // unfired entries: retained
-      if (LOG) {
-        for (int32_t j = lane; j < run; j += SPIHT_WARP)
-          a.log[st.cur + j] = lis_event(sh.e[k + j], ev);
-      }
-      retain_run(a.lis, st.keep, sh.e + k, run, lane);
-      st.keep += run;
-      skip_bits(st, run);
-      k += run;
-      continue;
+    const uint64_t x = staged64(sh, sw0, st.cur);
+    const uint64_t first = x & ~(x << 1);  // the first bit of each run
+    const uint64_t even = x & ~(x + (first & EVEN64));  // runs from even bits
+    const uint64_t sig64 = (even & EVEN64) | (x & ~even & ~EVEN64);
+    const uint32_t starts = ~(uint32_t)(sig64 << 1);
+    int32_t take = POPC(starts), used;  // tokens, bits
+    if (take <= m - k) {
+      used = 32 + (int32_t)((sig64 >> 31) & 1);
+    } else {  // the chunk ends inside the window, at token m - k
+      take = m - k;
+      const bool end = ((starts >> lane) & 1) && POPC(starts & below) == take;
+      used = CTZ(WARP_BALLOT(lane, end));
     }
+    const uint32_t tok = used >= 32 ? starts : starts & ((1u << used) - 1);
+    const uint32_t sig = (uint32_t)sig64 & tok;
+    const int32_t nsig = POPC(sig);
+    if (used > a.nbits - st.cur || st.lsp_n + nsig > a.lsp_cap)
+      return dec_lip_serial<SEQ, LOG>(a, sh, k, m, mag, ev, st, lane);
+    const bool mine = (tok >> lane) & 1, s = (sig >> lane) & 1;
+    const int32_t r = POPC(tok & below), rs = POPC(sig & below);
+    if (mine) {
+      const int32_t node = sh.e[k + r];
+      const int sgn = (int)(x >> (lane + 1)) & 1;
+      if (LOG) {
+        a.log[st.cur + lane] = event(node, EV_LIP, ev);
+        if (s) a.log[st.cur + lane + 1] = event(node, EV_LIP_SIGN, ev);
+      }
+      if (s) {
+        commit_at<SEQ>(a, st.lsp_n + rs, node, sgn, mag);
+      } else {
+        a.lip[st.keep + r - rs] = node;
+      }
+    }
+    st.lsp_n += nsig;
+    st.keep += take - nsig;
+    st.cur += used;
+    k += take;
+  }
+  return true;
+}
+
+// Entries k.. of a LIS chunk, bit by bit, lane 0 storing.
+template <bool SEQ, bool LOG>
+SPIHT_HD bool dec_lis_serial(const DecArgs& a, const DecShared& sh,
+                             int32_t k, int32_t m, int32_t mag, int32_t ev,
+                             DecState& st, int lane) {
+  for (; k < m; ++k) {
     const int32_t e = sh.e[k], g = sh.g[k];
     if (LOG && lane == 0) a.log[st.cur] = lis_event(e, ev);
-    if (next_bit(a, st) < 0) return false;  // else entry k fired
-    ++k;
+    const int b = next_bit(a, sh, st);
+    if (b < 0) return false;
+    if (!b) {
+      if (lane == 0) a.lis[st.keep] = e;
+      ++st.keep;
+      continue;
+    }
     if (e & 1) {  // type A: code the 4 offspring
       if ((g >> 1) & 1) {
-        const int32_t c0 = g >> 2;
-        refill(a, st);
-        const int32_t code = sh.kids[st.win & 255];
-        const int32_t sig = code & 15, nsig = POPC(sig);
-        if (st.have >= 8 && st.lsp_n + nsig <= a.lsp_cap &&
-            st.lip_n + 4 - nsig <= a.lip_cap) {
-          // all 4 children at once, lane q placing child q
-          if (lane < 4) {
-            const int32_t ch = c0 + (lane & 1) + (lane >> 1) * a.w;
-            const int32_t below = (1 << lane) - 1;
-            if (LOG) {  // child q's bits start after those of children < q
-              const int32_t at = st.cur + lane + POPC(sig & below);
-              a.log[at] = event(ch, EV_OFF, ev);
-              if ((sig >> lane) & 1) a.log[at + 1] = event(ch, EV_OFF_SIGN, ev);
-            }
-            if ((sig >> lane) & 1) {
-              commit_at<SEQ>(a, st.lsp_n + POPC(sig & below), ch,
-                             (code >> (4 + lane)) & 1, mag);
-            } else {
-              a.lip[st.lip_n + POPC(~sig & below)] = ch;
-            }
-          }
-          st.lsp_n += nsig;
-          st.lip_n += 4 - nsig;
-          skip_bits(st, code >> 8);
-        } else {  // bit by bit: near the stream's end, or a queue is full
-          for (int q = 0; q < 4; ++q) {
-            const int32_t ch = c0 + st.off[q];
-            if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF, ev);
-            const int b = next_bit(a, st);
-            if (b < 0) return false;
-            if (b) {
-              if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF_SIGN, ev);
-              const int s = next_bit(a, st);
-              if (s < 0 || !commit<SEQ>(a, st, ch, s, mag, lane)) return false;
-            } else {
-              if (st.lip_n >= a.lip_cap) { st.err = SPIHT_ERR_LIP_CAP; return false; }
-              if (lane == 0) a.lip[st.lip_n] = ch;
-              ++st.lip_n;
-            }
+        for (int q = 0; q < 4; ++q) {
+          const int32_t ch = (g >> 2) + (q & 1) + (q >> 1) * a.w;
+          if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF, ev);
+          const int c = next_bit(a, sh, st);
+          if (c < 0) return false;
+          if (c) {
+            if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF_SIGN, ev);
+            const int s = next_bit(a, sh, st);
+            if (s < 0 || !commit<SEQ>(a, st, ch, s, mag, lane)) return false;
+          } else {
+            if (st.lip_n >= a.lip_cap) { st.err = SPIHT_ERR_LIP_CAP; return false; }
+            if (lane == 0) a.lip[st.lip_n] = ch;
+            ++st.lip_n;
           }
         }
       }
@@ -336,15 +364,157 @@ SPIHT_HD bool dec_lis_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
         ++st.lis_n;
       }
     } else if ((g >> 1) & 1) {  // type B: 4 type-A children
-      const int32_t c0 = g >> 2;
       if (st.lis_n + 4 > a.lis_cap) { st.err = SPIHT_ERR_LIS_CAP; return false; }
       if (lane < 4) {
-        a.lis[st.lis_n + lane] = ((c0 + (lane & 1) + (lane >> 1) * a.w) << 1) | 1;
+        a.lis[st.lis_n + lane] = (((g >> 2) + (lane & 1) + (lane >> 1) * a.w) << 1) | 1;
       }
       st.lis_n += 4;
     }
   }
   return true;
+}
+
+// The LIS pass, 32 entries a step, lane j taking entry k+j. Only a type-A
+// entry with children has a variable length (1 bit, or 1 + 4..8 when it
+// fires); every other entry reads 1 bit. The lanes tabulate, for every
+// offset the step can reach, what a fire there adds and what its bits
+// say; one chain over the type-A entries (a shared load and an add each)
+// gives every lane its first bit; one scan of four packed counts gives
+// every lane its write positions in the sequential order (entry order,
+// then child order). Entries appended to the LIS land past the chunk, so
+// they are visited later in the same pass, as in the plain version.
+template <bool SEQ, bool LOG>
+SPIHT_HD bool dec_lis_chunk(const DecArgs& a, DecShared& sh, int32_t m,
+                            int32_t mag, int32_t ev, DecState& st, int lane) {
+  const uint32_t below = (1u << lane) - 1;
+  const int32_t sw0 = sh.sw0;
+  for (int32_t k = 0; k < m; k += SPIHT_WARP) {
+    const int32_t n = min32(SPIHT_WARP, m - k);
+    const bool valid = lane < n;
+    const int32_t e = valid ? sh.e[k + lane] : 0;
+    const int32_t g = valid ? sh.g[k + lane] : 0;
+    const bool type_a = e & 1, hc = (g >> 1) & 1, hg = g & 1;
+    const uint32_t var = WARP_BALLOT(lane, type_a && hc);
+    const int32_t n_var = POPC(var), reach = n + 8 * n_var;  // <= SPIHT_SPAN
+    if (type_a && hc) sh.va[POPC(var & below)] = lane;
+
+    // the table: lane j fills offsets 32r + j, from the words at st.cur
+    {
+      const int32_t i0 = (st.cur >> 5) - sw0, s0 = st.cur & 31;
+      uint32_t w[10], x[9];
+      int32_t code[9];  // all loads first: they do not wait on the stores
+      for (int r = 0; r < 10; ++r) w[r] = funnel(sh.sw[i0 + r], sh.sw[i0 + r + 1], s0);
+      for (int r = 0; r < 9; ++r) {
+        x[r] = funnel(w[r], w[r + 1], lane);
+        code[r] = sh.kids[(x[r] >> 1) & 255];
+      }
+      for (int r = 0; r < 9; ++r) {
+        const int32_t p = 32 * r + lane;
+        if (p < reach) {
+          sh.inc[p] = (x[r] & 1) ? (uint8_t)(code[r] >> 8) : 0;
+          sh.tab[p] = (uint16_t)((x[r] & 1) | (code[r] & 255) << 1);
+        }
+      }
+    }
+    WARP_SYNC(lane);
+
+    // the chain: type-A entry j starts at offset p = j + d, d the bits the
+    // fires before it added; the next one, jn, at p + inc[p] + (jn - j)
+    int32_t d = 0, my_d = 0;  // all the fires' bits; those before my entry
+    if (n_var) {
+      int32_t j = sh.va[0], p = j;
+      for (int32_t i = 1;; ++i) {
+        const int32_t jn = sh.va[i];  // off the chain: load it first
+        const int32_t add = sh.inc[p];
+        if (lane > j) my_d = p - j + add;
+        if (i == n_var) {
+          d = p - j + add;
+          break;
+        }
+        p += add + (jn - j);
+        j = jn;
+      }
+    }
+    const int32_t used = n + d;  // the step's bits
+    const int32_t at = st.cur + lane + my_d;  // my first bit
+    const int32_t t = valid ? sh.tab[lane + my_d] : 0;
+    const bool fired = t & 1, vf = fired && type_a && hc;
+    const int32_t code = t >> 1;  // of a type-A fire
+    const int32_t sig = vf ? code & 15 : 0, nsig = POPC(sig);
+    const int32_t n_lis = !fired ? 0 : type_a ? (int32_t)hg : hc ? 4 : 0;
+    // LSP commits | LIP appends << 8 | LIS appends << 16 | retained << 24
+    const int32_t cnt = (vf ? nsig | (4 - nsig) << 8 : 0) | n_lis << 16 |
+                        (int32_t)(valid && !fired) << 24;
+    const int32_t incl = warp_scan(lane, cnt), pre = incl - cnt;
+    const int32_t tot = WARP_SHFL(lane, incl, SPIHT_WARP - 1);
+    const int32_t n_c = tot & 255, n_lip = (tot >> 8) & 255;
+    const int32_t n_app = (tot >> 16) & 255;
+    if (used > a.nbits - st.cur || st.lsp_n + n_c > a.lsp_cap ||
+        st.lip_n + n_lip > a.lip_cap || st.lis_n + n_app > a.lis_cap)
+      return dec_lis_serial<SEQ, LOG>(a, sh, k, m, mag, ev, st, lane);
+    if (valid) {
+      if (LOG) a.log[at] = lis_event(e, ev);
+      const int32_t c0 = g >> 2;
+      if (!fired) {
+        a.lis[st.keep + (pre >> 24)] = e;
+      } else if (vf) {  // a type-A fire: its 4 offspring, then type B
+        int32_t bit = at + 1, ci = st.lsp_n + (pre & 255);
+        int32_t li = st.lip_n + ((pre >> 8) & 255);
+        for (int q = 0; q < 4; ++q) {
+          const int32_t ch = c0 + (q & 1) + (q >> 1) * a.w;
+          if (LOG) a.log[bit] = event(ch, EV_OFF, ev);
+          ++bit;
+          if ((sig >> q) & 1) {
+            if (LOG) a.log[bit] = event(ch, EV_OFF_SIGN, ev);
+            ++bit;
+            commit_at<SEQ>(a, ci++, ch, (code >> (4 + q)) & 1, mag);
+          } else {
+            a.lip[li++] = ch;
+          }
+        }
+      }
+      if (n_lis) {  // a type-A fire's re-append as type B, or a type-B
+        const int32_t li = st.lis_n + ((pre >> 16) & 255);  // fire's children
+        if (type_a) {
+          a.lis[li] = e & ~1;
+        } else {
+          for (int q = 0; q < 4; ++q)
+            a.lis[li + q] = ((c0 + (q & 1) + (q >> 1) * a.w) << 1) | 1;
+        }
+      }
+    }
+    st.cur += used;
+    st.keep += tot >> 24;
+    st.lsp_n += n_c;
+    st.lip_n += n_lip;
+    st.lis_n += n_app;
+  }
+  return true;
+}
+
+// B3's claims on a node: last[node] = tag << 32 | the LSP index of its
+// latest commit (dec_commit_rec) or refined instance (dec_refine), the
+// tag growing with each: commits of plane n, then its refinement.
+SPIHT_HD uint64_t claim_tag(const DecArgs& a, int n, int refine) {
+  return (uint64_t)(2 * (a.max_n - n) + 1 + refine) << 32;
+}
+
+// B3: rec from the commits at LSP indices [lo, hi) of plane n (node |
+// sgn<<31), by every thread. Where one node was committed more than once
+// (a node with two parents), the latest commit in queue order sets it, as
+// in the plain version.
+SPIHT_HD void dec_commit_rec(const DecArgs& a, int32_t lo, int32_t hi, int n,
+                             int tid, int nt) {
+  const uint64_t tag = claim_tag(a, n, 0);
+  for (int32_t i = lo + tid; i < hi; i += nt)
+    claim(&a.last[a.lsp[i] & NODE_BITS], tag | (uint32_t)i);
+  SPIHT_SYNC();
+  const int32_t mag = commit_mag(n);
+  for (int32_t i = lo + tid; i < hi; i += nt) {
+    const int32_t e = a.lsp[i], node = e & NODE_BITS;
+    if (a.last[node] == (tag | (uint32_t)i)) a.rec[node] = e < 0 ? mag : -mag;
+  }
+  SPIHT_SYNC();
 }
 
 // Refinement of snapshot entries [0, avail) of plane n, whose bits are
@@ -367,33 +537,49 @@ SPIHT_HD void dec_refine(const DecArgs& a, int32_t avail, int32_t snap,
     }
     return;
   }
-  const uint64_t tag = (uint64_t)(a.max_n - n + 1) << 32;  // grows per plane
-  for (int32_t i = tid; i < avail; i += nt) claim(&a.last[a.lsp[i]], tag | (uint32_t)i);
+  // Several instances of one node refine it in queue order. The last one
+  // sets bit n, and the sign is lost where an earlier one cleared the only
+  // bit left (0 has no sign): the claims say which is last, and whether
+  // any instance cleared the bit.
+  const uint64_t tag = claim_tag(a, n, 1);
+  for (int32_t i = tid; i < avail; i += nt)
+    claim(&a.last[a.lsp[i] & NODE_BITS], tag | (uint32_t)i);
+  SPIHT_SYNC();
+  for (int32_t i = tid; i < avail; i += nt)
+    if (!stream_bit(a.words, cur + i)) mark_cleared(&a.last[a.lsp[i] & NODE_BITS]);
   SPIHT_SYNC();
   for (int32_t i = tid; i < avail; i += nt) {
-    const int32_t node = a.lsp[i];
-    if (a.last[node] != (tag | (uint32_t)i)) continue;  // a later instance sets it
+    const int32_t node = a.lsp[i] & NODE_BITS;
+    const uint64_t last = a.last[node];
+    if ((last & ~CLEARED) != (tag | (uint32_t)i)) continue;  // not the last
     const int32_t x = a.rec[node];
-    int32_t mag = x >= 0 ? x : -x;
-    mag = stream_bit(a.words, cur + i) ? (mag | bit) : (mag & ~bit);
-    a.rec[node] = x >= 0 ? mag : -mag;
+    const int32_t mag = x >= 0 ? x : -x;
+    const bool set = stream_bit(a.words, cur + i);
+    const bool neg = x < 0 && !(set && (last & CLEARED) && (mag & ~bit) == 0);
+    const int32_t v = set ? (mag | bit) : (mag & ~bit);
+    a.rec[node] = neg ? -v : v;
   }
 }
 
 // One machine for both kernels, run by every thread of the block (tid in
 // [0, nt)): SEQ selects where a commit and a refinement land (the LSP value
 // queue for B2, the shared rec array for B3); LOG adds the event log.
+// Every thread keeps `cur`, the bits consumed, from sh.cur after each
+// chunk's barrier, so the whole block stages the next chunk's stream.
+// Thread 0 publishes the LSP length with it (B3 sets rec from the commits
+// after the passes, and where the machine stops).
 template <bool SEQ, bool LOG>
 SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
                              int nt) {
-  DecState st{0, 0, 0, SPIHT_OK, a.n_lip0, a.n_lis0, 0, 0,
-              {0, 1, a.w, a.w + 1}};
+  DecState st{0, SPIHT_OK, a.n_lip0, a.n_lis0, 0, 0};
   const bool warp0 = tid < SPIHT_WARP;
+  int32_t cur = 0, in_rec = 0;  // B3: the LSP entries rec holds
+  int n = a.max_n;
   for (int32_t i = tid; i < 256; i += nt) sh.kids[i] = child_code(i);
   if (tid == 0) sh.pub = Published{st.lip_n, st.lis_n, 0, 0};
   SPIHT_SYNC();
 
-  for (int n = a.max_n; n >= 0; --n) {
+  for (; n >= 0; --n) {
     const int32_t lip_len = sh.pub.lip_n, lsp_snap = sh.pub.lsp_n;
     const int32_t mag = commit_mag(n), ev = plane_event(n);
 
@@ -402,11 +588,19 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
     for (int32_t r0 = 0; r0 < lip_len; r0 += SPIHT_CHUNK) {
       const int32_t m = min32(SPIHT_CHUNK, lip_len - r0);
       for (int32_t i = tid; i < m; i += nt) sh.e[i] = a.lip[r0 + i];
+      stage_stream(a, sh, cur, 2 * m, tid, nt);
       SPIHT_SYNC();
-      if (warp0 && !dec_lip_chunk<SEQ, LOG>(a, sh, m, mag, ev, st, tid) &&
-          tid == 0)
-        sh.pub.stop = 1;
+      if (warp0) {
+        st.cur = cur;
+        const bool ok = dec_lip_chunk<SEQ, LOG>(a, sh, m, mag, ev, st, tid);
+        if (tid == 0) {
+          if (!ok) sh.pub.stop = 1;
+          sh.pub.lsp_n = st.lsp_n;
+          sh.cur = st.cur;
+        }
+      }
       SPIHT_SYNC();
+      cur = sh.cur;
       if (sh.pub.stop) goto out;
     }
     st.lip_n = st.keep;
@@ -422,33 +616,38 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
         sh.e[i] = e;
         sh.g[i] = a.geo[e >> 1];
       }
+      stage_stream(a, sh, cur, 9 * m, tid, nt);
       SPIHT_SYNC();
       if (warp0) {
+        st.cur = cur;
         const bool ok = dec_lis_chunk<SEQ, LOG>(a, sh, m, mag, ev, st, tid);
         if (tid == 0) {
           if (!ok) sh.pub.stop = 1;
           sh.pub.lis_n = st.lis_n;
+          sh.pub.lsp_n = st.lsp_n;
+          sh.cur = st.cur;
         }
       }
       SPIHT_SYNC();
+      cur = sh.cur;
       if (sh.pub.stop) goto out;
       r0 += m;
     }
     SPIHT_SYNC();  // every thread has read pub.lis_n for the last time
     st.lis_n = st.keep;
-    if (tid == 0) {
-      sh.pub.lis_n = st.lis_n;
-      sh.cur = st.cur;
+    if (tid == 0) sh.pub.lis_n = st.lis_n;
+    if (SEQ) {
+      dec_commit_rec(a, in_rec, sh.pub.lsp_n, n, tid, nt);
+      in_rec = sh.pub.lsp_n;
     }
-    SPIHT_SYNC();
 
     // ---- refinement of the entries significant before this plane ----
     {
-      const int32_t cur = sh.cur;
       const int32_t avail = min32(lsp_snap, a.nbits - cur);
       dec_refine<SEQ, LOG>(a, avail, lsp_snap, cur, n, tid, nt);
-      seek(st, cur + avail);
+      cur += avail;
       if (tid == 0) {
+        st.cur = cur;
         if (avail < lsp_snap) sh.pub.stop = 1;  // the stream ended inside
         sh.pub.lip_n = st.lip_n;
         sh.pub.lsp_n = st.lsp_n;
@@ -459,6 +658,7 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
   }
 
 out:
+  if (SEQ) dec_commit_rec(a, in_rec, sh.pub.lsp_n, n, tid, nt);
   if (tid != 0) return;
   a.stat[0] = st.lsp_n;
   a.stat[1] = st.err;
@@ -498,9 +698,9 @@ SPIHT_HD void dec_prologue(const DecArgs& a, const int32_t* lip0,
 //
 // What bounds them on an H100: per stream the same dependent chain of bit
 // decisions as B2/B3; across streams, how many blocks the SMs hold at once
-// (DecShared is about 5 KB, so the 256-thread block size, eight blocks an
-// SM, is the limit: up to ~1000 streams in one wave). The design spreads
-// the streams over the SMs and shares the geometry tables through L2.
+// (48 registers a thread and 6.8 KB of DecShared a block: five 256-thread
+// blocks an SM, ~660 streams in one wave). The design spreads the streams
+// over the SMs and shares the geometry tables through L2.
 struct DecBatch {
   const uint32_t* words;  // (B, cap_words), zero-padded rows
   int32_t cap_words;

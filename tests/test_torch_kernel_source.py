@@ -5,8 +5,11 @@ There is no nvcc here, but the machines in ``spiht_tpu_torch/csrc/*.cu``
 are plain functions of (thread id, thread count) with the kernel and its
 launch behind ``#ifdef __CUDACC__``. This test compiles them with g++, runs
 each machine with 64 host threads as the block (std::barrier for
-``__syncthreads``, warp 0's ballot/shuffle emulated across its 32 threads)
-and holds words, LSP queues, rec and stat equal to the plain versions'.
+``__syncthreads``, warp 0's ballot, shuffles and ``__syncwarp`` emulated
+across its 32 threads) and holds words, LSP queues, rec and stat equal to
+the plain versions'. The decode machines are also held to them on every
+byte prefix of small streams, across chunk boundaries, at narrowed queue
+capacities and, for B3, on random words.
 The batched kernels' per-stream setup (``encode_stream``,
 ``decode_stream``: stream offsets, per-stream scalars, the capacity rule)
 runs the same way, one host block per stream, against the batched plain
@@ -64,6 +67,7 @@ int32_t spiht_host_shfl_up(int lane, int32_t v, int d) {
   g_wbar->arrive_and_wait();
   return r;
 }
+void spiht_host_syncwarp(int) { g_wbar->arrive_and_wait(); }
 #include "spiht_encode.cu"
 #include "spiht_decode.cu"
 #include "spiht_quantize.cu"
@@ -199,10 +203,15 @@ def _host_encode(lib, arr, ll_h, ll_w, max_bits, threads=THREADS):
     return encoder.stream_bytes(pw, int(ps[0])), int(max_n)
 
 
-def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False):
-    """B2's or B3's machine (B2-log's with ``log``) on host threads."""
+def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False,
+                 caps=None, threads=THREADS):
+    """B2's or B3's machine (B2-log's with ``log``) on host threads, held
+    to the plain version; ``caps`` narrows the queue capacities. Returns
+    the stat list."""
     words, nbits = decoder.words_tensor(data, "cpu")
     args = decoder.machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
+    if caps is not None:
+        args = args[:-1] + (tuple(caps),)
     _, _, _, geo, lip0, lis0, _, caps = args
     seq = decoder.has_duplicate_parents(h, w, ll_h, ll_w)
     events = torch.empty(nbits + 1, dtype=torch.int32) if log else None
@@ -213,7 +222,7 @@ def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False):
     rec = torch.empty(geo.numel(), dtype=torch.int32)
     stat = torch.empty(encoder.STAT_LEN, dtype=torch.int32)
     lib.host_decode(
-        ctypes.c_int(THREADS), ctypes.c_int(int(seq)), _p(words), _i(nbits),
+        ctypes.c_int(threads), ctypes.c_int(int(seq)), _p(words), _i(nbits),
         _i(max_n), _p(geo), _p(lip0), _i(lip0.numel()), _p(lis0),
         _i(lis0.numel()), _i(w), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
         _p(lsp), _p(lsp_val), _i(caps[2]), _p(rec), _i(geo.numel()),
@@ -223,7 +232,7 @@ def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False):
         prec, ps = decoder.decode_seq(*args)
         assert stat.tolist() == ps.tolist()
         assert torch.equal(rec, prec)
-        return
+        return ps.tolist()
     if log:
         pl, pv, ps, plog = decoder.decode_lsp_log(*args)
         assert torch.equal(events, plog)
@@ -233,6 +242,7 @@ def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False):
     live = int(ps[0])
     assert torch.equal(lsp[:live], pl[:live])
     assert torch.equal(lsp_val[:live], pv[:live])
+    return ps.tolist()
 
 
 @pytest.mark.parametrize(
@@ -384,3 +394,113 @@ def test_batched_setup_equals_plain_versions(host_lib, shape, ll):
         live = int(ps[b, 0])
         assert torch.equal(lsp[b, :live], pl[b, :live])
         assert torch.equal(lsp_val[b, :live], pv[b, :live])
+
+
+# The decode machines decide 32 LIP tokens or LIS entries a warp step and
+# fall back to the bit-by-bit path for the step that meets the stream's end
+# or a full queue; the cases below put that step everywhere.
+
+SWEEP_THREADS = 32  # warp 0 alone is the block: half the host barriers
+
+
+@pytest.mark.parametrize(
+    "shape,ll,log",
+    [
+        ((3, 24, 32), (6, 8), False),  # B2
+        ((3, 24, 32), (6, 8), True),   # B2-log
+        ((3, 19, 19), (5, 5), False),  # B3 (odd LL)
+    ],
+    ids=["b2", "b2_log", "b3"],
+)
+def test_decode_machines_on_every_byte_prefix(host_lib, shape, ll, log):
+    """Every byte prefix of a ~300-byte stream: the cut falls at every
+    position of a warp step, in the LIP, inside a type-A fire's children
+    and at a type-B fire, and the log's row at nbits with it."""
+    rng = np.random.default_rng(sum(shape) + 5)
+    arr = (rng.standard_normal(shape) * 900).astype(np.int32)
+    data, max_n = japi.encode(arr, *ll, 2400)
+    assert 290 <= len(data) <= 300
+    for nbytes in range(len(data) + 1):
+        _host_decode(host_lib, data[:nbytes], max_n, *shape, *ll, log=log,
+                     threads=SWEEP_THREADS)
+
+
+def _spikes(shape, rng, n, scale):
+    arr = np.zeros(shape, np.int32)
+    idx = rng.choice(arr.size, n, replace=False)
+    arr.flat[idx] = (rng.standard_normal(n) * scale).astype(np.int32)
+    return arr
+
+
+@pytest.mark.parametrize(
+    "shape,ll",
+    [((3, 64, 64), (8, 8)), ((3, 67, 67), (9, 9))],
+    ids=["b2", "b3"],
+)
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_decode_machines_across_chunks(host_lib, shape, ll, kind):
+    """Passes longer than SPIHT_CHUNK (512) entries: a sparse array (a few
+    spikes: long runs of unfired entries across chunk boundaries) and a
+    dense one (steps of 32 fires), full and cut in the middle; B2 with
+    its event log."""
+    rng = np.random.default_rng(len(kind) + shape[1])
+    arr = (_spikes(shape, rng, 40, 3000) if kind == "sparse" else
+           (rng.standard_normal(shape) * 4000).astype(np.int32))
+    data, max_n = japi.encode(arr, *ll, 2**31 - 2)
+    lens = []
+    for nbytes in (len(data) // 8, len(data) // 2 + 3, len(data)):
+        stat = _host_decode(host_lib, data[:nbytes], max_n, *shape, *ll,
+                            log=True)
+        lens += stat[2:4]
+    assert max(lens) > 512
+
+
+@pytest.mark.parametrize(
+    "shape,ll",
+    [((3, 24, 32), (6, 8)), ((3, 19, 19), (5, 5))],
+    ids=["b2", "b3"],
+)
+@pytest.mark.parametrize("which,err", [(0, 2), (1, 3), (2, 4)],
+                         ids=["lip", "lis", "lsp"])
+def test_decode_machines_at_narrowed_capacities(host_lib, shape, ll, which,
+                                                err):
+    """A queue capacity below the stream's need: the machine stops where
+    the plain version stops, with its error code (2 LIP, 3 LIS, 4 LSP)."""
+    rng = np.random.default_rng(sum(shape) + 6)
+    arr = (rng.standard_normal(shape) * 900).astype(np.int32)
+    data, max_n = japi.encode(arr, *ll, 2**31 - 2)
+    words, nbits = decoder.words_tensor(data, "cpu")
+    args = decoder.machine_args(words, nbits, max_n, *shape, *ll)
+    init = (args[4].numel(), args[5].numel(), 0)
+    full = _host_decode(host_lib, data, max_n, *shape, *ll)
+    final = (full[2], full[3], full[4])  # the queues' final lengths
+    logs = (False,) if decoder.has_duplicate_parents(*shape[1:], *ll) else (
+        False, True)
+    errs = set()
+    for frac in (0.3, 0.6, 0.9):
+        caps = list(args[-1])
+        caps[which] = max(init[which], int(final[which] * frac))
+        for log in logs:
+            errs.add(_host_decode(host_lib, data, max_n, *shape, *ll,
+                                  log=log, caps=caps)[1])
+    assert err in errs
+
+
+@pytest.mark.parametrize("max_n", [4, 7, 11])
+def test_seq_machine_on_random_words(host_lib, max_n):
+    """Random words (not an encoder's stream) through B3's machine, whole
+    and on every 7th byte prefix: where one node is committed twice close
+    together (a node with two parents), or refined by two instances that
+    read different bits, rec keeps what the sequential order leaves."""
+    shape, ll = (3, 19, 19), (5, 5)
+    rng = np.random.default_rng(max_n)
+    data = rng.integers(0, 256, 400, dtype=np.uint8).tobytes()
+    for nbytes in range(0, len(data) + 1, 7):
+        _host_decode(host_lib, data[:nbytes], max_n, *shape, *ll)
+    # the same words commit some node twice within one warp step's reach
+    words, nbits = decoder.words_tensor(data, "cpu")
+    args = decoder.machine_args(words, nbits, max_n, *shape, *ll)
+    lsp, _, stat = decoder._decode_machine_plain(
+        *args[:7], *args[7], False, 0)
+    nodes = lsp[: int(stat[0])].tolist()
+    assert any(nodes[i] in nodes[i + 1 : i + 33] for i in range(len(nodes)))
