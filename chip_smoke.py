@@ -41,6 +41,12 @@ Phases:
       stream, in the last word), each equal to its plain version: the cut
       falls inside warp steps, so the decoders' bit-by-bit edge path runs;
       random words (no encoder's stream) through B3 and batched B3
+  15. the encoder's budget edges: A's and B's coefficients through B1 at 64
+      budgets each (the first 9 bits, the last 9 of the 1 bpp stream, the
+      rest seeded) and as one B4 batch of those 64 budgets, each equal to
+      its plain version and a prefix of the 1 bpp stream; at A, narrowed
+      queue capacities that stop B1 and B4 with each queue's error code,
+      and a budget clamped by a small word buffer (the capped code)
 """
 
 from __future__ import annotations
@@ -968,8 +974,100 @@ def phase_prefix_sweep(er_a, er_b):
     print(f"phase 14 ok: {n_cmp} exact comparisons")
 
 
+def stream_bits(data: bytes):
+    """A stream's bits, LSB-first."""
+    return np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
+
+
+def cmp_encode_args(args):
+    """B1 on the card vs its plain version on ``encode_machine``'s
+    arguments as given (narrowed capacities, a clamped budget): words and
+    stat exactly equal, the error code included. Returns the stat list."""
+    kw, ks = encoder.encode_machine(*args)
+    pw, ps = encoder.encode_machine(*to_cpu(args))
+    check(ks.tolist() == ps.tolist(), f"B1 stat {ks.tolist()} != plain "
+          f"{ps.tolist()}")
+    check(torch.equal(kw.cpu(), pw), "B1 words != plain words")
+    return ps.tolist()
+
+
+def cmp_encode_batch_args(args):
+    """B4 on the card vs its plain version on ``encode_machine_batch``'s
+    arguments as given: words and stat rows exactly equal. Returns the
+    stat rows."""
+    kw, ks = encoder.encode_machine_batch(*args)
+    pw, ps = encoder.encode_machine_batch(*to_cpu(args))
+    check(ks.tolist() == ps.tolist(), "B4 stat != plain")
+    check(torch.equal(kw.cpu(), pw), "B4 words != plain words")
+    return ps.tolist()
+
+
+def phase_encode_edges(im_a, im_b):
+    """Phase 15: B1's and B4's stopping entry at full width. A's and B's
+    coefficients at 64 budgets each (``sweep_cuts`` over the bits of the
+    1 bpp stream), through B1 one by one and through B4 as one batch, each
+    equal to its plain version and, as words, a prefix of the 1 bpp
+    stream; then at A the queue capacities narrowed below the stream's
+    need (error codes 2, 3, 4) and a budget clamped by a small word buffer
+    (code 1), through B1 and B4, equal to the plain versions."""
+    n_cmp = 0
+    for label, im, settings, level in (("A", im_a, CONFIG_A, None),
+                                        ("B", im_b, CONFIG_B, 3)):
+        arr, ll_h, ll_w = forward(torch.as_tensor(im, device=DEV), settings,
+                                  level)
+        full_stats = {}
+        full, _ = cmp_encode(arr, ll_h, ll_w, 512 * 512, full_stats)
+        stat, nbits = full_stats["stat"], full_stats["stat"][0]
+        ref = stream_bits(full)
+        budgets = sweep_cuts(nbits)
+        check(len(budgets) == 64, f"{label}: {len(budgets)} budgets")
+        # cmp_encode holds the whole word buffer to the plain version's,
+        # zeros past the stream included; the bits before are the stream's
+        for mb in budgets:
+            data, _ = cmp_encode(arr, ll_h, ll_w, mb)
+            check(np.array_equal(stream_bits(data)[:mb], ref[:mb]),
+                  f"{label} budget {mb}: not a prefix of the stream")
+        got = cmp_encode_batch(
+            arr.expand(len(budgets), *arr.shape).contiguous(), ll_h, ll_w,
+            budgets)
+        for (data, _), mb in zip(got, budgets):
+            check(np.array_equal(stream_bits(data)[:mb], ref[:mb]),
+                  f"{label} batch budget {mb}: not a prefix of the stream")
+        n_cmp += len(budgets) + 2
+        print(f"  {label}: {len(budgets)} budgets of {nbits} bits (cuts "
+              f"{budgets[:3]}..{budgets[-3:]}): B1 and B4 == plain, each a "
+              "prefix of the stream")
+        if label != "A":
+            continue
+        # the queue errors: each capacity narrowed below its length at the
+        # stop, alone (B1) and as a one-stream batch (B4)
+        args = full_stats["args"]
+        bargs = encoder.batch_machine_args(arr[None], ll_h, ll_w, [512 * 512])
+        init = (args[3].numel(), args[4].numel(), 0)
+        errs = []
+        for which in range(3):
+            caps = list(args[9])
+            caps[which] = max(init[which], stat[2 + which] // 2)
+            st = cmp_encode_args(args[:9] + (tuple(caps),) + args[10:])
+            check(cmp_encode_batch_args(bargs[:8] + (tuple(caps),)
+                                        + bargs[9:]) == [st],
+                  "B4 at narrowed capacities != B1")
+            errs.append(st[1])
+        # a budget clamped to a 1000-word buffer
+        st = cmp_encode_args(args[:7] + (32000, True) + args[9:10] + (1000,))
+        check(cmp_encode_batch_args(bargs[:9] + (1000,)) == [st],
+              "B4 with a clamped budget != B1")
+        errs.append(st[1])
+        check(errs == [2, 3, 4, 1], f"A: error codes {errs}, want [2, 3, 4, 1]")
+        n_cmp += 8
+        print(f"  A: narrowed LIP, LIS, LSP and a clamped budget: error codes "
+              f"{errs} on the card == plain, B4 == B1")
+    print(f"phase 15 ok: {n_cmp} exact comparisons of B1 and B4 with their "
+          "plain versions")
+
+
 def run_phases() -> list:
-    """Phases 2-10; returns the kernels' rows of the result line."""
+    """Phases 2-15; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -1043,6 +1141,9 @@ def run_phases() -> list:
 
     # ---- phase 14: the decoders' step edges on the card ----
     phase_prefix_sweep(er_a, er_b)
+
+    # ---- phase 15: the encoder's budget edges on the card ----
+    phase_encode_edges(im_a, im_b)
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),

@@ -109,22 +109,29 @@ def instrument(src: str) -> str:
     return src
 
 
-def build(csrc: Path, clocks: bool) -> ctypes.CDLL:
-    tag = hashlib.sha256(str(csrc.resolve()).encode()).hexdigest()[:12]
+def build(csrc: Path, clocks: bool, name: str = "spiht_decode",
+          instrument_fn=None) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with nvcc (with clock64 counters inserted by
+    ``instrument_fn`` when ``clocks``) into its own directory under ``OUT``,
+    loaded with the argtypes of ``name``."""
+    key = f"{csrc.resolve()} {name}"
+    tag = hashlib.sha256(key.encode()).hexdigest()[:12]
     d = OUT / f"{tag}_{'clk' if clocks else 'plain'}"
     d.mkdir(parents=True, exist_ok=True)
-    src = (csrc / "spiht_decode.cu").read_text()
-    (d / "spiht_decode.cu").write_text(instrument(src) if clocks else src)
-    so = d / "libspiht_decode.so"
+    src = (csrc / f"{name}.cu").read_text()
+    instrument_fn = instrument_fn or instrument
+    (d / f"{name}.cu").write_text(instrument_fn(src) if clocks else src)
+    so = d / f"lib{name}.so"
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
-                        "-o", str(so), str(d / "spiht_decode.cu")],
+                        "-o", str(so), str(d / f"{name}.cu")],
                        capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed on {d}:\n{r.stdout}{r.stderr}")
     lib = ctypes.CDLL(str(so))
-    for fn, argtypes in _build.SIGNATURES["spiht_decode"].items():
+    for fn, argtypes in _build.SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
+    lib.ptxas = r.stdout + r.stderr  # registers, shared memory, spills
     return lib
 
 

@@ -6,8 +6,10 @@ plain versions. The port of ``spiht_tpu/codec/pallas_encoder.py``
 :2192).
 
 The kernel (``csrc/spiht_encode.cu``, B1) and ``_encode_machine_plain``
-compute the same function on the same state layout: the tables ``t1``,
-``t3s``, ``child0`` and the queues LIP, LIS, LSP. Kernel B7
+compute the same function of the same tables ``t1``, ``t3s``, ``child0``:
+the words and the stat row. The plain version keeps its queues LIP, LIS,
+LSP as lists of node indices, B1 as payloads (the entries' table words);
+no caller reads them. Kernel B7
 (``encode_machine_seq``, the port of ``_seq_fn`` :221, which
 ``pallas_encode_fn`` :185-217 runs for ``machine="seq"``) computes it one
 entry per iteration, with the same plain version. Kernel B4 runs that
@@ -262,6 +264,17 @@ def _check_i32(name: str, x: torch.Tensor, device: torch.device, ndim=1):
         raise ValueError(f"{name} must be contiguous")
 
 
+def scratch_queues(caps: Tuple[int, int, int], B: int = 1, device="cpu"):
+    """The machines' scratch queues (lip, lis, lsp) for B streams at the
+    capacities ``caps``: int32 (B, k * cap). B1 and B4 keep t3s words in
+    the LIP and LSP and two words an entry in the LIS (k = 2); B7 uses one
+    word an entry of each. No caller reads them."""
+    return tuple(
+        torch.empty(B, k * max(cap, 1), dtype=torch.int32, device=device)
+        for k, cap in zip((1, 2, 1), caps)
+    )
+
+
 def _encode_machine(
     seq, t1, t3s, child0, lip0, lis0, w, max_n, max_bits, capped, caps,
     cap_words,
@@ -294,9 +307,7 @@ def _encode_machine(
     from .. import _build
 
     lib = _build.load("spiht_encode")
-    lip = torch.empty(lip_cap, dtype=torch.int32, device=dev)
-    lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
-    lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
+    lip, lis, lsp = scratch_queues(caps, 1, dev)
     words = torch.empty(cap_words, dtype=torch.int32, device=dev)
     stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -419,10 +430,7 @@ def encode_machine_batch(
     from .. import _build
 
     lib = _build.load("spiht_encode")
-    lip, lis, lsp = (
-        torch.empty(B, max(cap, 1), dtype=torch.int32, device=dev)
-        for cap in caps
-    )
+    lip, lis, lsp = scratch_queues(caps, B, dev)
     words = torch.empty(B, cap_words, dtype=torch.int32, device=dev)
     stat = torch.empty(B, STAT_LEN, dtype=torch.int32, device=dev)
     rc = lib.spiht_encode_batch_launch(

@@ -2,23 +2,23 @@
 //
 // Each kernel is one thread block per stream (the batched kernels B4, B5 and
 // batched B3 launch one block per stream of the batch, blockIdx.x being the
-// stream). The list machine's decisions run in warp 0, 32 queue entries (or,
-// in the decoders' LIP pass, 32 stream bits) a warp step: ballots, shuffles
-// and one warp scan give every lane its entry's bits and write positions
-// (B7, the sequential encoder, is one thread). What bounds every machine on
-// an H100 is the dependent chain of bit decisions, paid in instruction and
-// shared-memory latency, not bytes: a warp step decides up to 32 at once.
-// All threads of the block first gather what the next chunk of queue
-// entries will need into shared memory (the decoders also stage the stream
-// words the chunk can reach), so warp 0 decides from shared memory instead
-// of waiting on L2 inside a chunk. Control flow around every barrier and
-// every warp collective is uniform: the values it depends on are read from
-// shared memory after a barrier, or are the same in every lane.
+// stream). What bounds every machine on an H100 is the dependent chain of
+// bit decisions, paid in instruction and memory latency, not bytes. The
+// decoders decide in warp 0, 32 queue entries (or, in the LIP pass, 32
+// stream bits) a warp step: ballots, shuffles and one warp scan give every
+// lane its entry's bits and write positions, after all threads of the block
+// have gathered what the chunk of entries will need into shared memory and
+// staged the stream words it can reach. The encoder (B1, B4) decides a
+// whole chunk with the whole block: one block scan (warp scans, then the
+// warp totals in shared memory) places every entry; B7, the sequential
+// encoder, is one thread. Control flow around every barrier and every warp
+// collective is uniform: the values it depends on are read from shared
+// memory after a barrier, or are the same in every lane.
 //
 // The machines are plain functions of (tid, nthreads) (SPIHT_HD is
 // __device__ under nvcc and inline otherwise), so the same source also
-// compiles as host C++: the host build supplies the block barrier and warp
-// 0's collectives (spiht_host_*) and runs host threads as the block
+// compiles as host C++: the host build supplies the block barrier and each
+// warp's collectives (spiht_host_*) and runs host threads as the block
 // (tests/test_torch_kernel_source.py).
 //
 // Bit order is the wire format of the reference codec: bits are packed
@@ -30,7 +30,7 @@
 #ifdef __CUDACC__
 #define SPIHT_HD __device__ __forceinline__
 #define SPIHT_SYNC() __syncthreads()
-// warp-level collectives of warp 0 (lane = its lane id)
+// warp-level collectives of the calling thread's warp (lane = its lane id)
 #define WARP_BALLOT(lane, p) __ballot_sync(0xFFFFFFFFu, (p))
 #define WARP_SHFL(lane, v, src) __shfl_sync(0xFFFFFFFFu, (v), (src))
 #define WARP_SHFL_UP(lane, v, d) __shfl_up_sync(0xFFFFFFFFu, (v), (d))
@@ -40,7 +40,7 @@
 #define ATOMIC_OR(p, v) atomicOr((p), (v))
 #else
 #define SPIHT_HD inline
-// the host build's block barrier and warp-0 collectives
+// the host build's block barrier and warp collectives
 void spiht_host_sync();
 uint32_t spiht_host_ballot(int lane, bool p);
 int32_t spiht_host_shfl(int lane, int32_t v, int src);
@@ -72,7 +72,8 @@ enum SpihtError : int32_t {
 //   [5] decoders: bits consumed; encoder: 0
 #define SPIHT_STAT_LEN 6
 
-// Queue entries gathered per chunk, and the block size of every kernel.
+// The decoders' queue entries gathered per chunk, and the block size of
+// every kernel but B1 (spiht_encode.cu sets the encoder's).
 #define SPIHT_CHUNK 512
 #define SPIHT_THREADS 256
 #define SPIHT_WARP 32
@@ -82,15 +83,15 @@ struct Published {
   int32_t lip_n, lis_n, lsp_n, stop;
 };
 
-// The encoder's output: bits go into a zeroed word buffer with atomic ORs,
-// so the lanes of warp 0 can write disjoint bit ranges of one word at once.
+// B7's output: bits go into the zeroed word buffer one at a time.
 struct BitWriter {
   uint32_t* words;
   int32_t pos;
   int32_t limit;
 };
 
-// OR the low `len` bits of v (len <= 32) into the stream at bit `pos`.
+// OR the low `len` bits of v (len <= 32) into zeroed words at bit `pos`
+// (B1's staged words: threads OR disjoint bit ranges of one word at once).
 SPIHT_HD void or_bits(uint32_t* words, int32_t pos, uint32_t v, int len) {
   if (!v) return;
   const int sh = pos & 31;

@@ -9,13 +9,28 @@
 // worklist (same-pass appends, 4-child cascade, type A -> B re-append when
 // the node has grandchildren) and refinement of the LSP entries that existed
 // before the plane (the lsp_len snapshot). It stops exactly, mid-symbol if
-// need be, at max_bits. Bits are written LSB-first into u32 words.
+// need be, at max_bits. Bits are written LSB-first into u32 words. Only the
+// words and stat are the function's outputs: the queues are scratch.
 //
-// State layout (identical in the plain version, codec/encoder.py):
+// Tables (codec/encoder.py encode_tables; B7 and the plain version read the
+// same ones):
 //   t1[N]     = (M+1) | (D+1)<<5 | (G+1)<<10 | sgn<<15 | hc<<16 | hg<<17
 //   t3s[N]    = sgn<<31 | |x|          (sgn = x >= 0)
 //   child0[N] = flat index of the first child (children at +0, +1, +w, +w+1)
-//   lip[], lsp[] hold node indices; lis[] holds node<<1 | type_A.
+// B1's queues carry payloads, as the TPU kernel's did (the plain version and
+// B7 keep lists of node indices instead):
+//   LIP, LSP: the node's t3s word. M = floor(log2 |x|), so M >= n iff
+//     |x| >> n != 0: a LIP test, its sign and a refinement bit read nothing
+//     but the entry.
+//   LIS: two words (LisEntry), child0<<1 | type_A and the node's t1. The t1
+//     word decides the entry; only a fire reads further: its 4 children's
+//     t3s after a type-A fire (their bits, and the LSP/LIP words it
+//     appends), their t1 and the first child's child0 after a type-B fire
+//     (the LIS entries it appends). Children lie outside the LL band, where
+//     a node's child0 is 2 * node - its channel's base, so child q's child0
+//     is the first child's + 2 * off[q] (where it has children: a fired
+//     type-B node's first child always has). The node index itself is
+//     never needed.
 //   LIP and LIS are in-place FIFOs: within a pass the retain cursor trails
 //   the read cursor, and same-pass appends land at the live tail.
 //
@@ -25,18 +40,38 @@
 // over a thousand times its byte bound; PERF.md, chip_smoke.py).
 // The design breaks the chain where the wire format allows. Every bit the
 // encoder writes is a function of the maps, so an entry's bits and queue
-// appends depend on earlier entries only through offsets. For each chunk
-// of up to SPIHT_CHUNK queue entries, the whole block first gathers what
-// the entries can need into shared memory (each node's t1/t3s and, for a
-// LIS entry, its child0 and its 4 children's t1/t3s); warp 0 then decides
-// 32 entries at a time, one per lane, and places their bits and appends
-// with warp scans. A group that would cross the bit budget or a queue
-// capacity runs entry by entry in lane 0, which stops exactly where the
-// sequential machine stops. A chunk of the LIS worklist is the entries
-// present when it starts; entries appended while it runs start a later
-// chunk, as in the sequential order.
+// appends depend on earlier entries only through offsets. The whole block
+// decides a chunk of up to NT*E queue entries, E consecutive ones a thread:
+// each thread loads its entries (one coalesced load; a LIS fire then loads
+// its children, the second and last level), counts its bits and appends,
+// and one block scan (warp scans, then the warp totals in shared memory)
+// gives every entry its offsets, so all are placed at once: the bits ORed
+// into the chunk's words staged in shared memory, the queue words stored.
+// The inclusive sums only grow, so the first entry whose bits pass the
+// budget or whose appends pass a queue's capacity is the one whose
+// exclusive sums fit and whose inclusive sums do not; the entries before it
+// are placed, it runs bit by bit in its thread (enc_lip_seq / enc_lis_seq),
+// which stops exactly where the sequential machine stops, and the machine
+// ends. After each chunk the block writes the whole staged words to global
+// memory with plain stores and carries the partial last word into the next
+// chunk. A chunk of the LIS worklist is the entries present when it starts;
+// entries appended while it runs start a later chunk, as in the sequential
+// order. Each thread loads its entries of the next chunk while a chunk is
+// decided, where they exist already (always in the LIP and refinement
+// passes), so a LIS chunk waits on its fires' children alone. Per chunk
+// there remain that gather, two barriers and the placement (PERF.md has
+// the cycles).
 
 #include "spiht_common.cuh"
+
+// B1's block: 512 threads, two entries each (it is alone on its SM; the
+// wider chunk means fewer chunks); B4's: 256 threads, two entries each, at
+// most 48 registers, so that five blocks fit on an SM (660 streams a wave).
+#define ENC_B1_THREADS 512
+#define ENC_B1_PER_THREAD 2
+#define ENC_B4_THREADS SPIHT_THREADS
+#define ENC_B4_PER_THREAD 2
+#define ENC_B4_BLOCKS_PER_SM 5
 
 struct EncArgs {
   const int32_t* __restrict__ t1;
@@ -48,28 +83,505 @@ struct EncArgs {
   int32_t max_n;
   int32_t max_bits;  // already clamped to the word buffer's capacity
   int32_t capped;    // 1 if the caller's max_bits exceeded that capacity
-  int32_t* __restrict__ lip;
+  int32_t* __restrict__ lip;  // B1: t3s words; B7: node indices
   int32_t lip_cap;
-  int32_t* __restrict__ lis;
+  int32_t* __restrict__ lis;  // B1: lis_cap LisEntry pairs; B7: node<<1 | type_A
   int32_t lis_cap;
-  int32_t* __restrict__ lsp;
+  int32_t* __restrict__ lsp;  // B1: t3s words; B7: node indices
   int32_t lsp_cap;
   uint32_t* __restrict__ words;  // zeroed
   int32_t* __restrict__ stat;
 };
 
-// One chunk's gathered tables.
-struct EncShared {
-  int32_t e[SPIHT_CHUNK];      // the queue entry
-  int32_t t1[SPIHT_CHUNK];     // t1 of its node
-  int32_t t3[SPIHT_CHUNK];     // t3s of its node (LIP, refinement)
-  int32_t c0[SPIHT_CHUNK];     // child0 of its node (LIS)
-  int32_t ct[4][SPIHT_CHUNK];  // the 4 children's t1 (LIS)
-  int32_t cs[4][SPIHT_CHUNK];  // the 4 children's t3s (LIS)
-  Published pub;
+SPIHT_HD int32_t level_m(int32_t t) { return (t & 31) - 1; }
+SPIHT_HD int32_t level_d(int32_t t) { return ((t >> 5) & 31) - 1; }
+SPIHT_HD int32_t level_g(int32_t t) { return ((t >> 10) & 31) - 1; }
+
+SPIHT_HD void write_stat(const EncArgs& a, int32_t bits, int32_t err,
+                         int32_t lip_n, int32_t lis_n, int32_t lsp_n) {
+  a.stat[0] = bits;
+  a.stat[1] = err;
+  a.stat[2] = lip_n;
+  a.stat[3] = lis_n;
+  a.stat[4] = lsp_n;
+  a.stat[5] = 0;
+}
+
+// ---- B1: the block-wide machine ----
+
+// A LIS entry as B1 queues it.
+struct alignas(8) LisEntry {
+  int32_t e;  // child0 << 1 | type_A
+  int32_t t;  // t1 of the node
 };
 
-// The machine state, held identically by every lane of warp 0.
+// A t3s payload's significance at plane n (n <= 30): M >= n.
+SPIHT_HD uint32_t sig_at(int32_t x, int n) {
+  return ((x & 0x7FFFFFFF) >> n) != 0;
+}
+
+// Counts of an entry, or of a run of entries, packed into one word so that
+// one scan places them all: stream bits [0, 14), LSP appends [14, 27), LIP
+// appends [27, 40), LIS appends [40, 53), entries retained [53, 64). A chunk
+// of up to 1024 entries fits every field (9, 4, 4, 4 and 1 an entry).
+#define ENC_F_LSP 14
+#define ENC_F_LIP 27
+#define ENC_F_LIS 40
+#define ENC_F_KEEP 53
+SPIHT_HD uint64_t enc_counts(uint32_t bits, uint32_t lsp, uint32_t lip,
+                             uint32_t lis, uint32_t keep) {
+  return bits | (uint64_t)lsp << ENC_F_LSP | (uint64_t)lip << ENC_F_LIP |
+         (uint64_t)lis << ENC_F_LIS | (uint64_t)keep << ENC_F_KEEP;
+}
+SPIHT_HD int32_t cnt_bits(uint64_t c) { return (int32_t)(c & 0x3FFF); }
+SPIHT_HD int32_t cnt_lsp(uint64_t c) { return (int32_t)(c >> ENC_F_LSP) & 0x1FFF; }
+SPIHT_HD int32_t cnt_lip(uint64_t c) { return (int32_t)(c >> ENC_F_LIP) & 0x1FFF; }
+SPIHT_HD int32_t cnt_lis(uint64_t c) { return (int32_t)(c >> ENC_F_LIS) & 0x1FFF; }
+SPIHT_HD int32_t cnt_keep(uint64_t c) { return (int32_t)(c >> ENC_F_KEEP); }
+
+// The first k entries of a LIP chunk, s of them significant.
+SPIHT_HD uint64_t lip_counts(int32_t k, int32_t s) {
+  return enc_counts(k + s, s, 0, 0, k - s);
+}
+
+// Stream words a chunk of ch entries can touch: 9 bits an entry, after the
+// partial word carried in.
+#define ENC_STAGE(ch) (9 * (ch) / 32 + 2)
+
+template <int CH>
+struct EncShared {
+  static_assert(CH <= 1024, "the packed counts hold chunks of <= 1024");
+  uint64_t wsum[32];                  // warp totals of a block scan
+  uint32_t stage[2][ENC_STAGE(CH)];   // a chunk's words, by chunk parity
+  int32_t end;                        // stream bits where the machine stopped
+};
+
+// The machine state. Every thread of the block holds the same copy and
+// advances it by each chunk's totals.
+struct EncBlock {
+  int32_t pos;                  // stream bits out
+  int32_t lip_n, lis_n, lsp_n;  // live queue lengths (tails)
+  int32_t keep;                 // retain cursor of the pass in progress
+  int32_t base;                 // stream word held in stage[par][0]
+  int32_t par;
+};
+
+// Whether entries with counts c, placed from state s, stay inside the budget
+// and the queues' capacities.
+SPIHT_HD bool enc_fits(const EncArgs& a, const EncBlock& s, uint64_t c) {
+  return cnt_bits(c) <= a.max_bits - s.pos &&
+         cnt_lsp(c) <= a.lsp_cap - s.lsp_n &&
+         cnt_lip(c) <= a.lip_cap - s.lip_n &&
+         cnt_lis(c) <= a.lis_cap - s.lis_n;
+}
+
+// WARP_SHFL_UP of a 32- or 64-bit value.
+template <class T>
+SPIHT_HD T shfl_up(int lane, T v, int d) {
+  if constexpr (sizeof(T) == 8) {
+    const uint32_t lo = WARP_SHFL_UP(lane, (int32_t)(uint32_t)v, d);
+    const uint32_t hi = WARP_SHFL_UP(lane, (int32_t)(uint32_t)(v >> 32), d);
+    return (T)hi << 32 | lo;
+  } else {
+    return (T)(uint32_t)WARP_SHFL_UP(lane, (int32_t)v, d);
+  }
+}
+
+// The sum of v over threads 0..tid-1 of an NT-thread block, and the
+// block's total: a warp scan, then each thread adds the totals of the warps
+// before its own from shared memory (one barrier).
+template <int NT, class T>
+SPIHT_HD T block_scan(uint64_t* wsum, T v, int tid, T& total) {
+  const int lane = tid & 31, warp = tid >> 5;
+  T x = v;
+  for (int d = 1; d < SPIHT_WARP; d <<= 1) {
+    const T u = shfl_up(lane, x, d);
+    if (lane >= d) x += u;
+  }
+  if (lane == SPIHT_WARP - 1) wsum[warp] = x;
+  SPIHT_SYNC();
+  T before = 0, tot = 0;
+  for (int i = 0; i < NT / SPIHT_WARP; ++i) {
+    const T s = (T)wsum[i];
+    if (i < warp) before += s;
+    tot += s;
+  }
+  total = tot;
+  return before + x - v;
+}
+
+// The stopping entry's machine: the state at its start, bit by bit, its
+// bits into the chunk's staged words.
+struct EncSeq {
+  uint32_t* stage;
+  int32_t bit0;  // stream bit of stage[0]'s bit 0
+  int32_t pos, limit, err, lip_n, lis_n, lsp_n, keep;
+};
+
+template <int CH>
+SPIHT_HD EncSeq enc_seq_at(const EncArgs& a, EncShared<CH>& sh,
+                           const EncBlock& s, uint64_t ex) {
+  return EncSeq{sh.stage[s.par], s.base * 32, s.pos + cnt_bits(ex),
+                a.max_bits, SPIHT_OK, s.lip_n + cnt_lip(ex),
+                s.lis_n + cnt_lis(ex), s.lsp_n + cnt_lsp(ex),
+                s.keep + cnt_keep(ex)};
+}
+
+// Append one bit. Returns false (and writes nothing) once `limit` bits are
+// out: the caller stops exactly there, mid-symbol if need be.
+SPIHT_HD bool put_staged(EncSeq& q, uint32_t bit) {
+  if (q.pos >= q.limit) return false;
+  if (bit) ATOMIC_OR(&q.stage[(q.pos - q.bit0) >> 5], 1u << (q.pos & 31));
+  ++q.pos;
+  return true;
+}
+
+// ---- one entry, as the sequential machine runs it ----
+// Each returns false when the machine stops (budget spent, or a queue would
+// overflow: q.err says which).
+
+SPIHT_HD bool enc_lip_seq(const EncArgs& a, int32_t x, int n, EncSeq& q) {
+  const uint32_t sig = sig_at(x, n);
+  if (!put_staged(q, sig)) return false;
+  if (!sig) {
+    a.lip[q.keep++] = x;
+    return true;
+  }
+  if (!put_staged(q, (uint32_t)x >> 31)) return false;
+  if (q.lsp_n >= a.lsp_cap) { q.err = SPIHT_ERR_LSP_CAP; return false; }
+  a.lsp[q.lsp_n++] = x;
+  return true;
+}
+
+// kid: the children's t3s (type A) or t1 (type B); kc: the first child's
+// child0 (B).
+SPIHT_HD bool enc_lis_seq(const EncArgs& a, LisEntry le, const int32_t* kid,
+                          int32_t kc, int n, EncSeq& q) {
+  LisEntry* lis = reinterpret_cast<LisEntry*>(a.lis);
+  if (le.e & 1) {  // type A: any descendant significant?
+    const uint32_t dsig = level_d(le.t) >= n;
+    if (!put_staged(q, dsig)) return false;
+    if (!dsig) {
+      lis[q.keep++] = le;
+      return true;
+    }
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t sig = sig_at(kid[i], n);
+      if (!put_staged(q, sig)) return false;
+      if (sig) {
+        if (!put_staged(q, (uint32_t)kid[i] >> 31)) return false;
+        if (q.lsp_n >= a.lsp_cap) { q.err = SPIHT_ERR_LSP_CAP; return false; }
+        a.lsp[q.lsp_n++] = kid[i];
+      } else {
+        if (q.lip_n >= a.lip_cap) { q.err = SPIHT_ERR_LIP_CAP; return false; }
+        a.lip[q.lip_n++] = kid[i];
+      }
+    }
+    if ((le.t >> 17) & 1) {  // has grandchildren: re-append as type B
+      if (q.lis_n >= a.lis_cap) { q.err = SPIHT_ERR_LIS_CAP; return false; }
+      lis[q.lis_n++] = LisEntry{le.e & ~1, le.t};
+    }
+    return true;
+  }
+  const uint32_t lsig = level_g(le.t) >= n;  // type B: any grandchild subtree?
+  if (!put_staged(q, lsig)) return false;
+  if (!lsig) {
+    lis[q.keep++] = le;
+    return true;
+  }
+  if (q.lis_n + 4 > a.lis_cap) { q.err = SPIHT_ERR_LIS_CAP; return false; }
+  const int32_t off[4] = {0, 1, a.w, a.w + 1};
+  for (int i = 0; i < 4; ++i)
+    lis[q.lis_n++] = LisEntry{(kc + 2 * off[i]) << 1 | 1, kid[i]};
+  return true;
+}
+
+// The stopping entry has run: its thread reports where the machine ended.
+template <int CH>
+SPIHT_HD void enc_stop(const EncArgs& a, EncShared<CH>& sh, EncSeq& q) {
+  // a put refused: the budget is spent (or a queue overflowed)
+  if (q.err == SPIHT_OK && a.capped) q.err = SPIHT_ERR_STREAM_CAP;
+  sh.end = q.pos;
+  write_stat(a, q.pos, q.err, q.lip_n, q.lis_n, q.lsp_n);
+}
+
+// ---- a LIS entry's bits and counts ----
+
+SPIHT_HD bool lis_fires(LisEntry le, int n) {
+  return (le.e & 1) ? level_d(le.t) >= n : level_g(le.t) >= n;
+}
+
+// The bits a LIS entry writes at plane n (its first at bit 0) and its
+// counts; kid as in enc_lis_seq.
+SPIHT_HD uint64_t lis_entry(LisEntry le, const int32_t* kid, int n,
+                            uint32_t& bits) {
+  if (!lis_fires(le, n)) {
+    bits = 0;
+    return enc_counts(1, 0, 0, 0, 1);
+  }
+  bits = 1;
+  if (!(le.e & 1)) return enc_counts(1, 0, 0, 4, 0);
+  uint32_t nb = 1, nsig = 0;
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t sig = sig_at(kid[i], n);
+    bits |= sig << nb++;
+    if (sig) {
+      bits |= ((uint32_t)kid[i] >> 31) << nb++;
+      ++nsig;
+    }
+  }
+  return enc_counts(nb, nsig, 4 - nsig, (le.t >> 17) & 1, 0);
+}
+
+// ---- chunk ends ----
+
+// After a chunk's barrier: its whole words go to global memory and the
+// partial last word is carried into the other stage buffer, zeroed for the
+// next chunk; at the machine's end (`last`) the partial word goes out too.
+template <int NT, int CH>
+SPIHT_HD void enc_flush(const EncArgs& a, EncShared<CH>& sh, EncBlock& s,
+                        int32_t end, bool last, int tid) {
+  const uint32_t* st = sh.stage[s.par];
+  const int32_t full = (end >> 5) - s.base;
+  const int32_t n_out = last ? ((end + 31) >> 5) - s.base : full;
+  for (int32_t i = tid; i < n_out; i += NT) a.words[s.base + i] = st[i];
+  if (last) return;
+  uint32_t* nx = sh.stage[s.par ^ 1];
+  for (int32_t i = tid; i < ENC_STAGE(CH); i += NT) nx[i] = i ? 0u : st[full];
+  s.base += full;
+  s.par ^= 1;
+}
+
+// The end of a chunk whose entries have counts `tot` in all: the barrier
+// after its placement, then its words out. True if the machine stopped in
+// it (the totals do not fit: an entry ran bit by bit and stopped); else the
+// state advances by the totals.
+template <int NT, int CH>
+SPIHT_HD bool enc_chunk_end(const EncArgs& a, EncShared<CH>& sh, EncBlock& s,
+                            uint64_t tot, int tid) {
+  const bool stop = !enc_fits(a, s, tot);
+  SPIHT_SYNC();
+  if (stop) {
+    enc_flush<NT>(a, sh, s, sh.end, true, tid);
+    return true;
+  }
+  s.pos += cnt_bits(tot);
+  s.lsp_n += cnt_lsp(tot);
+  s.lip_n += cnt_lip(tot);
+  s.lis_n += cnt_lis(tot);
+  s.keep += cnt_keep(tot);
+  enc_flush<NT>(a, sh, s, s.pos, false, tid);
+  return false;
+}
+
+// The machine, run by every thread of an NT-thread block (tid in [0, NT));
+// lip/lis hold their initial entries and the words are zeroed on entry.
+template <int NT, int E>
+SPIHT_HD void encode_machine(const EncArgs& a, EncShared<NT * E>& sh,
+                             int tid) {
+  constexpr int CH = NT * E;
+  const int32_t off[4] = {0, 1, a.w, a.w + 1};
+  LisEntry* lis = reinterpret_cast<LisEntry*>(a.lis);
+  EncBlock s{0, a.n_lip0, a.n_lis0, 0, 0, 0, 0};
+  const int32_t k0 = tid * E;  // this thread's first entry of a chunk
+  for (int32_t i = tid; i < 2 * ENC_STAGE(CH); i += NT)
+    sh.stage[i / ENC_STAGE(CH)][i % ENC_STAGE(CH)] = 0u;
+  SPIHT_SYNC();
+
+  for (int n = a.max_n; n >= 0; --n) {
+    const int32_t lip_len = s.lip_n, lsp_snap = s.lsp_n;
+
+    // ---- LIP pass ----
+    // Each pass loads the next chunk's entries while a chunk is decided
+    // (xn, ln, yn): the entries a chunk writes (retained ones, below its
+    // end; appends, at the tails) never lie in the next chunk's range.
+    s.keep = 0;
+    int32_t xn[E];
+    for (int j = 0; j < E; ++j) xn[j] = k0 + j < lip_len ? a.lip[k0 + j] : 0;
+    for (int32_t r0 = 0; r0 < lip_len; r0 += CH) {
+      const int32_t m = min32(CH, lip_len - r0);
+      int32_t x[E];
+      uint32_t nsig = 0;
+      for (int j = 0; j < E; ++j) {
+        x[j] = xn[j];
+        nsig += sig_at(x[j], n);
+        const int32_t k = r0 + CH + k0 + j;
+        xn[j] = k < lip_len ? a.lip[k] : 0;
+      }
+      uint32_t tsig;
+      uint32_t sg = block_scan<NT>(sh.wsum, nsig, tid, tsig);
+      uint32_t* st = sh.stage[s.par];
+      for (int j = 0, k = k0; j < E && k < m; ++j, ++k) {
+        const uint32_t sig = sig_at(x[j], n);
+        if (!enc_fits(a, s, lip_counts(k + 1, sg + sig))) {
+          if (enc_fits(a, s, lip_counts(k, sg))) {  // the stopping entry
+            EncSeq q = enc_seq_at(a, sh, s, lip_counts(k, sg));
+            enc_lip_seq(a, x[j], n, q);
+            enc_stop(a, sh, q);
+          }
+          break;
+        }
+        if (sig) {
+          or_bits(st, (s.pos & 31) + k + sg, 1u | ((uint32_t)x[j] >> 31) << 1, 2);
+          a.lsp[s.lsp_n + sg] = x[j];
+        } else {
+          a.lip[s.keep + k - sg] = x[j];
+        }
+        sg += sig;
+      }
+      if (enc_chunk_end<NT>(a, sh, s, lip_counts(m, tsig), tid)) return;
+    }
+    s.lip_n = s.keep;
+
+    // ---- LIS pass (worklist: entries appended now are visited now) ----
+    s.keep = 0;
+    int32_t have = s.lis_n;  // ln holds the entries below `have`
+    LisEntry ln[E];
+    for (int j = 0; j < E; ++j)
+      ln[j] = k0 + j < have ? lis[k0 + j] : LisEntry{0, 0};
+    for (int32_t r0 = 0; r0 < s.lis_n;) {
+      const int32_t m = min32(CH, s.lis_n - r0);
+      LisEntry le[E];
+      for (int j = 0; j < E; ++j) {
+        const int32_t k = r0 + k0 + j;
+        le[j] = k0 + j >= m ? LisEntry{0, 0} : k < have ? ln[j] : lis[k];
+      }
+      have = s.lis_n;  // the next chunk's entries that exist before this one
+      for (int j = 0; j < E; ++j) {
+        const int32_t k = r0 + m + k0 + j;
+        ln[j] = k < have ? lis[k] : LisEntry{0, 0};
+      }
+      // a fire's children: t3s (type A) or t1 and the first's child0 (B)
+      int32_t kid[E][4], kc[E];
+      uint64_t v = 0;
+      for (int j = 0; j < E; ++j) {
+        if (k0 + j >= m) continue;
+        if (lis_fires(le[j], n)) {
+          const int32_t c0 = le[j].e >> 1;
+          for (int i = 0; i < 4; ++i) {
+            kid[j][i] = (le[j].e & 1) ? a.t3s[c0 + off[i]] : a.t1[c0 + off[i]];
+          }
+          if (!(le[j].e & 1)) kc[j] = a.child0[c0];
+        }
+        uint32_t bits;
+        v += lis_entry(le[j], kid[j], n, bits);
+      }
+      uint64_t tot;
+      uint64_t ex = block_scan<NT>(sh.wsum, v, tid, tot);
+      uint32_t* st = sh.stage[s.par];
+      for (int j = 0, k = k0; j < E && k < m; ++j, ++k) {
+        uint32_t bits;
+        const uint64_t c = lis_entry(le[j], kid[j], n, bits);
+        if (!enc_fits(a, s, ex + c)) {
+          if (enc_fits(a, s, ex)) {  // the stopping entry
+            EncSeq q = enc_seq_at(a, sh, s, ex);
+            enc_lis_seq(a, le[j], kid[j], kc[j], n, q);
+            enc_stop(a, sh, q);
+          }
+          break;
+        }
+        or_bits(st, (s.pos & 31) + cnt_bits(ex), bits, cnt_bits(c));
+        if (!lis_fires(le[j], n)) {
+          lis[s.keep + cnt_keep(ex)] = le[j];
+        } else if (le[j].e & 1) {
+          int32_t ls = s.lsp_n + cnt_lsp(ex), li = s.lip_n + cnt_lip(ex);
+          for (int i = 0; i < 4; ++i) {
+            if (sig_at(kid[j][i], n)) {
+              a.lsp[ls++] = kid[j][i];
+            } else {
+              a.lip[li++] = kid[j][i];
+            }
+          }
+          if (cnt_lis(c)) lis[s.lis_n + cnt_lis(ex)] = LisEntry{le[j].e & ~1, le[j].t};
+        } else {
+          const int32_t at = s.lis_n + cnt_lis(ex);
+          for (int i = 0; i < 4; ++i)
+            lis[at + i] = LisEntry{(kc[j] + 2 * off[i]) << 1 | 1, kid[j][i]};
+        }
+        ex += c;
+      }
+      if (enc_chunk_end<NT>(a, sh, s, tot, tid)) return;
+      r0 += m;
+    }
+    s.lis_n = s.keep;
+
+    // ---- refinement of the entries significant before this plane ----
+    int32_t yn[E];
+    for (int j = 0; j < E; ++j) yn[j] = k0 + j < lsp_snap ? a.lsp[k0 + j] : 0;
+    for (int32_t r0 = 0; r0 < lsp_snap; r0 += CH) {
+      const int32_t m = min32(CH, lsp_snap - r0);
+      const int32_t room = a.max_bits - s.pos;  // one bit an entry
+      uint32_t bits = 0;
+      for (int j = 0; j < E; ++j)
+        if (k0 + j < min32(m, room))
+          bits |= (uint32_t)((yn[j] & 0x7FFFFFFF) >> n & 1) << j;
+      for (int j = 0; j < E; ++j) {
+        const int32_t k = r0 + CH + k0 + j;
+        yn[j] = k < lsp_snap ? a.lsp[k] : 0;
+      }
+      SPIHT_SYNC();  // the last chunk's flush has zeroed this stage buffer
+      or_bits(sh.stage[s.par], (s.pos & 31) + k0, bits, E);
+      const bool stop = m > room;
+      if (stop && tid == 0) {  // the budget is spent
+        sh.end = a.max_bits;
+        write_stat(a, a.max_bits, a.capped ? SPIHT_ERR_STREAM_CAP : SPIHT_OK,
+                   s.lip_n, s.lis_n, s.lsp_n);
+      }
+      SPIHT_SYNC();
+      if (stop) {
+        enc_flush<NT>(a, sh, s, a.max_bits, true, tid);
+        return;
+      }
+      s.pos += m;
+      enc_flush<NT>(a, sh, s, s.pos, false, tid);
+    }
+  }
+
+  if (tid == 0) write_stat(a, s.pos, SPIHT_OK, s.lip_n, s.lis_n, s.lsp_n);
+  enc_flush<NT>(a, sh, s, s.pos, true, tid);
+}
+
+// B1's queues at the start (LIP: each initial node's t3s; LIS: its child0
+// and t1) and the zeroed stream, by every thread of the block; a barrier
+// must follow before the machine starts.
+template <int NT>
+SPIHT_HD void enc_load(const EncArgs& a, const int32_t* lip0,
+                       const int32_t* lis0, int32_t cap_words, int tid) {
+  LisEntry* lis = reinterpret_cast<LisEntry*>(a.lis);
+  for (int32_t i = tid; i < cap_words; i += NT) a.words[i] = 0u;
+  for (int32_t i = tid; i < a.n_lip0; i += NT) a.lip[i] = a.t3s[lip0[i]];
+  for (int32_t i = tid; i < a.n_lis0; i += NT) {
+    const int32_t node = lis0[i] >> 1;
+    lis[i] = LisEntry{a.child0[node] << 1 | (lis0[i] & 1), a.t1[node]};
+  }
+}
+
+// B1's whole block: the queues loaded, a barrier, the machine (run by the
+// kernel, and by the host build).
+template <int NT, int E>
+SPIHT_HD void encode_block(const EncArgs& a, const int32_t* lip0,
+                           const int32_t* lis0, int32_t cap_words,
+                           EncShared<NT * E>& sh, int tid) {
+  enc_load<NT>(a, lip0, lis0, cap_words, tid);
+  SPIHT_SYNC();
+  encode_machine<NT, E>(a, sh, tid);
+}
+
+// ---- kernel B7: the sequential machine, one entry per iteration ----
+//
+// Replaces spiht_tpu/codec/pallas_encoder.py:_seq_fn (the encoder that
+// pallas_encode_fn runs for machine="seq"). It computes B1's function on
+// B1's tables (EncArgs), with the same exact mid-symbol max_bits cut and the
+// same stat words, one queue entry at a time in one thread, straight from
+// global memory; its queues hold node indices, as the plain version's do.
+//
+// What bounds it on an H100: the one thread's chain of dependent loads
+// (entry -> t1 -> child0 -> the children's t1/t3s) and branches, a few
+// hundred cycles an entry; bytes and arithmetic are a thousandth of that.
+// The design does nothing about it on purpose: it is the simple machine,
+// kept as the reference point for B1's block-wide one.
+
+// The machine state of the one thread.
 struct EncState {
   BitWriter bw;
   int32_t err;
@@ -77,333 +589,6 @@ struct EncState {
   int32_t keep;  // retain cursor of the pass in progress
   int32_t off[4];
 };
-
-SPIHT_HD int32_t level_m(int32_t t) { return (t & 31) - 1; }
-SPIHT_HD int32_t level_d(int32_t t) { return ((t >> 5) & 31) - 1; }
-SPIHT_HD int32_t level_g(int32_t t) { return ((t >> 10) & 31) - 1; }
-
-// ---- entry by entry (lane 0): the exact sequential machine ----
-// Each returns false when the machine stops (budget spent, or a queue would
-// overflow: s.err says which).
-
-SPIHT_HD bool enc_lip_seq(const EncArgs& a, const EncShared& sh, int32_t k0,
-                          int32_t k1, int n, EncState& s) {
-  for (int32_t k = k0; k < k1; ++k) {
-    const uint32_t sig = level_m(sh.t1[k]) >= n;
-    if (!put_bit(s.bw, sig)) return false;
-    if (sig) {
-      if (!put_bit(s.bw, (uint32_t)sh.t3[k] >> 31)) return false;
-      if (s.lsp_n >= a.lsp_cap) { s.err = SPIHT_ERR_LSP_CAP; return false; }
-      a.lsp[s.lsp_n++] = sh.e[k];
-    } else {
-      a.lip[s.keep++] = sh.e[k];
-    }
-  }
-  return true;
-}
-
-SPIHT_HD bool enc_lis_seq(const EncArgs& a, const EncShared& sh, int32_t k0,
-                          int32_t k1, int n, EncState& s) {
-  for (int32_t k = k0; k < k1; ++k) {
-    const int32_t e = sh.e[k], t = sh.t1[k];
-    if (e & 1) {  // type A: any descendant significant?
-      const uint32_t dsig = level_d(t) >= n;
-      if (!put_bit(s.bw, dsig)) return false;
-      if (!dsig) {
-        a.lis[s.keep++] = e;
-        continue;
-      }
-      const int32_t c0 = sh.c0[k];
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t sig = level_m(sh.ct[q][k]) >= n;
-        if (!put_bit(s.bw, sig)) return false;
-        if (sig) {
-          if (!put_bit(s.bw, (uint32_t)sh.cs[q][k] >> 31)) return false;
-          if (s.lsp_n >= a.lsp_cap) { s.err = SPIHT_ERR_LSP_CAP; return false; }
-          a.lsp[s.lsp_n++] = c0 + s.off[q];
-        } else {
-          if (s.lip_n >= a.lip_cap) { s.err = SPIHT_ERR_LIP_CAP; return false; }
-          a.lip[s.lip_n++] = c0 + s.off[q];
-        }
-      }
-      if ((t >> 17) & 1) {  // has grandchildren: re-append as type B
-        if (s.lis_n >= a.lis_cap) { s.err = SPIHT_ERR_LIS_CAP; return false; }
-        a.lis[s.lis_n++] = e & ~1;
-      }
-    } else {  // type B: any grandchild subtree significant?
-      const uint32_t lsig = level_g(t) >= n;
-      if (!put_bit(s.bw, lsig)) return false;
-      if (!lsig) {
-        a.lis[s.keep++] = e;
-        continue;
-      }
-      const int32_t c0 = sh.c0[k];
-      if (s.lis_n + 4 > a.lis_cap) { s.err = SPIHT_ERR_LIS_CAP; return false; }
-      for (int q = 0; q < 4; ++q) a.lis[s.lis_n++] = ((c0 + s.off[q]) << 1) | 1;
-    }
-  }
-  return true;
-}
-
-// Run [k0, k1) entry by entry in lane 0 and hand its state to the warp.
-template <class F>
-SPIHT_HD bool enc_seq_group(int lane, EncState& s, F run) {
-  int ok = 1;
-  if (lane == 0) ok = run();
-  ok = WARP_SHFL(lane, ok, 0);
-  s.bw.pos = WARP_SHFL(lane, s.bw.pos, 0);
-  s.err = WARP_SHFL(lane, s.err, 0);
-  s.lip_n = WARP_SHFL(lane, s.lip_n, 0);
-  s.lis_n = WARP_SHFL(lane, s.lis_n, 0);
-  s.lsp_n = WARP_SHFL(lane, s.lsp_n, 0);
-  s.keep = WARP_SHFL(lane, s.keep, 0);
-  return ok;
-}
-
-// ---- 32 entries at a time (warp 0, one entry per lane) ----
-
-SPIHT_HD bool enc_lip_chunk(const EncArgs& a, const EncShared& sh, int32_t m,
-                            int n, EncState& s, int lane) {
-  const uint32_t lt = (1u << lane) - 1;
-  for (int32_t g = 0; g < m; g += SPIHT_WARP) {
-    const int32_t k = g + lane;
-    const bool valid = k < m;
-    const bool sig = valid && level_m(sh.t1[k]) >= n;
-    const uint32_t vmask = WARP_BALLOT(lane, valid);
-    const uint32_t smask = WARP_BALLOT(lane, sig);
-    const int32_t nsig = POPC(smask), nbits = POPC(vmask) + nsig;
-    if (s.bw.pos + nbits > s.bw.limit || s.lsp_n + nsig > a.lsp_cap) {
-      const int32_t k1 = g + POPC(vmask);
-      if (!enc_seq_group(lane, s, [&] { return enc_lip_seq(a, sh, g, k1, n, s); }))
-        return false;
-      continue;
-    }
-    if (sig) {  // bits 1, sign at lane + (significant lanes before it)
-      const int32_t before = POPC(smask & lt);
-      or_bits(s.bw.words, s.bw.pos + lane + before,
-              1u | (((uint32_t)sh.t3[k] >> 31) << 1), 2);
-      a.lsp[s.lsp_n + before] = sh.e[k];
-    } else if (valid) {
-      a.lip[s.keep + POPC(vmask & ~smask & lt)] = sh.e[k];
-    }
-    s.bw.pos += nbits;
-    s.lsp_n += nsig;
-    s.keep += POPC(vmask & ~smask);
-  }
-  return true;
-}
-
-SPIHT_HD bool enc_lis_chunk(const EncArgs& a, const EncShared& sh, int32_t m,
-                            int n, EncState& s, int lane) {
-  const uint32_t lt = (1u << lane) - 1;
-  for (int32_t g = 0; g < m; g += SPIHT_WARP) {
-    const int32_t k = g + lane;
-    const bool valid = k < m;
-    const int32_t e = valid ? sh.e[k] : 0, t = valid ? sh.t1[k] : 0;
-    const bool is_a = e & 1;
-    const bool fire = valid && (is_a ? level_d(t) >= n : level_g(t) >= n);
-    const bool fire_a = fire && is_a;
-    // this entry's bits, its appends, and whether it is retained
-    uint32_t bits = fire;
-    int32_t nb = valid ? 1 : 0, n_lsp = 0, n_lis = 0;
-    uint32_t sigs = 0;  // bit q: child q significant (A fire)
-    if (fire_a) {
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t sig = level_m(sh.ct[q][k]) >= n;
-        bits |= sig << nb++;
-        if (sig) {
-          bits |= ((uint32_t)sh.cs[q][k] >> 31) << nb++;
-          sigs |= 1u << q;
-        }
-      }
-      n_lsp = POPC(sigs);
-      n_lis = (t >> 17) & 1;
-    } else if (fire) {
-      n_lis = 4;
-    }
-    // one scan of the packed counts: nb | n_lsp << 9 | n_lis << 17 | fire_a << 25
-    // (warp totals fit their fields: 288 bits, 128 appends, 32 A fires)
-    const int32_t v = nb | (n_lsp << 9) | (n_lis << 17) | ((int32_t)fire_a << 25);
-    const int32_t incl = warp_scan(lane, v), excl = incl - v;
-    const int32_t tot = WARP_SHFL(lane, incl, 31);
-    const int32_t t_nb = tot & 511, t_lsp = (tot >> 9) & 255;
-    const int32_t t_lis = (tot >> 17) & 255, t_lip = 4 * ((tot >> 25) & 127) - t_lsp;
-    const uint32_t vmask = WARP_BALLOT(lane, valid);
-    const uint32_t kmask = WARP_BALLOT(lane, valid && !fire);  // retained
-    if (s.bw.pos + t_nb > s.bw.limit || s.lsp_n + t_lsp > a.lsp_cap ||
-        s.lip_n + t_lip > a.lip_cap || s.lis_n + t_lis > a.lis_cap) {
-      const int32_t k1 = g + POPC(vmask);
-      if (!enc_seq_group(lane, s, [&] { return enc_lis_seq(a, sh, g, k1, n, s); }))
-        return false;
-      continue;
-    }
-    if (valid) {
-      or_bits(s.bw.words, s.bw.pos + (excl & 511), bits, nb);
-      if (!fire) {
-        a.lis[s.keep + POPC(kmask & lt)] = e;
-      } else if (fire_a) {
-        const int32_t c0 = sh.c0[k];
-        int32_t ls = s.lsp_n + ((excl >> 9) & 255);
-        int32_t li = s.lip_n + 4 * ((excl >> 25) & 127) - ((excl >> 9) & 255);
-        for (int q = 0; q < 4; ++q) {
-          if ((sigs >> q) & 1) {
-            a.lsp[ls++] = c0 + s.off[q];
-          } else {
-            a.lip[li++] = c0 + s.off[q];
-          }
-        }
-        if (n_lis) a.lis[s.lis_n + ((excl >> 17) & 255)] = e & ~1;
-      } else {
-        const int32_t c0 = sh.c0[k], at = s.lis_n + ((excl >> 17) & 255);
-        for (int q = 0; q < 4; ++q) a.lis[at + q] = ((c0 + s.off[q]) << 1) | 1;
-      }
-    }
-    s.bw.pos += t_nb;
-    s.lsp_n += t_lsp;
-    s.lip_n += t_lip;
-    s.lis_n += t_lis;
-    s.keep += POPC(kmask);
-  }
-  return true;
-}
-
-SPIHT_HD bool enc_ref_chunk(const EncShared& sh, int32_t m, int n,
-                            EncState& s, int lane) {
-  for (int32_t g = 0; g < m; g += SPIHT_WARP) {
-    const int32_t k = g + lane;
-    const bool bit = k < m && (((sh.t3[k] & 0x7FFFFFFF) >> n) & 1);
-    const uint32_t word = WARP_BALLOT(lane, bit);
-    int32_t cnt = m - g < SPIHT_WARP ? m - g : SPIHT_WARP;
-    const bool cut = s.bw.pos + cnt > s.bw.limit;
-    if (cut) cnt = s.bw.limit - s.bw.pos;
-    if (lane == 0 && cnt > 0) {
-      or_bits(s.bw.words, s.bw.pos,
-              cnt == 32 ? word : word & ((1u << cnt) - 1), cnt);
-    }
-    s.bw.pos += cnt;
-    if (cut) return false;
-  }
-  return true;
-}
-
-// The machine, run by every thread of the block (tid in [0, nt), nt a
-// multiple of 32); lip/lis hold their initial entries on entry.
-SPIHT_HD void encode_machine(const EncArgs& a, EncShared& sh, int tid,
-                             int nt) {
-  EncState s{BitWriter{a.words, 0, a.max_bits}, SPIHT_OK,
-             a.n_lip0, a.n_lis0, 0, 0, {0, 1, a.w, a.w + 1}};
-  const bool warp0 = tid < SPIHT_WARP;
-  if (tid == 0) sh.pub = Published{s.lip_n, s.lis_n, 0, 0};
-  SPIHT_SYNC();
-
-  for (int n = a.max_n; n >= 0; --n) {
-    const int32_t lip_len = sh.pub.lip_n, lsp_snap = sh.pub.lsp_n;
-
-    // ---- LIP pass ----
-    s.keep = 0;
-    for (int32_t r0 = 0; r0 < lip_len; r0 += SPIHT_CHUNK) {
-      const int32_t m = min32(SPIHT_CHUNK, lip_len - r0);
-      for (int32_t i = tid; i < m; i += nt) {
-        const int32_t node = a.lip[r0 + i];
-        sh.e[i] = node;
-        sh.t1[i] = a.t1[node];
-        sh.t3[i] = a.t3s[node];
-      }
-      SPIHT_SYNC();
-      if (warp0 && !enc_lip_chunk(a, sh, m, n, s, tid) && tid == 0)
-        sh.pub.stop = 1;
-      SPIHT_SYNC();
-      if (sh.pub.stop) goto out;
-    }
-    s.lip_n = s.keep;
-
-    // ---- LIS pass (worklist: entries appended now are visited now) ----
-    s.keep = 0;
-    for (int32_t r0 = 0;;) {
-      const int32_t lis_len = sh.pub.lis_n;
-      if (r0 >= lis_len) break;
-      const int32_t m = min32(SPIHT_CHUNK, lis_len - r0);
-      for (int32_t i = tid; i < m; i += nt) {
-        const int32_t e = a.lis[r0 + i], node = e >> 1, t = a.t1[node];
-        sh.e[i] = e;
-        sh.t1[i] = t;
-        if ((t >> 16) & 1) {  // has children: fetch what a fire needs
-          const int32_t c0 = a.child0[node];
-          sh.c0[i] = c0;
-          for (int q = 0; q < 4; ++q) {
-            sh.ct[q][i] = a.t1[c0 + s.off[q]];
-            sh.cs[q][i] = a.t3s[c0 + s.off[q]];
-          }
-        }
-      }
-      SPIHT_SYNC();
-      if (warp0) {
-        const bool ok = enc_lis_chunk(a, sh, m, n, s, tid);
-        if (tid == 0) {
-          if (!ok) sh.pub.stop = 1;
-          sh.pub.lis_n = s.lis_n;
-        }
-      }
-      SPIHT_SYNC();
-      if (sh.pub.stop) goto out;
-      r0 += m;
-    }
-    SPIHT_SYNC();  // every thread has read pub.lis_n for the last time
-    s.lis_n = s.keep;
-    if (tid == 0) sh.pub.lis_n = s.lis_n;
-
-    // ---- refinement of the entries significant before this plane ----
-    for (int32_t r0 = 0; r0 < lsp_snap; r0 += SPIHT_CHUNK) {
-      const int32_t m = min32(SPIHT_CHUNK, lsp_snap - r0);
-      for (int32_t i = tid; i < m; i += nt) sh.t3[i] = a.t3s[a.lsp[r0 + i]];
-      SPIHT_SYNC();
-      if (warp0 && !enc_ref_chunk(sh, m, n, s, tid) && tid == 0)
-        sh.pub.stop = 1;
-      SPIHT_SYNC();
-      if (sh.pub.stop) goto out;
-    }
-    if (tid == 0) {
-      sh.pub.lip_n = s.lip_n;
-      sh.pub.lsp_n = s.lsp_n;
-    }
-    SPIHT_SYNC();
-  }
-
-out:
-  if (tid != 0) return;
-  // a put_bit refused: the budget is spent (or a queue overflowed)
-  if (sh.pub.stop && s.err == SPIHT_OK && a.capped) s.err = SPIHT_ERR_STREAM_CAP;
-  a.stat[0] = s.bw.pos;
-  a.stat[1] = s.err;
-  a.stat[2] = s.lip_n;
-  a.stat[3] = s.lis_n;
-  a.stat[4] = s.lsp_n;
-  a.stat[5] = 0;
-}
-
-// Zero the stream and load the initial queues, by every thread of the
-// block; a barrier must follow before the machine starts.
-SPIHT_HD void enc_prologue(const EncArgs& a, const int32_t* lip0,
-                           const int32_t* lis0, int32_t cap_words, int tid,
-                           int nt) {
-  for (int32_t i = tid; i < cap_words; i += nt) a.words[i] = 0u;
-  for (int32_t i = tid; i < a.n_lip0; i += nt) a.lip[i] = lip0[i];
-  for (int32_t i = tid; i < a.n_lis0; i += nt) a.lis[i] = lis0[i];
-}
-
-// ---- kernel B7: the sequential machine, one entry per iteration ----
-//
-// Replaces spiht_tpu/codec/pallas_encoder.py:_seq_fn (the encoder that
-// pallas_encode_fn runs for machine="seq"). It computes B1's function on
-// B1's own tables and queues (EncArgs), with the same exact mid-symbol
-// max_bits cut and the same stat words, one queue entry at a time in one
-// thread, straight from global memory.
-//
-// What bounds it on an H100: the one thread's chain of dependent loads
-// (entry -> t1 -> child0 -> the children's t1/t3s) and branches, a few
-// hundred cycles an entry; bytes and arithmetic are a thousandth of that.
-// The design does nothing about it on purpose: it is the simple machine,
-// kept as the reference point for B1's warp-parallel one.
 
 // One LIS entry of plane n, as the sequential machine runs it (appends at
 // the live tails, retention at s.keep). False when the machine stops.
@@ -485,12 +670,17 @@ SPIHT_HD void encode_seq_machine(const EncArgs& a) {
   // a put_bit refused: the budget is spent (or a queue overflowed)
   if (!enc_seq_planes(a, s) && s.err == SPIHT_OK && a.capped)
     s.err = SPIHT_ERR_STREAM_CAP;
-  a.stat[0] = s.bw.pos;
-  a.stat[1] = s.err;
-  a.stat[2] = s.lip_n;
-  a.stat[3] = s.lis_n;
-  a.stat[4] = s.lsp_n;
-  a.stat[5] = 0;
+  write_stat(a, s.bw.pos, s.err, s.lip_n, s.lis_n, s.lsp_n);
+}
+
+// B7's start: zero the stream and copy the initial node lists, by every
+// thread of the block; a barrier must follow.
+SPIHT_HD void enc_prologue(const EncArgs& a, const int32_t* lip0,
+                           const int32_t* lis0, int32_t cap_words, int tid,
+                           int nt) {
+  for (int32_t i = tid; i < cap_words; i += nt) a.words[i] = 0u;
+  for (int32_t i = tid; i < a.n_lip0; i += nt) a.lip[i] = lip0[i];
+  for (int32_t i = tid; i < a.n_lis0; i += nt) a.lis[i] = lis0[i];
 }
 
 // ---- kernel B4: B streams in one launch, one block per stream ----
@@ -498,15 +688,17 @@ SPIHT_HD void encode_seq_machine(const EncArgs& a) {
 // Replaces spiht_tpu/codec/pallas_encoder.py:_interleaved_fn, which stepped
 // B chains in lockstep on one TPU core, finished chains inert. Here each
 // chain is one block of the grid: block b builds stream b's EncArgs
-// (enc_stream_args) and runs the machine above, so every stream is
+// (enc_stream_args) and runs B1's machine, so every stream is
 // byte-identical to B1's on the same coefficients.
 //
-// What bounds it on an H100: per stream the same dependent chain as B1;
-// across streams, how many blocks the SMs hold at once. EncShared is about
-// 24 KB, so eight blocks of SPIHT_THREADS fit on an SM and up to ~1000
-// streams run in one wave on the 132 SMs. The design adds nothing to the
-// machine: it spreads the streams over the SMs, with the geometry tables
-// (child0, the initial queues) shared and read through L2.
+// What bounds it on an H100: per stream the same chain of chunks as B1, but
+// each stream reads its own tables (~110 MB at 16 streams of 3x537x537,
+// past the 50 MB L2), so a gather level costs an HBM latency; across
+// streams, how many blocks the SMs hold at once. The design is B1's: two
+// levels of gathers a chunk instead of four, one block scan; the block is
+// 256 threads (two entries each) so that five fit on an SM (~660 streams a
+// wave on the 132 SMs); the geometry tables (child0, the initial queues)
+// are shared and read through L2.
 struct EncBatch {
   const int32_t* t1;      // (B, n_cells)
   const int32_t* t3s;     // (B, n_cells)
@@ -521,7 +713,7 @@ struct EncBatch {
   const int32_t* max_bits;  // (B), the callers' budgets, >= 0
   int32_t* lip;             // (B, queue_stride(lip_cap))
   int32_t lip_cap;
-  int32_t* lis;             // (B, queue_stride(lis_cap))
+  int32_t* lis;             // (B, 2 * queue_stride(lis_cap)): LisEntry pairs
   int32_t lis_cap;
   int32_t* lsp;             // (B, queue_stride(lsp_cap))
   int32_t lsp_cap;
@@ -542,35 +734,33 @@ SPIHT_HD EncArgs enc_stream_args(const EncBatch& g, int32_t b) {
                  g.w, g.max_n[b], (int32_t)(mb < cap_bits ? mb : cap_bits),
                  (int32_t)(mb > cap_bits),
                  g.lip + b * queue_stride(g.lip_cap), g.lip_cap,
-                 g.lis + b * queue_stride(g.lis_cap), g.lis_cap,
+                 g.lis + 2 * b * queue_stride(g.lis_cap), g.lis_cap,
                  g.lsp + b * queue_stride(g.lsp_cap), g.lsp_cap,
                  g.words + (int64_t)b * g.cap_words,
                  g.stat + (int64_t)b * SPIHT_STAT_LEN};
 }
 
-// Stream b's whole block: prologue, barrier, machine (run by the kernel
-// with b = blockIdx.x, and by the host build once per stream).
-SPIHT_HD void encode_stream(const EncBatch& g, int32_t b, EncShared& sh,
-                            int tid, int nt) {
-  const EncArgs a = enc_stream_args(g, b);
-  enc_prologue(a, g.lip0, g.lis0, g.cap_words, tid, nt);
-  SPIHT_SYNC();
-  encode_machine(a, sh, tid, nt);
+// Stream b's whole block (run by the kernel with b = blockIdx.x, and by the
+// host build once per stream).
+template <int NT, int E>
+SPIHT_HD void encode_stream(const EncBatch& g, int32_t b,
+                            EncShared<NT * E>& sh, int tid) {
+  encode_block<NT, E>(enc_stream_args(g, b), g.lip0, g.lis0, g.cap_words, sh,
+                      tid);
 }
 
 #ifdef __CUDACC__
 
 #include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(SPIHT_THREADS)
+__global__ void __launch_bounds__(ENC_B1_THREADS)
 spiht_encode_kernel(EncArgs a, const int32_t* __restrict__ max_n,
                     const int32_t* __restrict__ lip0,
                     const int32_t* __restrict__ lis0, int32_t cap_words) {
-  __shared__ EncShared sh;
-  enc_prologue(a, lip0, lis0, cap_words, threadIdx.x, blockDim.x);
+  __shared__ EncShared<ENC_B1_THREADS * ENC_B1_PER_THREAD> sh;
   a.max_n = *max_n;  // computed on the device: read here, no host sync
-  __syncthreads();
-  encode_machine(a, sh, threadIdx.x, blockDim.x);
+  encode_block<ENC_B1_THREADS, ENC_B1_PER_THREAD>(a, lip0, lis0, cap_words,
+                                                  sh, threadIdx.x);
 }
 
 // B7: the block zeroes the stream and loads the queues, thread 0 encodes.
@@ -584,10 +774,11 @@ spiht_encode_seq_kernel(EncArgs a, const int32_t* __restrict__ max_n,
   if (threadIdx.x == 0) encode_seq_machine(a);
 }
 
-__global__ void __launch_bounds__(SPIHT_THREADS)
+__global__ void __launch_bounds__(ENC_B4_THREADS, ENC_B4_BLOCKS_PER_SM)
 spiht_encode_batch_kernel(EncBatch g) {
-  __shared__ EncShared sh;
-  encode_stream(g, blockIdx.x, sh, threadIdx.x, blockDim.x);
+  __shared__ EncShared<ENC_B4_THREADS * ENC_B4_PER_THREAD> sh;
+  encode_stream<ENC_B4_THREADS, ENC_B4_PER_THREAD>(g, blockIdx.x, sh,
+                                                   threadIdx.x);
 }
 
 extern "C" int spiht_encode_launch(
@@ -599,7 +790,7 @@ extern "C" int spiht_encode_launch(
     int32_t* stat, void* stream) {
   EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, 0, max_bits, capped,
             lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
-  spiht_encode_kernel<<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(
+  spiht_encode_kernel<<<1, ENC_B1_THREADS, 0, (cudaStream_t)stream>>>(
       a, max_n, lip0, lis0, cap_words);
   return (int)cudaGetLastError();
 }
@@ -630,7 +821,7 @@ extern "C" int spiht_encode_batch_launch(
   EncBatch g{t1, t3s, child0, lip0, n_lip0, lis0, n_lis0, n_cells, w,
              max_n, max_bits, lip, lip_cap, lis, lis_cap, lsp, lsp_cap,
              words, cap_words, stat};
-  spiht_encode_batch_kernel<<<n_streams, SPIHT_THREADS, 0,
+  spiht_encode_batch_kernel<<<n_streams, ENC_B4_THREADS, 0,
                               (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }

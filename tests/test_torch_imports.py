@@ -1,5 +1,6 @@
 """The port stands alone: no file of spiht_tpu_torch, nor chip_smoke.py
-or decode_clocks.py, imports jax or the JAX package (static AST scan)."""
+or the scripts beside it, imports jax or the JAX package (static AST
+scan)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "spiht_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "decode_clocks.py"
+    ROOT / name for name in ("chip_smoke.py", "decode_clocks.py",
+                             "encode_clocks.py", "roundtrip_pairs.py")
 ]
 
 
@@ -24,7 +26,8 @@ def _imports(path):
 
 def test_scan_covers_the_package():
     names = {str(p.relative_to(ROOT)) for p in FILES}
-    assert {"chip_smoke.py", "decode_clocks.py",
+    assert {"chip_smoke.py", "decode_clocks.py", "encode_clocks.py",
+            "roundtrip_pairs.py",
             "spiht_tpu_torch/__init__.py",
             "spiht_tpu_torch/codec/encoder.py",
             "spiht_tpu_torch/codec/decoder.py",

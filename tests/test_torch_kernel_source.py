@@ -4,12 +4,15 @@ versions.
 There is no nvcc here, but the machines in ``spiht_tpu_torch/csrc/*.cu``
 are plain functions of (thread id, thread count) with the kernel and its
 launch behind ``#ifdef __CUDACC__``. This test compiles them with g++, runs
-each machine with 64 host threads as the block (std::barrier for
-``__syncthreads``, warp 0's ballot, shuffles and ``__syncwarp`` emulated
-across its 32 threads) and holds words, LSP queues, rec and stat equal to
-the plain versions'. The decode machines are also held to them on every
-byte prefix of small streams, across chunk boundaries, at narrowed queue
-capacities and, for B3, on random words.
+each machine with a block of 64 threads, fibers on one host thread (the
+block barrier, and each warp's ballot, shuffles and ``__syncwarp``,
+emulated across its 32 threads; the fibers between two barriers run in a
+seeded random order) and holds words, LSP queues, rec and stat equal to
+the plain versions'. The decode machines are also held to them on
+every byte prefix of small streams, across chunk boundaries, at narrowed
+queue capacities and, for B3, on random words; B1's block-wide machine
+(also on 256 and 512 threads) at every budget edge of small streams,
+across chunk boundaries and with every error code.
 The batched kernels' per-stream setup (``encode_stream``,
 ``decode_stream``: stream offsets, per-stream scalars, the capacity rule)
 runs the same way, one host block per stream, against the batched plain
@@ -38,45 +41,133 @@ THREADS = 64
 
 HARNESS = r"""
 #include <string.h>
-#include <barrier>
+#include <ucontext.h>
+#include <algorithm>
+#include <cstdio>
+#include <cstdlib>
+#include <functional>
 #include <memory>
-#include <thread>
+#include <random>
 #include <vector>
-static std::unique_ptr<std::barrier<>> g_bar, g_wbar;
-static int64_t g_x[32];
-void spiht_host_sync() { g_bar->arrive_and_wait(); }
+// The block's threads are fibers on one host thread: each runs until it
+// reaches a barrier (the block's, or its warp's, which every warp
+// collective passes twice) and parks; a barrier opens when all the threads
+// it joins have parked at it. Between barriers the runnable fibers run one
+// after another, in an order drawn afresh each round from a seeded
+// generator, so a write that races a read of another thread shows in one
+// order or the other. A barrier that can never open aborts.
+enum { RUN = 0, AT_BLOCK = 1, AT_WARP = 2, DONE = 3 };
+struct Fiber {
+  ucontext_t ctx;
+  std::vector<char> stack;
+  int state;
+};
+static std::vector<Fiber> g_f;
+static ucontext_t g_main;
+static int t_tid;  // the running fiber
+static std::function<void(int)> g_body;
+static std::mt19937 g_rng(12345);
+static void park(int state) {
+  g_f[t_tid].state = state;
+  swapcontext(&g_f[t_tid].ctx, &g_main);
+}
+static void fiber_entry() {
+  g_body(t_tid);
+  g_f[t_tid].state = DONE;  // uc_link returns to the scheduler
+}
+static int64_t g_x[32][32];  // each warp's exchange buffer
+void spiht_host_sync() { park(AT_BLOCK); }
+void spiht_host_syncwarp(int) { park(AT_WARP); }
 uint32_t spiht_host_ballot(int lane, bool p) {
-  g_x[lane] = p;
-  g_wbar->arrive_and_wait();
+  const int w = t_tid >> 5;
+  g_x[w][lane] = p;
+  park(AT_WARP);
   uint32_t m = 0;
-  for (int i = 0; i < 32; ++i) m |= (uint32_t)(g_x[i] != 0) << i;
-  g_wbar->arrive_and_wait();
+  for (int i = 0; i < 32; ++i) m |= (uint32_t)(g_x[w][i] != 0) << i;
+  park(AT_WARP);
   return m;
 }
 int32_t spiht_host_shfl(int lane, int32_t v, int src) {
-  g_x[lane] = v;
-  g_wbar->arrive_and_wait();
-  const int32_t r = (int32_t)g_x[src];
-  g_wbar->arrive_and_wait();
+  const int w = t_tid >> 5;
+  g_x[w][lane] = v;
+  park(AT_WARP);
+  const int32_t r = (int32_t)g_x[w][src];
+  park(AT_WARP);
   return r;
 }
 int32_t spiht_host_shfl_up(int lane, int32_t v, int d) {
-  g_x[lane] = v;
-  g_wbar->arrive_and_wait();
-  const int32_t r = lane >= d ? (int32_t)g_x[lane - d] : v;
-  g_wbar->arrive_and_wait();
+  const int w = t_tid >> 5;
+  g_x[w][lane] = v;
+  park(AT_WARP);
+  const int32_t r = lane >= d ? (int32_t)g_x[w][lane - d] : v;
+  park(AT_WARP);
   return r;
 }
-void spiht_host_syncwarp(int) { g_wbar->arrive_and_wait(); }
 #include "spiht_encode.cu"
 #include "spiht_decode.cu"
 #include "spiht_quantize.cu"
 template <class F> static void run_block(int nt, F f) {
-  g_bar = std::make_unique<std::barrier<>>(nt);
-  g_wbar = std::make_unique<std::barrier<>>(32);
-  std::vector<std::thread> ts;
-  for (int t = 0; t < nt; ++t) ts.emplace_back([&, t] { f(t, nt); });
-  for (auto& t : ts) t.join();
+  g_body = [&](int t) { f(t, nt); };
+  g_f.resize(nt);
+  std::vector<int> order(nt);
+  for (int t = 0; t < nt; ++t) {
+    Fiber& fb = g_f[t];
+    fb.stack.resize(1 << 16);
+    fb.state = RUN;
+    getcontext(&fb.ctx);
+    fb.ctx.uc_stack.ss_sp = fb.stack.data();
+    fb.ctx.uc_stack.ss_size = fb.stack.size();
+    fb.ctx.uc_link = &g_main;
+    makecontext(&fb.ctx, fiber_entry, 0);
+    order[t] = t;
+  }
+  for (;;) {
+    std::shuffle(order.begin(), order.end(), g_rng);
+    for (int t : order) {
+      if (g_f[t].state != RUN) continue;
+      t_tid = t;
+      swapcontext(&g_main, &g_f[t].ctx);
+    }
+    // every fiber has parked or finished: open the barriers that are full
+    int done = 0, at_block = 0;
+    bool opened = false;
+    for (int t = 0; t < nt; ++t) {
+      done += g_f[t].state == DONE;
+      at_block += g_f[t].state == AT_BLOCK;
+    }
+    if (done == nt) return;
+    if (at_block == nt) {
+      for (auto& fb : g_f) fb.state = RUN;
+      continue;
+    }
+    for (int w0 = 0; w0 < nt; w0 += 32) {
+      const int w1 = std::min(nt, w0 + 32);
+      bool full = true;
+      for (int t = w0; t < w1; ++t) full &= g_f[t].state == AT_WARP;
+      if (!full) continue;
+      for (int t = w0; t < w1; ++t) g_f[t].state = RUN;
+      opened = true;
+    }
+    if (!opened) {
+      fprintf(stderr, "host block: a barrier can never open\n");
+      abort();
+    }
+  }
+}
+// B1's block of NT threads, E entries a thread (the kernels' shapes
+// are 512 x 2 for B1 and 256 x 2 for B4)
+template <int NT, int E> static void run_encoder(const EncArgs& a,
+    const int32_t* lip0, const int32_t* lis0, int32_t cw) {
+  auto sh = std::make_unique<EncShared<NT * E>>();
+  run_block(NT, [&](int tid, int) {
+    encode_block<NT, E>(a, lip0, lis0, cw, *sh, tid);
+  });
+}
+template <int NT, int E> static void run_encoder_batch(const EncBatch& g,
+    int32_t n_streams) {
+  auto sh = std::make_unique<EncShared<NT * E>>();
+  for (int32_t b = 0; b < n_streams; ++b)
+    run_block(NT, [&](int tid, int) { encode_stream<NT, E>(g, b, *sh, tid); });
 }
 extern "C" void host_encode(int nt, const int32_t* t1, const int32_t* t3s,
     const int32_t* child0, const int32_t* lip0, int32_t n_lip0,
@@ -84,17 +175,22 @@ extern "C" void host_encode(int nt, const int32_t* t1, const int32_t* t3s,
     int32_t max_bits, int32_t capped, int32_t* lip, int32_t lip_cap,
     int32_t* lis, int32_t lis_cap, int32_t* lsp, int32_t lsp_cap,
     uint32_t* words, int32_t cap_words, int32_t* stat) {
-  memset(words, 0, 4 * (size_t)cap_words);
-  memcpy(lip, lip0, 4 * (size_t)n_lip0);
-  memcpy(lis, lis0, 4 * (size_t)n_lis0);
   EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, max_n, max_bits, capped,
             lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
-  auto sh = std::make_unique<EncShared>();
   if (nt == 1) {  // B7: the sequential machine in one thread
+    memset(words, 0, 4 * (size_t)cap_words);
+    memcpy(lip, lip0, 4 * (size_t)n_lip0);
+    memcpy(lis, lis0, 4 * (size_t)n_lis0);
     encode_seq_machine(a);
-    return;
+  } else if (nt == 64) {
+    run_encoder<64, 8>(a, lip0, lis0, cap_words);
+  } else if (nt == 256) {
+    run_encoder<256, 2>(a, lip0, lis0, cap_words);
+  } else if (nt == 512) {
+    run_encoder<512, 2>(a, lip0, lis0, cap_words);
+  } else {
+    stat[1] = -1;  // no such block in the host build
   }
-  run_block(nt, [&](int tid, int n) { encode_machine(a, *sh, tid, n); });
 }
 extern "C" void host_decode(int nt, int seq, const uint32_t* words,
     int32_t nbits, int32_t max_n, const int32_t* geo, const int32_t* lip0,
@@ -133,9 +229,9 @@ extern "C" void host_encode_batch(int nt, int32_t n_streams,
   EncBatch g{t1, t3s, child0, lip0, n_lip0, lis0, n_lis0, n_cells, w,
              max_n, max_bits, lip, lip_cap, lis, lis_cap, lsp, lsp_cap,
              words, cap_words, stat};
-  auto sh = std::make_unique<EncShared>();
-  for (int32_t b = 0; b < n_streams; ++b)
-    run_block(nt, [&](int tid, int n) { encode_stream(g, b, *sh, tid, n); });
+  if (nt == 64) run_encoder_batch<64, 8>(g, n_streams);
+  else if (nt == 256) run_encoder_batch<256, 2>(g, n_streams);
+  else for (int32_t b = 0; b < n_streams; ++b) stat[b * SPIHT_STAT_LEN + 1] = -1;
 }
 extern "C" void host_decode_batch(int nt, int seq, int32_t n_streams,
     const uint32_t* words, int32_t cap_words, const int32_t* nbits,
@@ -168,7 +264,7 @@ def host_lib(tmp_path_factory):
     (d / "harness.cpp").write_text(HARNESS)
     so = d / "libhost_kernels.so"
     subprocess.run(
-        [gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
+        [gxx, "-O1", "-std=c++20", "-shared", "-fPIC",
          "-Wno-unknown-pragmas", "-I", str(CSRC), "-o", str(so),
          str(d / "harness.cpp")],
         check=True, capture_output=True, text=True,
@@ -184,11 +280,12 @@ def _i(v):
     return ctypes.c_int32(int(v))
 
 
-def _host_encode(lib, arr, ll_h, ll_w, max_bits, threads=THREADS):
-    """B1's machine on ``threads`` host threads, or B7's with one."""
-    args = encoder.machine_args(torch.as_tensor(arr), ll_h, ll_w, max_bits)
+def _host_encode_args(lib, args, threads=THREADS):
+    """B1's machine on ``threads`` host threads (B7's with one) on
+    ``encoder.encode_machine``'s arguments, held to the plain version:
+    words and stat. Returns (words, stat list)."""
     t1, t3s, child0, lip0, lis0, w, max_n, mb, capped, caps, cw = args
-    lip, lis, lsp = (torch.empty(max(c, 1), dtype=torch.int32) for c in caps)
+    lip, lis, lsp = encoder.scratch_queues(caps)
     words = torch.empty(cw, dtype=torch.int32)
     stat = torch.empty(encoder.STAT_LEN, dtype=torch.int32)
     lib.host_encode(
@@ -200,7 +297,35 @@ def _host_encode(lib, arr, ll_h, ll_w, max_bits, threads=THREADS):
     pw, ps = encoder.encode_machine(*args)
     assert stat.tolist() == ps.tolist()
     assert torch.equal(words, pw)
-    return encoder.stream_bytes(pw, int(ps[0])), int(max_n)
+    return pw, ps.tolist()
+
+
+def _host_encode(lib, arr, ll_h, ll_w, max_bits, threads=THREADS):
+    """B1's machine on ``threads`` host threads, or B7's with one."""
+    args = encoder.machine_args(torch.as_tensor(arr), ll_h, ll_w, max_bits)
+    pw, ps = _host_encode_args(lib, args, threads)
+    return encoder.stream_bytes(pw, ps[0]), int(args[6])
+
+
+def _host_encode_batch(lib, args, threads=THREADS):
+    """B4's per-stream setup and B1's machine, one host block per stream,
+    on ``encoder.encode_machine_batch``'s arguments, held to the plain
+    version: words and stat. Returns (words, stat rows)."""
+    t1, t3s, child0, lip0, lis0, w, max_n, max_bits, caps, cw = args
+    B, N = t1.shape
+    lip, lis, lsp = encoder.scratch_queues(caps, B)
+    words = torch.empty(B, cw, dtype=torch.int32)
+    stat = torch.empty(B, encoder.STAT_LEN, dtype=torch.int32)
+    lib.host_encode_batch(
+        ctypes.c_int(threads), _i(B), _p(t1), _p(t3s), _p(child0), _p(lip0),
+        _i(lip0.numel()), _p(lis0), _i(lis0.numel()), _i(N), _i(w),
+        _p(max_n), _p(max_bits), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
+        _p(lsp), _i(caps[2]), _p(words), _i(cw), _p(stat),
+    )
+    pw, ps = encoder.encode_machine_batch(*args)
+    assert stat.tolist() == ps.tolist()
+    assert torch.equal(words, pw)
+    return pw, ps.tolist()
 
 
 def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False,
@@ -343,23 +468,10 @@ def test_batched_setup_equals_plain_versions(host_lib, shape, ll):
         for s in (900, 3, 40000)
     ]))
     args = list(encoder.batch_machine_args(arrs, *ll, [333, 7, 2100]))
-    t1, t3s, child0, lip0, lis0, w, max_n, max_bits, caps, cw = args
-    args[7] = max_bits = torch.tensor([333, 7, 2**31 - 2], dtype=torch.int32)
-    B, N = t1.shape
-    lip, lis, lsp = (torch.empty(B, max(c, 1), dtype=torch.int32)
-                     for c in caps)
-    words = torch.empty(B, cw, dtype=torch.int32)
-    stat = torch.empty(B, encoder.STAT_LEN, dtype=torch.int32)
-    host_lib.host_encode_batch(
-        ctypes.c_int(THREADS), _i(B), _p(t1), _p(t3s), _p(child0), _p(lip0),
-        _i(lip0.numel()), _p(lis0), _i(lis0.numel()), _i(N), _i(w),
-        _p(max_n), _p(max_bits), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
-        _p(lsp), _i(caps[2]), _p(words), _i(cw), _p(stat),
-    )
-    pw, ps = encoder.encode_machine_batch(*args)
-    assert stat.tolist() == ps.tolist()
-    assert ps[:, 1].tolist() == [0, 0, 1]  # the third budget exceeds cw*32
-    assert torch.equal(words, pw)
+    args[7] = torch.tensor([333, 7, 2**31 - 2], dtype=torch.int32)
+    _, ps = _host_encode_batch(host_lib, args)
+    assert [row[1] for row in ps] == [0, 0, 1]  # the third exceeds cw*32
+    (B, N), w = args[0].shape, args[5]
 
     full = [
         japi.encode(a, *ll, 2**31 - 2) for a in arrs.numpy()
@@ -504,3 +616,119 @@ def test_seq_machine_on_random_words(host_lib, max_n):
         *args[:7], *args[7], False, 0)
     nodes = lsp[: int(stat[0])].tolist()
     assert any(nodes[i] in nodes[i + 1 : i + 33] for i in range(len(nodes)))
+
+
+# B1's machine decides a chunk with the whole block and runs the first entry
+# that meets the budget or a full queue bit by bit; the cases below put
+# that entry everywhere, on blocks of two warps (64 threads, eight entries
+# a thread: the cross-warp scan runs), of 256 (B4's shape) and of 512 (B1's).
+
+
+def _bits(words, n):
+    """The first n bits of an int32 word buffer, LSB-first."""
+    raw = words.numpy().view(np.uint8)
+    return np.unpackbits(raw, bitorder="little")[:n]
+
+
+def _assert_prefix(words, full, nbits):
+    """words hold the first nbits of the stream in full, then zeros."""
+    assert np.array_equal(_bits(words, nbits), _bits(full, nbits))
+    assert not _bits(words, words.numel() * 32)[nbits:].any()
+
+
+@pytest.mark.parametrize(
+    "shape,ll,scale",
+    [((2, 16, 16), (4, 4), 6), ((2, 19, 19), (5, 5), 3)],
+    ids=["even_ll", "odd_ll"],
+)
+def test_encoder_on_every_budget_edge(host_lib, shape, ll, scale):
+    """A ~300-byte stream cut at every budget in 0-64, every 7th bit
+    through it and each of its last 64 bits: B1's machine and B4's (the
+    budgets as one batch) equal the plain version, words and stat, and
+    the words are a prefix of the full stream's."""
+    rng = np.random.default_rng(sum(shape) + 7)
+    arr = torch.as_tensor((rng.standard_normal(shape) * scale).astype(np.int32))
+    full, stat = _host_encode_args(
+        host_lib, encoder.machine_args(arr, *ll, 2**31 - 2))
+    nbits = stat[0]
+    assert 2100 <= nbits <= 2700 and stat[1] == 0
+    budgets = sorted(set(range(65)) | set(range(0, nbits, 7))
+                     | set(range(nbits - 64, nbits + 1)))
+    for mb in budgets:
+        words, st = _host_encode_args(host_lib,
+                                      encoder.machine_args(arr, *ll, mb))
+        assert st[0] == mb
+        _assert_prefix(words, full, mb)
+    bargs = encoder.batch_machine_args(
+        arr.expand(len(budgets), *shape).contiguous(), *ll, budgets)
+    words, rows = _host_encode_batch(host_lib, bargs)
+    assert [r[0] for r in rows] == budgets
+    for b, mb in enumerate(budgets):
+        _assert_prefix(words[b], full, mb)
+
+
+@pytest.mark.parametrize("threads", [64, 256, 512])
+def test_encoder_across_chunks(host_lib, threads):
+    """Passes longer than a chunk: a dense 3x64x64 array whose LIP, LIS
+    and LSP each pass 512 entries, whole and cut at an eighth and a half
+    of its stream, alone and as one batch."""
+    shape, ll = (3, 64, 64), (8, 8)
+    rng = np.random.default_rng(3)
+    arr = torch.as_tensor(
+        (rng.standard_normal(shape) * 4000).astype(np.int32))
+    full, stat = _host_encode_args(
+        host_lib, encoder.machine_args(arr, *ll, 2**31 - 2), threads)
+    budgets = [stat[0] // 8, stat[0] // 2 + 3, 2**31 - 2]
+    seen = [stat]
+    for mb in budgets[:2]:
+        words, st = _host_encode_args(
+            host_lib, encoder.machine_args(arr, *ll, mb), threads)
+        _assert_prefix(words, full, mb)
+        seen.append(st)
+    assert all(max(st[i] for st in seen) > 512 for i in (2, 3, 4))
+    if threads != 512:  # B4 runs 256-thread blocks
+        bargs = encoder.batch_machine_args(
+            arr.expand(3, *shape).contiguous(), *ll, budgets)
+        _, rows = _host_encode_batch(host_lib, bargs, threads)
+        assert rows == seen[1:] + seen[:1]
+
+
+@pytest.mark.parametrize(
+    "shape,ll",
+    [((3, 24, 32), (6, 8)), ((3, 19, 19), (5, 5))],
+    ids=["even_ll", "odd_ll"],
+)
+def test_encoder_at_narrowed_capacities(host_lib, shape, ll):
+    """Every error code: a queue capacity below the stream's need stops
+    the machine where the plain version stops, with its code (2 LIP, 3
+    LIS, 4 LSP), and a budget cut by a small word buffer gives the
+    capped code 1; alone and as one batch, on 64 and 256 threads."""
+    rng = np.random.default_rng(sum(shape) + 6)
+    arr = torch.as_tensor((rng.standard_normal(shape) * 900).astype(np.int32))
+    args = list(encoder.machine_args(arr, *ll, 2**31 - 2))
+    _, full = _host_encode_args(host_lib, args)
+    init = (args[3].numel(), args[4].numel(), 0)
+    errs = {}
+    for which in range(3):
+        for frac in (0.3, 0.6, 0.9):
+            cut = list(args)
+            caps = list(args[9])
+            caps[which] = max(init[which], int(full[2 + which] * frac))
+            cut[9] = tuple(caps)
+            for threads in (64, 256):
+                _, st = _host_encode_args(host_lib, cut, threads)
+                errs.setdefault(which, set()).add(st[1])
+            bargs = encoder.batch_machine_args(arr[None], *ll, [2**31 - 2])
+            bargs = bargs[:8] + (tuple(caps),) + bargs[9:]
+            _, rows = _host_encode_batch(host_lib, bargs)
+            assert rows == [st]
+    assert all(2 + which in errs[which] for which in range(3))
+    # a budget of 21 words' bits clamped from a larger one: code 1
+    capped = args[:7] + [21 * 32, True] + args[9:10] + [21]
+    for threads in (64, 256):
+        _, st = _host_encode_args(host_lib, capped, threads)
+        assert st[:2] == [21 * 32, 1]
+    bargs = encoder.batch_machine_args(arr[None], *ll, [10**6])
+    bargs = bargs[:9] + (21,)
+    _, rows = _host_encode_batch(host_lib, bargs)
+    assert rows == [st]
