@@ -26,12 +26,13 @@ Phases:
      one bit short of 1 bpp
   9. configuration B batched (odd LL): 8 images at 1.0 bpp
   10. throughput at configuration A, batches of 16 and 128 images
-  11. kernels B2-log (the metadata trace's event log), B6 (fused quantize)
-      and B7 (sequential encoder) vs their plain versions at small shapes,
-      with budget cuts and byte prefixes
-  12. the metadata trace at A, 1.0 bpp (a 262,145 x 8 trace): equal to
-      the plain version's and to the native scheduler's, its rec to the
-      on-device decode's; B7 encoding A at 1.0 bpp, equal to B1
+  11. kernels B2-log and B3-log (the metadata trace's event logs), B6
+      (fused quantize) and B7 (sequential encoder) vs their plain versions
+      at small shapes, with budget cuts and byte prefixes
+  12. the metadata trace at A and at B (odd LL: B3-log), 1.0 bpp (262,145
+      x 8 traces): equal to the plain version's and to the native
+      scheduler's, its rec to the on-device decode's; decode_image with
+      the trace at B; B7 encoding A at 1.0 bpp, equal to B1
   13. the host-scheduled batch codec at A, 16 images: encode_images on the
       B6 path (float32) and on the budget path, streams equal to
       encode_images_device's; decode_images equal to decode_images_device;
@@ -47,6 +48,16 @@ Phases:
       its plain version and a prefix of the 1 bpp stream; at A, narrowed
       queue capacities that stop B1 and B4 with each queue's error code,
       and a budget clamped by a small word buffer (the capped code)
+  16. large geometries: configuration A's settings at 3x2048^2, 3x4096^2
+      and 3x4243^2 (BASELINE.md round 5's geometry; odd LL), and B's at
+      3x4096^2 (odd LL), 1.0 bpp, through B1, B2 or B3 and the matching log
+      kernel (B2-log or B3-log) at the full stream and at a byte prefix,
+      held against the native scheduler (streams, rec and traces); kernel
+      ms and peak memory; then an A batch of 800 streams (more than one
+      wave of B4 or B5 blocks) through B4 and B5, stream by stream equal
+      to B1 and B2
+  17. the dependent-chain spikes (spiht_tpu_torch/tools): their entry
+      points at small K, then each spike kernel vs its plain version
 """
 
 from __future__ import annotations
@@ -54,7 +65,6 @@ from __future__ import annotations
 import hashlib
 import json
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -67,6 +77,7 @@ from spiht_tpu_torch import _build
 from spiht_tpu_torch.codec import decoder, encoder, meta_expand
 from spiht_tpu_torch.native import runtime as native
 from spiht_tpu_torch.ops.quantize_kernels import quantize_compact
+from spiht_tpu_torch.tools import card, spike_hbm_table, spike_pallas_seq
 from spiht_tpu_torch.torch_transform import _scaled_coeffs, forward
 from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
 
@@ -76,7 +87,8 @@ from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 # operations per stream bit: the test that decides it and the shift/or that
-# writes (encoder) or reads (decoders) it
+# writes (encoder) or reads (decoders) it; per dependent access of a spike:
+# the load and the step's use of it
 OPS_PER_BIT = 2
 DEV = "cuda"  # every card-side call names it
 
@@ -131,6 +143,12 @@ KERNELS = {
         source="spiht_tpu_torch/csrc/spiht_decode.cu",
         replaces="spiht_tpu/codec/pallas_decoder.py:571",
     ),
+    # B3 with the event log (odd-LL traces; _seq_fn has no log variant)
+    "spiht_decode_seq_log": dict(
+        wrapper=decoder.decode_seq_log,
+        source="spiht_tpu_torch/csrc/spiht_decode.cu",
+        replaces="spiht_tpu/codec/pallas_decoder.py:186",
+    ),
     "spiht_quantize_compact": dict(
         wrapper=quantize_compact,
         source="spiht_tpu_torch/csrc/spiht_quantize.cu",
@@ -140,6 +158,22 @@ KERNELS = {
         wrapper=encoder.encode_machine_seq,
         source="spiht_tpu_torch/csrc/spiht_encode.cu",
         replaces="spiht_tpu/codec/pallas_encoder.py:221",
+    ),
+    # the dependent-chain spikes of tools/
+    "spike_seq": dict(
+        wrapper=spike_pallas_seq.seq_chain,
+        source="spiht_tpu_torch/csrc/spike_chains.cu",
+        replaces="tools/spike_pallas_seq.py:66",
+    ),
+    "spike_table": dict(
+        wrapper=spike_hbm_table.table_chain,
+        source="spiht_tpu_torch/csrc/spike_chains.cu",
+        replaces="tools/spike_hbm_table.py:63",
+    ),
+    "spike_fire": dict(
+        wrapper=spike_hbm_table.table_fire,
+        source="spiht_tpu_torch/csrc/spike_chains.cu",
+        replaces="tools/spike_hbm_table.py:128",
     ),
 }
 FULL = 2**31 - 2
@@ -387,6 +421,13 @@ def bound_ms(name, stats):
     (OPS_PER_BIT for each stream bit) over the scalar rate. A batch's
     work is the sum of its streams'."""
     args = stats["args"]
+    if name.startswith("spike_"):
+        # one int32 read a dependent access, the output row written
+        t_bytes = (4 * stats["accesses"] + stats["out_bytes"]) / \
+            HBM_BYTES_PER_S * 1e3
+        t_ops = OPS_PER_BIT * stats["accesses"] / SCALAR_OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
     if name == "spiht_quantize_compact":
         # 4 bytes read, 4 + 2 + 1 written per element; a few integer
         # operations per element, far below the byte time
@@ -409,8 +450,8 @@ def bound_ms(name, stats):
             # LSP words per commit (B2, B5) or rec written whole (B3)
             lsp = name.startswith("spiht_decode_lsp")
             out = 8 * s[0] if lsp else 4 * args[3].numel()
-            if name == "spiht_decode_lsp_log":  # and the nbits + 1 log words
-                out += 4 * (args[1] + 1)
+            if name.endswith("_log"):  # and the nbits + 1 64-bit log words
+                out += 8 * (args[1] + 1)
             nbytes += (s[5] + 7) // 8 + n_init + out
             nbits += s[5]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -633,19 +674,27 @@ def phase_throughput(ims16, mbs16, ers16, enc16, dec16):
 
 
 def cmp_decode_log(data, max_n, c, h, w, ll_h, ll_w, stats=None):
-    """B2-log on the card vs its plain version on the same stream: stat,
-    LSP queues and every event word exactly equal."""
+    """The routed log kernel (B2-log, or B3-log for odd LL) on the card vs
+    its plain version on the same stream: stat, LSP queues (B2-log) or rec
+    (B3-log), and every event word exactly equal."""
     words, nbits = decoder.words_tensor(data, DEV)
     args = decoder.machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
-    kout = decoder.decode_lsp_log(*args)
+    seq = decoder.has_duplicate_parents(h, w, ll_h, ll_w)
+    name, wrapper = (("spiht_decode_seq_log", decoder.decode_seq_log) if seq
+                     else ("spiht_decode_lsp_log", decoder.decode_lsp_log))
+    kout = wrapper(*args)
     torch.cuda.synchronize()
-    pout, plain_ms = timed(decoder.decode_lsp_log, *to_cpu(args))
-    ks = encoder.check_stat(kout[2], "spiht_decode_lsp_log")
-    check(ks == pout[2].tolist(), f"B2-log stat {ks} != plain")
-    for kq, pq in zip(kout[:2], pout[:2]):
-        check(torch.equal(kq[: ks[0]].cpu(), pq[: ks[0]]), "B2-log LSP queue")
-    err = max_abs(kout[3].cpu().numpy(), pout[3].numpy())
-    check(err == 0, "B2-log event log != plain event log")
+    pout, plain_ms = timed(wrapper, *to_cpu(args))
+    ks = encoder.check_stat(kout[-2], name)
+    check(ks == pout[-2].tolist(), f"{name} stat {ks} != plain")
+    if seq:
+        check(torch.equal(kout[0].cpu(), pout[0]), f"{name} rec")
+    else:
+        for kq, pq in zip(kout[:2], pout[:2]):
+            check(torch.equal(kq[: ks[0]].cpu(), pq[: ks[0]]),
+                  f"{name} LSP queue")
+    err = max_abs(kout[-1].cpu().numpy(), pout[-1].numpy())
+    check(err == 0, f"{name} event log != plain event log")
     if stats is not None:
         stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
     return kout
@@ -704,8 +753,12 @@ def phase_new_kernels_small():
     odd = torch.as_tensor(
         (rng.standard_normal((3, 19, 19)) * 2000).astype(np.int32), device=DEV)
     for mb in (FULL, 13, 222):
-        cmp_encode_seq(odd, 5, 5, mb)
+        data, mn = cmp_encode_seq(odd, 5, 5, mb)
         n_cmp += 1
+        # B3-log on the odd-LL streams and byte prefixes of the full one
+        for cut in ((None, 1, 7, len(data) // 2) if mb == FULL else (None,)):
+            cmp_decode_log(data[:cut], mn, 3, 19, 19, 5, 5)
+            n_cmp += 1
     for spread, shape in ((3.0, (3, 64, 64)), (900.0, (3, 77, 77)),
                           (40000.0, (5, 333))):
         x = torch.as_tensor(
@@ -714,52 +767,76 @@ def phase_new_kernels_small():
         out = cmp_quantize(x, 1.7)
         check(bool(out[3]) == (spread > 10000), f"B6 overflow at {spread}")
         n_cmp += 1
-    print(f"phase 11 ok: {n_cmp} exact comparisons of B2-log, B7 and B6 "
-          "with their plain versions (B7 also with B1)")
+    print(f"phase 11 ok: {n_cmp} exact comparisons of B2-log, B3-log, B7 "
+          "and B6 with their plain versions (B7 also with B1)")
 
 
-def phase_metadata(im_a, er_a):
-    """Phase 12: the metadata trace at A (1.0 bpp) through the API on the
-    card, the counts set to 0 just before and read just after; equal to
-    the plain version's trace and to the native scheduler's, its rec to
-    the on-device decode's. Then B7 encodes A through the API."""
-    c, h, w = im_a.shape
-    slices, enc_h, enc_w = get_slices_and_h_w(h, w, CONFIG_A, None)
-    ll = (slices[0][1].stop, slices[0][2].stop)
-    geo = (c, enc_h, enc_w, *ll)
+def trace_at(label, er, settings, level, kernel):
+    """The metadata trace of ``er`` through the API on the card, the counts
+    set to 0 just before and read just after (one launch of ``kernel``);
+    equal to the plain version's trace and to the native scheduler's, its
+    rec to the on-device decode's. Returns (log kernel stats, launches)."""
+    slices, enc_h, enc_w = get_slices_and_h_w(er.h, er.w, settings, level)
+    geo = (er.c, enc_h, enc_w, slices[0][1].stop, slices[0][2].stop)
     wire = slices_to_wire(slices)
-    data, mn = er_a.encoded_bytes, er_a.max_n
+    data, mn = er.encoded_bytes, er.max_n
     reset_counts()
     rec, meta = pt.decode_with_metadata(data, mn, *geo, *wire, device=DEV)
     torch.cuda.synchronize()
     n = counts()
     want = {k: 0 for k in n}
-    want["spiht_decode_lsp_log"] = 1
-    check(n == want, f"metadata trace: launches {n}, want {want}")
+    want[kernel] = 1
+    check(n == want, f"trace at {label}: launches {n}, want {want}")
     check(meta.shape == (len(data) * 8 + 1, 8), f"trace shape {meta.shape}")
     (prec, pmeta), plain_trace_ms = timed(
         pt.decode_with_metadata, data, mn, *geo, *wire, "cpu")
     check(np.array_equal(rec, prec) and np.array_equal(meta, pmeta),
-          "trace on the card != the plain version's")
+          f"trace at {label} on the card != the plain version's")
     nrec, nmeta = native.load().decode_with_metadata(data, mn, *geo, *wire)
     check(np.array_equal(rec, nrec) and np.array_equal(meta, nmeta),
-          "trace on the card != the native scheduler's")
+          f"trace at {label} on the card != the native scheduler's")
     drec = decoder.decode(data, mn, *geo, device=DEV).cpu().numpy()
-    check(np.array_equal(rec, drec), "trace rec != decode_image_device's rec")
+    check(np.array_equal(rec, drec), f"trace rec at {label} != decode's rec")
     log_stats = {}
     cmp_decode_log(data, mn, *geo, log_stats)
     trace_ms = median_ms(lambda: pt.decode_with_metadata(
         data, mn, *geo, *wire, device=DEV))
     rec_ms = median_ms(lambda: decoder.decode(data, mn, *geo, device=DEV))
     print(json.dumps({
-        "phase": "12 metadata trace at A", "bits": len(data) * 8,
+        "phase": f"12 metadata trace at {label}", "bits": len(data) * 8,
         "trace_rows": meta.shape[0], "events": int((meta != 0).any(1).sum()),
         "launches": n, "equal_plain_native_and_rec": True,
         "trace_ms_median_of_5": trace_ms,
         "decode_rec_ms_median_of_5": rec_ms,
         "plain_trace_ms": plain_trace_ms,
     }))
+    return log_stats, n[kernel], meta
+
+
+def phase_metadata(im_a, er_a, er_b):
+    """Phase 12: the metadata trace at A (B2-log) and at B (odd LL:
+    B3-log), each through the API on the card (``trace_at``);
+    decode_image with the trace at B. Then B7 encodes A through the API."""
+    log_a, n_log, _ = trace_at("A", er_a, CONFIG_A, None,
+                               "spiht_decode_lsp_log")
+    log_b, n_log_b, meta_b = trace_at("B", er_b, CONFIG_B, 3,
+                                      "spiht_decode_seq_log")
+    reset_counts()
+    img, meta = pt.decode_image(er_b, CONFIG_B, return_metadata=True,
+                                device=DEV)
+    n = counts()
+    want = {k: 0 for k in n}
+    want["spiht_decode_seq_log"] = 1
+    check(n == want, f"decode_image with the trace at B: launches {n}")
+    check(np.array_equal(meta, meta_b), "decode_image's trace at B")
+    plain_img = pt.decode_image(er_b, CONFIG_B, device=DEV)
+    check(np.array_equal(img, plain_img) and np.isfinite(img).all(),
+          "decode_image with the trace at B != without")
+    print(f"  B: decode_image(return_metadata=True) on the card: trace "
+          f"{meta.shape}, image {img.shape} equal to decode_image's")
     # B7 at A's 1.0 bpp, through the raw encode entry point
+    slices, _, _ = get_slices_and_h_w(*im_a.shape[1:], CONFIG_A, None)
+    ll = (slices[0][1].stop, slices[0][2].stop)
     arr, _, _ = forward(torch.as_tensor(im_a, device=DEV), CONFIG_A, None)
     reset_counts()
     data7, mn7 = pt.encode(arr, *ll, 512 * 512, device=DEV, machine="seq")
@@ -774,8 +851,7 @@ def phase_metadata(im_a, er_a):
     cmp_encode_seq(arr, *ll, 512 * 512, seq_stats)
     print(json.dumps({"phase": "12 B7 at A", "bytes": len(data7),
                       "launches": n7, "equals_b1_and_plain": True}))
-    return (log_stats, n["spiht_decode_lsp_log"], seq_stats,
-            n7["spiht_encode_seq"])
+    return log_a, n_log, log_b, n_log_b, seq_stats, n7["spiht_encode_seq"]
 
 
 def host_batch_stages(ims, mbs, ers):
@@ -1066,8 +1142,239 @@ def phase_encode_edges(im_a, im_b):
           "plain versions")
 
 
+# phase 16's geometries: (label, settings, level, input side), 1.0 bpp
+LARGE = (
+    ("A 3x2048^2", CONFIG_A, None, 2048),
+    ("A 3x4096^2", CONFIG_A, None, 4096),
+    # BASELINE.md round 5's geometry (enc 4284^2, LL 13x13: odd LL)
+    ("A 3x4243^2", CONFIG_A, None, 4243),
+    ("B 3x4096^2", CONFIG_B, 3, 4096),  # enc 4120^2, LL 519x519
+)
+# phase 16's batch: past one wave of either batched kernel, 660 streams
+# of B4 (five 256-thread blocks an SM at 48 registers) and 792 of B5 (six,
+# at 40)
+WAVE = 800
+
+
+def peak_gb(fn):
+    """(fn(), the device memory peak it reached in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def launched(name):
+    """Check that the path just driven launched ``name`` once and no other
+    kernel; the counts are set to 0 again."""
+    n = counts()
+    want = {k: 0 for k in n}
+    want[name] = 1
+    check(n == want, f"launches {n}, want {want}")
+    reset_counts()
+
+
+def phase_large():
+    """Phase 16: the large geometries (``LARGE``) at 1.0 bpp, each through
+    encode_image_device (B1), then at the full stream and at a byte prefix
+    through decode (B2, or B3 at odd LL) and decode_with_metadata (B2-log
+    or B3-log), each path with the counts set to 0 just before and read
+    just after; streams, rec and traces equal to the native scheduler's.
+    Prints each geometry's kernel ms and device memory peaks."""
+    nat = native.load()
+    big = image(16, (3, 4243, 4243))
+    for label, settings, level, side in LARGE:
+        im = np.ascontiguousarray(big[:, :side, :side])
+        slices, enc_h, enc_w = get_slices_and_h_w(side, side, settings, level)
+        geo = (3, enc_h, enc_w, slices[0][1].stop, slices[0][2].stop)
+        wire = slices_to_wire(slices)
+        odd = decoder.has_duplicate_parents(*geo[1:])
+        dec, log = (("spiht_decode_seq", "spiht_decode_seq_log") if odd else
+                    ("spiht_decode_lsp", "spiht_decode_lsp_log"))
+        budget = side * side
+        t0 = time.perf_counter()
+        reset_counts()
+        er, enc_gb = peak_gb(lambda: pt.encode_image_device(
+            im, settings, level, budget, device=DEV))
+        launched("spiht_encode")
+        arr, _, _ = forward(torch.as_tensor(im, device=DEV), settings, level)
+        want = nat.encode(arr.cpu().numpy(), *geo[3:], budget)
+        check((er.encoded_bytes, er.max_n) == want,
+              f"{label}: B1's stream != the native scheduler's")
+        data, mn = er.encoded_bytes, er.max_n
+        cut = len(data) // 3 + 5
+        gb = {"encode_image_device": enc_gb}
+        for what, d in (("full", data), ("prefix", data[:cut])):
+            rec, gb[f"decode_{what}"] = peak_gb(
+                lambda: decoder.decode(d, mn, *geo, device=DEV))
+            launched(dec)
+            check(np.array_equal(rec.cpu().numpy(), nat.decode(d, mn, *geo)),
+                  f"{label} {what}: {dec}'s rec != the native scheduler's")
+            del rec
+            (trec, meta), gb[f"trace_{what}"] = peak_gb(
+                lambda: meta_expand.decode_with_metadata(
+                    d, mn, *geo, *wire, DEV))
+            launched(log)
+            nrec, nmeta = nat.decode_with_metadata(d, mn, *geo, *wire)
+            check(np.array_equal(trec.cpu().numpy(), nrec)
+                  and np.array_equal(meta.cpu().numpy(), nmeta),
+                  f"{label} {what}: the trace != the native scheduler's")
+            del trec, meta, nrec, nmeta
+        words, nbits = decoder.words_tensor(data, DEV)
+        dargs = decoder.machine_args(words, nbits, mn, *geo)
+        ms = {
+            "spiht_encode": time_kernel(
+                encoder.encode_machine,
+                encoder.machine_args(arr, *geo[3:], budget)),
+            dec: time_kernel(KERNELS[dec]["wrapper"], dargs),
+            log: time_kernel(KERNELS[log]["wrapper"], dargs),
+        }
+        trace_ms = median_ms(lambda: meta_expand.decode_with_metadata(
+            data, mn, *geo, *wire, DEV), reps=3)
+        reset_counts()
+        print(json.dumps({
+            "phase": f"16 {label}", "geometry": list(geo[:3]),
+            "ll": list(geo[3:]), "cells": 3 * enc_h * enc_w,
+            "odd_ll": odd, "bits": len(data) * 8, "prefix_bytes": cut,
+            "max_n": mn, "kernel_ms": ms,
+            "trace_ms_median_of_3": trace_ms,
+            "device_peak_gib": gb,
+            "equal_native_stream_rec_trace": True,
+            "phase_s": time.perf_counter() - t0,
+        }))
+        del arr, words, dargs
+    torch.cuda.empty_cache()
+
+
+def phase_wave(ims16):
+    """Phase 16, batch: WAVE A streams (phase 8's 16 images, each stream
+    its own budget) through encode_images_device (B4) and
+    decode_images_device (B5), the counts set to 0 just before and read
+    just after; stream by stream equal to B1 and, as rec, to B2. Prints B4
+    and B5 alone at this batch and the device memory peak."""
+    c, h, w = ims16[0].shape
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, CONFIG_A, None)
+    ll = (slices[0][1].stop, slices[0][2].stop)
+    geo = (c, enc_h, enc_w, *ll)
+    ims = [ims16[b % 16] for b in range(WAVE)]
+    mbs = [262144 - 97 * b for b in range(WAVE)]  # 1.0 down to 0.74 bpp
+    def round_trip():
+        ers = pt.encode_images_device(ims, CONFIG_A, None, mbs, device=DEV)
+        return ers, pt.decode_images_device(ers, CONFIG_A, device=DEV)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    (ers, outs), gb = peak_gb(round_trip)
+    wall = (time.perf_counter() - t0) * 1e3
+    n = counts()
+    want = {k: 0 for k in n}
+    want.update({"spiht_encode_batch": 1, "spiht_decode_lsp_batch": 1})
+    check(n == want, f"wave batch: launches {n}, want {want}")
+    check(len(outs) == WAVE and all(bool(torch.isfinite(o).all())
+                                    for o in outs), "wave batch images")
+    del outs
+    arrs16, _, _ = forward(torch.as_tensor(np.stack(ims16), device=DEV),
+                           CONFIG_A, None)
+    datas = [er.encoded_bytes for er in ers]
+    mns = [er.max_n for er in ers]
+    rec_b = decoder.decode_batch(datas, mns, *geo, device=DEV)
+    for b in range(WAVE):
+        args = encoder.machine_args(arrs16[b % 16], *ll, mbs[b])
+        kw, ks = encoder.encode_machine(*args)
+        ks = encoder.check_stat(ks, "spiht_encode")
+        check((encoder.stream_bytes(kw, ks[0]), int(args[6]))
+              == (datas[b], mns[b]), f"wave stream {b}: B4 != B1")
+        one = decoder.decode(datas[b], mns[b], *geo, device=DEV)
+        check(torch.equal(one, rec_b[b]), f"wave stream {b}: B5 != B2")
+    eargs = encoder.batch_machine_args(
+        arrs16.repeat(WAVE // 16, 1, 1, 1), *ll, mbs)
+    words, nbits = decoder.words_batch(datas, DEV)
+    dargs = decoder.batch_machine_args(words, nbits, mns, *geo)
+    print(json.dumps({
+        "phase": "16 A batch past one wave", "batch": WAVE,
+        "streams_per_wave": {"B4": 660, "B5": 792}, "bytes_min_max": [
+            min(map(len, datas)), max(map(len, datas))],
+        "launches": n, "round_trip_ms_host_clock": wall,
+        "device_peak_gib": gb,
+        "kernel_ms": {
+            "spiht_encode_batch": time_kernel(encoder.encode_machine_batch,
+                                              eargs),
+            "spiht_decode_lsp_batch": time_kernel(decoder.decode_lsp_batch,
+                                                  dargs)},
+        "streams_equal_b1_and_rec_equal_b2": True,
+        "phase_s": time.perf_counter() - t0,
+    }))
+    reset_counts()
+    del arrs16, rec_b, eargs, dargs, words
+    torch.cuda.empty_cache()
+
+
+SPIKE_K = 2000  # phase 17's steps
+
+
+def phase_spikes():
+    """Phase 17: the dependent-chain spikes through their tools' entry
+    points at small K (every variant and table size of the tools, K at
+    most SPIKE_K), the counts set to 0 just before and read just after;
+    then each spike kernel vs its plain version in every variant."""
+    plan = [(kind, n, chains, min(k, SPIKE_K))
+            for kind, n, chains, k in spike_hbm_table.PLAN]
+    reset_counts()
+    seq = spike_pallas_seq.run(SPIKE_K, check=False)
+    hbm = spike_hbm_table.run(plan, check=False, reps=1)
+    torch.cuda.synchronize()
+    n = counts()
+    check(all(n[k] > 0 for k in ("spike_seq", "spike_table", "spike_fire"))
+          and not any(v for k, v in n.items() if not k.startswith("spike")),
+          f"spikes: launches {n}")
+    stats = {}
+    tseq = spike_pallas_seq
+    for rows, shared in ((tseq.ROWS, False),
+                         (tseq.SMEM_WORDS // tseq.LANES, True)):
+        words = torch.as_tensor(tseq.words_of(rows), device=DEV)
+        for rw in (False, True):
+            args = (words, SPIKE_K, rw, shared)
+            out, sc = tseq.seq_chain(*args)
+            (pout, psc), plain_ms = timed(tseq.seq_chain, *to_cpu(args))
+            err = max_abs(out.cpu().numpy(), pout.numpy())
+            check(err == 0 and (not rw or torch.equal(sc.cpu(), psc)),
+                  f"spike_seq (rw {rw}, shared {shared}) != plain")
+            if not (rw or shared):
+                stats["spike_seq"] = dict(
+                    args=args, plain_ms=plain_ms, max_abs_err=err,
+                    accesses=SPIKE_K, out_bytes=8)
+    tables = {}
+    for kind, n_log2, chains, k in plan:
+        if n_log2 not in tables:
+            tables[n_log2] = torch.as_tensor(
+                spike_hbm_table.permutation(n_log2), device=DEV)
+        if kind == "fire":
+            name, args = "spike_fire", (tables[n_log2], k, chains)
+        else:
+            name, args = "spike_table", (tables[n_log2], k, chains,
+                                         kind == "shared")
+        fn = KERNELS[name]["wrapper"]
+        out = fn(*args)
+        pout, plain_ms = timed(fn, *to_cpu(args))
+        err = max_abs(out.cpu().numpy(), pout.numpy())
+        check(err == 0, f"{name} ({kind} 2^{n_log2}, {chains}) != plain")
+        if (kind, n_log2, chains) in (("global", 25, 1), ("fire", 25, 8)):
+            stats[name] = dict(
+                args=args, plain_ms=plain_ms, max_abs_err=err,
+                accesses=k * chains * (4 if kind == "fire" else 1),
+                out_bytes=4 * spike_hbm_table.LANES)
+    print(json.dumps({
+        "phase": "17 dependent-chain spikes at small K", "launches": n,
+        "spike_pallas_seq": seq, "spike_hbm_table": hbm,
+        "kernels_equal_plain": True,
+    }))
+    reset_counts()
+    return stats, n
+
+
 def run_phases() -> list:
-    """Phases 2-15; returns the kernels' rows of the result line."""
+    """Phases 2-17; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -1136,7 +1443,8 @@ def run_phases() -> list:
 
     # ---- phases 11-13: B2-log, B6, B7 and the paths that run them ----
     phase_new_kernels_small()
-    log_a, n_log, seq_a, n_seq = phase_metadata(im_a, er_a)
+    log_a, n_log, log_b, n_log_b, seq_a, n_seq = phase_metadata(
+        im_a, er_a, er_b)
     q_a, n_q = phase_host_batch(ims_a, mbs_a)
 
     # ---- phase 14: the decoders' step edges on the card ----
@@ -1144,6 +1452,13 @@ def run_phases() -> list:
 
     # ---- phase 15: the encoder's budget edges on the card ----
     phase_encode_edges(im_a, im_b)
+
+    # ---- phase 16: large geometries, and a batch past one wave ----
+    phase_large()
+    phase_wave(ims_a)
+
+    # ---- phase 17: the dependent-chain spikes ----
+    spikes, n_spikes = phase_spikes()
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),
@@ -1153,8 +1468,10 @@ def run_phases() -> list:
         "spiht_encode_batch": (encb_a, nb_a["spiht_encode_batch"]),
         "spiht_decode_lsp_batch": (decb_a, nb_a["spiht_decode_lsp_batch"]),
         "spiht_decode_lsp_log": (log_a, n_log),
+        "spiht_decode_seq_log": (log_b, n_log_b),
         "spiht_quantize_compact": (q_a, n_q),
         "spiht_encode_seq": (seq_a, n_seq),
+        **{name: (st, n_spikes[name]) for name, st in spikes.items()},
     }
     rows = []
     for name, (stats, launches) in runs.items():
@@ -1181,11 +1498,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # ---- phase 1 ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -1216,11 +1529,14 @@ def main() -> int:
             print("  " + line.strip())
 
     rows = run_phases()
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"library_ms": None,
                       "why": "no PyTorch call computes a SPIHT bit machine "
-                             "(B1-B5, B2-log, B7), and no single PyTorch call "
-                             "computes B6's four outputs (int32 quantize, "
-                             "int16 clip, level map, overflow flag)"}))
+                             "(B1-B5, B2-log, B3-log, B7), no single PyTorch "
+                             "call computes B6's four outputs (int32 "
+                             "quantize, int16 clip, level map, overflow "
+                             "flag), and none a dependent chain of K reads "
+                             "(the spikes)"}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ from .codec.api import (
     encode_images_device,
 )
 from .settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
+from .wavelets.geometry import get_slices_and_h_w
 
 __all__ = [
     "ENCODER_DECODER_VERSION",
@@ -53,6 +54,7 @@ __all__ = [
     "encode_image_device",
     "encode_images",
     "encode_images_device",
+    "get_slices_and_h_w",
     "interop",
 ]
 

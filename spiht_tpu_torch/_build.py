@@ -62,6 +62,10 @@ SIGNATURES = {
             _P, _I, _I, _P, _P, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P,
         ],
+        "spiht_decode_seq_log_launch": [
+            _P, _I, _I, _P, _P, _I, _P, _I, _I,
+            _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+        ],
         "spiht_decode_batch_launch": [
             _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
@@ -71,6 +75,11 @@ SIGNATURES = {
         "spiht_quantize_compact_launch": [
             _P, _I64, ctypes.c_float, _P, _P, _P, _P, _P,
         ],
+    },
+    "spike_chains": {
+        "spike_seq_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
+        "spike_table_launch": [_P, _I, _I, _I, _I, _P, _P],
+        "spike_fire_launch": [_P, _I, _I, _I, _I, _P, _P],
     },
 }
 

@@ -7,8 +7,9 @@
 * The host-shaped surface, with the JAX signatures and results (numpy
   arrays, ``bytes``, ``EncodingResult``), so a caller can swap packages:
   the raw ``encode`` (:53; B1, or B7 for ``machine="seq"``), ``decode``
-  (:82; B2 or B3) and ``decode_with_metadata`` (:105; B2-log and the
-  log's expansion); ``encode_image`` (:153), ``decode_rec_array`` (:573),
+  (:82; B2 or B3) and ``decode_with_metadata`` (:105; B2-log, or B3-log
+  at odd LL, and the log's expansion); ``encode_image`` (:153),
+  ``decode_rec_array`` (:573),
   ``decode_from_rec_arr`` (:623) and ``decode_image`` (:731); and the
   host-scheduled batch codec ``encode_images`` (:351, with the
   budget-narrowed path :277-348) and ``decode_images`` (:497), whose
@@ -103,9 +104,9 @@ def decode_with_metadata(
     device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Decode bytes and emit the per-bit decoder-state trace array, on the
-    device (kernel B2-log, then the log's expansion): (rec (C,H,W) int32,
-    trace (len(data)*8 + 1, 8) int32). Raises ValueError for
-    duplicate-parent (odd-LL) geometries and for c*h*w >= 2^24."""
+    device (kernel B2-log, or B3-log for odd-LL geometries, then the log's
+    expansion): (rec (C,H,W) int32, trace (len(data)*8 + 1, 8) int32), for
+    every geometry the machines take (c*h*w < 2^29)."""
     rec, meta = meta_expand.decode_with_metadata(
         data, n, c, h, w, ll_h, ll_w, top_slice, other_slices,
         resolve_device(device),

@@ -13,7 +13,8 @@ rec scatter :1339-1368 and its batched form :2086-2099, ``pallas_decode``
 * ``decode_seq`` (kernel B3) decodes odd-LL geometries, whose parity
   offspring map has duplicate parents: a node may be committed several
   times and every LSP instance refines one shared rec value, so rec lives
-  in the kernel.
+  in the kernel. ``decode_seq_log`` (B3-log) also writes the event log,
+  each word with the filter of the node's instance.
 
 * ``decode_lsp_batch`` (kernel B5) and ``decode_seq_batch`` (B3 over a
   grid) decode B streams of one geometry in one launch, one block per
@@ -40,17 +41,17 @@ from .encoder import (
     machine_caps,
 )
 from .geom import (
-    A_DESC, A_LIP, A_LIPSIGN, A_LSIG, A_OFF, A_OFFSIGN, A_REF,
-    machine_tables, words_of,
+    A_DESC, A_LIP, A_LIPSIGN, A_LSIG, A_OFF, A_OFFSIGN, A_REF, _F_AD, _F_DA,
+    _F_DD, _F_LL, machine_tables, words_of,
 )
 from .tree_bounds import queue_bounds
 
 __all__ = [
     "has_duplicate_parents",
-    "LOG_MAX_CELLS",
     "decode_lsp",
     "decode_lsp_log",
     "decode_seq",
+    "decode_seq_log",
     "decode_lsp_batch",
     "decode_seq_batch",
     "scatter_rec",
@@ -64,8 +65,8 @@ __all__ = [
 ]
 
 
-# c*h*w bound of the event log: its word keeps a 24-bit node field
-LOG_MAX_CELLS = 1 << 24
+# the node field of a queue entry in B3-log, which keeps its filter above
+NODE_MASK = (1 << 29) - 1
 
 
 @lru_cache(maxsize=None)
@@ -75,58 +76,76 @@ def has_duplicate_parents(h: int, w: int, ll_h: int, ll_w: int) -> bool:
     return queue_bounds(1, h, w, ll_h, ll_w).has_duplicate_parents
 
 
+def _child_filt(f, node, c0, w):
+    """The filter an entry of filter f at ``node`` gives its children, the
+    first at c0 (the reference's ``_offspring_filter``): its own, or an LL
+    parent's by its parity, as ``child_filt`` in the kernel finds it."""
+    if f != _F_LL:
+        return f
+    d = c0 - node  # (i odd) (ll_h - 1) w + (j odd) (ll_w - 1)
+    i_odd, j_odd = d >= w, d % w != 0
+    return (_F_DD if i_odd else _F_AD) if j_odd else _F_DA
+
+
 def _decode_machine_plain(
     words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap, lsp_cap,
     seq, n_rec, log=False,
 ):
-    """The plain version of kernels B2 (seq=False), B2-log (log=True) and
-    B3 (seq=True) on CPU tensors (lists inside). With ``log`` it also
-    returns the event log: nbits + 1 words, word t the event of the bit
-    attempted at offset t (``node | action << 24 | (n+1) << 27``; the row at
-    nbits is the first read that found the stream empty)."""
+    """The plain version of kernels B2 (seq=False), B2-log (log=True), B3
+    (seq=True) and B3-log (both) on CPU tensors (Python ints inside). With
+    ``log`` it also returns the event log: nbits + 1 int64 words, word t
+    the event of the bit attempted at offset t (``node | action << 32 |
+    (n+1) << 35 | filter << 40``; the row at nbits is the first read that
+    found the stream empty). B3-log's queue entries carry their instance's
+    filter as the kernel's do (bits 29-30 of a LIP or LSP entry, 30-31 of
+    a LIS entry); B2-log's filter field is 0."""
+    filt = seq and log
     raw = words.numpy().view(np.uint8)
     bits = np.unpackbits(raw, bitorder="little")[:nbits].tolist()
-    geo = geo.tolist()
+    geo = memoryview(geo.numpy())  # int reads without a list of N ints
     lip = lip0.tolist()
     lis = lis0.tolist()
     lsp, lsp_val = [], []
-    rec = [0] * n_rec if seq else None
+    rec_np = np.zeros(n_rec if seq else 0, np.int32)
+    rec = memoryview(rec_np)
     events = [0] * (nbits + 1) if log else None
     off = (0, 1, w, w + 1)
     err = 0
     cur = 0
 
-    def get(node, action):
+    def get(node, action, f):
         # the event is logged before the read, as the reference trace's row
         nonlocal cur
         if log:
-            events[cur] = node | (action << 24) | ((n + 1) << 27)
+            events[cur] = node | (action << 32) | ((n + 1) << 35) | (f << 40)
         if cur >= nbits:
             raise _Stop
         cur += 1
         return bits[cur - 1]
 
-    def commit(node, s, mag):
+    def commit(x, s, mag):
+        # x: the entry, node | filter << 29
         nonlocal err
         if len(lsp) >= lsp_cap:
             err = 4
             raise _Stop
         if seq:
-            rec[node] = mag if s else -mag
+            rec[x & NODE_MASK] = mag if s else -mag
         else:
             lsp_val.append((s << 31) | mag)
-        lsp.append(node)
+        lsp.append(x)
 
     try:
         for n in range(max_n, -1, -1):
             lsp_snap = len(lsp)
             mag0 = 1 if n == 0 else (1 << (n - 1)) + (1 << n)
             keep = []
-            for node in lip:
-                if get(node, A_LIP):
-                    commit(node, get(node, A_LIPSIGN), mag0)
+            for x in lip:
+                node, f = x & NODE_MASK, x >> 29
+                if get(node, A_LIP, f):
+                    commit(x, get(node, A_LIPSIGN, f), mag0)
                 else:
-                    keep.append(node)
+                    keep.append(x)
             lip = keep
 
             keep = []
@@ -134,38 +153,41 @@ def _decode_machine_plain(
             while r < len(lis):
                 e = lis[r]
                 r += 1
-                g = geo[e >> 1]
-                if not get(e >> 1, A_DESC if e & 1 else A_LSIG):
+                node, f = (e >> 1) & NODE_MASK, e >> 30
+                g = geo[node]
+                if not get(node, A_DESC if e & 1 else A_LSIG, f):
                     keep.append(e)
-                elif e & 1:
+                    continue
+                c0 = g >> 2
+                cf = _child_filt(f, node, c0, w) if filt else 0
+                if e & 1:
                     if (g >> 1) & 1:
-                        c0 = g >> 2
                         for o in off:
-                            if get(c0 + o, A_OFF):
-                                commit(c0 + o, get(c0 + o, A_OFFSIGN), mag0)
+                            x = (c0 + o) | (cf << 29)
+                            if get(c0 + o, A_OFF, cf):
+                                commit(x, get(c0 + o, A_OFFSIGN, cf), mag0)
                             else:
                                 if len(lip) >= lip_cap:
                                     err = 2
                                     raise _Stop
-                                lip.append(c0 + o)
+                                lip.append(x)
                     if g & 1:
                         if len(lis) >= lis_cap:
                             err = 3
                             raise _Stop
                         lis.append(e & ~1)
                 elif (g >> 1) & 1:
-                    c0 = g >> 2
                     if len(lis) + 4 > lis_cap:
                         err = 3
                         raise _Stop
-                    lis.extend(((c0 + o) << 1) | 1 for o in off)
+                    lis.extend(((c0 + o) << 1) | 1 | (cf << 30) for o in off)
             lis = keep
 
             bit = 1 << n
             for r in range(lsp_snap):
-                b = get(lsp[r], A_REF)
+                node = lsp[r] & NODE_MASK
+                b = get(node, A_REF, lsp[r] >> 29)
                 if seq:
-                    node = lsp[r]
                     x = rec[node]
                     mag = (abs(x) | bit) if b else (abs(x) & ~bit)
                     rec[node] = mag if x >= 0 else -mag
@@ -177,8 +199,10 @@ def _decode_machine_plain(
     stat = torch.tensor(
         [len(lsp), err, len(lip), len(lis), len(lsp), cur], dtype=torch.int32
     )
+    ev = torch.tensor(events, dtype=torch.int64) if log else None
     if seq:
-        return torch.tensor(rec, dtype=torch.int32), stat
+        rec_t = torch.from_numpy(rec_np)
+        return (rec_t, stat, ev) if log else (rec_t, stat)
     cap = max(lsp_cap, 1)
     node_q = torch.zeros(cap, dtype=torch.int32)
     val_q = torch.zeros(cap, dtype=torch.int32)
@@ -186,10 +210,7 @@ def _decode_machine_plain(
     val_q[: len(lsp)] = torch.tensor(
         np.asarray(lsp_val, np.int64).astype(np.uint32).view(np.int32)
     )
-    if log:
-        ev = np.asarray(events, np.int64).astype(np.uint32).view(np.int32)
-        return node_q, val_q, stat, torch.from_numpy(ev.copy())
-    return node_q, val_q, stat
+    return (node_q, val_q, stat, ev) if log else (node_q, val_q, stat)
 
 
 def _decode_machine_batch_plain(
@@ -227,13 +248,16 @@ def _check_inputs(words, nbits, geo, lip0, lis0, caps):
     return dev
 
 
+def _check_log(max_n):
+    if not 0 <= max_n <= 30:
+        raise ValueError("the event log's plane field takes max_n <= 30")
+
+
 def _decode_lsp(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
     """B2 (log=False) or B2-log (log=True); see ``decode_lsp``."""
     dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
-    if log and geo.numel() >= LOG_MAX_CELLS:
-        raise ValueError("the event log's node field takes c*h*w < 2^24")
-    if log and not 0 <= max_n <= 30:
-        raise ValueError("the event log's plane field takes max_n <= 30")
+    if log:
+        _check_log(max_n)
     lip_cap, lis_cap, lsp_cap = caps
     if dev.type == "cpu":
         return _decode_machine_plain(
@@ -255,7 +279,7 @@ def _decode_lsp(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
         lsp.data_ptr(), lsp_val.data_ptr(), lsp_cap, stat.data_ptr(),
     ]
     if log:
-        events = torch.zeros(nbits + 1, dtype=torch.int32, device=dev)
+        events = torch.zeros(nbits + 1, dtype=torch.int64, device=dev)
         args.append(events.data_ptr())
     launch = (lib.spiht_decode_lsp_log_launch if log
               else lib.spiht_decode_lsp_launch)
@@ -305,16 +329,59 @@ def decode_lsp_log(
     writes the metadata trace's compact event log.
 
     The same inputs as ``decode_lsp``; returns (lsp nodes, lsp values,
-    stat, log int32[nbits + 1]): log[t] is the event of the bit attempted
-    at stream offset t, ``node | action << 24 | (n+1) << 27`` (0 where no
-    bit was attempted), the row at nbits the read that found the stream
-    empty. The event word's 24-bit node field bounds the geometry to
-    c*h*w < 2^24 and its 5-bit plane field max_n to <= 30.
+    stat, log int64[nbits + 1]): log[t] is the event of the bit attempted
+    at stream offset t, ``node | action << 32 | (n+1) << 35`` (0 where no
+    bit was attempted; the filter field, bits 40-41, is 0), the row at
+    nbits the read that found the stream empty. The geometry takes what
+    the machines take, c*h*w < 2^29; the 5-bit plane field bounds max_n
+    to <= 30.
     """
     return _decode_lsp(True, words, nbits, max_n, geo, lip0, lis0, w, caps)
 
 
 decode_lsp_log.launches = 0
+
+
+def _decode_seq(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
+    """B3 (log=False) or B3-log (log=True); see ``decode_seq``."""
+    dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
+    if log:
+        _check_log(max_n)
+    lip_cap, lis_cap, lsp_cap = caps
+    n_rec = geo.numel()
+    if dev.type == "cpu":
+        return _decode_machine_plain(
+            words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap,
+            lsp_cap, True, n_rec, log=log,
+        )
+    from .. import _build
+
+    lib = _build.load("spiht_decode")
+    lip = torch.empty(lip_cap, dtype=torch.int32, device=dev)
+    lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
+    lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
+    rec = torch.empty(n_rec, dtype=torch.int32, device=dev)
+    # per-node refinement claims (plane tag << 32 | LSP index)
+    last = torch.empty(n_rec, dtype=torch.int64, device=dev)
+    stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
+    args = [
+        words.data_ptr(), nbits, int(max_n), geo.data_ptr(),
+        lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
+        lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
+        lsp.data_ptr(), lsp_cap, rec.data_ptr(), last.data_ptr(), n_rec,
+        stat.data_ptr(),
+    ]
+    if log:
+        events = torch.zeros(nbits + 1, dtype=torch.int64, device=dev)
+        args.append(events.data_ptr())
+    launch = (lib.spiht_decode_seq_log_launch if log
+              else lib.spiht_decode_seq_launch)
+    rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        what = "spiht_decode_seq_log" if log else "spiht_decode_seq"
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+    (decode_seq_log if log else decode_seq).launches += 1
+    return (rec, stat, events) if log else (rec, stat)
 
 
 def decode_seq(
@@ -329,38 +396,35 @@ def decode_seq(
 ):
     """Kernel B3 (or, for CPU tensors, its plain version): the same
     inputs as ``decode_lsp``; returns (rec int32[N], stat)."""
-    dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
-    lip_cap, lis_cap, lsp_cap = caps
-    n_rec = geo.numel()
-    if dev.type == "cpu":
-        return _decode_machine_plain(
-            words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap,
-            lsp_cap, True, n_rec,
-        )
-    from .. import _build
-
-    lib = _build.load("spiht_decode")
-    lip = torch.empty(lip_cap, dtype=torch.int32, device=dev)
-    lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
-    lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
-    rec = torch.empty(n_rec, dtype=torch.int32, device=dev)
-    # per-node refinement claims (plane tag << 32 | LSP index)
-    last = torch.empty(n_rec, dtype=torch.int64, device=dev)
-    stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
-    rc = lib.spiht_decode_seq_launch(
-        words.data_ptr(), nbits, int(max_n), geo.data_ptr(),
-        lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
-        lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
-        lsp.data_ptr(), lsp_cap, rec.data_ptr(), last.data_ptr(), n_rec,
-        stat.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"spiht_decode_seq launch failed: CUDA error {rc}")
-    decode_seq.launches += 1
-    return rec, stat
+    return _decode_seq(False, words, nbits, max_n, geo, lip0, lis0, w, caps)
 
 
 decode_seq.launches = 0
+
+
+def decode_seq_log(
+    words: torch.Tensor,
+    nbits: int,
+    max_n: int,
+    geo: torch.Tensor,
+    lip0: torch.Tensor,
+    lis0: torch.Tensor,
+    w: int,
+    caps: Tuple[int, int, int],
+):
+    """Kernel B3-log (or, for CPU tensors, its plain version): B3 that also
+    writes the metadata trace's event log, for odd-LL geometries.
+
+    The same inputs as ``decode_lsp``; returns (rec int32[N], stat, log
+    int64[nbits + 1]), the log as ``decode_lsp_log``'s with the filter of
+    each event's instance in bits 40-41: a node with several LL parents is
+    reached through each of them, and each instance and its subtree carry
+    the filter that parent gives. max_n <= 30.
+    """
+    return _decode_seq(True, words, nbits, max_n, geo, lip0, lis0, w, caps)
+
+
+decode_seq_log.launches = 0
 
 
 def _ptr(t):

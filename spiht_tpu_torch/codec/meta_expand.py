@@ -1,25 +1,34 @@
-"""The metadata trace from kernel B2-log's compact event log, the port of
+"""The metadata trace from the decode kernels' event logs, the port of
 ``spiht_tpu/codec/meta_expand.py`` (``_static_node_tables`` :50-102,
 ``_expand_fn`` :111-196, ``decode_event_log`` :199, ``expand_event_log``
 :246, ``pallas_decode_with_metadata`` :277).
 
-B2-log (``decoder.decode_lsp_log``) writes one int32 per attempted stream
-bit at its offset: ``node | action << 24 | (n+1) << 27``. Everything else
+B2-log (``decoder.decode_lsp_log``, duplicate-free geometries) and B3-log
+(``decoder.decode_seq_log``, odd-LL geometries, where a node may have up
+to three LL parents) write one int64 per attempted stream bit at its
+offset: ``node | action << 32 | (n+1) << 35 | filter << 40``, the filter
+that of the node's instance (B3-log; B2-log leaves it 0). Everything else
 in the reference trace row ``[action, local_h, local_w, channel, filter,
 depth, n, current_value]`` is rebuilt outside the kernel:
 
-* ``filter``/``depth``/``local_h``/``local_w`` are static per node once
-  every node has one parent (the duplicate-free geometries B2 decodes):
-  a numpy BFS from the LL roots and the reference's float32 normalisation.
+* ``filter`` comes from the event word where a node may have several
+  instances; where every node has one parent, it is static per node, from
+  a numpy BFS from the LL roots, as is ``depth`` in every geometry (all
+  instances of a node lie at one depth).
+* ``local_h``/``local_w`` follow per row from (position, filter, depth)
+  with the reference's float32 normalisation.
 * ``current_value`` (the decoder's rec value before the event) is replayed
-  in torch on the log's device: sort the events by (node, time), take
-  segmented exclusive sums of each node's commit (plane, sign) and of its
-  refinement bits, and evaluate the SPIHT value in closed form. No Pallas
-  kernel computes this step, so it stays plain torch.
+  in torch on the log's device, over the events sorted by (node, time).
+  With one parent per node, a node is committed at most once: segmented
+  exclusive sums of its commit (plane, sign) and of its refinement bits
+  give the value in closed form. With duplicate parents a node may be
+  committed again and refined by several LSP instances, so its writes
+  (a commit sets +-1.5 * 2^n, a refinement sets or clears bit n and keeps
+  the sign, which is lost at 0) are replayed in order, one pass per
+  position within a node's writes, over all nodes at once.
 
-Duplicate-parent (odd-LL) geometries raise: the JAX package sends them to
-its XLA sequential machine, which the port has not yet (ROADMAP Queue A
-item 10).
+No Pallas kernel computes the expansion, so it stays plain torch. The
+trace takes what the machines take: c*h*w < 2^29, max_n <= 30.
 """
 
 from __future__ import annotations
@@ -30,31 +39,31 @@ import numpy as np
 import torch
 
 from .decoder import (
-    LOG_MAX_CELLS, decode_lsp_log, has_duplicate_parents, machine_args,
+    decode_lsp_log, decode_seq_log, has_duplicate_parents, machine_args,
     scatter_rec, words_tensor,
 )
-from .encoder import check_stat
+from .encoder import MAX_CELLS, check_stat
 from .geom import dec_geom, rect_table
 
 __all__ = ["decode_event_log", "expand_event_log", "decode_with_metadata"]
 
 
-@lru_cache(maxsize=None)
-def _static_node_tables(c, h, w, ll_h, ll_w, level, rect_key):
-    """(filt, depth, local_h, local_w) int32 tables indexed by flat
-    node id, derived by BFS over the (duplicate-free) orientation
-    tree. Mirrors device_decoder's in-loop propagation
-    (cfilt = llcf for LL parents else inherited; cdep = depth-1
-    floored) and the reference local-position f32 math."""
+@lru_cache(maxsize=4)
+def _static_node_tables(c, h, w, ll_h, ll_w, level):
+    """(filt, depth) uint8 tables indexed by flat node id, by BFS from the
+    LL roots, each node taking the first parent that reaches it. Mirrors
+    device_decoder's in-loop propagation (cfilt = llcf for LL parents else
+    inherited; cdep = depth-1 floored). The filter is every instance's
+    where the geometry has no duplicate parents; the depth is always."""
     g = dec_geom(c, h, w, ll_h, ll_w)
     N = c * h * w
     has_child = np.asarray(g["has_child"], bool)
     child0 = np.asarray(g["child0"], np.int64)
-    llcf = np.asarray(g["llcf"], np.int32)
+    llcf = np.asarray(g["llcf"], np.uint8)
     in_ll = np.asarray(g["in_ll"], bool)
 
-    filt = np.zeros(N, np.int32)
-    depth = np.zeros(N, np.int32)
+    filt = np.zeros(N, np.uint8)
+    depth = np.zeros(N, np.uint8)
     seen = np.zeros(N, bool)
     roots = np.nonzero(in_ll)[0]
     filt[roots] = 0  # _F_LL
@@ -64,7 +73,7 @@ def _static_node_tables(c, h, w, ll_h, ll_w, level, rect_key):
     while frontier.size:
         pf = filt[frontier]
         cf = np.where(in_ll[frontier], llcf[frontier], pf)
-        cd = np.maximum(depth[frontier] - 1, 0)
+        cd = np.maximum(depth[frontier].astype(np.int32) - 1, 0)
         nxt = []
         for off in (0, 1, w, w + 1):
             ch = child0[frontier] + off
@@ -75,35 +84,89 @@ def _static_node_tables(c, h, w, ll_h, ll_w, level, rect_key):
             seen[ch_f] = True
             nxt.append(ch_f[has_child[ch_f]])
         frontier = np.concatenate(nxt) if nxt else np.empty(0, np.int64)
+    return filt, depth
 
-    rtab = np.asarray(rect_key, np.int32).reshape(level + 1, 4, 4)
-    hw = h * w
-    idx = np.arange(N, dtype=np.int64)
-    ii = (idx % hw) // w
-    jj = idx % w
-    r = rtab[np.clip(depth, 0, level), filt]
-    f32 = np.float32
-    big = f32(3e38)
-    lh = (ii.astype(f32) - r[:, 0].astype(f32)) / r[:, 1].astype(f32)
-    lw = (jj.astype(f32) - r[:, 2].astype(f32)) / r[:, 3].astype(f32)
-    th = np.minimum(lh * f32(200000.0), big) - f32(100000.0)
-    tw = np.minimum(lw * f32(200000.0), big) - f32(100000.0)
-    return (
-        filt, depth,
-        th.astype(np.int32), tw.astype(np.int32),
+
+@lru_cache(maxsize=4)
+def _node_tables(c, h, w, ll_h, ll_w, level, device):
+    """``_static_node_tables`` as one uint8 (2, N) tensor on ``device``."""
+    tabs = _static_node_tables(c, h, w, ll_h, ll_w, level)
+    return torch.as_tensor(np.stack(tabs), device=device)
+
+
+def _local(pos, rect):
+    """The reference's float32 local coordinate of ``pos`` in a subband
+    (r0, rlen) (``oracle._local_position``): (pos - r0) / rlen, scaled to
+    [-100000, 100000] and truncated, as int64."""
+    f32 = torch.float32
+    x = (pos.to(f32) - rect[:, 0].to(f32)) / rect[:, 1].to(f32)
+    x = torch.clamp(x * 200000.0, max=3e38) - 100000.0
+    return x.to(torch.int32).to(torch.int64)
+
+
+def _replay_closed_form(sidx, pc, rv, rc):
+    """Values before each sorted event where a node is committed at most
+    once: segmented exclusive sums of the packed commit (plane+1, sign),
+    the refinement bits and their count, then the SPIHT value."""
+
+    def within_excl(x):
+        excl = torch.cumsum(x, 0) - x
+        return excl - excl[sidx]
+
+    commit_p = within_excl(pc)
+    refsum = within_excl(rv)
+    refcnt = within_excl(rc)
+    committed = commit_p > 0
+    nc = ((commit_p >> 1) - 1).clamp(0, 30)
+    one = torch.ones_like(nc)
+    base = torch.where(
+        nc == 0, one, (one << (nc - 1).clamp(min=0)) + (one << nc)
     )
+    mag = torch.where(refcnt == 0, base, (one << nc) | refsum)
+    return torch.where(committed, torch.where((commit_p & 1) == 1, mag, -mag),
+                       0)
 
 
-@lru_cache(maxsize=16)
-def _node_tables(c, h, w, ll_h, ll_w, level, rect_key, device):
-    """``_static_node_tables`` as one int64 (4, N) tensor on ``device``."""
-    tabs = _static_node_tables(c, h, w, ll_h, ll_w, level, rect_key)
-    return torch.as_tensor(np.stack(tabs).astype(np.int64), device=device)
-
-
-def _rect_key(level, ll_h, ll_w, top_slice, other_slices):
-    tab = rect_table(level, ll_h, ll_w, (top_slice, other_slices))
-    return tuple(map(tuple, tab.reshape(-1, 4).tolist()))
+def _replay_in_order(key_s, sidx, is_c, is_r, bit, nv):
+    """Values before each sorted event where a node may be committed by
+    several parents and refined by several instances: the node's writes
+    replayed in time order (``oracle._set_bit``'s sign rule included), one
+    pass for each position within a node's writes, all nodes at once."""
+    dev = key_s.device
+    M = key_s.numel()
+    pos = torch.arange(M, dtype=torch.int64, device=dev)
+    is_w = is_c | is_r
+    W = torch.nonzero(is_w).squeeze(1)  # the writes, node then time order
+    val = torch.zeros(M, dtype=torch.int64, device=dev)
+    if W.numel():
+        wkey = key_s[W]
+        wstart = torch.ones_like(wkey, dtype=torch.bool)
+        wstart[1:] = wkey[1:] != wkey[:-1]
+        widx = torch.arange(W.numel(), dtype=torch.int64, device=dev)
+        wp = widx - torch.cummax(torch.where(wstart, widx, 0), 0).values
+        groups = torch.sort(wp, stable=True).indices
+        vals = torch.zeros(W.numel(), dtype=torch.int64, device=dev)
+        off = 0
+        for p, cnt in enumerate(torch.bincount(wp).tolist()):  # one sync
+            i = groups[off: off + cnt]
+            off += cnt
+            at = W[i]
+            n = nv[at].clamp(0, 30)
+            one = torch.ones_like(n)
+            set_ = bit[at] == 1
+            base = torch.where(
+                n == 0, one, (one << (n - 1).clamp(min=0)) + (one << n))
+            prev = vals[i - 1] if p else torch.zeros_like(n)
+            mag = prev.abs()
+            mag = torch.where(set_, mag | (one << n), mag & ~(one << n))
+            vals[i] = torch.where(
+                is_c[at], torch.where(set_, base, -base),
+                torch.where(prev >= 0, mag, -mag))
+        val[W] = vals
+    # each event's value is the one after its node's last write before it
+    last = torch.cummax(torch.where(is_w, pos, -1), 0).values
+    before = torch.cat([last.new_full((1,), -1), last[:-1]])
+    return torch.where(before >= sidx, val[before.clamp(min=0)], 0)
 
 
 def expand_event_log(
@@ -118,22 +181,27 @@ def expand_event_log(
     top_slice,
     other_slices,
 ) -> torch.Tensor:
-    """Compact event log -> the reference (nbits+1, 8) int32 trace, on the
-    log's device. Row layout: ``[action, local_h, local_w, channel,
-    filter, depth, n, value]``; ``words`` are the stream's int32 words."""
+    """Event log (B2-log's or B3-log's) -> the reference (nbits+1, 8) int32
+    trace, on the log's device. Row layout: ``[action, local_h, local_w,
+    channel, filter, depth, n, value]``; ``words`` are the stream's int32
+    words."""
     level = len(other_slices)
-    rect_key = _rect_key(level, ll_h, ll_w, top_slice, other_slices)
     dev = log.device
-    filt_t, dep_t, lh_t, lw_t = _node_tables(
-        c, h, w, ll_h, ll_w, level, rect_key, dev
-    )
+    dup = has_duplicate_parents(h, w, ll_h, ll_w)
+    tabs = _node_tables(c, h, w, ll_h, ll_w, level, dev)
+    rtab = torch.as_tensor(
+        rect_table(level, ll_h, ll_w, (top_slice, other_slices)), device=dev)
     M = nbits + 1
     lg = log[:M].to(torch.int64)
     t = torch.arange(M, dtype=torch.int64, device=dev)
     written = lg != 0
-    node = lg & 0xFFFFFF
-    act = (lg >> 24) & 7
-    nv = ((lg >> 27) & 31) - 1
+    node = torch.where(written, lg & 0xFFFFFFFF, 0)
+    act = (lg >> 32) & 7
+    nv = ((lg >> 35) & 31) - 1
+    depth = tabs[1][node].long()
+    filt = (lg >> 40) & 3 if dup else tabs[0][node].long()
+    rect = rtab[depth.clamp(0, level), filt]  # (M, 4): r0, rlen, c0, clen
+    hw = h * w
     wi = words.to(torch.int64) & 0xFFFFFFFF
     bit_t = (wi[(t >> 5).clamp(0, words.numel() - 1)] >> (t & 31)) & 1
     in_stream = t < nbits
@@ -141,45 +209,31 @@ def expand_event_log(
     is_ref = written & (act == 6) & in_stream
 
     # ---- replay: the value of each event's node before the event ----
-    key = torch.where(written, node, 1 << 24)
-    # packed commit (plane+1, sign); at most one per node
-    pc = torch.where(is_commit, ((nv + 1) << 1) | bit_t, 0)
-    rv = torch.where(is_ref, bit_t << nv.clamp(0, 30), 0)
-    rc = is_ref.to(torch.int64)
+    key = torch.where(written, node, MAX_CELLS)  # past every node
     # stable sort by (node, time): one key, node << 32 | t, all distinct
     order = torch.sort((key << 32) | t).indices
     key_s = key[order]
     start = torch.ones(M, dtype=torch.bool, device=dev)
     start[1:] = key_s[1:] != key_s[:-1]
-    pos = torch.arange(M, dtype=torch.int64, device=dev)
-    sidx = torch.cummax(torch.where(start, pos, 0), 0).values
-
-    def within_excl(x):
-        excl = torch.cumsum(x, 0) - x
-        return excl - excl[sidx]
-
-    commit_p = within_excl(pc[order])
-    refsum = within_excl(rv[order])
-    refcnt = within_excl(rc[order])
-    committed = commit_p > 0
-    nc = (commit_p >> 1) - 1
-    sgn_c = commit_p & 1
-    ncc = nc.clamp(0, 30)
-    one = torch.ones_like(ncc)
-    base = torch.where(
-        ncc == 0, one, (one << (ncc - 1).clamp(min=0)) + (one << ncc)
-    )
-    mag = torch.where(refcnt == 0, base, (one << ncc) | refsum)
-    pre = torch.where(committed, torch.where(sgn_c == 1, mag, -mag), 0)
+    sidx = torch.cummax(torch.where(start, t, 0), 0).values
+    if dup:
+        pre = _replay_in_order(key_s, sidx, is_commit[order], is_ref[order],
+                               bit_t[order], nv[order])
+    else:
+        pc = torch.where(is_commit, ((nv + 1) << 1) | bit_t, 0)
+        rv = torch.where(is_ref, bit_t << nv.clamp(0, 30), 0)
+        pre = _replay_closed_form(sidx, pc[order], rv[order],
+                                  is_ref[order].to(torch.int64))
     prevals = torch.zeros(M, dtype=torch.int64, device=dev)
     prevals[order] = pre
 
     cols = torch.stack(
         [
             act,
-            lh_t[node], lw_t[node],
-            node // (h * w),
-            filt_t[node], dep_t[node],
+            _local((node % hw) // w, rect[:, 0:2]),
+            _local(node % w, rect[:, 2:4]),
+            node // hw,
+            filt, depth,
             nv,
             prevals,
         ],
@@ -198,28 +252,22 @@ def decode_event_log(
     ll_w: int,
     device,
 ):
-    """Decode bytes on ``device`` through kernel B2-log.
+    """Decode bytes on ``device`` through kernel B2-log, or B3-log for
+    duplicate-parent (odd-LL) geometries.
 
     Returns ``(rec, log, words, nbits)``: rec (c, h, w) int32 and log
-    (nbits+1,) int32 on the device; ``log[t]`` is the event of the bit at
-    stream offset ``t``, ``node | action << 24 | (n+1) << 27`` (0 = no
-    event), and the bit itself is ``words[t >> 5] >> (t & 31) & 1``.
-    Raises ValueError for duplicate-parent (odd-LL) geometries, which the
-    port cannot trace yet (ROADMAP Queue A item 10: the JAX package traces
-    them on its XLA sequential machine), and for c*h*w >= 2^24.
+    (nbits+1,) int64 on the device; ``log[t]`` is the event of the bit at
+    stream offset ``t``, ``node | action << 32 | (n+1) << 35 | filter <<
+    40`` (0 = no event; the filter 0 from B2-log), and the bit itself is
+    ``words[t >> 5] >> (t & 31) & 1``.
     """
-    if has_duplicate_parents(h, w, ll_h, ll_w):
-        raise ValueError(
-            f"{c}x{h}x{w} with LL {ll_h}x{ll_w} has duplicate parents: its "
-            "metadata trace needs the sequential machine, not yet ported "
-            "(ROADMAP Queue A item 10)"
-        )
-    if c * h * w >= LOG_MAX_CELLS:
-        raise ValueError(f"{c}x{h}x{w}: the event log takes c*h*w < 2^24")
     words, nbits = words_tensor(data, device)
-    lsp, lsp_val, stat, log = decode_lsp_log(
-        *machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
-    )
+    args = machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
+    if has_duplicate_parents(h, w, ll_h, ll_w):
+        rec, stat, log = decode_seq_log(*args)
+        check_stat(stat, "spiht_decode_seq_log")
+        return rec.reshape(c, h, w), log, words, nbits
+    lsp, lsp_val, stat, log = decode_lsp_log(*args)
     check_stat(stat, "spiht_decode_lsp_log")
     rec = scatter_rec(lsp, lsp_val, stat, c * h * w).reshape(c, h, w)
     return rec, log, words, nbits
@@ -237,9 +285,10 @@ def decode_with_metadata(
     other_slices,
     device,
 ):
-    """(rec, trace) on ``device``: kernel B2-log, then the log's expansion
-    into the reference (nbits+1, 8) trace. Equal to the reference
-    decoder's trace row for row, byte-prefix truncation included."""
+    """(rec, trace) on ``device``: kernel B2-log (B3-log at odd LL), then
+    the log's expansion into the reference (nbits+1, 8) trace. Equal to
+    the reference decoder's trace row for row, byte-prefix truncation
+    included, in every geometry the machines take."""
     rec, log, words, nbits = decode_event_log(
         data, max_n, c, h, w, ll_h, ll_w, device
     )

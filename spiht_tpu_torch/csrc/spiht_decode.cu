@@ -14,6 +14,10 @@
 //                     goes to. It keeps rec in the kernel: a node may be
 //                     committed by several parents, and every LSP instance
 //                     refines the one shared rec value in place.
+//   spiht_decode_seq_log  B3's machine with the LOG flag: the event log of
+//                     the metadata trace for odd-LL geometries (the JAX
+//                     package traces them on the host; the TPU kernel
+//                     _seq_fn has no log).
 //
 // All honour byte-prefix truncation exactly: the machine stops at the
 // first bit it cannot read, and a symbol cut short has no effect (a
@@ -24,15 +28,22 @@
 //   lip[] holds node indices, lis[] node<<1 | type_A; in-place FIFOs as in
 //   the encoder. The commit magnitude is 1.5 * 2^n; refinement sets or
 //   clears bit n of the magnitude and keeps the sign.
+//   B3-log (SEQ and LOG) packs the filter of each entry's instance into
+//   the entry's free bits (nodes are below 2^29): bits 29-30 of a LIP or
+//   LSP word, bits 30-31 of a LIS word. With duplicate parents one node is
+//   reached through up to three LL parents of different parity, and each
+//   instance, with its whole subtree, carries its own filter. The other
+//   instantiations keep the layout above.
 //
-// The event log (LOG = true, B2 only): one int32 word per attempted bit at
-// that bit's stream offset, node | action << 24 | (n+1) << 27, with the
-// reference's action ids (EV_* below). The reference trace writes its row
-// before each read, so the read that finds the stream empty gets a row too,
-// at offset nbits, and nothing follows it: the log holds nbits + 1 words,
-// zeroed by the caller (an unwritten word is 0; a written one is not, as
-// n+1 >= 1). Each word is written by the lane (or, in refinement, the
-// thread) that decides its bit.
+// The event log (LOG = true: B2-log and B3-log): one 64-bit word per
+// attempted bit at that bit's stream offset: node in bits 0-31, action in
+// bits 32-34 (the reference's action ids, EV_* below), n+1 in bits 35-39,
+// and (B3-log; 0 in B2-log) the instance's filter in bits 40-41. The
+// reference trace writes its row before each read, so the read that finds
+// the stream empty gets a row too, at offset nbits, and nothing follows it:
+// the log holds nbits + 1 words, zeroed by the caller (an unwritten word is
+// 0; a written one is not, as n+1 >= 1). Each word is written by the lane
+// (or, in refinement, the thread) that decides its bit.
 //
 // What bounds them on an H100: neither bytes nor arithmetic but the chain
 // of bit decisions in the LIP and LIS passes (each bit's meaning depends on
@@ -89,7 +100,7 @@ struct DecArgs {
   int32_t* __restrict__ rec;       // B3: (N) coefficients, zeroed; B2: unused
   uint64_t* __restrict__ last;     // B3: (N) refinement claims, zeroed
   int32_t* __restrict__ stat;
-  int32_t* __restrict__ log;       // LOG: (nbits + 1) event words, zeroed
+  uint64_t* __restrict__ log;      // LOG: (nbits + 1) event words, zeroed
 };
 
 // Action ids of the event log (the reference metadata taxonomy).
@@ -103,17 +114,61 @@ enum SpihtEvent : int32_t {
   EV_REF = 6,       // a refinement bit
 };
 
-// The plane field of an event word at plane n (n <= 30).
-SPIHT_HD int32_t plane_event(int n) { return (int32_t)((uint32_t)(n + 1) << 27); }
+// Filter ids of the trace (the subband of a node's instance).
+enum SpihtFilter : int32_t { F_LL = 0, F_DA = 1, F_AD = 2, F_DD = 3 };
 
-// The log word of an event; ev = plane_event(n).
-SPIHT_HD int32_t event(int32_t node, int32_t action, int32_t ev) {
-  return node | (action << 24) | ev;
+// The plane field of an event word at plane n (n <= 30).
+SPIHT_HD uint64_t plane_event(int n) { return (uint64_t)(n + 1) << 35; }
+
+// The filter field of an event word.
+SPIHT_HD uint64_t filt_event(int32_t f) { return (uint64_t)f << 40; }
+
+// The log word of an event; ev = plane_event(n) | filt_event(f).
+SPIHT_HD uint64_t event(int32_t node, int32_t action, uint64_t ev) {
+  return (uint64_t)(uint32_t)node | ((uint64_t)action << 32) | ev;
+}
+
+// B3-log's entries: the node and the filter of a LIP or LSP entry (node |
+// f << 29, B3's sign in bit 31) and of a LIS entry (node << 1 | type |
+// f << 30); with FILT false the entry is the bare layout and the filter 0.
+#define NODE_MASK 0x1FFFFFFF
+template <bool FILT> SPIHT_HD int32_t ent_node(int32_t x) {
+  return FILT ? x & NODE_MASK : x;
+}
+template <bool FILT> SPIHT_HD int32_t ent_filt(int32_t x) {
+  return FILT ? (x >> 29) & 3 : 0;
+}
+template <bool FILT> SPIHT_HD int32_t lis_node(int32_t e) {
+  return FILT ? (e >> 1) & NODE_MASK : e >> 1;
+}
+template <bool FILT> SPIHT_HD int32_t lis_filt(int32_t e) {
+  return FILT ? (int32_t)((uint32_t)e >> 30) : 0;
+}
+// The filter bits of a LIP or LSP entry and of a LIS entry.
+template <bool FILT> SPIHT_HD int32_t ent_bits(int32_t f) {
+  return FILT ? f << 29 : 0;
+}
+template <bool FILT> SPIHT_HD int32_t lis_bits(int32_t f) {
+  return FILT ? (int32_t)((uint32_t)f << 30) : 0;
+}
+
+// The filter an entry of filter f at `node` gives its children, the first
+// at c0 (the reference's _offspring_filter): its own, or an LL parent's by
+// the parity of (i, j). An LL parent's first child lies (i odd) (ll_h - 1)
+// rows and (j odd) (ll_w - 1) columns past it, with 1 <= ll_w - 1 < w, so
+// the parity follows from c0 - node.
+SPIHT_HD int32_t child_filt(int32_t f, int32_t node, int32_t c0, int32_t w) {
+  if (f != F_LL) return f;
+  const int32_t d = c0 - node;
+  const bool i_odd = d >= w, j_odd = d % w != 0;
+  return j_odd ? (i_odd ? F_DD : F_AD) : F_DA;
 }
 
 // The log word of a LIS entry's first bit (by its type).
-SPIHT_HD int32_t lis_event(int32_t e, int32_t ev) {
-  return event(e >> 1, (e & 1) ? EV_DESC : EV_LSIG, ev);
+template <bool FILT>
+SPIHT_HD uint64_t lis_event(int32_t e, uint64_t ev) {
+  return event(lis_node<FILT>(e), (e & 1) ? EV_DESC : EV_LSIG,
+               ev | filt_event(lis_filt<FILT>(e)));
 }
 
 // Stream words staged a chunk: an LIS entry reads at most 9 bits, a LIP
@@ -195,6 +250,12 @@ SPIHT_HD int next_bit(const DecArgs& a, const DecShared& sh, DecState& st) {
 
 // B3's LSP entries carry the commit's sign bit above the node.
 #define NODE_BITS 0x7FFFFFFF
+
+// The node of an LSP entry: B2's entries are nodes; B3's carry the sign
+// in bit 31 and, in B3-log, the filter in bits 29-30.
+template <bool SEQ, bool LOG> SPIHT_HD int32_t lsp_node(int32_t x) {
+  return !SEQ ? x : x & (LOG ? NODE_MASK : NODE_BITS);
+}
 // Set in a claim (claim_tag below) when an instance refined in this plane
 // read a 0 bit (LSP indices are below 2^29).
 #define CLEARED (1ull << 31)
@@ -217,23 +278,23 @@ inline void mark_cleared(uint64_t* p) {
 }
 #endif
 
-// A commit at LSP index `at`: B2 writes the node and sgn<<31 | mag; B3
-// writes node | sgn<<31, and sets rec from it after the passes
-// (dec_commit_rec).
+// A commit at LSP index `at` of entry x (the node; in B3-log node | filter
+// << 29): B2 writes the node and sgn<<31 | mag; B3 writes x | sgn<<31, and
+// sets rec from it after the passes (dec_commit_rec).
 template <bool SEQ>
-SPIHT_HD void commit_at(const DecArgs& a, int32_t at, int32_t node, int s,
+SPIHT_HD void commit_at(const DecArgs& a, int32_t at, int32_t x, int s,
                         int32_t mag) {
   const int32_t sgn = (int32_t)((uint32_t)s << 31);
-  a.lsp[at] = SEQ ? node | sgn : node;
+  a.lsp[at] = SEQ ? x | sgn : x;
   if (!SEQ) a.lsp_val[at] = sgn | mag;
 }
 
-// Commit node with sign bit s, from lane 0 (the bit-by-bit path).
+// Commit entry x with sign bit s, from lane 0 (the bit-by-bit path).
 template <bool SEQ>
-SPIHT_HD bool commit(const DecArgs& a, DecState& st, int32_t node, int s,
+SPIHT_HD bool commit(const DecArgs& a, DecState& st, int32_t x, int s,
                      int32_t mag, int lane) {
   if (st.lsp_n >= a.lsp_cap) { st.err = SPIHT_ERR_LSP_CAP; return false; }
-  if (lane == 0) commit_at<SEQ>(a, st.lsp_n, node, s, mag);
+  if (lane == 0) commit_at<SEQ>(a, st.lsp_n, x, s, mag);
   ++st.lsp_n;
   return true;
 }
@@ -250,22 +311,24 @@ SPIHT_HD bool commit(const DecArgs& a, DecState& st, int32_t node, int s,
 // Entries k.. of a LIP chunk, bit by bit, lane 0 storing.
 template <bool SEQ, bool LOG>
 SPIHT_HD bool dec_lip_serial(const DecArgs& a, const DecShared& sh,
-                             int32_t k, int32_t m, int32_t mag, int32_t ev,
+                             int32_t k, int32_t m, int32_t mag, uint64_t ev,
                              DecState& st, int lane) {
+  constexpr bool FILT = SEQ && LOG;
   for (; k < m; ++k) {
-    const int32_t node = sh.e[k];
+    const int32_t x = sh.e[k], node = ent_node<FILT>(x);
+    const uint64_t evx = ev | filt_event(ent_filt<FILT>(x));
     // the read that finds the stream empty is logged too, at nbits
-    if (LOG && lane == 0) a.log[st.cur] = event(node, EV_LIP, ev);
+    if (LOG && lane == 0) a.log[st.cur] = event(node, EV_LIP, evx);
     const int b = next_bit(a, sh, st);
     if (b < 0) return false;
     if (!b) {
-      if (lane == 0) a.lip[st.keep] = node;
+      if (lane == 0) a.lip[st.keep] = x;
       ++st.keep;
       continue;
     }
-    if (LOG && lane == 0) a.log[st.cur] = event(node, EV_LIP_SIGN, ev);
+    if (LOG && lane == 0) a.log[st.cur] = event(node, EV_LIP_SIGN, evx);
     const int s = next_bit(a, sh, st);
-    if (s < 0 || !commit<SEQ>(a, st, node, s, mag, lane)) return false;
+    if (s < 0 || !commit<SEQ>(a, st, x, s, mag, lane)) return false;
   }
   return true;
 }
@@ -280,7 +343,8 @@ SPIHT_HD bool dec_lip_serial(const DecArgs& a, const DecShared& sh,
 // Lane p owns the token starting at bit p of the window, if any.
 template <bool SEQ, bool LOG>
 SPIHT_HD bool dec_lip_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
-                            int32_t mag, int32_t ev, DecState& st, int lane) {
+                            int32_t mag, uint64_t ev, DecState& st, int lane) {
+  constexpr bool FILT = SEQ && LOG;
   const uint32_t below = (1u << lane) - 1;
   const int32_t sw0 = sh.sw0;
   for (int32_t k = 0; k < m;) {
@@ -305,16 +369,18 @@ SPIHT_HD bool dec_lip_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
     const bool mine = (tok >> lane) & 1, s = (sig >> lane) & 1;
     const int32_t r = POPC(tok & below), rs = POPC(sig & below);
     if (mine) {
-      const int32_t node = sh.e[k + r];
+      const int32_t e = sh.e[k + r];
       const int sgn = (int)(x >> (lane + 1)) & 1;
       if (LOG) {
-        a.log[st.cur + lane] = event(node, EV_LIP, ev);
-        if (s) a.log[st.cur + lane + 1] = event(node, EV_LIP_SIGN, ev);
+        const int32_t node = ent_node<FILT>(e);
+        const uint64_t evx = ev | filt_event(ent_filt<FILT>(e));
+        a.log[st.cur + lane] = event(node, EV_LIP, evx);
+        if (s) a.log[st.cur + lane + 1] = event(node, EV_LIP_SIGN, evx);
       }
       if (s) {
-        commit_at<SEQ>(a, st.lsp_n + rs, node, sgn, mag);
+        commit_at<SEQ>(a, st.lsp_n + rs, e, sgn, mag);
       } else {
-        a.lip[st.keep + r - rs] = node;
+        a.lip[st.keep + r - rs] = e;
       }
     }
     st.lsp_n += nsig;
@@ -328,11 +394,12 @@ SPIHT_HD bool dec_lip_chunk(const DecArgs& a, const DecShared& sh, int32_t m,
 // Entries k.. of a LIS chunk, bit by bit, lane 0 storing.
 template <bool SEQ, bool LOG>
 SPIHT_HD bool dec_lis_serial(const DecArgs& a, const DecShared& sh,
-                             int32_t k, int32_t m, int32_t mag, int32_t ev,
+                             int32_t k, int32_t m, int32_t mag, uint64_t ev,
                              DecState& st, int lane) {
+  constexpr bool FILT = SEQ && LOG;
   for (; k < m; ++k) {
     const int32_t e = sh.e[k], g = sh.g[k];
-    if (LOG && lane == 0) a.log[st.cur] = lis_event(e, ev);
+    if (LOG && lane == 0) a.log[st.cur] = lis_event<FILT>(e, ev);
     const int b = next_bit(a, sh, st);
     if (b < 0) return false;
     if (!b) {
@@ -340,20 +407,25 @@ SPIHT_HD bool dec_lis_serial(const DecArgs& a, const DecShared& sh,
       ++st.keep;
       continue;
     }
+    // the filter of the children (B3-log)
+    const int32_t cf = FILT ? child_filt(lis_filt<FILT>(e), lis_node<FILT>(e),
+                                         g >> 2, a.w) : 0;
     if (e & 1) {  // type A: code the 4 offspring
       if ((g >> 1) & 1) {
+        const uint64_t evc = ev | filt_event(cf);
         for (int q = 0; q < 4; ++q) {
           const int32_t ch = (g >> 2) + (q & 1) + (q >> 1) * a.w;
-          if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF, ev);
+          const int32_t x = ch | ent_bits<FILT>(cf);
+          if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF, evc);
           const int c = next_bit(a, sh, st);
           if (c < 0) return false;
           if (c) {
-            if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF_SIGN, ev);
+            if (LOG && lane == 0) a.log[st.cur] = event(ch, EV_OFF_SIGN, evc);
             const int s = next_bit(a, sh, st);
-            if (s < 0 || !commit<SEQ>(a, st, ch, s, mag, lane)) return false;
+            if (s < 0 || !commit<SEQ>(a, st, x, s, mag, lane)) return false;
           } else {
             if (st.lip_n >= a.lip_cap) { st.err = SPIHT_ERR_LIP_CAP; return false; }
-            if (lane == 0) a.lip[st.lip_n] = ch;
+            if (lane == 0) a.lip[st.lip_n] = x;
             ++st.lip_n;
           }
         }
@@ -366,7 +438,8 @@ SPIHT_HD bool dec_lis_serial(const DecArgs& a, const DecShared& sh,
     } else if ((g >> 1) & 1) {  // type B: 4 type-A children
       if (st.lis_n + 4 > a.lis_cap) { st.err = SPIHT_ERR_LIS_CAP; return false; }
       if (lane < 4) {
-        a.lis[st.lis_n + lane] = (((g >> 2) + (lane & 1) + (lane >> 1) * a.w) << 1) | 1;
+        a.lis[st.lis_n + lane] = (((g >> 2) + (lane & 1) + (lane >> 1) * a.w) << 1) |
+                                 1 | lis_bits<FILT>(cf);
       }
       st.lis_n += 4;
     }
@@ -385,7 +458,8 @@ SPIHT_HD bool dec_lis_serial(const DecArgs& a, const DecShared& sh,
 // they are visited later in the same pass, as in the plain version.
 template <bool SEQ, bool LOG>
 SPIHT_HD bool dec_lis_chunk(const DecArgs& a, DecShared& sh, int32_t m,
-                            int32_t mag, int32_t ev, DecState& st, int lane) {
+                            int32_t mag, uint64_t ev, DecState& st, int lane) {
+  constexpr bool FILT = SEQ && LOG;
   const uint32_t below = (1u << lane) - 1;
   const int32_t sw0 = sh.sw0;
   for (int32_t k = 0; k < m; k += SPIHT_WARP) {
@@ -453,23 +527,28 @@ SPIHT_HD bool dec_lis_chunk(const DecArgs& a, DecShared& sh, int32_t m,
         st.lip_n + n_lip > a.lip_cap || st.lis_n + n_app > a.lis_cap)
       return dec_lis_serial<SEQ, LOG>(a, sh, k, m, mag, ev, st, lane);
     if (valid) {
-      if (LOG) a.log[at] = lis_event(e, ev);
+      if (LOG) a.log[at] = lis_event<FILT>(e, ev);
       const int32_t c0 = g >> 2;
+      // the filter of the children (B3-log)
+      const int32_t cf = FILT && fired
+          ? child_filt(lis_filt<FILT>(e), lis_node<FILT>(e), c0, a.w) : 0;
       if (!fired) {
         a.lis[st.keep + (pre >> 24)] = e;
       } else if (vf) {  // a type-A fire: its 4 offspring, then type B
         int32_t bit = at + 1, ci = st.lsp_n + (pre & 255);
         int32_t li = st.lip_n + ((pre >> 8) & 255);
+        const uint64_t evc = ev | filt_event(cf);
         for (int q = 0; q < 4; ++q) {
           const int32_t ch = c0 + (q & 1) + (q >> 1) * a.w;
-          if (LOG) a.log[bit] = event(ch, EV_OFF, ev);
+          const int32_t x = ch | ent_bits<FILT>(cf);
+          if (LOG) a.log[bit] = event(ch, EV_OFF, evc);
           ++bit;
           if ((sig >> q) & 1) {
-            if (LOG) a.log[bit] = event(ch, EV_OFF_SIGN, ev);
+            if (LOG) a.log[bit] = event(ch, EV_OFF_SIGN, evc);
             ++bit;
-            commit_at<SEQ>(a, ci++, ch, (code >> (4 + q)) & 1, mag);
+            commit_at<SEQ>(a, ci++, x, (code >> (4 + q)) & 1, mag);
           } else {
-            a.lip[li++] = ch;
+            a.lip[li++] = x;
           }
         }
       }
@@ -479,7 +558,8 @@ SPIHT_HD bool dec_lis_chunk(const DecArgs& a, DecShared& sh, int32_t m,
           a.lis[li] = e & ~1;
         } else {
           for (int q = 0; q < 4; ++q)
-            a.lis[li + q] = ((c0 + (q & 1) + (q >> 1) * a.w) << 1) | 1;
+            a.lis[li + q] = ((c0 + (q & 1) + (q >> 1) * a.w) << 1) | 1 |
+                            lis_bits<FILT>(cf);
         }
       }
     }
@@ -503,18 +583,26 @@ SPIHT_HD uint64_t claim_tag(const DecArgs& a, int n, int refine) {
 // sgn<<31), by every thread. Where one node was committed more than once
 // (a node with two parents), the latest commit in queue order sets it, as
 // in the plain version.
+template <bool LOG>
 SPIHT_HD void dec_commit_rec(const DecArgs& a, int32_t lo, int32_t hi, int n,
                              int tid, int nt) {
   const uint64_t tag = claim_tag(a, n, 0);
   for (int32_t i = lo + tid; i < hi; i += nt)
-    claim(&a.last[a.lsp[i] & NODE_BITS], tag | (uint32_t)i);
+    claim(&a.last[lsp_node<true, LOG>(a.lsp[i])], tag | (uint32_t)i);
   SPIHT_SYNC();
   const int32_t mag = commit_mag(n);
   for (int32_t i = lo + tid; i < hi; i += nt) {
-    const int32_t e = a.lsp[i], node = e & NODE_BITS;
+    const int32_t e = a.lsp[i], node = lsp_node<true, LOG>(e);
     if (a.last[node] == (tag | (uint32_t)i)) a.rec[node] = e < 0 ? mag : -mag;
   }
   SPIHT_SYNC();
+}
+
+// The log word of the refinement bit of LSP entry x at plane event ev.
+template <bool SEQ, bool LOG>
+SPIHT_HD uint64_t ref_event(int32_t x, uint64_t ev) {
+  return event(lsp_node<SEQ, LOG>(x), EV_REF,
+               ev | filt_event(ent_filt<SEQ && LOG>(x)));
 }
 
 // Refinement of snapshot entries [0, avail) of plane n, whose bits are
@@ -525,10 +613,11 @@ SPIHT_HD void dec_refine(const DecArgs& a, int32_t avail, int32_t snap,
                          int32_t cur, int n, int tid, int nt) {
   const int32_t bit = 1 << n;
   if (LOG) {
-    const int32_t ev = plane_event(n);
+    const uint64_t ev = plane_event(n);
     for (int32_t i = tid; i < avail; i += nt)
-      a.log[cur + i] = event(a.lsp[i], EV_REF, ev);
-    if (tid == 0 && avail < snap) a.log[cur + avail] = event(a.lsp[avail], EV_REF, ev);
+      a.log[cur + i] = ref_event<SEQ, LOG>(a.lsp[i], ev);
+    if (tid == 0 && avail < snap)
+      a.log[cur + avail] = ref_event<SEQ, LOG>(a.lsp[avail], ev);
   }
   if (!SEQ) {
     for (int32_t i = tid; i < avail; i += nt) {
@@ -543,13 +632,14 @@ SPIHT_HD void dec_refine(const DecArgs& a, int32_t avail, int32_t snap,
   // any instance cleared the bit.
   const uint64_t tag = claim_tag(a, n, 1);
   for (int32_t i = tid; i < avail; i += nt)
-    claim(&a.last[a.lsp[i] & NODE_BITS], tag | (uint32_t)i);
+    claim(&a.last[lsp_node<SEQ, LOG>(a.lsp[i])], tag | (uint32_t)i);
   SPIHT_SYNC();
   for (int32_t i = tid; i < avail; i += nt)
-    if (!stream_bit(a.words, cur + i)) mark_cleared(&a.last[a.lsp[i] & NODE_BITS]);
+    if (!stream_bit(a.words, cur + i))
+      mark_cleared(&a.last[lsp_node<SEQ, LOG>(a.lsp[i])]);
   SPIHT_SYNC();
   for (int32_t i = tid; i < avail; i += nt) {
-    const int32_t node = a.lsp[i] & NODE_BITS;
+    const int32_t node = lsp_node<SEQ, LOG>(a.lsp[i]);
     const uint64_t last = a.last[node];
     if ((last & ~CLEARED) != (tag | (uint32_t)i)) continue;  // not the last
     const int32_t x = a.rec[node];
@@ -561,9 +651,10 @@ SPIHT_HD void dec_refine(const DecArgs& a, int32_t avail, int32_t snap,
   }
 }
 
-// One machine for both kernels, run by every thread of the block (tid in
+// One machine for all the kernels, run by every thread of the block (tid in
 // [0, nt)): SEQ selects where a commit and a refinement land (the LSP value
-// queue for B2, the shared rec array for B3); LOG adds the event log.
+// queue for B2, the shared rec array for B3); LOG adds the event log (and,
+// with SEQ, the filter in each queue entry).
 // Every thread keeps `cur`, the bits consumed, from sh.cur after each
 // chunk's barrier, so the whole block stages the next chunk's stream.
 // Thread 0 publishes the LSP length with it (B3 sets rec from the commits
@@ -581,7 +672,8 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
 
   for (; n >= 0; --n) {
     const int32_t lip_len = sh.pub.lip_n, lsp_snap = sh.pub.lsp_n;
-    const int32_t mag = commit_mag(n), ev = plane_event(n);
+    const int32_t mag = commit_mag(n);
+    const uint64_t ev = plane_event(n);
 
     // ---- LIP pass ----
     st.keep = 0;
@@ -614,7 +706,7 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
       for (int32_t i = tid; i < m; i += nt) {
         const int32_t e = a.lis[r0 + i];
         sh.e[i] = e;
-        sh.g[i] = a.geo[e >> 1];
+        sh.g[i] = a.geo[lis_node<SEQ && LOG>(e)];
       }
       stage_stream(a, sh, cur, 9 * m, tid, nt);
       SPIHT_SYNC();
@@ -637,7 +729,7 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
     st.lis_n = st.keep;
     if (tid == 0) sh.pub.lis_n = st.lis_n;
     if (SEQ) {
-      dec_commit_rec(a, in_rec, sh.pub.lsp_n, n, tid, nt);
+      dec_commit_rec<LOG>(a, in_rec, sh.pub.lsp_n, n, tid, nt);
       in_rec = sh.pub.lsp_n;
     }
 
@@ -658,7 +750,7 @@ SPIHT_HD void decode_machine(const DecArgs& a, DecShared& sh, int tid,
   }
 
 out:
-  if (SEQ) dec_commit_rec(a, in_rec, sh.pub.lsp_n, n, tid, nt);
+  if (SEQ) dec_commit_rec<LOG>(a, in_rec, sh.pub.lsp_n, n, tid, nt);
   if (tid != 0) return;
   a.stat[0] = st.lsp_n;
   a.stat[1] = st.err;
@@ -797,7 +889,7 @@ extern "C" int spiht_decode_lsp_log_launch(
     const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
     int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
     int32_t* lsp, int32_t* lsp_val, int32_t lsp_cap, int32_t* stat,
-    int32_t* log, void* stream) {
+    uint64_t* log, void* stream) {
   DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
             lis, lis_cap, lsp, lsp_cap, lsp_val, nullptr, nullptr, stat, log};
   spiht_decode_kernel<false, true>
@@ -814,6 +906,20 @@ extern "C" int spiht_decode_seq_launch(
   DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
             lis, lis_cap, lsp, lsp_cap, nullptr, rec, last, stat, nullptr};
   spiht_decode_kernel<true, false>
+      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, n_rec);
+  return (int)cudaGetLastError();
+}
+
+// B3 with the event log (B3-log): `log` holds nbits + 1 zeroed words.
+extern "C" int spiht_decode_seq_log_launch(
+    const uint32_t* words, int32_t nbits, int32_t max_n, const int32_t* geo,
+    const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
+    int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
+    int32_t* lsp, int32_t lsp_cap, int32_t* rec, uint64_t* last,
+    int32_t n_rec, int32_t* stat, uint64_t* log, void* stream) {
+  DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
+            lis, lis_cap, lsp, lsp_cap, nullptr, rec, last, stat, log};
+  spiht_decode_kernel<true, true>
       <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, n_rec);
   return (int)cudaGetLastError();
 }

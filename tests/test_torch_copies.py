@@ -262,13 +262,24 @@ def test_rect_table_identical(level, ll):
 @pytest.mark.parametrize("c,level,ll", [(1, 2, (4, 4)), (3, 2, (6, 8)),
                                         (2, 3, (12, 12))])
 def test_static_node_tables_identical(c, level, ll):
+    """The port keeps filter and depth per node and computes the local
+    position per trace row; applied to every node, it gives the JAX
+    package's per-node tables exactly."""
     h, w = ll[0] << level, ll[1] << level
-    key = tuple(map(tuple, jdd._rect_table(
-        level, *ll, _wire(level, *ll)).reshape(-1, 4)))
-    a = jme._static_node_tables(c, h, w, *ll, level, key)
-    b = tme._static_node_tables(c, h, w, *ll, level, key)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
+    wire = _wire(level, *ll)
+    key = tuple(map(tuple, jdd._rect_table(level, *ll, wire).reshape(-1, 4)))
+    jfilt, jdepth, jlh, jlw = jme._static_node_tables(c, h, w, *ll, level,
+                                                      key)
+    filt, depth = tme._static_node_tables(c, h, w, *ll, level)
+    np.testing.assert_array_equal(filt, jfilt)
+    np.testing.assert_array_equal(depth, jdepth)
+    rect = torch.as_tensor(tgeom.rect_table(level, *ll, wire))[
+        torch.as_tensor(depth).long(), torch.as_tensor(filt).long()]
+    node = torch.arange(c * h * w)
+    np.testing.assert_array_equal(
+        tme._local((node % (h * w)) // w, rect[:, 0:2]).numpy(), jlh)
+    np.testing.assert_array_equal(
+        tme._local(node % w, rect[:, 2:4]).numpy(), jlw)
 
 
 @pytest.mark.parametrize("name", ["plan_supported", "_static_geometry",

@@ -194,3 +194,41 @@ def test_metadata_trace_on_the_card(cuda):
                                     device="cpu")
         np.testing.assert_array_equal(k[0], p[0])
         np.testing.assert_array_equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("cut", [None, 0, 1, 7, 100])
+def test_seq_log_kernel_equals_plain_version(cuda, cut):
+    """B3-log at an odd LL: rec, stat and every event word (the filters
+    of nodes with several LL parents included) equal the plain version's."""
+    arr = (np.random.default_rng(7).standard_normal((3, 19, 19)) * 900
+           ).astype(np.int32)
+    data, mn = encoder.encode(arr, 5, 5, device="cpu")
+    data = data[:cut]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        words, nbits = decoder.words_tensor(data, dev)
+        out.append(decoder.decode_seq_log(
+            *decoder.machine_args(words, nbits, mn, 3, 19, 19, 5, 5)))
+    for k, p in zip(*out):
+        assert torch.equal(k.cpu(), p)
+
+
+def test_spike_kernels_equal_plain_versions(cuda):
+    from spiht_tpu_torch.tools import spike_hbm_table as thbm
+    from spiht_tpu_torch.tools import spike_pallas_seq as tseq
+
+    for rows, shared in ((8, False), (256, True)):
+        words = torch.as_tensor(tseq.words_of(rows))
+        for rw in (False, True):
+            k = tseq.seq_chain(words.to(cuda), 500, rw, shared)
+            p = tseq.seq_chain(words, 500, rw, shared)
+            assert torch.equal(k[0].cpu(), p[0])
+            assert not rw or torch.equal(k[1].cpu(), p[1])
+    perm = torch.as_tensor(thbm.permutation(15))
+    for chains, shared in ((1, True), (1, False), (8, False), (16, False)):
+        assert torch.equal(
+            thbm.table_chain(perm.to(cuda), 300, chains, shared).cpu(),
+            thbm.table_chain(perm, 300, chains, shared))
+    for chains in (4, 8, 16):
+        assert torch.equal(thbm.table_fire(perm.to(cuda), 300, chains).cpu(),
+                           thbm.table_fire(perm, 300, chains))

@@ -1,6 +1,6 @@
-"""The port stands alone: no file of spiht_tpu_torch, nor chip_smoke.py
-or the scripts beside it, imports jax or the JAX package (static AST
-scan)."""
+"""The port stands alone: no file of spiht_tpu_torch (its tools included),
+nor chip_smoke.py or the scripts beside it, imports jax or the JAX package
+(static AST scan). And its public surface covers the JAX package's."""
 
 import ast
 from pathlib import Path
@@ -36,6 +36,9 @@ def test_scan_covers_the_package():
             "spiht_tpu_torch/native/__init__.py",
             "spiht_tpu_torch/native/runtime.py",
             "spiht_tpu_torch/ops/quantize_kernels.py",
+            "spiht_tpu_torch/tools/__init__.py",
+            "spiht_tpu_torch/tools/spike_hbm_table.py",
+            "spiht_tpu_torch/tools/spike_pallas_seq.py",
             "spiht_tpu_torch/wavelets/dwt.py",
             "spiht_tpu_torch/torch_transform.py"} <= names
 
@@ -54,3 +57,25 @@ def test_no_jax_and_no_reference_package(path):
         top = mod.split(".")[0]
         assert top != "jax" and top != "jaxlib", f"{path}: imports {mod}"
         assert top != "spiht_tpu", f"{path}: imports {mod}"
+
+
+@pytest.mark.parametrize(
+    "h,w,kw,level",
+    [(512, 512, {}, None), (512, 512, dict(wavelet="bior4.4",
+                                           mode="symmetric"), 3),
+     (37, 61, dict(wavelet="db2", mode="periodization"), 2),
+     (4243, 4243, {}, None)],
+)
+def test_public_surface_covers_the_reference(h, w, kw, level):
+    """Every name of ``spiht_tpu.__all__`` is in ``spiht_tpu_torch.__all__``,
+    and both ``get_slices_and_h_w`` give the same slices and dims."""
+    import spiht_tpu
+    import spiht_tpu_torch
+
+    assert set(spiht_tpu.__all__) <= set(spiht_tpu_torch.__all__)
+    assert all(hasattr(spiht_tpu_torch, n) for n in spiht_tpu_torch.__all__)
+    want = spiht_tpu.get_slices_and_h_w(h, w, spiht_tpu.SpihtSettings(**kw),
+                                        level)
+    got = spiht_tpu_torch.get_slices_and_h_w(
+        h, w, spiht_tpu_torch.SpihtSettings(**kw), level)
+    assert got == want

@@ -16,8 +16,9 @@ across chunk boundaries and with every error code.
 The batched kernels' per-stream setup (``encode_stream``,
 ``decode_stream``: stream offsets, per-stream scalars, the capacity rule)
 runs the same way, one host block per stream, against the batched plain
-versions. B2-log's machine (``decode_machine<false, true>``) is held to the
-plain version's event log, B7's one-thread machine to B1's plain version,
+versions. B2-log's and B3-log's machines (``decode_machine<false, true>``,
+``<true, true>``) are held to the plain version's event log, B7's
+one-thread machine to B1's plain version,
 and B6's element body (``quantize_at``) to its plain torch version.
 """
 
@@ -197,18 +198,19 @@ extern "C" void host_decode(int nt, int seq, const uint32_t* words,
     int32_t n_lip0, const int32_t* lis0, int32_t n_lis0, int32_t w,
     int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
     int32_t* lsp, int32_t* lsp_val, int32_t lsp_cap, int32_t* rec,
-    int32_t n_rec, int32_t* stat, int32_t* log) {
+    int32_t n_rec, int32_t* stat, uint64_t* log) {
   memcpy(lip, lip0, 4 * (size_t)n_lip0);
   memcpy(lis, lis0, 4 * (size_t)n_lis0);
   std::vector<uint64_t> last(n_rec, 0);
   if (seq) memset(rec, 0, 4 * (size_t)n_rec);
-  if (log) memset(log, 0, 4 * (size_t)(nbits + 1));
+  if (log) memset(log, 0, 8 * (size_t)(nbits + 1));
   DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
             lis, lis_cap, lsp, lsp_cap, lsp_val, rec, last.data(), stat,
             log};
   auto sh = std::make_unique<DecShared>();
   run_block(nt, [&](int tid, int n) {
-    if (seq) decode_machine<true, false>(a, *sh, tid, n);
+    if (seq && log) decode_machine<true, true>(a, *sh, tid, n);
+    else if (seq) decode_machine<true, false>(a, *sh, tid, n);
     else if (log) decode_machine<false, true>(a, *sh, tid, n);
     else decode_machine<false, false>(a, *sh, tid, n);
   });
@@ -330,16 +332,16 @@ def _host_encode_batch(lib, args, threads=THREADS):
 
 def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False,
                  caps=None, threads=THREADS):
-    """B2's or B3's machine (B2-log's with ``log``) on host threads, held
-    to the plain version; ``caps`` narrows the queue capacities. Returns
-    the stat list."""
+    """B2's or B3's machine (B2-log's or B3-log's with ``log``) on host
+    threads, held to the plain version; ``caps`` narrows the queue
+    capacities. Returns the stat list."""
     words, nbits = decoder.words_tensor(data, "cpu")
     args = decoder.machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
     if caps is not None:
         args = args[:-1] + (tuple(caps),)
     _, _, _, geo, lip0, lis0, _, caps = args
     seq = decoder.has_duplicate_parents(h, w, ll_h, ll_w)
-    events = torch.empty(nbits + 1, dtype=torch.int32) if log else None
+    events = torch.empty(nbits + 1, dtype=torch.int64) if log else None
     lip, lis, lsp, lsp_val = (
         torch.empty(max(n, 1), dtype=torch.int32)
         for n in (caps[0], caps[1], caps[2], caps[2])
@@ -354,7 +356,11 @@ def _host_decode(lib, data, max_n, c, h, w, ll_h, ll_w, log=False,
         _p(stat), ctypes.c_void_p(events.data_ptr() if log else None),
     )
     if seq:
-        prec, ps = decoder.decode_seq(*args)
+        if log:
+            prec, ps, plog = decoder.decode_seq_log(*args)
+            assert torch.equal(events, plog)
+        else:
+            prec, ps = decoder.decode_seq(*args)
         assert stat.tolist() == ps.tolist()
         assert torch.equal(rec, prec)
         return ps.tolist()
@@ -396,12 +402,15 @@ def test_kernel_sources_equal_plain_versions(host_lib, shape, ll):
         ((3, 24, 32), (6, 8)),
         ((2, 34, 18), (4, 2)),
         ((1, 70, 70), (12, 12)),
+        ((3, 19, 19), (5, 5)),  # odd LL: B3-log
+        ((1, 70, 70), (9, 9)),
     ],
 )
 def test_log_machine_equals_plain_event_log(host_lib, shape, ll):
-    """B2-log's machine: the LSP queues, stat and every event word equal
-    the plain version's, on full streams, byte prefixes and prefixes cut
-    inside a symbol (the log's row at nbits)."""
+    """B2-log's and B3-log's machines: the LSP queues (B2-log) or rec
+    (B3-log), stat and every event word, filters included, equal the plain
+    version's, on full streams, byte prefixes and prefixes cut inside a
+    symbol (the log's row at nbits)."""
     rng = np.random.default_rng(sum(shape) + 2)
     arr = (rng.standard_normal(shape) * 900).astype(np.int32)
     full, max_n = japi.encode(arr, *ll, 2**31 - 2)
@@ -521,8 +530,9 @@ SWEEP_THREADS = 32  # warp 0 alone is the block: half the host barriers
         ((3, 24, 32), (6, 8), False),  # B2
         ((3, 24, 32), (6, 8), True),   # B2-log
         ((3, 19, 19), (5, 5), False),  # B3 (odd LL)
+        ((3, 19, 19), (5, 5), True),   # B3-log
     ],
-    ids=["b2", "b2_log", "b3"],
+    ids=["b2", "b2_log", "b3", "b3_log"],
 )
 def test_decode_machines_on_every_byte_prefix(host_lib, shape, ll, log):
     """Every byte prefix of a ~300-byte stream: the cut falls at every
@@ -586,13 +596,11 @@ def test_decode_machines_at_narrowed_capacities(host_lib, shape, ll, which,
     init = (args[4].numel(), args[5].numel(), 0)
     full = _host_decode(host_lib, data, max_n, *shape, *ll)
     final = (full[2], full[3], full[4])  # the queues' final lengths
-    logs = (False,) if decoder.has_duplicate_parents(*shape[1:], *ll) else (
-        False, True)
     errs = set()
     for frac in (0.3, 0.6, 0.9):
         caps = list(args[-1])
         caps[which] = max(init[which], int(final[which] * frac))
-        for log in logs:
+        for log in (False, True):
             errs.add(_host_decode(host_lib, data, max_n, *shape, *ll,
                                   log=log, caps=caps)[1])
     assert err in errs
