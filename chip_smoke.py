@@ -58,6 +58,11 @@ Phases:
       to B1 and B2
   17. the dependent-chain spikes (spiht_tpu_torch/tools): their entry
       points at small K, then each spike kernel vs its plain version
+  18. the machine and block spikes (spiht_tpu_torch/tools): the entry
+      points of spike_pallas_machine (S4, 4 x 3.4 MB of state),
+      spike_pallas_ilp (S3, 2 MB an array, B = 1, 2, 4, 8 in both
+      layouts), spike_pallas_block (S5, 512 rows) and spike_token_matmul
+      (S6, both first) at small K, then every variant vs its plain version
 """
 
 from __future__ import annotations
@@ -77,7 +82,10 @@ from spiht_tpu_torch import _build
 from spiht_tpu_torch.codec import decoder, encoder, meta_expand
 from spiht_tpu_torch.native import runtime as native
 from spiht_tpu_torch.ops.quantize_kernels import quantize_compact
-from spiht_tpu_torch.tools import card, spike_hbm_table, spike_pallas_seq
+from spiht_tpu_torch.tools import (
+    card, spike_hbm_table, spike_pallas_block, spike_pallas_ilp,
+    spike_pallas_machine, spike_pallas_seq, spike_token_matmul,
+)
 from spiht_tpu_torch.torch_transform import _scaled_coeffs, forward
 from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
 
@@ -86,10 +94,17 @@ from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
 # published rate to the machines' scalar integer operations
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# H100 SXM dense tensor-core rates (NVIDIA data sheet, 700 W): S6's mma
+# kinds
+BF16_FLOPS_PER_S = 989.4e12
+TF32_FLOPS_PER_S = 494.7e12
 # operations per stream bit: the test that decides it and the shift/or that
 # writes (encoder) or reads (decoders) it; per dependent access of a spike:
 # the load and the step's use of it
 OPS_PER_BIT = 2
+# S6's scan kind: the 64-bit operations of one 128-bit window's heads
+# (token_sig twice, the carry, the starts, two popcounts, the fold)
+SCAN_OPS_PER_WINDOW = 32
 DEV = "cuda"  # every card-side call names it
 
 CONFIG_A = pt.SpihtSettings(
@@ -174,6 +189,27 @@ KERNELS = {
         wrapper=spike_hbm_table.table_fire,
         source="spiht_tpu_torch/csrc/spike_chains.cu",
         replaces="tools/spike_hbm_table.py:128",
+    ),
+    # the machine and block spikes of tools/
+    "spike_machine": dict(
+        wrapper=spike_pallas_machine.machine,
+        source="spiht_tpu_torch/csrc/spike_chains.cu",
+        replaces="tools/spike_pallas_machine.py:37",
+    ),
+    "spike_ilp": dict(
+        wrapper=spike_pallas_ilp.chains,
+        source="spiht_tpu_torch/csrc/spike_chains.cu",
+        replaces="tools/spike_pallas_ilp.py:40",
+    ),
+    "spike_block": dict(
+        wrapper=spike_pallas_block.block,
+        source="spiht_tpu_torch/csrc/spike_blocks.cu",
+        replaces="tools/spike_pallas_block.py:42",
+    ),
+    "spike_token": dict(
+        wrapper=spike_token_matmul.token_heads,
+        source="spiht_tpu_torch/csrc/spike_blocks.cu",
+        replaces="tools/spike_token_matmul.py:48",
     ),
 }
 FULL = 2**31 - 2
@@ -421,6 +457,11 @@ def bound_ms(name, stats):
     (OPS_PER_BIT for each stream bit) over the scalar rate. A batch's
     work is the sum of its streams'."""
     args = stats["args"]
+    if "bytes" in stats:  # S5, S6: bytes and operations counted by phase 18
+        t_bytes = stats["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = stats["ops"] / stats["ops_per_s"] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
     if name.startswith("spike_"):
         # one int32 read a dependent access, the output row written
         t_bytes = (4 * stats["accesses"] + stats["out_bytes"]) / \
@@ -1310,7 +1351,7 @@ def phase_wave(ims16):
     torch.cuda.empty_cache()
 
 
-SPIKE_K = 2000  # phase 17's steps
+SPIKE_K = 2000  # phases 17 and 18: steps (S5: block iterations, S6: windows)
 
 
 def phase_spikes():
@@ -1373,8 +1414,100 @@ def phase_spikes():
     return stats, n
 
 
+MACHINE_SPIKES = ("spike_machine", "spike_ilp", "spike_block", "spike_token")
+
+
+def cmp_machine(fn, words, k, state, *args):
+    """S3/S4 on the card vs the plain version from a fresh INT32_MIN state:
+    the output row and the state after it. Returns the stats."""
+    mach = spike_pallas_machine
+    state.fill_(mach.INT32_MIN)
+    out = fn(words, k, state, *args)
+    cstate = mach.new_state(state.shape[0], state.shape[2])
+    pout, plain_ms = timed(fn, words.cpu(), k, cstate, *args)
+    err = max_abs(out.cpu().numpy(), pout.numpy())
+    check(err == 0 and torch.equal(state.cpu(), cstate),
+          f"{fn.__name__} (B {state.shape[0]} {args}) != plain")
+    return dict(args=(words, k, state, *args), plain_ms=plain_ms,
+                max_abs_err=err, accesses=6 * k * state.shape[0],
+                out_bytes=4 * pout.numel())
+
+
+def phase_machine_spikes():
+    """Phase 18: the machine and block spikes through their tools' entry
+    points at small K (S3 at every B in both layouts, S6 with both first),
+    the counts set to 0 just before and read just after; then every
+    variant vs its plain version: S3 at each B and layout, S4, S5, and
+    each of S6's kinds."""
+    mach, ilp = spike_pallas_machine, spike_pallas_ilp
+    blk, tok = spike_pallas_block, spike_token_matmul
+    reset_counts()
+    runs = {
+        "spike_pallas_machine": mach.run(SPIKE_K, check=False),
+        "spike_pallas_ilp": ilp.run(SPIKE_K, check=False),
+        "spike_pallas_block": blk.run(SPIKE_K, check=False),
+        "spike_token_matmul": tok.run(SPIKE_K, check=False),
+    }
+    torch.cuda.synchronize()
+    n = counts()
+    check(all(n[k] > 0 for k in MACHINE_SPIKES)
+          and not any(v for k, v in n.items() if k not in MACHINE_SPIKES),
+          f"machine spikes: launches {n}")
+    stats = {}
+    words = torch.as_tensor(mach.words_of(), device=DEV)
+    stats["spike_machine"] = cmp_machine(
+        mach.machine, words, SPIKE_K,
+        mach.new_state(1, mach.state_size(3.4), DEV))
+    for b in mach.CHAINS:
+        state = mach.new_state(b, mach.state_size(2.0), DEV)
+        for layout in ilp.LAYOUTS:
+            st = cmp_machine(ilp.chains, words, SPIKE_K, state, layout)
+            if (b, layout) == (8, "ilp"):
+                stats["spike_ilp"] = st
+        del state
+    mag = torch.as_tensor(blk.mag_of(), device=DEV)
+    got = blk.block(mag, SPIKE_K)
+    want, plain_ms = timed(blk.block, mag.cpu(), SPIKE_K)
+    err = max(max_abs(g.cpu().numpy(), w.numpy()) for g, w in zip(got, want))
+    check(err == 0, "spike_block != plain")
+    pos = int(want[0][0, 0])
+    stats["spike_block"] = dict(
+        args=(mag, SPIKE_K), plain_ms=plain_ms, max_abs_err=err,
+        # a mag row read, 128 queue appends an iteration; the words written
+        bytes=SPIKE_K * 2 * 4 * blk.LANES + (pos + 7) // 8 + 16,
+        ops=OPS_PER_BIT * blk.LANES * SPIKE_K, ops_per_s=SCALAR_OPS_PER_S)
+    x = torch.as_tensor(tok.x_of(), device=DEV)
+    tok_ms = {}
+    for kind in tok.KINDS:
+        out = tok.token_heads(x, SPIKE_K, kind)
+        pout, plain_ms = timed(tok.token_heads, x.cpu(), SPIKE_K, kind)
+        err = max_abs(out.cpu().numpy(), pout.numpy())
+        check(err == 0, f"spike_token ({kind}) != plain")
+        tok_ms[kind] = time_kernel(tok.token_heads, (x, SPIKE_K, kind))
+        if kind == "mma_bf16":
+            stats["spike_token"] = dict(
+                args=(x, SPIKE_K, kind), plain_ms=plain_ms, max_abs_err=err,
+                bytes=4 * x.numel() + 4,
+                ops=7 * 2 * tok.LANES**3 * SPIKE_K,
+                ops_per_s=BF16_FLOPS_PER_S)
+    # each kind's bound: the mma kinds by their products at the dense
+    # tensor-core rate, scan by its 64-bit operations at the scalar rate
+    bounds = {
+        "scan": SCAN_OPS_PER_WINDOW * SPIKE_K / SCALAR_OPS_PER_S * 1e3,
+        "mma_tf32": 7 * 2 * tok.LANES**3 * SPIKE_K / TF32_FLOPS_PER_S * 1e3,
+        "mma_bf16": 7 * 2 * tok.LANES**3 * SPIKE_K / BF16_FLOPS_PER_S * 1e3,
+    }
+    print(json.dumps({
+        "phase": "18 machine and block spikes at small K", "launches": n,
+        **runs, "spike_token_ms_by_kind": tok_ms,
+        "spike_token_bound_ms_by_kind": bounds, "kernels_equal_plain": True,
+    }))
+    reset_counts()
+    return stats, n
+
+
 def run_phases() -> list:
-    """Phases 2-17; returns the kernels' rows of the result line."""
+    """Phases 2-18; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -1460,6 +1593,9 @@ def run_phases() -> list:
     # ---- phase 17: the dependent-chain spikes ----
     spikes, n_spikes = phase_spikes()
 
+    # ---- phase 18: the machine and block spikes ----
+    blocks, n_blocks = phase_machine_spikes()
+
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),
         "spiht_decode_lsp": (dec_a, n_a["spiht_decode_lsp"]),
@@ -1472,6 +1608,7 @@ def run_phases() -> list:
         "spiht_quantize_compact": (q_a, n_q),
         "spiht_encode_seq": (seq_a, n_seq),
         **{name: (st, n_spikes[name]) for name, st in spikes.items()},
+        **{name: (st, n_blocks[name]) for name, st in blocks.items()},
     }
     rows = []
     for name, (stats, launches) in runs.items():
@@ -1535,8 +1672,12 @@ def main() -> int:
                              "(B1-B5, B2-log, B3-log, B7), no single PyTorch "
                              "call computes B6's four outputs (int32 "
                              "quantize, int16 clip, level map, overflow "
-                             "flag), and none a dependent chain of K reads "
-                             "(the spikes)"}))
+                             "flag), none a dependent chain of K reads or "
+                             "of K decoder steps (S1-S4), none S5's block "
+                             "iteration (scan, compaction and emission "
+                             "together), and none S6's token closure: a "
+                             "chain of K dependent windows, each seven "
+                             "thresholded squarings, not one product"}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -80,6 +80,11 @@ SIGNATURES = {
         "spike_seq_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
         "spike_table_launch": [_P, _I, _I, _I, _I, _P, _P],
         "spike_fire_launch": [_P, _I, _I, _I, _I, _P, _P],
+        "spike_machine_launch": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    },
+    "spike_blocks": {
+        "spike_block_launch": [_P, _I, _I, _P, _P, _P, _P, _P],
+        "spike_token_launch": [_P, _I, _I, _P, _P],
     },
 }
 

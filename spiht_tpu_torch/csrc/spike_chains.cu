@@ -25,6 +25,18 @@
 //                  (clamped to the table) a chain a step, 4B in flight; the
 //                  chain goes on through T[x], the other three fold into a
 //                  checksum so no load is dead.
+//   spike_machine  replaces tools/spike_pallas_machine.py:build's kernel
+//                  (:37, pallas_call :92) and tools/spike_pallas_ilp.py:
+//                  build's kernel (:40, pallas_call :102): K steps of the
+//                  sequential decoder's per-bit body (machine_step) over
+//                  four state arrays (rec, lip, lsp, lis) of `size` words a
+//                  chain and the stream words, in B chains. Layout ilp: one
+//                  thread steps the B chains, the B chains' loads of a step
+//                  issued together (the TPU spike's design); layout warp: B
+//                  lanes of one warp, one chain a lane. The TPU kernels
+//                  extract each word from a (1, 128) row by a one-hot sum
+//                  and write by masked row read-modify-writes; here a thread
+//                  indexes the word.
 //
 // What bounds them on an H100: by design, the latency of each dependent
 // access (shared memory, L1, L2 or HBM by where the array lies), not bytes
@@ -33,7 +45,13 @@
 // indexing, no extraction, the B chains' loads independent of each other.
 // The outputs are those of the TPU kernels: (1, 2) int32 (pos, acc) for
 // spike_seq, (1, 128) int32 for the table spikes (lane b chain b's head,
-// the other lanes x for one chain, 0 for B chains, the checksum for fire).
+// the other lanes x for one chain, 0 for B chains, the checksum for fire),
+// (1, 3B + 1) int32 for spike_machine (chain b's pos, acc, cnt at 3b..3b+2;
+// the last entry, which the TPU kernel never writes, INT32_MIN as the
+// interpreter leaves it). spike_machine's state starts at INT32_MIN too
+// (the caller fills it): the TPU kernels never initialise their scratch,
+// and never write lip or lis, so the chain reads what the interpreter
+// fills scratch with.
 //
 // The chains are plain functions (SPIKE_HD) that the kernels call and that
 // also compile as host C++ (tests/test_torch_spikes.py holds them to the
@@ -124,6 +142,97 @@ SPIKE_HD void fire_chain(const int32_t* table, int32_t n, int32_t k,
 }
 
 #ifdef __CUDACC__
+// lip and lis are never written by spike_machine: read them on the
+// read-only path, so their loads need not wait for the rec and lsp stores
+#define SPIKE_LDG(p) __ldg(p)
+#else
+#define SPIKE_LDG(p) (*(p))
+#endif
+
+// v mod n in [0, n) (Python's %: the spike's int32 arithmetic floors; C's
+// % truncates toward zero, and acc or lip ^ word may be negative).
+SPIKE_HD int32_t floormod(int32_t v, int32_t n) {
+  const int32_t r = v % n;
+  return r < 0 ? r + n : r;
+}
+
+// One chain's state arrays, `size` int32 words each.
+struct MachineArrays {
+  int32_t* rec;
+  const int32_t* lip;
+  int32_t* lsp;
+  const int32_t* lis;
+};
+
+// K steps of spike_pallas_machine's body (:41-82) in B chains, the B
+// chains' loads of each step issued before any of its stores (the chains
+// share no array, so this is the order of the spike's body). One step:
+//   word = words[pos], bit = (word >> (pos & 31)) & 1
+//   node = floormod(lip[floormod(acc)] ^ word); rec[node] += bit + 1
+//   lsp[cnt mod size] = node; lval = lis[floormod(node * 7)]
+//   acc ^= word + pos + lval; pos = (pos + 1 + ((word >> (pos & 7)) & 7))
+//   mod nwords; cnt += bit
+// in int32 arithmetic that wraps (done in uint32). st holds each chain's
+// (pos, acc, cnt), updated in place.
+template <int B>
+SPIKE_HD void machine_chain(const int32_t* __restrict__ words, int32_t nwords,
+                            int32_t size, int32_t k, const MachineArrays* arr,
+                            int32_t* st) {
+  int32_t pos[B], acc[B], cnt[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    pos[b] = st[3 * b];
+    acc[b] = st[3 * b + 1];
+    cnt[b] = st[3 * b + 2];
+  }
+  for (int32_t t = 0; t < k; ++t) {
+    int32_t word[B], ent[B], node[B], r[B], lval[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      word[b] = words[pos[b]];
+      ent[b] = SPIKE_LDG(arr[b].lip + floormod(acc[b], size));
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      node[b] = floormod(ent[b] ^ word[b], size);
+      r[b] = arr[b].rec[node[b]];
+      lval[b] = SPIKE_LDG(
+          arr[b].lis + floormod((int32_t)((uint32_t)node[b] * 7u), size));
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int32_t bit = (word[b] >> (pos[b] & 31)) & 1;
+      arr[b].rec[node[b]] = (int32_t)((uint32_t)r[b] + (uint32_t)(bit + 1));
+      arr[b].lsp[cnt[b] % size] = node[b];  // cnt >= 0
+      acc[b] ^= (int32_t)((uint32_t)word[b] + (uint32_t)pos[b] +
+                          (uint32_t)lval[b]);
+      pos[b] = (pos[b] + 1 + ((word[b] >> (pos[b] & 7)) & 7)) % nwords;
+      cnt[b] += bit;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    st[3 * b] = pos[b];
+    st[3 * b + 1] = acc[b];
+    st[3 * b + 2] = cnt[b];
+  }
+}
+
+// Chain b of a spike_machine launch: its arrays in the (B, 4, size) state
+// (rec, lip, lsp, lis) and its start (37b, 101b, 0), as the ILP spike's.
+SPIKE_HD MachineArrays machine_arrays(int32_t* state, int32_t size, int b) {
+  int32_t* s = state + (int64_t)4 * b * size;
+  return MachineArrays{s, s + size, s + 2 * (int64_t)size,
+                       s + 3 * (int64_t)size};
+}
+
+SPIKE_HD void machine_start(int b, int32_t* st) {
+  st[0] = 37 * b;
+  st[1] = 101 * b;
+  st[2] = 0;
+}
+
+#ifdef __CUDACC__
 
 #include <cuda_runtime.h>
 
@@ -180,6 +289,74 @@ __global__ void spike_fire_kernel(const int32_t* __restrict__ table,
                                   int32_t n, int32_t k, int32_t w_off,
                                   int32_t* __restrict__ out) {
   fire_chain<B>(table, n, k, w_off, out);
+}
+
+// spike_machine, layout ilp: one thread steps the B chains.
+template <int B>
+__global__ void spike_machine_ilp_kernel(const int32_t* __restrict__ words,
+                                         int32_t nwords, int32_t* state,
+                                         int32_t size, int32_t k,
+                                         int32_t* __restrict__ out) {
+  MachineArrays arr[B];
+  int32_t st[3 * B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    arr[b] = machine_arrays(state, size, b);
+    machine_start(b, st + 3 * b);
+  }
+  machine_chain<B>(words, nwords, size, k, arr, st);
+#pragma unroll
+  for (int i = 0; i < 3 * B; ++i) out[i] = st[i];
+  out[3 * B] = INT32_MIN;
+}
+
+// spike_machine, layout warp: lane b of one warp steps chain b.
+__global__ void spike_machine_warp_kernel(const int32_t* __restrict__ words,
+                                          int32_t nwords, int32_t* state,
+                                          int32_t size, int32_t k,
+                                          int32_t chains,
+                                          int32_t* __restrict__ out) {
+  const int b = threadIdx.x;
+  if (b == 0) out[3 * chains] = INT32_MIN;
+  if (b >= chains) return;
+  const MachineArrays arr = machine_arrays(state, size, b);
+  int32_t st[3];
+  machine_start(b, st);
+  machine_chain<1>(words, nwords, size, k, &arr, st);
+  out[3 * b] = st[0];
+  out[3 * b + 1] = st[1];
+  out[3 * b + 2] = st[2];
+}
+
+// spike_machine: `chains` in {1, 2, 4, 8} over nwords stream words and the
+// (chains, 4, size) state (INT32_MIN-filled by the caller); warp = 0 the
+// ilp layout, 1 the warp layout. out: 3 chains + 1 int32.
+extern "C" int spike_machine_launch(const int32_t* words, int32_t nwords,
+                                    int32_t* state, int32_t size, int32_t k,
+                                    int32_t chains, int32_t warp,
+                                    int32_t* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (warp) {
+    if (chains != 1 && chains != 2 && chains != 4 && chains != 8)
+      return (int)cudaErrorInvalidValue;
+    spike_machine_warp_kernel<<<1, 32, 0, s>>>(words, nwords, state, size, k,
+                                               chains, out);
+  } else if (chains == 1) {
+    spike_machine_ilp_kernel<1><<<1, 1, 0, s>>>(words, nwords, state, size,
+                                                k, out);
+  } else if (chains == 2) {
+    spike_machine_ilp_kernel<2><<<1, 1, 0, s>>>(words, nwords, state, size,
+                                                k, out);
+  } else if (chains == 4) {
+    spike_machine_ilp_kernel<4><<<1, 1, 0, s>>>(words, nwords, state, size,
+                                                k, out);
+  } else if (chains == 8) {
+    spike_machine_ilp_kernel<8><<<1, 1, 0, s>>>(words, nwords, state, size,
+                                                k, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // spike_seq: size words (a power of two; shared: 2^15), rw writes the

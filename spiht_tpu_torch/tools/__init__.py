@@ -1,7 +1,9 @@
 """Microbenchmarks of the port on the card: the Hopper counterparts of the
-JAX package's TPU spikes in ``tools/`` (``spike_pallas_seq``,
-``spike_hbm_table``), each a ``python -m spiht_tpu_torch.tools.<name>``
-that prints one JSON line with the card's name and power limit."""
+JAX package's six TPU spikes in ``tools/`` (``spike_hbm_table``,
+``spike_pallas_seq``, ``spike_pallas_ilp``, ``spike_pallas_machine``,
+``spike_pallas_block``, ``spike_token_matmul``), each a ``python -m
+spiht_tpu_torch.tools.<name>`` that prints one JSON line with the card's
+name and power limit."""
 
 from __future__ import annotations
 

@@ -232,3 +232,38 @@ def test_spike_kernels_equal_plain_versions(cuda):
     for chains in (4, 8, 16):
         assert torch.equal(thbm.table_fire(perm.to(cuda), 300, chains).cpu(),
                            thbm.table_fire(perm, 300, chains))
+
+
+def test_block_and_machine_spikes_equal_plain_versions(cuda):
+    """S3 (each B, both layouts), S4, S5 and each of S6's kinds on the
+    card equal their plain versions at small sizes; each wrapper counts
+    its launches."""
+    from spiht_tpu_torch.tools import spike_pallas_block as tblock
+    from spiht_tpu_torch.tools import spike_pallas_ilp as tilp
+    from spiht_tpu_torch.tools import spike_pallas_machine as tmach
+    from spiht_tpu_torch.tools import spike_token_matmul as ttok
+
+    words = torch.as_tensor(tmach.words_of(8))
+    size = 891 * tmach.LANES  # not a power of two
+    n0 = tmach.machine.launches
+    assert tmach.equals_plain(tmach.machine, words.to(cuda), 700,
+                              tmach.new_state(1, size, cuda))
+    assert tmach.machine.launches == n0 + 1
+    n0 = tilp.chains.launches
+    for b in tmach.CHAINS:
+        for layout in tilp.LAYOUTS:
+            assert tilp.equals_plain(tilp.chains, words.to(cuda), 700,
+                                     tmach.new_state(b, size, cuda), layout)
+    assert tilp.chains.launches == n0 + 2 * len(tmach.CHAINS)
+    mag = torch.as_tensor(tblock.mag_of(8))
+    n0 = tblock.block.launches
+    for niter in (0, 1, 24, 300):
+        assert tblock.equals_plain(mag.to(cuda), niter)
+    assert tblock.block.launches == n0 + 4
+    x = torch.as_tensor(ttok.x_of())
+    n0 = ttok.token_heads.launches
+    for kind in ttok.KINDS:
+        for k in (0, 16, 300):
+            assert torch.equal(ttok.token_heads(x.to(cuda), k, kind).cpu(),
+                               ttok.token_heads(x, k, kind))
+    assert ttok.token_heads.launches == n0 + 3 * len(ttok.KINDS)

@@ -39,6 +39,10 @@ def test_scan_covers_the_package():
             "spiht_tpu_torch/tools/__init__.py",
             "spiht_tpu_torch/tools/spike_hbm_table.py",
             "spiht_tpu_torch/tools/spike_pallas_seq.py",
+            "spiht_tpu_torch/tools/spike_pallas_machine.py",
+            "spiht_tpu_torch/tools/spike_pallas_ilp.py",
+            "spiht_tpu_torch/tools/spike_pallas_block.py",
+            "spiht_tpu_torch/tools/spike_token_matmul.py",
             "spiht_tpu_torch/wavelets/dwt.py",
             "spiht_tpu_torch/torch_transform.py"} <= names
 

@@ -20,6 +20,8 @@ versions. B2-log's and B3-log's machines (``decode_machine<false, true>``,
 ``<true, true>``) are held to the plain version's event log, B7's
 one-thread machine to B1's plain version,
 and B6's element body (``quantize_at``) to its plain torch version.
+The block spike's iterations (``block_spike``, ``csrc/spike_blocks.cu``)
+run on a host block of 128 threads against the spike's numpy model.
 """
 
 import ctypes
@@ -107,6 +109,7 @@ int32_t spiht_host_shfl_up(int lane, int32_t v, int d) {
 #include "spiht_encode.cu"
 #include "spiht_decode.cu"
 #include "spiht_quantize.cu"
+#include "spike_blocks.cu"
 template <class F> static void run_block(int nt, F f) {
   g_body = [&](int t) { f(t, nt); };
   g_f.resize(nt);
@@ -220,6 +223,15 @@ extern "C" int32_t host_quantize(const float* x, int64_t n, float scale,
   bool over = false;
   for (int64_t i = 0; i < n; ++i) over |= quantize_at(x, scale, i, arr, a16, m);
   return over;
+}
+// spike_block's iterations on a host block of 128 threads
+extern "C" void host_spike_block(const int32_t* mag, int32_t rows,
+    int32_t niter, int32_t* out, int32_t* lsp, int32_t* lip,
+    uint32_t* words) {
+  BlockShared sh{};
+  run_block(BLOCK_LANES, [&](int tid, int) {
+    block_spike(mag, rows, niter, out, lsp, lip, words, sh, tid);
+  });
 }
 extern "C" void host_encode_batch(int nt, int32_t n_streams,
     const int32_t* t1, const int32_t* t3s, const int32_t* child0,
@@ -740,3 +752,21 @@ def test_encoder_at_narrowed_capacities(host_lib, shape, ll):
     bargs = bargs[:9] + (21,)
     _, rows = _host_encode_batch(host_lib, bargs)
     assert rows == [st]
+
+
+@pytest.mark.parametrize("rows,niter", [(8, 24), (1, 9), (3, 50)])
+def test_block_spike_source_equals_plain_version(host_lib, rows, niter):
+    """``block_spike`` on 128 fibers: out, LSP, LIP and the words whole
+    equal ``ref_model``'s, across wraps of every array (one row wraps each
+    iteration) and the boundary words two iterations share."""
+    from spiht_tpu_torch.tools import spike_pallas_block as tblock
+
+    mag = torch.as_tensor(tblock.mag_of(rows))
+    got = [torch.full((1, 4), -1, dtype=torch.int32)] + [
+        torch.full((rows, tblock.LANES), -1, dtype=torch.int32)
+        for _ in range(3)]
+    host_lib.host_spike_block(_p(mag), _i(rows), _i(niter),
+                              *(_p(t) for t in got))
+    want = tblock.block(mag, niter)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
