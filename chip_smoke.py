@@ -63,13 +63,26 @@ Phases:
       spike_pallas_ilp (S3, 2 MB an array, B = 1, 2, 4, 8 in both
       layouts), spike_pallas_block (S5, 512 rows) and spike_token_matmul
       (S6, both first) at small K, then every variant vs its plain version
+  19. the host surface on the card: (a) all 32 colour models at 3x512x512,
+      1.0 bpp, through encode_image_device / decode_image_device (B1, B2),
+      the card's coefficients held to the CPU transform under the boundary
+      rule, streams and rec to the plain machines, images to the CPU
+      inverse; (b) encode_image / decode_image under the numpy, native and
+      torch transform backends at A and B (B3), encode_images /
+      decode_images on the A batch of 16 under native and torch, and the
+      float32 host-scheduled path (B6) with Oklab; (c) the command line's
+      array cores with --device cuda: encode-decode (device, native),
+      encode and decode of a stream file, plan, sweep, batch (B4)
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+import os
 import statistics
+import tempfile
 import sys
 import threading
 import time
@@ -78,15 +91,18 @@ import numpy as np
 import torch
 
 import spiht_tpu_torch as pt
-from spiht_tpu_torch import _build
+from spiht_tpu_torch import _build, cli, metrics
+from spiht_tpu_torch import transform as host_transform
 from spiht_tpu_torch.codec import decoder, encoder, meta_expand
+from spiht_tpu_torch.codec.planning import plan_image
+from spiht_tpu_torch.color import torch_models
 from spiht_tpu_torch.native import runtime as native
 from spiht_tpu_torch.ops.quantize_kernels import quantize_compact
 from spiht_tpu_torch.tools import (
     card, spike_hbm_table, spike_pallas_block, spike_pallas_ilp,
     spike_pallas_machine, spike_pallas_seq, spike_token_matmul,
 )
-from spiht_tpu_torch.torch_transform import _scaled_coeffs, forward
+from spiht_tpu_torch.torch_transform import _scaled_coeffs, forward, inverse
 from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W), the bound's denominators: the
@@ -1506,8 +1522,354 @@ def phase_machine_spikes():
     return stats, n
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the host surface on the card
+# ---------------------------------------------------------------------------
+
+# the bit machines and the fused quantize pass that the host surface runs
+HOST_SURFACE_KERNELS = (
+    "spiht_encode", "spiht_decode_lsp", "spiht_decode_seq",
+    "spiht_encode_batch", "spiht_decode_lsp_batch", "spiht_decode_seq_batch",
+    "spiht_quantize_compact",
+)
+# configuration A as command-line flags (the CLI's auto level is 6 at
+# 512^2, the same geometry as level=None)
+A_FLAGS = ["--color-model", "ipt", "--per-channel-quant-scales",
+           "100,20,20", "--quantization-scale", "1"]
+
+
+def boundary_agreement(label, got, want, ref_float) -> int:
+    """The boundary rule: two int32 coefficient arrays may differ only at
+    an entry where the reference float lies within 1e-9 * max(1, |v|) of
+    an integer (an ulp of pow, exp, log1p or sqrt moving a truncation).
+    ``ref_float`` is the array or a callable that computes it (only if
+    needed). Returns the count of such entries; fails on any other
+    difference."""
+    diff = np.asarray(got) != np.asarray(want)
+    if not diff.any():
+        return 0
+    ref = np.asarray(ref_float() if callable(ref_float) else ref_float)
+    near = np.abs(ref - np.round(ref)) <= 1e-9 * np.maximum(1.0, np.abs(ref))
+    bad = int((diff & ~near).sum())
+    check(bad == 0, f"{label}: {bad} coefficients differ off an integer "
+                    "boundary")
+    return int(diff.sum())
+
+
+def cpu_scaled(im, settings, level):
+    """The port's CPU transform before truncation: the reference floats
+    (float64 coefficients times the quantization scale)."""
+    ref, _, _ = _scaled_coeffs(torch.as_tensor(im), settings, level,
+                               torch.float64)
+    return ref * float(settings.quantization_scale)
+
+
+def launches_since(before):
+    now = counts()
+    return {k: now[k] - before[k] for k in HOST_SURFACE_KERNELS}
+
+
+def unconverged_pixels(settings, rec, diff, cpu_img, h, w):
+    """Where the card's decoded image is more than 1e-9 from the CPU's:
+    allowed only at pixels where the CPU's own colour inverse did not
+    converge, i.e. converting its result back to the model misses the
+    decoded model-space value by more than 1e-6 (an out-of-gamut value,
+    where OSA UCS's fixed Newton steps land wherever an ulp sends them).
+    Returns the pixel count, and how far a 1-ulp relative change of the
+    model-space input moves the CPU's own result at those pixels."""
+    name = settings.color_model
+    model = inverse(rec, h, w, None,
+                    dataclasses.replace(settings, color_model=None))
+    resid = (torch_models.convert(cpu_img, "RGB", name) - model).abs()
+    off = (diff > 1e-9).any(dim=0)
+    converged = resid.amax(dim=0) <= 1e-6
+    bad = int((off & converged).sum())
+    check(bad == 0, f"{name}: {bad} converged pixels more than 1e-9 from "
+                    "the CPU inverse")
+    shifted = torch_models.convert(model * (1 + 2.0**-52), name, "RGB")
+    return {
+        "pixels_where_the_inverse_did_not_converge": int(off.sum()),
+        "cpu_shift_there_by_one_ulp_of_input": float(
+            (shifted - cpu_img).abs().amax(dim=0)[off].max()),
+    }
+
+
+def phase_colour_models(im, smi):
+    """Phase 19a: every colour model at full width on the card."""
+    c, h, w = im.shape
+    mb = h * w
+    n_boundary, rows = 0, []
+    for name in sorted(torch_models.REFERENCE_MODELS):
+        s = pt.SpihtSettings(color_model=name)
+        slices, enc_h, enc_w = get_slices_and_h_w(h, w, s, None)
+        ll = (slices[0][1].stop, slices[0][2].stop)
+        er = pt.encode_image_device(im, s, None, mb, device=DEV)
+        img = pt.decode_image_device(er, s, device=DEV)
+        check(tuple(img.shape[:1]) == (c,) and bool(torch.isfinite(img).all()),
+              f"{name}: decoded image not finite")
+        # the card's coefficients against the CPU transform
+        arr, _, _ = forward(torch.as_tensor(im, device=DEV), s, None)
+        ref = cpu_scaled(im, s, None)
+        nb = boundary_agreement(name, arr.cpu().numpy(),
+                                ref.to(torch.int32).numpy(), ref.numpy())
+        n_boundary += nb
+        # stream and rec against the plain machines
+        data, max_n = cmp_encode(arr, *ll, mb)
+        check(data == er.encoded_bytes and max_n == er.max_n,
+              f"{name}: stream != plain B1's on the card's coefficients")
+        rec, _ = cmp_decode(er.encoded_bytes, er.max_n, c, enc_h, enc_w, *ll)
+        cpu_img = inverse(rec, h, w, None, s)
+        diff = (img.cpu() - cpu_img).abs()
+        err = float(diff.max())
+        unconverged = {}
+        if err > 1e-9:
+            unconverged = unconverged_pixels(s, rec, diff, cpu_img, h, w)
+        # float32 working dtype: printed, not held (see PERF.md)
+        arr32, _, _ = forward(torch.as_tensor(im, device=DEV), s, None,
+                              torch.float32)
+        er32 = pt.encode_image_device(im, s, None, mb, device=DEV,
+                                      dtype=torch.float32)
+        img32 = pt.decode_image_device(er32, s, device=DEV,
+                                       dtype=torch.float32)
+        row = {
+            "model": name, "bytes": len(er.encoded_bytes),
+            "max_n": er.max_n,
+            "psnr_db": metrics.psnr(im, img.cpu().numpy()),
+            "boundary_coeffs_card_vs_cpu": nb,
+            "image_max_abs_diff_card_vs_cpu": err, **unconverged,
+            "encode_ms": median_ms(lambda: pt.encode_image_device(
+                im, s, None, mb, device=DEV), reps=3),
+            "decode_ms": median_ms(lambda: pt.decode_image_device(
+                er, s, device=DEV), reps=3),
+            "f32_coeffs_differing_from_f64": int((arr32 != arr).sum()),
+            "f32_image_finite": bool(torch.isfinite(img32).all()),
+        }
+        print(json.dumps({"phase": "19a", **row}))
+        rows.append(row)
+    print(json.dumps({
+        "phase": f"19a colour models, {c}x{h}x{w}, 1.0 bpp, float64",
+        "models": len(rows), "card": smi,
+        "timing": "median of 3, host clock to sync",
+        "psnr": "metrics.psnr, the reconstruction clipped to [0, 1]",
+        "boundary_coeffs_total": n_boundary,
+        "streams_equal_plain": True,
+        "images_within_1e-9_of_cpu_where_the_inverse_converged": True,
+    }))
+
+
+def phase_backends(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, smi):
+    """Phase 19b: the transform backends behind encode_image /
+    decode_image at A and B, the host-scheduled batch under native and
+    torch, and the float32 host-scheduled path (B6) with Oklab. Returns
+    the A streams of each backend."""
+    out = {}
+    for label, im, s, level, er_dev in (
+        ("A", im_a, CONFIG_A, None, er_a), ("B", im_b, CONFIG_B, 3, er_b),
+    ):
+        h, w = im.shape[1:]
+        mb = h * w
+        ll = _ll(h, w, s, level)
+        arrs, ers, imgs, ms = {}, {}, {}, {}
+        for b in ("numpy", "native", "torch"):
+            host_transform._BACKEND = b
+            arr = host_transform.forward(im, s, level, DEV)[0]
+            arrs[b] = arr.cpu().numpy() if isinstance(arr, torch.Tensor) \
+                else arr
+            ers[b] = pt.encode_image(im, s, level, mb, device=DEV)
+            imgs[b] = pt.decode_image(ers[b], s, device=DEV)
+            ms[f"{b}_encode_ms"] = median_ms(lambda: pt.encode_image(
+                im, s, level, mb, device=DEV), reps=3)
+            ms[f"{b}_decode_ms"] = median_ms(lambda: pt.decode_image(
+                ers[b], s, device=DEV), reps=3)
+        check(ers["torch"].encoded_bytes == er_dev.encoded_bytes,
+              f"{label}: encode_image under torch != encode_image_device")
+        bound = {}
+        for b in ("native", "torch"):
+            bound[b] = boundary_agreement(
+                f"{label} {b} vs numpy", arrs[b], arrs["numpy"],
+                lambda: cpu_scaled(im, s, level).numpy())
+            if bound[b] == 0:
+                check(ers[b].encoded_bytes == ers["numpy"].encoded_bytes,
+                      f"{label}: {b} stream != numpy stream")
+                err = float(np.abs(imgs[b] - imgs["numpy"]).max())
+                check(err <= 1e-9, f"{label}: {b} image {err} from numpy's")
+            else:  # a flipped truncation: the stream of its own coefficients
+                check(ers[b].encoded_bytes == pt.encode(
+                    arrs[b], *ll, mb, device=DEV)[0],
+                    f"{label}: {b} stream != B1 on its coefficients")
+        out[label] = {b: er.encoded_bytes for b, er in ers.items()}
+        print(json.dumps({
+            "phase": f"19b transform backends at {label}", "card": smi,
+            "timing": "median of 3, host clock to sync",
+            "boundary_coeffs_vs_numpy": bound, **ms,
+            "streams_equal": {b: ers[b].encoded_bytes
+                              == ers["numpy"].encoded_bytes
+                              for b in ("native", "torch")},
+        }))
+
+    # the host-scheduled batch at A (phase 8's images and budgets)
+    h, w = ims_a[0].shape[1:]
+    dev_imgs = [x.cpu().numpy() for x in pt.decode_images_device(
+        ers_a, CONFIG_A, device=DEV)]
+    batch = {}
+    for b in ("native", "torch"):
+        host_transform._BACKEND = b
+        ers = pt.encode_images(ims_a, CONFIG_A, None, mbs_a, device=DEV)
+        imgs = pt.decode_images(ers, CONFIG_A, device=DEV)
+        n_bound = 0
+        for i, (er, want) in enumerate(zip(ers, ers_a)):
+            if er.encoded_bytes == want.encoded_bytes:
+                err = float(np.abs(imgs[i] - dev_imgs[i]).max())
+                check(err <= 1e-9, f"batch {b} image {i}: {err}")
+                continue
+            # only the host transform may flip a truncation: its
+            # coefficients against the card's under the boundary rule, and
+            # the stream that of its own coefficients
+            check(b == "native", f"batch torch stream {i} != device's")
+            arr = host_transform.forward_native(ims_a[i], CONFIG_A, None)[0]
+            card, _, _ = forward(torch.as_tensor(ims_a[i], device=DEV),
+                                 CONFIG_A, None)
+            n_bound += boundary_agreement(
+                f"batch {b} stream {i}", arr, card.cpu().numpy(),
+                lambda: cpu_scaled(ims_a[i], CONFIG_A, None).numpy())
+            check(er.encoded_bytes == pt.encode(
+                arr, *_ll(h, w, CONFIG_A, None), mbs_a[i], device=DEV)[0],
+                f"batch native stream {i} != B1 on its coefficients")
+        batch[b] = {
+            "boundary_coeffs": n_bound,
+            "encode_images_ms": median_ms(lambda: pt.encode_images(
+                ims_a, CONFIG_A, None, mbs_a, device=DEV), reps=3),
+            "decode_images_ms": median_ms(lambda: pt.decode_images(
+                ers, CONFIG_A, device=DEV), reps=3),
+        }
+    # B6: the float32 host-scheduled path with a new colour model
+    host_transform._BACKEND = "torch"
+    ok = dataclasses.replace(CONFIG_A, color_model="oklab")
+    before = counts()
+    ers6 = pt.encode_images(ims_a, ok, None, None, device=DEV,
+                            dtype=torch.float32)
+    torch.cuda.synchronize()
+    n6 = launches_since(before)
+    check(n6["spiht_quantize_compact"] == 1,
+          f"Oklab B6 path launches: {n6}")
+    dev6 = pt.encode_images_device(ims_a, ok, None, None, device=DEV,
+                                   dtype=torch.float32)
+    check([(e.encoded_bytes, e.max_n) for e in ers6]
+          == [(e.encoded_bytes, e.max_n) for e in dev6],
+          "Oklab float32 encode_images != encode_images_device")
+    print(json.dumps({
+        "phase": "19b host-scheduled batch at A, 16 images", "card": smi,
+        "timing": "median of 3, host clock to sync", **batch,
+        "oklab_f32_b6_path": {"launches": n6, "streams_equal_device": True,
+                              "bytes": sum(len(e.encoded_bytes)
+                                           for e in ers6)},
+    }))
+    return out["A"]
+
+
+def _ll(h, w, settings, level):
+    slices, _, _ = get_slices_and_h_w(h, w, settings, level)
+    return slices[0][1].stop, slices[0][2].stop
+
+
+def phase_cli(im_a, ims_a, streams_a, smi):
+    """Phase 19c: the command line's array cores on the card at A."""
+    h, w = im_a.shape[1:]
+    mb = h * w
+    level = cli._auto_level(h, w)
+
+    def args(*argv):
+        return cli.build_parser().parse_args(
+            list(argv) + A_FLAGS + ["--device", DEV])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("device", "native"):
+            er, rec = cli.run_encode_decode(
+                im_a, args("encode-decode", "a.png", "--backend", backend))
+            want = streams_a["torch" if backend == "device" else backend]
+            check(er.encoded_bytes == want,
+                  f"cli encode-decode --backend {backend}: stream differs")
+            check(rec.shape == im_a.shape and np.isfinite(rec).all(),
+                  f"cli encode-decode --backend {backend}: image")
+        path = os.path.join(tmp, "a.spiht")
+        er = cli.run_encode(im_a, args("encode", "a.png", path,
+                                       "--backend", "torch"))
+        check(er.encoded_bytes == streams_a["torch"], "cli encode: stream")
+        back = cli._read_stream(path)
+        check(back == er, "cli stream file round trip")
+        rec, _ = cli.run_decode(back, args("decode", path, "a.png",
+                                           "--backend", "torch"))
+        want = pt.decode_image_device(er, CONFIG_A, device=DEV).cpu().numpy()
+        check(np.array_equal(rec, want[:, :h, :w]),
+              "cli decode != decode_image_device")
+        plan = cli.run_plan(im_a, args("plan", "a.png", "--backend", "torch"))
+        want = plan_image(im_a, CONFIG_A, level, mb, device=DEV)
+        want["planned_bpp"] = want["total_bits"] / (h * w)
+        check(plan == want, "cli plan != plan_image")
+        full = pt.encode_image_device(im_a, CONFIG_A, level, None,
+                                      device=DEV)
+        check((len(full.encoded_bytes) - 1) * 8 < plan["total_bits"]
+              <= len(full.encoded_bytes) * 8,
+              f"plan total {plan['total_bits']} bits vs the full stream's "
+              f"{len(full.encoded_bytes)} bytes")
+        points = cli.run_sweep(im_a, args("sweep", "a.png", "--bpps",
+                                          "0.25,0.5,1.0", "--backend",
+                                          "torch"))
+        top = points[-1][1].encoded_bytes
+        check(top == streams_a["torch"], "cli sweep at 1.0 bpp: stream")
+        for bpp, e, _ in points:
+            check(top[: len(e.encoded_bytes)] == e.encoded_bytes,
+                  f"cli sweep: {bpp} bpp stream not a prefix")
+        before = counts()
+        loaded = [(f"im{b}.png", ims_a[b]) for b in range(4)]
+        ers = cli.run_batch(loaded, args("batch", "x.png", "--outdir", tmp,
+                                         "--backend", "device"))
+        torch.cuda.synchronize()
+        nb = launches_since(before)
+        check(nb["spiht_encode_batch"] == 1 and nb["spiht_encode"] == 0,
+              f"cli batch --backend device launches {nb}")
+        for b, e in enumerate(ers):
+            one = pt.encode_image_device(ims_a[b], CONFIG_A, level, mb,
+                                         device=DEV)
+            check(e.encoded_bytes == one.encoded_bytes
+                  and cli._read_stream(os.path.join(tmp, f"im{b}.spiht"))
+                  == e, f"cli batch stream {b} != B1's")
+    print(json.dumps({
+        "phase": "19c command line on the card at A", "card": smi,
+        "subcommands": ["encode-decode (device, native)", "encode",
+                        "decode", "plan", "sweep", "batch (device)"],
+        "plan_total_bits": plan["total_bits"],
+        "sweep_bytes": [len(e.encoded_bytes) for _, e, _ in points],
+        "batch_launches": nb, "streams_equal": True,
+    }))
+
+
+def phase_host_surface(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a):
+    """Phase 19: (a), (b) and (c) above, with the counts set to 0 just
+    before and read just after; the transform backend is put back."""
+    smi = card()
+    saved = host_transform._BACKEND
+    t0 = time.perf_counter()
+    reset_counts()
+    try:
+        phase_colour_models(im_a, smi)
+        streams_a = phase_backends(im_a, im_b, er_a, er_b, ims_a, mbs_a,
+                                   ers_a, smi)
+        phase_cli(im_a, ims_a, streams_a, smi)
+    finally:
+        host_transform._BACKEND = saved
+    torch.cuda.synchronize()
+    n = {k: counts()[k] for k in HOST_SURFACE_KERNELS}
+    for name in ("spiht_encode", "spiht_decode_lsp", "spiht_decode_seq",
+                 "spiht_encode_batch", "spiht_quantize_compact"):
+        check(n[name] >= 1, f"phase 19: {name} not launched")
+    reset_counts()
+    print(json.dumps({"phase": "19 host surface ok", "launches": n,
+                      "seconds": time.perf_counter() - t0, "card": smi}))
+
+
 def run_phases() -> list:
-    """Phases 2-18; returns the kernels' rows of the result line."""
+    """Phases 2-19; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -1595,6 +1957,9 @@ def run_phases() -> list:
 
     # ---- phase 18: the machine and block spikes ----
     blocks, n_blocks = phase_machine_spikes()
+
+    # ---- phase 19: the host surface (colour models, backends, CLI) ----
+    phase_host_surface(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a)
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),

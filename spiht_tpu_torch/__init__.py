@@ -15,7 +15,11 @@ Ported so far: the single-image on-device round trip,
 ``decode_image`` with the metadata trace, ``decode_rec_array`` /
 ``decode_from_rec_arr``); and the host-scheduled batch codec
 ``encode_images`` / ``decode_images`` over the native C++ scheduler
-(``native/``, built with g++ at first use).
+(``native/``, built with g++ at first use); every colour model of the JAX
+package (``color/torch_models.py``); the numpy, native and torch
+transform backends behind the host-shaped API (``transform.py``,
+``SPIHT_TPU_TRANSFORM``); ``metrics``, ``utils`` and the command line
+(``python -m spiht_tpu_torch.cli``).
 """
 
 from . import interop

@@ -9,29 +9,37 @@
   the raw ``encode`` (:53; B1, or B7 for ``machine="seq"``), ``decode``
   (:82; B2 or B3) and ``decode_with_metadata`` (:105; B2-log, or B3-log
   at odd LL, and the log's expansion); ``encode_image`` (:153),
-  ``decode_rec_array`` (:573),
-  ``decode_from_rec_arr`` (:623) and ``decode_image`` (:731); and the
-  host-scheduled batch codec ``encode_images`` (:351, with the
-  budget-narrowed path :277-348) and ``decode_images`` (:497), whose
-  serial bit scheduling runs in the native C++ scheduler's threads
-  (``native/runtime.py``) around transforms on the device (kernel B6 in
-  the float32 working dtype).
+  ``decode_rec_array`` (:573), ``decode_from_rec_arr`` (:623) and
+  ``decode_image`` (:731), whose transforms run under the backend of
+  ``transform.py`` (``SPIHT_TPU_TRANSFORM``: the torch transform on the
+  device, or the numpy or native C++ one on the host) around the bit
+  machines on the device; and the host-scheduled batch codec
+  ``encode_images`` (:351, with the budget-narrowed path :277-348) and
+  ``decode_images`` (:497), whose serial bit scheduling runs in the native
+  C++ scheduler's threads (``native/runtime.py``) around transforms on
+  the device (kernel B6 in the float32 working dtype) or, under the
+  'native' and 'numpy' backends, on the host.
 
 Everything runs on the CUDA card unless the caller passes
-``device="cpu"`` (the plain versions, as the tests use them). There is no
-host fallback: the word buffer is sized from the real budget, so the
-stream cannot overflow it, a machine that reports an error raises, and
-the native scheduler raises if it cannot be built.
+``device="cpu"`` (the plain versions, as the tests use them); without a
+card every entry point raises, whatever the backend. There is no host
+fallback: the word buffer is sized from the real budget, so the stream
+cannot overflow it, a machine that reports an error raises, and the
+native scheduler raises if it cannot be built. ``SPIHT_TPU_VALIDATE=1``
+rejects images holding NaN or Inf (a pass over the input).
 """
 
 from __future__ import annotations
 
 import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import transform
 from ..native import runtime as native
 from ..device import resolve_device
 from ..settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
@@ -117,6 +125,15 @@ def decode_with_metadata(
 def _validate_image(image) -> None:
     if image.ndim != 3:
         raise ValueError("image ndim must be 3: c,h,w")
+    if os.environ.get("SPIHT_TPU_VALIDATE") == "1":
+        # NaN/Inf would silently corrupt quantization (NaN -> 0 via the
+        # int cast, poisoning neighbouring DWT taps); opt-in, since the
+        # check costs a full pass over the input
+        finite = (bool(torch.isfinite(image).all())
+                  if isinstance(image, torch.Tensor)
+                  else bool(np.isfinite(image).all()))
+        if not finite:
+            raise ValueError("image contains NaN/Inf")
 
 
 def encode_image(
@@ -127,12 +144,22 @@ def encode_image(
     device=None,
     dtype: torch.dtype = torch.float64,
 ) -> EncodingResult:
-    """DWT + quantize + SPIHT-encode a (C,H,W) image: the torch forward
-    transform on the device, then kernel B1. The port has no host
-    transform, so this is ``encode_image_device``'s pipeline."""
-    return encode_image_device(
-        image, spiht_settings, level, max_bits, device, dtype
-    )
+    """DWT + quantize + SPIHT-encode a (C,H,W) image: ``transform.forward``
+    under the backend (the torch transform on the device in the working
+    ``dtype``, or the numpy or native one on the host), then ``encode``,
+    kernel B1 on the device. Under 'torch' this is
+    ``encode_image_device``'s pipeline."""
+    dev = resolve_device(device)
+    if not isinstance(image, torch.Tensor):
+        image = np.asarray(image)
+    _validate_image(image)
+    c, h, w = image.shape
+    arr, ll_h, ll_w = transform.forward(image, spiht_settings, level, dev,
+                                        dtype)
+    if max_bits is None:
+        max_bits = _MAX_BITS_DEFAULT
+    encoded_bytes, max_n = encode(arr, ll_h, ll_w, max_bits, dev)
+    return EncodingResult(encoded_bytes, h, w, c, int(max_n), level)
 
 
 def decode_rec_array(
@@ -180,12 +207,15 @@ def decode_from_rec_arr(
     dtype: torch.dtype = torch.float64,
 ) -> np.ndarray:
     """Un-quantize + inverse DWT + inverse colour (reference CS2, second
-    half), on the device; ``slices`` are recomputed from the settings."""
-    del slices
-    rec = torch.as_tensor(np.ascontiguousarray(rec_arr)).to(
-        resolve_device(device)
-    )
-    return inverse(rec, h, w, level, spiht_settings, dtype).cpu().numpy()
+    half), as a numpy array: ``transform.inverse`` under the backend (the
+    torch inverse on the device, or the numpy or native one on the
+    host)."""
+    dev = resolve_device(device)
+    image = transform.inverse(rec_arr, h, w, level, spiht_settings, slices,
+                              dev, dtype)
+    if isinstance(image, torch.Tensor):
+        image = image.cpu().numpy()
+    return image
 
 
 def decode_image(
@@ -306,16 +336,23 @@ def encode_images(
     dtype: torch.dtype = torch.float64,
 ):
     """Batched encode: list of (C,H,W) float images -> list of
-    EncodingResult, the host-scheduled throughput path.
+    EncodingResult, the host-scheduled throughput path; the serial bit
+    scheduling runs in the native scheduler's threads. By backend
+    (``transform.get_backend``):
 
-    Images are grouped by shape; each group's transform runs as one batch
-    on the device, and the serial bit scheduling for all images runs
-    concurrently in the native scheduler's threads. With every budget
-    below 2^40 the budget-narrowed path runs first; it hands back to the
-    standard path (the int16-compacted transform, kernel B6 in the float32
-    working dtype, and the int32 transform where a coefficient passes
-    int16) only where the JAX package's does. ``max_bits``: None, a
-    scalar applied to all, or a per-image sequence.
+    * 'torch': images are grouped by shape and each group's transform
+      runs as one batch on the device. With every budget below 2^40, and
+      unless ``SPIHT_TPU_BUDGET_TRANSFER=0``, the budget-narrowed path runs
+      first; it hands back to the standard path (the int16-compacted
+      transform, kernel B6 in the float32 working dtype, and the int32
+      transform where a coefficient passes int16) only where the JAX
+      package's does.
+    * 'native': each image's native transform and scheduling run fused in
+      a thread pool, with no barrier between the two stages.
+    * 'numpy': each image's numpy transform, then one batch of the
+      scheduler.
+
+    ``max_bits``: None, a scalar applied to all, or a per-image sequence.
     """
     images = [np.asarray(im) for im in images]
     n = len(images)
@@ -331,39 +368,57 @@ def encode_images(
         _validate_image(im)
     dev = resolve_device(device)
     nat = native.load()
+    backend = transform.get_backend()
 
-    groups = {}
-    for idx, im in enumerate(images):
-        groups.setdefault(im.shape, []).append(idx)
+    if backend == "native":
+        def work(i):
+            arr, ll_h, ll_w = transform.forward_native(
+                images[i], spiht_settings, level
+            )
+            data, max_n = nat.encode(arr, ll_h, ll_w, mb[i])
+            c, h, w = images[i].shape
+            return EncodingResult(data, h, w, c, int(max_n), level)
 
-    if all(m < 2**40 for m in mb):
-        done = _encode_images_budget(
-            images, groups, mb, spiht_settings, level, nat, dev, dtype
-        )
-        if done is not None:
-            return done
+        with ThreadPoolExecutor() as pool:
+            return list(pool.map(work, range(n)))
 
-    # int16-compacted transform: every group is dispatched before any is
-    # read back
-    launched = []
-    for shape, idxs in groups.items():
-        batch = _device_batch([images[i] for i in idxs], dev)
-        arr16, overflow, ll_h, ll_w = forward_compact(
-            batch, spiht_settings, level, dtype
-        )
-        launched.append((idxs, ll_h, ll_w, batch, arr16, overflow))
     arrs = [None] * n
     lls = [None] * n
-    for idxs, ll_h, ll_w, batch, arr16, overflow in launched:
-        if bool(overflow):
-            # rare: coefficients exceed int16; the full int32 transform
-            arr = forward(batch, spiht_settings, level, dtype)[0]
-            arr = arr.cpu().numpy()
-        else:
-            arr = arr16.cpu().numpy().astype(np.int32)
-        for bi, i in enumerate(idxs):
-            arrs[i] = arr[bi]
-            lls[i] = (ll_h, ll_w)
+    if backend == "numpy":
+        for i, im in enumerate(images):
+            arr, ll_h, ll_w = transform.forward_numpy(im, spiht_settings,
+                                                      level)
+            arrs[i], lls[i] = arr, (ll_h, ll_w)
+    else:
+        groups = {}
+        for idx, im in enumerate(images):
+            groups.setdefault(im.shape, []).append(idx)
+        if (all(m < 2**40 for m in mb)
+                and os.environ.get("SPIHT_TPU_BUDGET_TRANSFER") != "0"):
+            done = _encode_images_budget(
+                images, groups, mb, spiht_settings, level, nat, dev, dtype
+            )
+            if done is not None:
+                return done
+        # int16-compacted transform: every group is dispatched before any
+        # is read back
+        launched = []
+        for shape, idxs in groups.items():
+            batch = _device_batch([images[i] for i in idxs], dev)
+            arr16, overflow, ll_h, ll_w = forward_compact(
+                batch, spiht_settings, level, dtype
+            )
+            launched.append((idxs, ll_h, ll_w, batch, arr16, overflow))
+        for idxs, ll_h, ll_w, batch, arr16, overflow in launched:
+            if bool(overflow):
+                # rare: coefficients exceed int16; the full int32 transform
+                arr = forward(batch, spiht_settings, level, dtype)[0]
+                arr = arr.cpu().numpy()
+            else:
+                arr = arr16.cpu().numpy().astype(np.int32)
+            for bi, i in enumerate(idxs):
+                arrs[i] = arr[bi]
+                lls[i] = (ll_h, ll_w)
 
     encoded = nat.encode_batch(
         arrs, [ll[0] for ll in lls], [ll[1] for ll in lls], mb, use_maps=True
@@ -384,9 +439,11 @@ def decode_images(
     """Batched decode: list of EncodingResult -> list of (C,H,W) float
     images (numpy).
 
-    Streams are decoded concurrently in the native scheduler's threads;
-    the inverse transforms run as one batch on the device per (shape, h,
-    w, level) group.
+    Streams are decoded concurrently in the native scheduler's threads.
+    Under the 'native' backend each stream's decode and native inverse run
+    fused in a thread pool; under 'torch' the inverse transforms run as
+    one batch on the device per (shape, h, w, level) group; under 'numpy'
+    the numpy inverse runs image by image.
     """
     n = len(encoding_results)
     geo = []
@@ -398,12 +455,29 @@ def decode_images(
         )
         geo.append((enc_h, enc_w, slices[0][1].stop, slices[0][2].stop))
     dev = resolve_device(device)
-    recs = native.load().decode_batch(
+    nat = native.load()
+    backend = transform.get_backend()
+    if backend == "native":
+        def work(i):
+            er = encoding_results[i]
+            rec = nat.decode(er.encoded_bytes, er.max_n, er.c, *geo[i])
+            return transform.inverse_native(
+                rec, er.h, er.w, er.level, spiht_settings
+            )
+
+        with ThreadPoolExecutor() as pool:
+            return list(pool.map(work, range(n)))
+    recs = nat.decode_batch(
         [er.encoded_bytes for er in encoding_results],
         [er.max_n for er in encoding_results],
         [er.c for er in encoding_results],
         *([g[k] for g in geo] for k in range(4)),
     )
+    if backend == "numpy":
+        return [
+            transform.inverse_numpy(rec, er.h, er.w, er.level, spiht_settings)
+            for rec, er in zip(recs, encoding_results)
+        ]
     groups = {}
     for i, er in enumerate(encoding_results):
         groups.setdefault((recs[i].shape, er.h, er.w, er.level), []).append(i)

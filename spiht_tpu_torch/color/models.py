@@ -1,24 +1,21 @@
-"""Colour-model constants, copied from ``spiht_tpu/color/models.py``.
+"""Color model conversions (numpy host implementations).
 
-Only the constants that the ported conversions use (RGB <-> IPT, the
-README's configuration), with the same derivations, so the matrices are
-bit-identical (tests/test_torch_copies.py). 'RGB' is the working RGB space
-with sRGB/D65 primaries, fed as-is (no CCTF step), as in the JAX package.
+Copy of ``spiht_tpu/color/models.py``, kept identical
+(tests/test_torch_copies.py). The host transform backends
+(``spiht_tpu_torch/transform.py``) call it directly, and the torch
+models (``color/torch_models.py``) take their constants from it.
+Channels-FIRST (C, H, W) in and out.
+
+Note on 'RGB': pixel values loaded from image files are fed to the
+conversion as-is (no CCTF/gamma decode step), i.e. 'RGB' denotes the
+working RGB space with sRGB/D65 primaries.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = [
-    "RGB_TO_XYZ",
-    "XYZ_TO_RGB",
-    "XYZ_TO_LMS_IPT",
-    "LMS_TO_IPT",
-    "LMS_FROM_IPT",
-    "XYZ_FROM_LMS_IPT",
-    "IPT_EXP",
-]
+__all__ = ["convert", "SUPPORTED_MODELS", "ipt_from_rgb", "rgb_from_ipt"]
 
 # sRGB (D65) primaries -> XYZ, full-precision derivation
 RGB_TO_XYZ = np.array(
@@ -48,3 +45,1120 @@ LMS_TO_IPT = np.array(
 LMS_FROM_IPT = np.linalg.inv(LMS_TO_IPT)
 XYZ_FROM_LMS_IPT = np.linalg.inv(XYZ_TO_LMS_IPT)
 IPT_EXP = 0.43
+
+# CIE Lab constants (D65 white)
+D65_WHITE = RGB_TO_XYZ @ np.ones(3)
+
+# Oklab (Björn Ottosson, 2020, public domain): RGB -> LMS -> cbrt -> Lab.
+# Applied to the working RGB values as-is (no CCTF step), consistent with
+# this module's 'RGB' convention.
+RGB_TO_LMS_OKLAB = np.array(
+    [
+        [0.4122214708, 0.5363325363, 0.0514459929],
+        [0.2119034982, 0.6806995451, 0.1073969566],
+        [0.0883024619, 0.2817188376, 0.6299787005],
+    ]
+)
+LMS_TO_OKLAB = np.array(
+    [
+        [0.2104542553, 0.7936177850, -0.0040720468],
+        [1.9779984951, -2.4285922050, 0.4505937099],
+        [0.0259040371, 0.7827717662, -0.8086757660],
+    ]
+)
+LMS_FROM_OKLAB = np.linalg.inv(LMS_TO_OKLAB)
+RGB_FROM_LMS_OKLAB = np.linalg.inv(RGB_TO_LMS_OKLAB)
+
+# ITU-R BT.601 YCbCr (full range)
+RGB_TO_YCBCR = np.array(
+    [
+        [0.299, 0.587, 0.114],
+        [-0.168735891647856, -0.331264108352144, 0.5],
+        [0.5, -0.418687589158345, -0.081312410841655],
+    ]
+)
+YCBCR_TO_RGB = np.linalg.inv(RGB_TO_YCBCR)
+
+
+def _apply_mat(im_cl, M):
+    return im_cl @ M.T
+
+
+def _signed_pow(x, p):
+    return np.sign(x) * np.abs(x) ** p
+
+
+def xyz_from_rgb(im_cl):
+    return _apply_mat(im_cl, RGB_TO_XYZ)
+
+
+def rgb_from_xyz(im_cl):
+    return _apply_mat(im_cl, XYZ_TO_RGB)
+
+
+def ipt_from_xyz(im_cl):
+    lms = _apply_mat(im_cl, XYZ_TO_LMS_IPT)
+    return _apply_mat(_signed_pow(lms, IPT_EXP), LMS_TO_IPT)
+
+
+def xyz_from_ipt(im_cl):
+    lms_p = _apply_mat(im_cl, LMS_FROM_IPT)
+    return _apply_mat(_signed_pow(lms_p, 1.0 / IPT_EXP), XYZ_FROM_LMS_IPT)
+
+
+def ipt_from_rgb(im_cl):
+    return ipt_from_xyz(xyz_from_rgb(im_cl))
+
+
+def rgb_from_ipt(im_cl):
+    return rgb_from_xyz(xyz_from_ipt(im_cl))
+
+
+def _signed_cbrt(x):
+    return np.sign(x) * np.abs(x) ** (1.0 / 3.0)
+
+
+def oklab_from_rgb(im_cl):
+    lms = _apply_mat(im_cl, RGB_TO_LMS_OKLAB)
+    return _apply_mat(_signed_cbrt(lms), LMS_TO_OKLAB)
+
+
+def rgb_from_oklab(im_cl):
+    lms_p = _apply_mat(im_cl, LMS_FROM_OKLAB)
+    return _apply_mat(lms_p**3, RGB_FROM_LMS_OKLAB)
+
+
+def _lab_f(t):
+    d = 6.0 / 29.0
+    return np.where(t > d**3, np.cbrt(t), t / (3 * d * d) + 4.0 / 29.0)
+
+
+def _lab_finv(t):
+    d = 6.0 / 29.0
+    return np.where(t > d, t**3, 3 * d * d * (t - 4.0 / 29.0))
+
+
+def lab_from_xyz(im_cl):
+    xr = im_cl / D65_WHITE
+    fx, fy, fz = _lab_f(xr[..., 0]), _lab_f(xr[..., 1]), _lab_f(xr[..., 2])
+    return np.stack([116 * fy - 16, 500 * (fx - fy), 200 * (fy - fz)], axis=-1)
+
+
+def xyz_from_lab(im_cl):
+    L, a, b = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    fy = (L + 16) / 116
+    fx = fy + a / 500
+    fz = fy - b / 200
+    return np.stack(
+        [_lab_finv(fx), _lab_finv(fy), _lab_finv(fz)], axis=-1
+    ) * D65_WHITE
+
+
+
+
+# ---------------------------------------------------------------------------
+# round 2: additional colourspace models (verdict item 8). The reference
+# accepts anything in colour.COLOURSPACE_MODELS (color_models.py:4-13);
+# these cover the commonly used remainder. Implementations are array-
+# module generic (xp = numpy or another array module); the torch port of
+# each lives in torch_models.py under the same name.
+# ---------------------------------------------------------------------------
+
+_D65_XY = (0.3127, 0.3290)
+
+
+def _primaries_to_xyz(prim, white_xy):
+    """RGB->XYZ matrix from chromaticity primaries (standard derivation)."""
+    def xyz(x, y):
+        return np.array([x / y, 1.0, (1 - x - y) / y])
+
+    P = np.stack([xyz(*p) for p in prim], axis=1)
+    w = xyz(*white_xy)
+    scale = np.linalg.solve(P, w)
+    return P * scale
+
+
+# ITU-R BT.2020 primaries (for the BT.2100 ICtCp pipeline)
+BT2020_TO_XYZ = _primaries_to_xyz(
+    [(0.708, 0.292), (0.170, 0.797), (0.131, 0.046)], _D65_XY
+)
+XYZ_TO_BT2020 = np.linalg.inv(BT2020_TO_XYZ)
+
+# SMPTE ST 2084 (PQ) constants, shared by Jzazbz (with its modified
+# exponent) and ICtCp
+_PQ_C1 = 3424.0 / 4096.0
+_PQ_C2 = 2413.0 / 128.0
+_PQ_C3 = 2392.0 / 128.0
+_PQ_N = 2610.0 / 16384.0
+_PQ_P_ICTCP = 2523.0 / 32.0
+_PQ_P_JZ = 1.7 * 2523.0 / 32.0
+
+# Jzazbz (Safdar, Cui, Kim & Luo 2017)
+_JZ_B = 1.15
+_JZ_G = 0.66
+_JZ_D = -0.56
+_JZ_D0 = 1.6295499532821566e-11
+XYZ_TO_LMS_JZ = np.array(
+    [
+        [0.41478972, 0.579999, 0.0146480],
+        [-0.2015100, 1.120649, 0.0531008],
+        [-0.0166008, 0.264800, 0.6684799],
+    ]
+)
+LMS_TO_IAB_JZ = np.array(
+    [
+        [0.5, 0.5, 0.0],
+        [3.524000, -4.066708, 0.542708],
+        [0.199076, 1.096799, -1.295875],
+    ]
+)
+LMS_FROM_IAB_JZ = np.linalg.inv(LMS_TO_IAB_JZ)
+XYZ_FROM_LMS_JZ = np.linalg.inv(XYZ_TO_LMS_JZ)
+
+# BT.2100 ICtCp
+RGB2020_TO_LMS = np.array(
+    [[1688.0, 2146.0, 262.0], [683.0, 2951.0, 462.0], [99.0, 309.0, 3688.0]]
+) / 4096.0
+LMS_TO_ICTCP = np.array(
+    [
+        [2048.0, 2048.0, 0.0],
+        [6610.0, -13613.0, 7003.0],
+        [17933.0, -17390.0, -543.0],
+    ]
+) / 4096.0
+LMS_FROM_ICTCP = np.linalg.inv(LMS_TO_ICTCP)
+LMS_TO_RGB2020 = np.linalg.inv(RGB2020_TO_LMS)
+
+# Hunter Lab (D65, standard illuminant-dependent coefficients)
+_HUNTER_KA = 175.0 / 198.04 * (D65_WHITE[0] + D65_WHITE[1]) * 100.0
+_HUNTER_KB = 70.0 / 218.11 * (D65_WHITE[1] + D65_WHITE[2]) * 100.0
+
+_DIN99_COS16 = np.cos(np.deg2rad(16.0))
+_DIN99_SIN16 = np.sin(np.deg2rad(16.0))
+
+
+def _pq_fwd(x, p, xp):
+    y = xp.sign(x) * xp.abs(x) ** _PQ_N
+    return xp.sign(x) * (
+        (_PQ_C1 + _PQ_C2 * xp.abs(y)) / (1.0 + _PQ_C3 * xp.abs(y))
+    ) ** p
+
+
+def _pq_inv(x, p, xp):
+    y = xp.sign(x) * xp.abs(x) ** (1.0 / p)
+    num = _PQ_C1 - xp.abs(y)
+    den = _PQ_C3 * xp.abs(y) - _PQ_C2
+    return xp.sign(x) * xp.abs(num / den) ** (1.0 / _PQ_N)
+
+
+def jzazbz_from_xyz(im_cl, xp=np):
+    X, Y, Z = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    Xp = _JZ_B * X - (_JZ_B - 1.0) * Z
+    Yp = _JZ_G * Y - (_JZ_G - 1.0) * X
+    xyz_p = xp.stack([Xp, Yp, Z], axis=-1)
+    lms = xyz_p @ xp.asarray(XYZ_TO_LMS_JZ.T, dtype=im_cl.dtype)
+    lms_p = _pq_fwd(lms, _PQ_P_JZ, xp)
+    iab = lms_p @ xp.asarray(LMS_TO_IAB_JZ.T, dtype=im_cl.dtype)
+    Iz = iab[..., 0]
+    Jz = (1.0 + _JZ_D) * Iz / (1.0 + _JZ_D * Iz) - _JZ_D0
+    return xp.stack([Jz, iab[..., 1], iab[..., 2]], axis=-1)
+
+
+def xyz_from_jzazbz(im_cl, xp=np):
+    Jz, az, bz = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    Jd = Jz + _JZ_D0
+    Iz = Jd / (1.0 + _JZ_D - _JZ_D * Jd)
+    iab = xp.stack([Iz, az, bz], axis=-1)
+    lms_p = iab @ xp.asarray(LMS_FROM_IAB_JZ.T, dtype=im_cl.dtype)
+    lms = _pq_inv(lms_p, _PQ_P_JZ, xp)
+    xyz_p = lms @ xp.asarray(XYZ_FROM_LMS_JZ.T, dtype=im_cl.dtype)
+    Xp, Yp, Z = xyz_p[..., 0], xyz_p[..., 1], xyz_p[..., 2]
+    X = (Xp + (_JZ_B - 1.0) * Z) / _JZ_B
+    Y = (Yp + (_JZ_G - 1.0) * X) / _JZ_G
+    return xp.stack([X, Y, Z], axis=-1)
+
+
+def ictcp_from_xyz(im_cl, xp=np):
+    rgb2020 = im_cl @ xp.asarray(XYZ_TO_BT2020.T, dtype=im_cl.dtype)
+    lms = rgb2020 @ xp.asarray(RGB2020_TO_LMS.T, dtype=im_cl.dtype)
+    lms_p = _pq_fwd(lms, _PQ_P_ICTCP, xp)
+    return lms_p @ xp.asarray(LMS_TO_ICTCP.T, dtype=im_cl.dtype)
+
+
+def xyz_from_ictcp(im_cl, xp=np):
+    lms_p = im_cl @ xp.asarray(LMS_FROM_ICTCP.T, dtype=im_cl.dtype)
+    lms = _pq_inv(lms_p, _PQ_P_ICTCP, xp)
+    rgb2020 = lms @ xp.asarray(LMS_TO_RGB2020.T, dtype=im_cl.dtype)
+    return rgb2020 @ xp.asarray(BT2020_TO_XYZ.T, dtype=im_cl.dtype)
+
+
+def xyy_from_xyz(im_cl, xp=np):
+    X, Y, Z = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    s = X + Y + Z
+    safe = xp.where(s == 0, 1.0, s)
+    x = xp.where(s == 0, _D65_XY[0], X / safe)
+    y = xp.where(s == 0, _D65_XY[1], Y / safe)
+    return xp.stack([x, y, Y], axis=-1)
+
+
+def xyz_from_xyy(im_cl, xp=np):
+    x, y, Y = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    safe = xp.where(y == 0, 1.0, y)
+    X = xp.where(y == 0, 0.0, x * Y / safe)
+    Z = xp.where(y == 0, 0.0, (1.0 - x - y) * Y / safe)
+    return xp.stack([X, Y, Z], axis=-1)
+
+
+def _uv_prime(X, Y, Z, xp):
+    d = X + 15.0 * Y + 3.0 * Z
+    safe = xp.where(d == 0, 1.0, d)
+    return (
+        xp.where(d == 0, 0.0, 4.0 * X / safe),
+        xp.where(d == 0, 0.0, 9.0 * Y / safe),
+    )
+
+
+_UN_PRIME, _VN_PRIME = (
+    4.0 * D65_WHITE[0] / (D65_WHITE[0] + 15.0 * D65_WHITE[1] + 3.0 * D65_WHITE[2]),
+    9.0 * D65_WHITE[1] / (D65_WHITE[0] + 15.0 * D65_WHITE[1] + 3.0 * D65_WHITE[2]),
+)
+
+
+def luv_from_xyz(im_cl, xp=np):
+    X, Y, Z = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    yr = Y / D65_WHITE[1]
+    e = (6.0 / 29.0) ** 3
+    L = xp.where(yr > e, 116.0 * xp.cbrt(yr) - 16.0, (29.0 / 3.0) ** 3 * yr)
+    up, vp = _uv_prime(X, Y, Z, xp)
+    return xp.stack(
+        [L, 13.0 * L * (up - _UN_PRIME), 13.0 * L * (vp - _VN_PRIME)], axis=-1
+    )
+
+
+def xyz_from_luv(im_cl, xp=np):
+    L, u, v = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    safeL = xp.where(L == 0, 1.0, L)
+    up = xp.where(L == 0, _UN_PRIME, u / (13.0 * safeL) + _UN_PRIME)
+    vp = xp.where(L == 0, _VN_PRIME, v / (13.0 * safeL) + _VN_PRIME)
+    Y = xp.where(
+        L > 8.0,
+        D65_WHITE[1] * ((L + 16.0) / 116.0) ** 3,
+        D65_WHITE[1] * L * (3.0 / 29.0) ** 3,
+    )
+    safev = xp.where(vp == 0, 1.0, vp)
+    X = xp.where(vp == 0, 0.0, Y * 9.0 * up / (4.0 * safev))
+    Z = xp.where(vp == 0, 0.0, Y * (12.0 - 3.0 * up - 20.0 * vp) / (4.0 * safev))
+    return xp.stack([X, Y, Z], axis=-1)
+
+
+def din99_from_lab(im_cl, xp=np):
+    L, a, b = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    L99 = 105.509 * xp.log1p(0.0158 * L)
+    e = a * _DIN99_COS16 + b * _DIN99_SIN16
+    f = 0.7 * (b * _DIN99_COS16 - a * _DIN99_SIN16)
+    G = xp.sqrt(e * e + f * f)
+    k = xp.where(G == 0, 0.0, xp.log1p(0.045 * G) / (0.045 * xp.where(G == 0, 1.0, G)))
+    return xp.stack([L99, k * e, k * f], axis=-1)
+
+
+def lab_from_din99(im_cl, xp=np):
+    L99, a99, b99 = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    L = (xp.exp(L99 / 105.509) - 1.0) / 0.0158
+    C99 = xp.sqrt(a99 * a99 + b99 * b99)
+    G = (xp.exp(0.045 * C99) - 1.0) / 0.045
+    scale = xp.where(C99 == 0, 0.0, G / xp.where(C99 == 0, 1.0, C99))
+    e = a99 * scale
+    f = b99 * scale
+    a = e * _DIN99_COS16 - (f / 0.7) * _DIN99_SIN16
+    b = e * _DIN99_SIN16 + (f / 0.7) * _DIN99_COS16
+    return xp.stack([L, a, b], axis=-1)
+
+
+def hunter_lab_from_xyz(im_cl, xp=np):
+    X, Y, Z = (
+        im_cl[..., 0] * 100.0,
+        im_cl[..., 1] * 100.0,
+        im_cl[..., 2] * 100.0,
+    )
+    Xn, Yn, Zn = D65_WHITE * 100.0
+    yr = Y / Yn
+    sq = xp.sqrt(xp.maximum(yr, 0.0))
+    safe = xp.where(sq == 0, 1.0, sq)
+    L = 100.0 * sq
+    a = xp.where(sq == 0, 0.0, _HUNTER_KA * (X / Xn - yr) / safe)
+    b = xp.where(sq == 0, 0.0, _HUNTER_KB * (yr - Z / Zn) / safe)
+    return xp.stack([L, a, b], axis=-1)
+
+
+def xyz_from_hunter_lab(im_cl, xp=np):
+    L, a, b = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    Xn, Yn, Zn = D65_WHITE * 100.0
+    sq = L / 100.0
+    yr = sq * sq
+    X = Xn * (a * sq / _HUNTER_KA + yr)
+    Z = Zn * (yr - b * sq / _HUNTER_KB)
+    return xp.stack([X / 100.0, yr * Yn / 100.0, Z / 100.0], axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# CAM16-UCS (Li et al. 2017; UCS form of CAM16). Viewing conditions match
+# the conventional defaults for colourspace-model conversions: D65 white,
+# average surround (F=1, c=0.69, Nc=1), L_A = 64/(5*pi), Y_b = 20.
+# ---------------------------------------------------------------------------
+
+M16 = np.array(
+    [
+        [0.401288, 0.650173, -0.051461],
+        [-0.250268, 1.204414, 0.045854],
+        [-0.002079, 0.048952, 0.953127],
+    ]
+)
+M16_INV = np.linalg.inv(M16)
+
+_CAM16_F, _CAM16_C, _CAM16_NC = 1.0, 0.69, 1.0
+_CAM16_LA = 64.0 / np.pi / 5.0
+_CAM16_YB = 20.0
+_CAM16_XYZ_W = D65_WHITE * 100.0
+
+_cam_rgb_w = M16 @ _CAM16_XYZ_W
+_CAM16_D = float(
+    np.clip(
+        _CAM16_F * (1.0 - (1.0 / 3.6) * np.exp((-_CAM16_LA - 42.0) / 92.0)),
+        0.0,
+        1.0,
+    )
+)
+_CAM16_D_RGB = _CAM16_D * _CAM16_XYZ_W[1] / _cam_rgb_w + 1.0 - _CAM16_D
+_cam_k = 1.0 / (5.0 * _CAM16_LA + 1.0)
+_CAM16_FL = 0.2 * _cam_k**4 * 5.0 * _CAM16_LA + 0.1 * (
+    1.0 - _cam_k**4
+) ** 2 * (5.0 * _CAM16_LA) ** (1.0 / 3.0)
+_CAM16_N = _CAM16_YB / _CAM16_XYZ_W[1]
+_CAM16_Z = 1.48 + np.sqrt(_CAM16_N)
+_CAM16_NBB = 0.725 * _CAM16_N ** (-0.2)
+_CAM16_NCB = _CAM16_NBB
+_cam_rgb_wc = _CAM16_D_RGB * _cam_rgb_w
+_cam_t_w = (_CAM16_FL * _cam_rgb_wc / 100.0) ** 0.42
+_cam_rgb_aw = 400.0 * _cam_t_w / (_cam_t_w + 27.13) + 0.1
+_CAM16_AW = (
+    2.0 * _cam_rgb_aw[0] + _cam_rgb_aw[1] + _cam_rgb_aw[2] / 20.0 - 0.305
+) * _CAM16_NBB
+
+
+def _cam16_adapt(rgb_c, xp):
+    t = (_CAM16_FL * xp.abs(rgb_c) / 100.0) ** 0.42
+    return xp.sign(rgb_c) * 400.0 * t / (t + 27.13) + 0.1
+
+
+def _cam16_adapt_inv(rgb_a, xp):
+    v = rgb_a - 0.1
+    av = xp.abs(v)
+    av = xp.minimum(av, 399.99)
+    return (
+        xp.sign(v)
+        * (100.0 / _CAM16_FL)
+        * ((27.13 * av) / (400.0 - av)) ** (1.0 / 0.42)
+    )
+
+
+def ucs_from_xyz(im_cl, xp=np):
+    """CIE 1960 UCS: U = 2X/3, V = Y, W = (-X + 3Y + Z)/2."""
+    X, Y, Z = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    return xp.stack(
+        [2.0 * X / 3.0, Y, 0.5 * (-X + 3.0 * Y + Z)], axis=-1
+    )
+
+
+def xyz_from_ucs(im_cl, xp=np):
+    U, V, W = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    X = 1.5 * U
+    return xp.stack([X, V, X - 3.0 * V + 2.0 * W], axis=-1)
+
+
+_UVW_UN = 4.0 * D65_WHITE[0] / (
+    D65_WHITE[0] + 15.0 * D65_WHITE[1] + 3.0 * D65_WHITE[2]
+)
+_UVW_VN = 6.0 * D65_WHITE[1] / (
+    D65_WHITE[0] + 15.0 * D65_WHITE[1] + 3.0 * D65_WHITE[2]
+)
+
+
+def uvw_from_xyz(im_cl, xp=np):
+    """CIE 1964 U*V*W* (Wyszecki): UCS-1960 chromaticity against the
+    D65 white, W* = 25 Y^(1/3) - 17 with Y in domain [0, 100]."""
+    X, Y, Z = (
+        im_cl[..., 0] * 100.0,
+        im_cl[..., 1] * 100.0,
+        im_cl[..., 2] * 100.0,
+    )
+    d = X + 15.0 * Y + 3.0 * Z
+    safe = xp.where(d == 0, 1.0, d)
+    u = xp.where(d == 0, _UVW_UN, 4.0 * X / safe)
+    v = xp.where(d == 0, _UVW_VN, 6.0 * Y / safe)
+    W = 25.0 * xp.cbrt(xp.maximum(Y, 0.0)) - 17.0
+    return xp.stack(
+        [13.0 * W * (u - _UVW_UN), 13.0 * W * (v - _UVW_VN), W], axis=-1
+    )
+
+
+def xyz_from_uvw(im_cl, xp=np):
+    Us, Vs, W = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    Y = ((W + 17.0) / 25.0) ** 3
+    safew = xp.where(W == 0, 1.0, W)
+    u = xp.where(W == 0, _UVW_UN, Us / (13.0 * safew) + _UVW_UN)
+    v = xp.where(W == 0, _UVW_VN, Vs / (13.0 * safew) + _UVW_VN)
+    safev = xp.where(v == 0, 1.0, v)
+    X = xp.where(v == 0, 0.0, 1.5 * u * Y / safev)
+    Z = xp.where(
+        v == 0, 0.0, (6.0 * Y / safev - X - 15.0 * Y) / 3.0
+    )
+    return xp.stack([X / 100.0, Y / 100.0, Z / 100.0], axis=-1)
+
+
+# Luo et al. 2006 UCS variants (applied to CAM16 per Li et al. 2017):
+# (KL, c1, c2); the coordinates use J' = (1+100 c1)J/(1+c1 J) / KL and
+# M' = ln(1+c2 M)/c2 (colour-science's UCS_Luo2006 convention, where KL
+# enters the J' coordinate so the distance metric stays Euclidean)
+_LUO2006 = {
+    "ucs": (1.0, 0.007, 0.0228),
+    "lcd": (0.77, 0.007, 0.0053),
+    "scd": (1.24, 0.007, 0.0363),
+}
+
+
+def cam16ucs_from_xyz(im_cl, xp=np, variant="ucs"):
+    rgb = (im_cl * 100.0) @ xp.asarray(M16.T, dtype=im_cl.dtype)
+    rgb_c = rgb * xp.asarray(_CAM16_D_RGB, dtype=im_cl.dtype)
+    ra = _cam16_adapt(rgb_c, xp)
+    R, G, B = ra[..., 0], ra[..., 1], ra[..., 2]
+    a = R - 12.0 * G / 11.0 + B / 11.0
+    b = (R + G - 2.0 * B) / 9.0
+    h = xp.arctan2(b, a)
+    et = (xp.cos(h + 2.0) + 3.8) / 4.0
+    A = (2.0 * R + G + B / 20.0 - 0.305) * _CAM16_NBB
+    J = 100.0 * xp.abs(A / _CAM16_AW) ** (_CAM16_C * _CAM16_Z)
+    denom = R + G + 21.0 * B / 20.0 + 0.305
+    t = (
+        (50000.0 / 13.0)
+        * _CAM16_NC
+        * _CAM16_NCB
+        * et
+        * xp.sqrt(a * a + b * b)
+        / denom
+    )
+    C = (
+        xp.abs(t) ** 0.9
+        * xp.sqrt(J / 100.0)
+        * (1.64 - 0.29**_CAM16_N) ** 0.73
+    )
+    M = C * _CAM16_FL**0.25
+    KL, c1, c2 = _LUO2006[variant]
+    Jp = (1.0 + 100.0 * c1) * J / (1.0 + c1 * J) / KL
+    Mp = xp.log1p(c2 * M) / c2
+    return xp.stack([Jp, Mp * xp.cos(h), Mp * xp.sin(h)], axis=-1)
+
+
+def xyz_from_cam16ucs(im_cl, xp=np, variant="ucs"):
+    Jp, ap, bp = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    KL, c1, c2 = _LUO2006[variant]
+    Jk = Jp * KL
+    J = Jk / (1.0 + 100.0 * c1 - c1 * Jk)
+    Mp = xp.sqrt(ap * ap + bp * bp)
+    M = (xp.exp(c2 * Mp) - 1.0) / c2
+    h = xp.arctan2(bp, ap)
+    C = M / _CAM16_FL**0.25
+    Jsafe = xp.maximum(J, 1e-10)
+    t = (
+        C / (xp.sqrt(Jsafe / 100.0) * (1.64 - 0.29**_CAM16_N) ** 0.73)
+    ) ** (1.0 / 0.9)
+    et = (xp.cos(h + 2.0) + 3.8) / 4.0
+    A = _CAM16_AW * (Jsafe / 100.0) ** (1.0 / (_CAM16_C * _CAM16_Z))
+    # a, b from (t, h, A) in closed form: with the opponent system
+    # [2R+G+B/20; a; b] = M (R,G,B), the t-denominator satisfies
+    # R+G+21B/20 = p2 + beta*a + gamma*b for (beta, gamma) =
+    # [1,1,21/20] M^-1 restricted to the (a, b) columns = (-11/23,
+    # -108/23); solving t*(denominator+0.305) = p1t*s for the chroma
+    # radius s is then a single division (no sin/cos case split)
+    p1t = (50000.0 / 13.0) * _CAM16_NC * _CAM16_NCB * et
+    p2 = A / _CAM16_NBB + 0.305
+    beta, gamma = -11.0 / 23.0, -108.0 / 23.0
+    sh, ch = xp.sin(h), xp.cos(h)
+    den = p1t - t * (beta * ch + gamma * sh)
+    s_rad = t * (p2 + 0.305) / xp.where(
+        xp.abs(den) < 1e-12, 1e-12, den
+    )
+    a = s_rad * ch
+    b = s_rad * sh
+    Ra = (460.0 * p2 + 451.0 * a + 288.0 * b) / 1403.0
+    Ga = (460.0 * p2 - 891.0 * a - 261.0 * b) / 1403.0
+    Ba = (460.0 * p2 - 220.0 * a - 6300.0 * b) / 1403.0
+    ra = xp.stack([Ra, Ga, Ba], axis=-1)
+    rgb_c = _cam16_adapt_inv(ra, xp)
+    rgb = rgb_c / xp.asarray(_CAM16_D_RGB, dtype=im_cl.dtype)
+    return (rgb @ xp.asarray(M16_INV.T, dtype=im_cl.dtype)) / 100.0
+
+
+# ---------------------------------------------------------------------------
+# round 3: full colour.COLOURSPACE_MODELS coverage (verdict item 6). The
+# reference accepts every model in colour.COLOURSPACE_MODELS
+# (reference spiht/color_models.py:4-13, colour-science==0.4.4);
+# this block completes the native table: Hunter Rdab, ProLab, Yrg,
+# IgPgTg, ICaCb, IPT Ragoo, CAM02-(UCS|LCD|SCD), hdr-CIELAB, hdr-IPT,
+# OSA UCS, plus YCoCg. All constants are from the cited primary
+# publications; every model has an exact (or Newton-converged, for
+# OSA UCS) inverse, and all are xp-generic; torch_models.py ports each
+# under the same name.
+# ---------------------------------------------------------------------------
+
+
+def hunter_rdab_from_xyz(im_cl, xp=np):
+    """Hunter Rd,a,b scale (HunterLab applications note, Hunter 1966):
+    Rd = 100 Y/Yn; a, b share Hunter Lab's Ka/Kb but normalize by Y/Yn
+    instead of sqrt(Y/Yn). D65 white, domain [0, 1] XYZ."""
+    u = im_cl[..., 0] / D65_WHITE[0]
+    v = im_cl[..., 1] / D65_WHITE[1]
+    w = im_cl[..., 2] / D65_WHITE[2]
+    safe = xp.where(v == 0, 1.0, v)
+    a = xp.where(v == 0, 0.0, _HUNTER_KA * (u - v) / safe)
+    b = xp.where(v == 0, 0.0, _HUNTER_KB * (v - w) / safe)
+    return xp.stack([100.0 * v, a, b], axis=-1)
+
+
+def xyz_from_hunter_rdab(im_cl, xp=np):
+    Rd, a, b = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    v = Rd / 100.0
+    u = v + a * v / _HUNTER_KA
+    w = v - b * v / _HUNTER_KB
+    return xp.stack(
+        [u * D65_WHITE[0], v * D65_WHITE[1], w * D65_WHITE[2]], axis=-1
+    )
+
+
+# ProLab (Konovalenko, Smagina, Nikolaev & Nikolaev, IEEE Access 2021):
+# projective transform of white-normalized XYZ. At the white point the
+# rows give exactly (100, 0, 0) — a built-in consistency check.
+PROLAB_Q = np.array(
+    [
+        [75.54, 486.66, 167.39],
+        [617.72, -595.45, -22.27],
+        [48.34, 194.94, -243.28],
+    ]
+)
+PROLAB_q = np.array([0.7554, 3.8666, 1.6739])
+PROLAB_Q_INV = np.linalg.inv(PROLAB_Q)
+
+
+def prolab_from_xyz(im_cl, xp=np):
+    xyz_n = im_cl / D65_WHITE
+    num = xyz_n @ xp.asarray(PROLAB_Q.T, dtype=im_cl.dtype)
+    den = xyz_n @ xp.asarray(PROLAB_q, dtype=im_cl.dtype) + 1.0
+    return num / den[..., None]
+
+
+def xyz_from_prolab(im_cl, xp=np):
+    y0 = im_cl @ xp.asarray(PROLAB_Q_INV.T, dtype=im_cl.dtype)
+    qy = y0 @ xp.asarray(PROLAB_q, dtype=im_cl.dtype)
+    xyz_n = y0 / (1.0 - qy)[..., None]
+    return xyz_n * D65_WHITE
+
+
+# Yrg (Kirk 2019, "Chromaticity coordinates for graphic arts based on
+# CIE 2006 LMS"): luminance Y from L, M plus (r, g) cone chromaticities
+# through a fixed affine map. Exactly invertible by construction.
+YRG_XYZ_TO_LMS = np.array(
+    [
+        [0.257085, 0.859943, -0.031061],
+        [-0.394427, 1.175800, 0.106423],
+        [0.064856, -0.076250, 0.559067],
+    ]
+)
+YRG_LMS_FROM_XYZ_INV = np.linalg.inv(YRG_XYZ_TO_LMS)
+_YRG_YL, _YRG_YM = 0.68990272, 0.34832189
+_YRG_A = np.array([[1.0671, -0.6873], [-0.0362, 1.7182]])
+_YRG_A_INV = np.linalg.inv(_YRG_A)
+_YRG_OFF = np.array([0.02062, -0.05155])
+
+
+def yrg_from_xyz(im_cl, xp=np):
+    lms = im_cl @ xp.asarray(YRG_XYZ_TO_LMS.T, dtype=im_cl.dtype)
+    L, M, S = lms[..., 0], lms[..., 1], lms[..., 2]
+    Y = _YRG_YL * L + _YRG_YM * M
+    t = L + M + S
+    safe = xp.where(t == 0, 1.0, t)
+    l = xp.where(t == 0, 0.0, L / safe)
+    m = xp.where(t == 0, 0.0, M / safe)
+    r = _YRG_A[0, 0] * l + _YRG_A[0, 1] * m + _YRG_OFF[0]
+    g = _YRG_A[1, 0] * l + _YRG_A[1, 1] * m + _YRG_OFF[1]
+    return xp.stack([Y, r, g], axis=-1)
+
+
+def xyz_from_yrg(im_cl, xp=np):
+    Y, r, g = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    rr = r - _YRG_OFF[0]
+    gg = g - _YRG_OFF[1]
+    l = _YRG_A_INV[0, 0] * rr + _YRG_A_INV[0, 1] * gg
+    m = _YRG_A_INV[1, 0] * rr + _YRG_A_INV[1, 1] * gg
+    d = _YRG_YL * l + _YRG_YM * m
+    safe = xp.where(d == 0, 1.0, d)
+    t = xp.where(d == 0, 0.0, Y / safe)  # L+M+S
+    lms = xp.stack([t * l, t * m, t * (1.0 - l - m)], axis=-1)
+    return lms @ xp.asarray(YRG_LMS_FROM_XYZ_INV.T, dtype=im_cl.dtype)
+
+
+# IgPgTg (Hellwig & Fairchild 2020, "Using Gaussian spectra to derive a
+# hue-linear colour space"): XYZ -> LMS, per-cone normalization, 0.427
+# exponent, opponent matrix.
+IGPGTG_XYZ_TO_LMS = np.array(
+    [
+        [2.968, 2.741, -0.649],
+        [1.237, 5.969, -0.173],
+        [0.318, 0.387, 2.311],
+    ]
+)
+IGPGTG_LMS_NORM = np.array([18.36, 21.46, 19435.0])
+IGPGTG_LMS_TO_IGPGTG = np.array(
+    [
+        [0.117, 1.464, 0.130],
+        [8.285, -8.361, 21.400],
+        [-1.208, 2.412, -36.530],
+    ]
+)
+IGPGTG_XYZ_FROM_LMS = np.linalg.inv(IGPGTG_XYZ_TO_LMS)
+IGPGTG_LMS_FROM_IGPGTG = np.linalg.inv(IGPGTG_LMS_TO_IGPGTG)
+_IGPGTG_EXP = 0.427
+
+
+def igpgtg_from_xyz(im_cl, xp=np):
+    lms = (im_cl * 100.0) @ xp.asarray(IGPGTG_XYZ_TO_LMS.T, dtype=im_cl.dtype)
+    lms_n = lms / xp.asarray(IGPGTG_LMS_NORM, dtype=im_cl.dtype)
+    lms_p = xp.sign(lms_n) * xp.abs(lms_n) ** _IGPGTG_EXP
+    return lms_p @ xp.asarray(IGPGTG_LMS_TO_IGPGTG.T, dtype=im_cl.dtype)
+
+
+def xyz_from_igpgtg(im_cl, xp=np):
+    lms_p = im_cl @ xp.asarray(IGPGTG_LMS_FROM_IGPGTG.T, dtype=im_cl.dtype)
+    lms_n = xp.sign(lms_p) * xp.abs(lms_p) ** (1.0 / _IGPGTG_EXP)
+    lms = lms_n * xp.asarray(IGPGTG_LMS_NORM, dtype=im_cl.dtype)
+    return (lms @ xp.asarray(IGPGTG_XYZ_FROM_LMS.T, dtype=im_cl.dtype)) / 100.0
+
+
+# ICaCb (Froehlich 2017, "Encoding high dynamic range and wide color
+# gamut imagery", ch. 7): XYZ -> LMS -> ST2084 (PQ) -> opponent. The
+# opponent rows sum to (1, 0, 0) at the achromatic axis.
+ICACB_XYZ_TO_LMS = np.array(
+    [
+        [0.37613, 0.70431, -0.05675],
+        [-0.21649, 1.14744, 0.05356],
+        [0.02567, 0.16713, 0.74235],
+    ]
+)
+ICACB_LMS_TO_ICACB = np.array(
+    [
+        [0.4949, 0.5037, 0.0015],
+        [4.2854, -4.5462, 0.2609],
+        [0.3605, 1.1499, -1.5105],
+    ]
+)
+ICACB_XYZ_FROM_LMS = np.linalg.inv(ICACB_XYZ_TO_LMS)
+ICACB_LMS_FROM_ICACB = np.linalg.inv(ICACB_LMS_TO_ICACB)
+
+
+def icacb_from_xyz(im_cl, xp=np):
+    lms = im_cl @ xp.asarray(ICACB_XYZ_TO_LMS.T, dtype=im_cl.dtype)
+    lms_p = _pq_fwd(lms, _PQ_P_ICTCP, xp)
+    return lms_p @ xp.asarray(ICACB_LMS_TO_ICACB.T, dtype=im_cl.dtype)
+
+
+def xyz_from_icacb(im_cl, xp=np):
+    lms_p = im_cl @ xp.asarray(ICACB_LMS_FROM_ICACB.T, dtype=im_cl.dtype)
+    lms = _pq_inv(lms_p, _PQ_P_ICTCP, xp)
+    return lms @ xp.asarray(ICACB_XYZ_FROM_LMS.T, dtype=im_cl.dtype)
+
+
+# IPT Ragoo (Ragoo & Farup 2021, hue-linearity-optimised IPT): the
+# XYZ->LMS stage is re-fit; the 0.43 exponent and LMS'->IPT matrix are
+# retained from Ebner & Fairchild's IPT.
+IPT_RAGOO_XYZ_TO_LMS = np.array(
+    [
+        [0.4321, 0.6906, -0.0930],
+        [-0.1793, 1.1458, 0.0226],
+        [0.0631, 0.1532, 0.7226],
+    ]
+)
+IPT_RAGOO_XYZ_FROM_LMS = np.linalg.inv(IPT_RAGOO_XYZ_TO_LMS)
+
+
+def ipt_ragoo_from_xyz(im_cl, xp=np):
+    lms = im_cl @ xp.asarray(IPT_RAGOO_XYZ_TO_LMS.T, dtype=im_cl.dtype)
+    lms_p = xp.sign(lms) * xp.abs(lms) ** IPT_EXP
+    return lms_p @ xp.asarray(LMS_TO_IPT.T, dtype=im_cl.dtype)
+
+
+def xyz_from_ipt_ragoo(im_cl, xp=np):
+    lms_p = im_cl @ xp.asarray(LMS_FROM_IPT.T, dtype=im_cl.dtype)
+    lms = xp.sign(lms_p) * xp.abs(lms_p) ** (1.0 / IPT_EXP)
+    return lms @ xp.asarray(IPT_RAGOO_XYZ_FROM_LMS.T, dtype=im_cl.dtype)
+
+
+# YCoCg (Malvar & Sullivan 2003, lifting form used by H.264 FRext):
+# exact rational matrix, trivially invertible.
+RGB_TO_YCOCG = np.array(
+    [[0.25, 0.5, 0.25], [0.5, 0.0, -0.5], [-0.25, 0.5, -0.25]]
+)
+YCOCG_TO_RGB = np.linalg.inv(RGB_TO_YCOCG)
+
+
+# CAM02-UCS (Luo, Cui & Li 2006) over CIECAM02 (CIE 159:2004). Same
+# viewing conditions as the CAM16 block above; the pipeline differs
+# only in the sharpened CAT02 adaptation space plus the Hunt-Pointer-
+# Estevez cone space for the response compression.
+M_CAT02 = np.array(
+    [
+        [0.7328, 0.4296, -0.1624],
+        [-0.7036, 1.6975, 0.0061],
+        [0.0030, 0.0136, 0.9834],
+    ]
+)
+M_HPE = np.array(
+    [
+        [0.38971, 0.68898, -0.07868],
+        [-0.22981, 1.18340, 0.04641],
+        [0.00000, 0.00000, 1.00000],
+    ]
+)
+M_CAT02_INV = np.linalg.inv(M_CAT02)
+M_HPE_FROM_CAT02 = M_HPE @ M_CAT02_INV
+M_CAT02_FROM_HPE = np.linalg.inv(M_HPE_FROM_CAT02)
+
+_cam02_rgb_w = M_CAT02 @ _CAM16_XYZ_W
+_CAM02_D_RGB = (
+    _CAM16_D * _CAM16_XYZ_W[1] / _cam02_rgb_w + 1.0 - _CAM16_D
+)
+_cam02_rgb_wc = _CAM02_D_RGB * _cam02_rgb_w
+_cam02_rgb_wp = M_HPE_FROM_CAT02 @ _cam02_rgb_wc
+_cam02_t_w = (_CAM16_FL * _cam02_rgb_wp / 100.0) ** 0.42
+_cam02_rgb_aw = 400.0 * _cam02_t_w / (_cam02_t_w + 27.13) + 0.1
+_CAM02_AW = (
+    2.0 * _cam02_rgb_aw[0] + _cam02_rgb_aw[1] + _cam02_rgb_aw[2] / 20.0
+    - 0.305
+) * _CAM16_NBB
+
+
+def cam02ucs_from_xyz(im_cl, xp=np, variant="ucs"):
+    rgb = (im_cl * 100.0) @ xp.asarray(M_CAT02.T, dtype=im_cl.dtype)
+    rgb_c = rgb * xp.asarray(_CAM02_D_RGB, dtype=im_cl.dtype)
+    rgb_p = rgb_c @ xp.asarray(M_HPE_FROM_CAT02.T, dtype=im_cl.dtype)
+    ra = _cam16_adapt(rgb_p, xp)
+    R, G, B = ra[..., 0], ra[..., 1], ra[..., 2]
+    a = R - 12.0 * G / 11.0 + B / 11.0
+    b = (R + G - 2.0 * B) / 9.0
+    h = xp.arctan2(b, a)
+    et = (xp.cos(h + 2.0) + 3.8) / 4.0
+    A = (2.0 * R + G + B / 20.0 - 0.305) * _CAM16_NBB
+    J = 100.0 * xp.abs(A / _CAM02_AW) ** (_CAM16_C * _CAM16_Z)
+    denom = R + G + 21.0 * B / 20.0 + 0.305
+    t = (
+        (50000.0 / 13.0) * _CAM16_NC * _CAM16_NCB * et
+        * xp.sqrt(a * a + b * b) / denom
+    )
+    C = (
+        xp.abs(t) ** 0.9 * xp.sqrt(J / 100.0)
+        * (1.64 - 0.29**_CAM16_N) ** 0.73
+    )
+    M = C * _CAM16_FL**0.25
+    KL, c1, c2 = _LUO2006[variant]
+    Jp = (1.0 + 100.0 * c1) * J / (1.0 + c1 * J) / KL
+    Mp = xp.log1p(c2 * M) / c2
+    return xp.stack([Jp, Mp * xp.cos(h), Mp * xp.sin(h)], axis=-1)
+
+
+def xyz_from_cam02ucs(im_cl, xp=np, variant="ucs"):
+    Jp, ap, bp = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    KL, c1, c2 = _LUO2006[variant]
+    Jk = Jp * KL
+    J = Jk / (1.0 + 100.0 * c1 - c1 * Jk)
+    Mp = xp.sqrt(ap * ap + bp * bp)
+    M = (xp.exp(c2 * Mp) - 1.0) / c2
+    h = xp.arctan2(bp, ap)
+    C = M / _CAM16_FL**0.25
+    Jsafe = xp.maximum(J, 1e-10)
+    t = (
+        C / (xp.sqrt(Jsafe / 100.0) * (1.64 - 0.29**_CAM16_N) ** 0.73)
+    ) ** (1.0 / 0.9)
+    et = (xp.cos(h + 2.0) + 3.8) / 4.0
+    A = _CAM02_AW * (Jsafe / 100.0) ** (1.0 / (_CAM16_C * _CAM16_Z))
+    # same closed-form (t, h, A) -> (a, b) as the CAM16 inverse above:
+    # the opponent system is identical in CIECAM02
+    p1t = (50000.0 / 13.0) * _CAM16_NC * _CAM16_NCB * et
+    p2 = A / _CAM16_NBB + 0.305
+    beta, gamma = -11.0 / 23.0, -108.0 / 23.0
+    sh, ch = xp.sin(h), xp.cos(h)
+    den = p1t - t * (beta * ch + gamma * sh)
+    s_rad = t * (p2 + 0.305) / xp.where(xp.abs(den) < 1e-12, 1e-12, den)
+    a = s_rad * ch
+    b = s_rad * sh
+    Ra = (460.0 * p2 + 451.0 * a + 288.0 * b) / 1403.0
+    Ga = (460.0 * p2 - 891.0 * a - 261.0 * b) / 1403.0
+    Ba = (460.0 * p2 - 220.0 * a - 6300.0 * b) / 1403.0
+    ra = xp.stack([Ra, Ga, Ba], axis=-1)
+    rgb_p = _cam16_adapt_inv(ra, xp)
+    rgb_c = rgb_p @ xp.asarray(M_CAT02_FROM_HPE.T, dtype=im_cl.dtype)
+    rgb = rgb_c / xp.asarray(_CAM02_D_RGB, dtype=im_cl.dtype)
+    return (rgb @ xp.asarray(M_CAT02_INV.T, dtype=im_cl.dtype)) / 100.0
+
+
+# hdr-CIELAB / hdr-IPT (Fairchild & Chen 2011, "Brightness, lightness,
+# and specifying color in high-dynamic-range scenes and images"):
+# Michaelis-Menten lightness L = Vmax * Y^e / (Y^e + 2^e) + 0.02 with
+# Vmax 247 (hdr-CIELAB) / 246 (hdr-IPT); exponent from the default
+# viewing conditions Y_s = 0.2, Y_abs = 100 cd/m2.
+_HDR_LF = np.log(318.0) / np.log(100.0)  # Y_abs = 100
+_HDR_SF = 1.25 - 0.25 * (0.2 / 0.184)  # Y_s = 0.2
+_HDR_EPS_LAB = 0.58 / (_HDR_SF * _HDR_LF)
+_HDR_EPS_IPT = 0.59 / (_HDR_SF * _HDR_LF)
+
+
+def _mm_lightness(y, eps, vmax, xp):
+    ye = xp.abs(y) ** eps
+    return xp.sign(y) * (vmax * ye / (ye + 2.0**eps)) + 0.02
+
+
+def _mm_lightness_inv(L, eps, vmax, xp):
+    v = L - 0.02
+    av = xp.clip(xp.abs(v), 0.0, vmax - 1e-9)
+    ye = 2.0**eps * av / (vmax - av)
+    return xp.sign(v) * ye ** (1.0 / eps)
+
+
+def hdr_cielab_from_xyz(im_cl, xp=np):
+    fx = _mm_lightness(im_cl[..., 0] / D65_WHITE[0], _HDR_EPS_LAB, 247.0, xp)
+    fy = _mm_lightness(im_cl[..., 1] / D65_WHITE[1], _HDR_EPS_LAB, 247.0, xp)
+    fz = _mm_lightness(im_cl[..., 2] / D65_WHITE[2], _HDR_EPS_LAB, 247.0, xp)
+    return xp.stack([fy, 5.0 * (fx - fy), 2.0 * (fy - fz)], axis=-1)
+
+
+def xyz_from_hdr_cielab(im_cl, xp=np):
+    L, a, b = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    fx = a / 5.0 + L
+    fz = L - b / 2.0
+    X = _mm_lightness_inv(fx, _HDR_EPS_LAB, 247.0, xp) * D65_WHITE[0]
+    Y = _mm_lightness_inv(L, _HDR_EPS_LAB, 247.0, xp) * D65_WHITE[1]
+    Z = _mm_lightness_inv(fz, _HDR_EPS_LAB, 247.0, xp) * D65_WHITE[2]
+    return xp.stack([X, Y, Z], axis=-1)
+
+
+def hdr_ipt_from_xyz(im_cl, xp=np):
+    lms = im_cl @ xp.asarray(XYZ_TO_LMS_IPT.T, dtype=im_cl.dtype)
+    lms_p = _mm_lightness(lms, _HDR_EPS_IPT, 246.0, xp)
+    return lms_p @ xp.asarray(LMS_TO_IPT.T, dtype=im_cl.dtype)
+
+
+def xyz_from_hdr_ipt(im_cl, xp=np):
+    lms_p = im_cl @ xp.asarray(LMS_FROM_IPT.T, dtype=im_cl.dtype)
+    lms = _mm_lightness_inv(lms_p, _HDR_EPS_IPT, 246.0, xp)
+    return lms @ xp.asarray(XYZ_FROM_LMS_IPT.T, dtype=im_cl.dtype)
+
+
+# OSA UCS (MacAdam 1974, the OSA committee formulas; coordinates
+# (L, j, g)). The inverse has no closed form; it follows Kobayasi &
+# Yosiki 2002: a scalar Newton solve for Y0 from L, then the two linear
+# chromatic equations parametrized by cbrt(B) with a 1-D root find on
+# the Y0 consistency constraint. Fixed iteration counts keep the
+# inverse jittable.
+OSA_XYZ_TO_RGB = np.array(
+    [
+        [0.7990, 0.4194, -0.1648],
+        [-0.4493, 1.3265, 0.0927],
+        [-0.1149, 0.3394, 0.7170],
+    ]
+)
+OSA_RGB_TO_XYZ = np.linalg.inv(OSA_XYZ_TO_RGB)
+_OSA_SQ2 = float(np.sqrt(2.0))
+
+
+def _osa_y0(X, Y, Z, xp):
+    s = X + Y + Z
+    safe = xp.where(s == 0, 1.0, s)
+    x = xp.where(s == 0, _D65_XY[0], X / safe)
+    y = xp.where(s == 0, _D65_XY[1], Y / safe)
+    return Y * (
+        4.4934 * x * x + 4.3034 * y * y - 4.276 * x * y
+        - 1.3744 * x - 2.5643 * y + 1.8103
+    )
+
+
+def _osa_lambda(Y0, xp):
+    """5.9 (Y0^(1/3) - 2/3 + 0.042 cbrt(Y0 - 30)) — monotone in Y0."""
+    return 5.9 * (
+        xp.cbrt(xp.maximum(Y0, 0.0)) - 2.0 / 3.0
+        + 0.042 * xp.sign(Y0 - 30.0) * xp.abs(Y0 - 30.0) ** (1.0 / 3.0)
+    )
+
+
+def osa_ucs_from_xyz(im_cl, xp=np):
+    X = im_cl[..., 0] * 100.0
+    Y = im_cl[..., 1] * 100.0
+    Z = im_cl[..., 2] * 100.0
+    Y0 = _osa_y0(X, Y, Z, xp)
+    lam = _osa_lambda(Y0, xp)
+    L = (lam - 14.4) / _OSA_SQ2
+    denom = 5.9 * (xp.cbrt(xp.maximum(Y0, 0.0)) - 2.0 / 3.0)
+    C = lam / xp.where(xp.abs(denom) < 1e-9, 1e-9, denom)
+    rgb = xp.stack([X, Y, Z], axis=-1) @ xp.asarray(
+        OSA_XYZ_TO_RGB.T, dtype=im_cl.dtype
+    )
+    cb = xp.sign(rgb) * xp.abs(rgb) ** (1.0 / 3.0)
+    u, v, w = cb[..., 0], cb[..., 1], cb[..., 2]
+    a = -13.7 * u + 17.7 * v - 4.0 * w
+    b = 1.7 * u + 8.0 * v - 9.7 * w
+    return xp.stack([L, C * b, C * a], axis=-1)  # (L, j, g)
+
+
+def xyz_from_osa_ucs(im_cl, xp=np):
+    L, j, g = im_cl[..., 0], im_cl[..., 1], im_cl[..., 2]
+    lam = L * _OSA_SQ2 + 14.4
+    # Y0 from lam by bisection: _osa_lambda is monotone but its
+    # 0.042*cbrt(Y0-30) term has infinite slope at Y0=30, where Newton
+    # stalls (measured: 40 iters left Y0 off by 0.28 near the kink —
+    # a 9e-3 round-trip error). 80 fixed halvings reach ~1e-21 relative
+    # and stay jittable. The bracket upper end covers the reflectance
+    # range (Y0 <= 1200, L up to ~33) and, for out-of-range L, widens
+    # elementwise to the analytic bound lam >= 5.9*(cbrt(Y0) - 2/3)
+    # (valid for Y0 >= 30) => Y0 <= (lam/5.9 + 2/3)^3.
+    lo = xp.zeros_like(lam)
+    hi = xp.maximum(
+        xp.full_like(lam, 1200.0),
+        (xp.maximum(lam, 0.0) / 5.9 + 2.0 / 3.0) ** 3 + 1.0,
+    )
+    for _ in range(80):
+        mid = 0.5 * (lo + hi)
+        below = _osa_lambda(mid, xp) < lam
+        lo = xp.where(below, mid, lo)
+        hi = xp.where(below, hi, mid)
+    Y0 = xp.maximum(0.5 * (lo + hi), 1e-9)
+    denom = 5.9 * (xp.cbrt(Y0) - 2.0 / 3.0)
+    C = lam / xp.where(xp.abs(denom) < 1e-9, 1e-9, denom)
+    Csafe = xp.where(xp.abs(C) < 1e-9, 1e-9, C)
+    a = g / Csafe
+    b = j / Csafe
+    # chromatic system: -13.7 u + 17.7 v = a + 4 w ; 1.7 u + 8 v = b + 9.7 w
+    det = -13.7 * 8.0 - 17.7 * 1.7  # -139.69
+    u0 = (8.0 * a - 17.7 * b) / det
+    uw = (8.0 * 4.0 - 17.7 * 9.7) / det
+    v0 = (-13.7 * b - 1.7 * a) / det
+    vw = (-13.7 * 9.7 - 1.7 * 4.0) / det
+
+    def xyz_of(wc):
+        u = u0 + uw * wc
+        v = v0 + vw * wc
+        rgb = xp.stack([u**3, v**3, wc**3], axis=-1)
+        return rgb @ xp.asarray(OSA_RGB_TO_XYZ.T, dtype=im_cl.dtype)
+
+    def resid(wc):
+        xyz = xyz_of(wc)
+        return _osa_y0(xyz[..., 0], xyz[..., 1], xyz[..., 2], xp) - Y0
+
+    wc = xp.cbrt(xp.maximum(Y0, 1e-6))  # neutral-axis init
+    eps = 1e-5
+    for _ in range(60):
+        f = resid(wc)
+        df = (resid(wc + eps) - f) / eps
+        step = f / xp.where(xp.abs(df) < 1e-12, 1e-12, df)
+        step = xp.clip(step, -1.0, 1.0)  # damped: cube-law far field
+        wc = wc - step
+    return xyz_of(wc) / 100.0
+
+
+_FORWARD = {
+    "ipt": ipt_from_rgb,
+    "cie xyz": xyz_from_rgb,
+    "xyz": xyz_from_rgb,
+    "cie lab": lambda x: lab_from_xyz(xyz_from_rgb(x)),
+    "lab": lambda x: lab_from_xyz(xyz_from_rgb(x)),
+    "ycbcr": lambda x: _apply_mat(x, RGB_TO_YCBCR),
+    "oklab": oklab_from_rgb,
+    "rgb": lambda x: x,
+    "jzazbz": lambda x: jzazbz_from_xyz(xyz_from_rgb(x)),
+    "ictcp": lambda x: ictcp_from_xyz(xyz_from_rgb(x)),
+    "cie xyy": lambda x: xyy_from_xyz(xyz_from_rgb(x)),
+    "cie luv": lambda x: luv_from_xyz(xyz_from_rgb(x)),
+    "din99": lambda x: din99_from_lab(lab_from_xyz(xyz_from_rgb(x))),
+    "hunter lab": lambda x: hunter_lab_from_xyz(xyz_from_rgb(x)),
+    "cam16ucs": lambda x: cam16ucs_from_xyz(xyz_from_rgb(x)),
+    "cam16lcd": lambda x: cam16ucs_from_xyz(xyz_from_rgb(x), variant="lcd"),
+    "cam16scd": lambda x: cam16ucs_from_xyz(xyz_from_rgb(x), variant="scd"),
+    "cie ucs": lambda x: ucs_from_xyz(xyz_from_rgb(x)),
+    "cie uvw": lambda x: uvw_from_xyz(xyz_from_rgb(x)),
+    "hunter rdab": lambda x: hunter_rdab_from_xyz(xyz_from_rgb(x)),
+    "prolab": lambda x: prolab_from_xyz(xyz_from_rgb(x)),
+    "yrg": lambda x: yrg_from_xyz(xyz_from_rgb(x)),
+    "igpgtg": lambda x: igpgtg_from_xyz(xyz_from_rgb(x)),
+    "icacb": lambda x: icacb_from_xyz(xyz_from_rgb(x)),
+    "ipt ragoo": lambda x: ipt_ragoo_from_xyz(xyz_from_rgb(x)),
+    "ycocg": lambda x: _apply_mat(x, RGB_TO_YCOCG),
+    "cam02ucs": lambda x: cam02ucs_from_xyz(xyz_from_rgb(x)),
+    "cam02lcd": lambda x: cam02ucs_from_xyz(xyz_from_rgb(x), variant="lcd"),
+    "cam02scd": lambda x: cam02ucs_from_xyz(xyz_from_rgb(x), variant="scd"),
+    "hdr-cielab": lambda x: hdr_cielab_from_xyz(xyz_from_rgb(x)),
+    "hdr-ipt": lambda x: hdr_ipt_from_xyz(xyz_from_rgb(x)),
+    "osa ucs": lambda x: osa_ucs_from_xyz(xyz_from_rgb(x)),
+}
+_INVERSE = {
+    "ipt": rgb_from_ipt,
+    "cie xyz": rgb_from_xyz,
+    "xyz": rgb_from_xyz,
+    "cie lab": lambda x: rgb_from_xyz(xyz_from_lab(x)),
+    "lab": lambda x: rgb_from_xyz(xyz_from_lab(x)),
+    "ycbcr": lambda x: _apply_mat(x, YCBCR_TO_RGB),
+    "oklab": rgb_from_oklab,
+    "rgb": lambda x: x,
+    "jzazbz": lambda x: rgb_from_xyz(xyz_from_jzazbz(x)),
+    "ictcp": lambda x: rgb_from_xyz(xyz_from_ictcp(x)),
+    "cie xyy": lambda x: rgb_from_xyz(xyz_from_xyy(x)),
+    "cie luv": lambda x: rgb_from_xyz(xyz_from_luv(x)),
+    "din99": lambda x: rgb_from_xyz(xyz_from_lab(lab_from_din99(x))),
+    "hunter lab": lambda x: rgb_from_xyz(xyz_from_hunter_lab(x)),
+    "cam16ucs": lambda x: rgb_from_xyz(xyz_from_cam16ucs(x)),
+    "cam16lcd": lambda x: rgb_from_xyz(xyz_from_cam16ucs(x, variant="lcd")),
+    "cam16scd": lambda x: rgb_from_xyz(xyz_from_cam16ucs(x, variant="scd")),
+    "cie ucs": lambda x: rgb_from_xyz(xyz_from_ucs(x)),
+    "cie uvw": lambda x: rgb_from_xyz(xyz_from_uvw(x)),
+    "hunter rdab": lambda x: rgb_from_xyz(xyz_from_hunter_rdab(x)),
+    "prolab": lambda x: rgb_from_xyz(xyz_from_prolab(x)),
+    "yrg": lambda x: rgb_from_xyz(xyz_from_yrg(x)),
+    "igpgtg": lambda x: rgb_from_xyz(xyz_from_igpgtg(x)),
+    "icacb": lambda x: rgb_from_xyz(xyz_from_icacb(x)),
+    "ipt ragoo": lambda x: rgb_from_xyz(xyz_from_ipt_ragoo(x)),
+    "ycocg": lambda x: _apply_mat(x, YCOCG_TO_RGB),
+    "cam02ucs": lambda x: rgb_from_xyz(xyz_from_cam02ucs(x)),
+    "cam02lcd": lambda x: rgb_from_xyz(xyz_from_cam02ucs(x, variant="lcd")),
+    "cam02scd": lambda x: rgb_from_xyz(xyz_from_cam02ucs(x, variant="scd")),
+    "hdr-cielab": lambda x: rgb_from_xyz(xyz_from_hdr_cielab(x)),
+    "hdr-ipt": lambda x: rgb_from_xyz(xyz_from_hdr_ipt(x)),
+    "osa ucs": lambda x: rgb_from_xyz(xyz_from_osa_ucs(x)),
+}
+
+SUPPORTED_MODELS = set(_FORWARD)
+
+
+def convert(im: np.ndarray, src: str, dest: str) -> np.ndarray:
+    """Convert a (C, H, W) image between color models.
+
+    Channels-first in/out (the reference's shim: spiht/color_models.py:11-13).
+    One of src/dest must be 'RGB'.
+    """
+    src_l, dest_l = src.lower(), dest.lower()
+    for name, m in (("src", src_l), ("dest", dest_l)):
+        if m not in SUPPORTED_MODELS:
+            raise ValueError(
+                f"{m!r} is not a supported color model. "
+                f"Supported models are {sorted(SUPPORTED_MODELS)}"
+            )
+    im_cl = np.moveaxis(np.asarray(im, dtype=np.float64), 0, -1)
+    if src_l == "rgb":
+        out = _FORWARD[dest_l](im_cl)
+    elif dest_l == "rgb":
+        out = _INVERSE[src_l](im_cl)
+    else:
+        out = _FORWARD[dest_l](_INVERSE[src_l](im_cl))
+    return np.moveaxis(out, -1, 0)

@@ -1,5 +1,6 @@
 """The port's copies of the JAX package's JAX-free modules equal the
-originals: their code, filter taps, subband geometry, queue bounds, the bit
+originals: their code (the colour models, the quantize step and the image
+utilities included), filter taps, subband geometry, queue bounds, the bit
 machines' geometry tables, the max_n threshold table, colour constants and
 the settings containers; the native scheduler's C++ sources, its ctypes
 bindings and its outputs; the metadata trace's rect and node tables; the
@@ -21,7 +22,9 @@ from spiht_tpu.codec import planning as jplan
 from spiht_tpu.codec import tree_bounds as jtb
 from spiht_tpu.native import runtime as jrt
 from spiht_tpu.color import models as jcm
+from spiht_tpu.ops import quantize as jq
 from spiht_tpu import settings as jset
+from spiht_tpu import utils as jutils
 from spiht_tpu.wavelets import _coif_tables as jcoif
 from spiht_tpu.wavelets import filters as jf
 from spiht_tpu.wavelets import geometry as jgeo
@@ -35,6 +38,8 @@ from spiht_tpu_torch.codec import planning as tplan
 from spiht_tpu_torch.codec import tree_bounds as ttb
 from spiht_tpu_torch.native import runtime as trt
 from spiht_tpu_torch.color import models as tcm
+from spiht_tpu_torch.ops import quantize as tq
+from spiht_tpu_torch import utils as tutils
 from spiht_tpu_torch.wavelets import _coif_tables as tcoif
 from spiht_tpu_torch.wavelets import filters as tf
 from spiht_tpu_torch.wavelets import geometry as tgeo
@@ -75,7 +80,7 @@ def _code(module) -> str:
 
 @pytest.mark.parametrize("pair", [
     (jf, tf), (jcoif, tcoif), (jref, tref), (jgeo, tgeo), (jtb, ttb),
-    (jset, tset),
+    (jset, tset), (jcm, tcm), (jq, tq), (jutils, tutils),
 ], ids=lambda p: p[0].__name__)
 def test_copied_code_identical(pair):
     assert _code(pair[0]) == _code(pair[1])
@@ -161,9 +166,16 @@ def test_max_n_thresholds_identical():
 
 
 def test_colour_constants_identical():
-    for name in tcm.__all__:
+    """Every module-level matrix, vector and number of the colour models,
+    derived ones (inverses, CAM16/CAM02 viewing terms) included."""
+    names = [k for k, v in vars(jcm).items()
+             if isinstance(v, (np.ndarray, float, tuple))]
+    assert len(names) > 60
+    for name in names:
         a, b = getattr(jcm, name), getattr(tcm, name)
         assert np.array_equal(np.asarray(a), np.asarray(b)), name
+    assert tcm._LUO2006 == jcm._LUO2006
+    assert tcm.SUPPORTED_MODELS == jcm.SUPPORTED_MODELS
 
 
 def test_settings_identical():

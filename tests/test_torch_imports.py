@@ -44,7 +44,25 @@ def test_scan_covers_the_package():
             "spiht_tpu_torch/tools/spike_pallas_block.py",
             "spiht_tpu_torch/tools/spike_token_matmul.py",
             "spiht_tpu_torch/wavelets/dwt.py",
-            "spiht_tpu_torch/torch_transform.py"} <= names
+            "spiht_tpu_torch/torch_transform.py",
+            "spiht_tpu_torch/transform.py",
+            "spiht_tpu_torch/cli.py",
+            "spiht_tpu_torch/metrics.py",
+            "spiht_tpu_torch/utils.py",
+            "spiht_tpu_torch/color/models.py",
+            "spiht_tpu_torch/color/torch_models.py",
+            "spiht_tpu_torch/ops/quantize.py"} <= names
+
+
+def test_console_script_names_the_ports_cli():
+    """pyproject.toml installs the port's command line beside the JAX
+    package's, and the module it names has ``main``."""
+    text = (ROOT / "pyproject.toml").read_text()
+    assert 'spiht-tpu-torch = "spiht_tpu_torch.cli:main"' in text
+    assert 'spiht-tpu = "spiht_tpu.cli:main"' in text
+    from spiht_tpu_torch import cli
+
+    assert callable(cli.main)
 
 
 def test_no_path_to_the_reference_packages_library():

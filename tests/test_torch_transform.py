@@ -1,6 +1,6 @@
 """The port's transforms against the JAX package's, in float64 on the CPU:
 the packed DWT and its inverse for several wavelets in all nine modes, the
-RGB <-> IPT conversion, and the whole quantized analysis (int32
+RGB <-> IPT conversion, every colour model name both ways, and the whole quantized analysis (int32
 coefficients, max_n, M/D/G maps), which must be exactly equal."""
 
 import numpy as np
@@ -100,12 +100,23 @@ def test_rgb_ipt_conversion_matches_jax():
     )
 
 
-def test_unported_colour_models_raise():
+@pytest.mark.parametrize("name", sorted(torch_models.REFERENCE_MODELS))
+def test_every_colour_model_converts(name):
+    """Every name the JAX package accepts converts both ways, in any case
+    of letters, to finite values of the input's shape."""
+    x = torch.as_tensor(_img(3, (3, 5, 6)) * 0.98 + 0.01)
+    out = torch_models.convert(x, "RGB", name.upper())
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    back = torch_models.convert(out, name, "rgb")
+    np.testing.assert_allclose(back.numpy(), x.numpy(), rtol=0, atol=1e-6)
+
+
+def test_unknown_colour_model_raises():
     x = torch.zeros(3, 4, 4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_models.convert(x, "RGB", "oklab")
-    with pytest.raises(ValueError):
-        torch_models.convert(x, "RGB", "no such model")
+    assert torch_models.SUPPORTED_MODELS == torch_models.REFERENCE_MODELS
+    for src, dest in (("RGB", "no such model"), ("hsv", "RGB")):
+        with pytest.raises(ValueError, match="not a supported color model"):
+            torch_models.convert(x, src, dest)
 
 
 CASES = [
