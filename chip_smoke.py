@@ -73,6 +73,17 @@ Phases:
       float32 host-scheduled path (B6) with Oklab; (c) the command line's
       array cores with --device cuda: encode-decode (device, native),
       encode and decode of a stream file, plan, sweep, batch (B4)
+  20. the XLA fallback machines (codec/device_encoder.py, device_decoder.py;
+      torch ops, no kernel of their own) on the card with the three
+      SPIHT_TPU_PALLAS_* flags at 0: (a) at small geometries (even and odd
+      LL) each machine equals its CPU run and B1, B2/B3 and B2-log/B3-log
+      on full streams, a budget cut and three byte prefixes; (b) at full
+      width the sorted-space encoder equals B1 at A and raises at B's odd
+      LL, the hybrid decoder equals B2 at A and B3 at B, and the
+      sequential machine's rec and trace equal B2-log's at A and B3-log's
+      at B on a 2048-byte prefix; (c) phase 8's 16 A images through the
+      lockstep batches equal B4's streams and B5's recs; no kernel
+      launches, each machine's wall time and iterations printed
 """
 
 from __future__ import annotations
@@ -1868,8 +1879,297 @@ def phase_host_surface(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a):
                       "seconds": time.perf_counter() - t0, "card": smi}))
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the fallback machines on the card
+# ---------------------------------------------------------------------------
+
+# the three routing flags; "0" sends encode_device, decode_device(_batch)
+# and decode_device_with_metadata to the fallback machines
+FALLBACK_FLAGS = ("SPIHT_TPU_PALLAS_ENCODER", "SPIHT_TPU_PALLAS_DECODER",
+                  "SPIHT_TPU_PALLAS_META")
+# the byte prefix of A's and B's streams that the sequential machine (one
+# list entry a step) decodes with the trace at full width
+SEQ_PREFIX = 2048
+
+
+def wall_ms(fn):
+    """(fn(), host ms from a sync before to a sync after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def dyadic_wire(ll_h, ll_w, h, w, level):
+    """(top_slice, other_slices) of a packing of ``level`` levels whose
+    last level ends at (h, w)."""
+    top = ((0, ll_h), (0, ll_w))
+    other = []
+    ah, aw = ll_h, ll_w
+    for k in range(level):
+        bh, bw = (h, w) if k == level - 1 else (2 * ah, 2 * aw)
+        other.append((((0, ah), (aw, bw)), ((ah, bh), (0, aw)),
+                      ((ah, bh), (aw, bw))))
+        ah, aw = bh, bw
+    return top, tuple(other)
+
+
+def fallback_small_refs():
+    """Phase 20 (a)'s cases with the kernels' outputs (B1; B2 or B3;
+    B2-log or B3-log): an even-LL and an odd-LL geometry, each stream's
+    full stream, a budget cut and three byte prefixes."""
+    rng = np.random.default_rng(20)
+    cases = []
+    for shape, ll in (((2, 16, 16), (4, 4)), ((1, 19, 19), (5, 5))):
+        arr = torch.as_tensor(
+            (rng.standard_normal(shape) * 12).astype(np.int32), device=DEV)
+        full, mn = encoder.encode(arr, *ll, FULL, device=DEV)
+        cut, _ = encoder.encode(arr, *ll, 1001, device=DEV)
+        wire = dyadic_wire(*ll, *shape[1:], 2)
+        streams = [full, cut, full[:1], full[:7], full[: len(full) // 2]]
+        recs = [decoder.decode(d, mn, *shape, *ll, device=DEV).cpu().numpy()
+                for d in streams]
+        traces = [tuple(x.cpu().numpy() for x in meta_expand.
+                        decode_with_metadata(d, mn, *shape, *ll, *wire,
+                                             torch.device(DEV)))
+                  for d in streams]
+        cases.append(dict(shape=shape, ll=ll, arr=arr, mn=mn, wire=wire,
+                          streams=streams, recs=recs, traces=traces,
+                          enc=[(full, mn), (cut, mn)]))
+    return cases
+
+
+def fallback_small(cases):
+    """Phase 20 (a): each machine on the card equals its CPU run and the
+    kernel's output. Returns the count of comparisons."""
+    from spiht_tpu_torch.codec import device_decoder, device_encoder
+
+    n_cmp = 0
+    for case in cases:
+        shape, ll, arr = case["shape"], case["ll"], case["arr"]
+        if ll[0] % 2 == 0 and ll[1] % 2 == 0:
+            for (want, mn), mb in zip(case["enc"], (FULL, 1001)):
+                got = device_encoder.encode_device(arr, *ll, mb, device=DEV)
+                cpu = device_encoder.encode_device(arr.cpu(), *ll, mb,
+                                                   device="cpu")
+                check(got == cpu == (want, mn),
+                      f"{shape}: encode_device at {mb} != CPU or B1")
+                n_cmp += 2
+            got = device_encoder.encode_device_batch(
+                torch.stack([arr, arr]), *ll, [FULL, 1001], device=DEV)
+            check(got == case["enc"], f"{shape}: encode_device_batch != B1")
+            n_cmp += 1
+        else:
+            try:
+                device_encoder.encode_device(arr, *ll, FULL, device=DEV)
+            except ValueError as e:
+                check("even ll" in str(e), f"{shape}: {e}")
+            else:
+                raise AssertionError(f"{shape}: odd LL encoded")
+        args = (*shape, *ll)
+        for d, rec, (trec, tmeta) in zip(case["streams"], case["recs"],
+                                         case["traces"]):
+            got = device_decoder.decode_device(d, case["mn"], *args,
+                                               device=DEV)
+            cpu = device_decoder.decode_device(d, case["mn"], *args,
+                                               device="cpu")
+            check(np.array_equal(got, cpu) and np.array_equal(got, rec),
+                  f"{shape} {len(d)} bytes: hybrid != CPU or kernel")
+            got = device_decoder.decode_device_with_metadata(
+                d, case["mn"], *args, *case["wire"], device=DEV)
+            cpu = device_decoder.decode_device_with_metadata(
+                d, case["mn"], *args, *case["wire"], device="cpu")
+            check(all(np.array_equal(x, y) and np.array_equal(x, z)
+                      for x, y, z in zip(got, cpu, (trec, tmeta))),
+                  f"{shape} {len(d)} bytes: sequential != CPU or kernel")
+            n_cmp += 4
+        got = device_decoder.decode_device_batch(
+            case["streams"], case["mn"], *args, device=DEV)
+        check(np.array_equal(got, np.stack(case["recs"])),
+              f"{shape}: decode_device_batch != kernel")
+        n_cmp += 1
+        print(f"  {shape} LL {ll}: {len(case['streams'])} streams "
+              f"({[len(d) for d in case['streams']]} bytes): machines on "
+              "the card == CPU == kernels")
+    return n_cmp
+
+
+def phase_fallback(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a):
+    """Phase 20: the XLA fallback machines (codec/device_encoder.py,
+    codec/device_decoder.py) on the card under the flags set to 0, the
+    counts set to 0 just before and read just after: (a) at small
+    geometries, equal to their CPU runs and to the kernels; (b) at full
+    width, the sorted-space encoder equal to B1 at A and raising at B's
+    odd LL, the hybrid decoder equal to B2 at A and B3 at B, and the
+    sequential machine's rec and trace equal to B2-log's at A and
+    B3-log's at B on a SEQ_PREFIX-byte prefix; (c) phase 8's 16 A images
+    through encode_device_batch (equal to B4's streams) and
+    decode_device_batch (equal to B5's recs). No machine kernel launches;
+    each machine's iterations are counted on CUDA tensors. Then the same
+    calls with the flags at 1 (the kernels), timed beside."""
+    from spiht_tpu_torch.codec import device_decoder, device_encoder
+
+    t0 = time.perf_counter()
+    smi = card()
+    on = torch.device(DEV).type  # where the machines must have run
+    mb = im_a.shape[1] * im_a.shape[2]  # phase 3's budget: 1.0 bpp
+    # ---- the kernels' outputs, before the counts are reset ----
+    cases = fallback_small_refs()
+    full = {}
+    for label, im, er, settings, level in (("A", im_a, er_a, CONFIG_A, None),
+                                           ("B", im_b, er_b, CONFIG_B, 3)):
+        arr, ll_h, ll_w = forward(torch.as_tensor(im, device=DEV), settings,
+                                  level)
+        geo = (*arr.shape, ll_h, ll_w)
+        slices, _, _ = get_slices_and_h_w(er.h, er.w, settings, level)
+        wire = slices_to_wire(slices)
+        data = er.encoded_bytes
+        trec, tmeta = meta_expand.decode_with_metadata(
+            data[:SEQ_PREFIX], er.max_n, *geo, *wire, torch.device(DEV))
+        full[label] = dict(
+            arr=arr, geo=geo, wire=wire, data=data, max_n=er.max_n,
+            rec=decoder.decode(data, er.max_n, *geo, device=DEV).cpu().numpy(),
+            trace=(trec.cpu().numpy(), tmeta.cpu().numpy()))
+    A, B = full["A"], full["B"]
+    c, h, w, ll_h, ll_w = A["geo"]
+    arrs_a, _, _ = forward(torch.as_tensor(np.stack(ims_a), device=DEV),
+                           CONFIG_A, None)
+    datas = [er.encoded_bytes for er in ers_a]
+    mns = [er.max_n for er in ers_a]
+    recs_b5 = decoder.decode_batch(datas, mns, c, h, w, ll_h, ll_w,
+                                   device=DEV).cpu().numpy()
+
+    def hybrid(X):
+        return lambda: device_decoder.decode_device(
+            X["data"], X["max_n"], *X["geo"], device=DEV)
+
+    def sequential(X):
+        return lambda: device_decoder.decode_device_with_metadata(
+            X["data"][:SEQ_PREFIX], X["max_n"], *X["geo"], *X["wire"],
+            device=DEV)
+
+    # each run: the call as the flags route it, the kernels' output, how
+    # many iterations the machine ran (and of what), whether to time a
+    # second call (the first includes the CUDA graph's capture). The
+    # machines are looked up after their call: the builds are cached
+    def enc_info():
+        enc = device_encoder.encode_device_fn(*A["geo"]).machine
+        return dict(iterations=enc.planes, counted="plane-loop passes",
+                    lanes=enc.lanes)
+
+    def dec_info(counted, *args, **kw):
+        def info():
+            m = device_decoder.decode_device_fn(*args, **kw).machine
+            out = dict(iterations=m.steps, counted=counted,
+                       K=device_decoder.K_STEPS, on=m._key[0].type)
+            if counted == "LIS steps":
+                out["planes"] = m.planes
+            return out
+        return info
+
+    runs = [dict(
+        what="sorted-space encoder (B1's stream)", at="A", second=True,
+        call=lambda: device_encoder.encode_device(A["arr"], ll_h, ll_w, mb,
+                                                  device=DEV),
+        want=(er_a.encoded_bytes, er_a.max_n), info=enc_info)]
+    for label, kernel in (("A", "B2"), ("B", "B3")):
+        X = full[label]
+        cw = max((len(X["data"]) * 8 + 31) // 32, 1)
+        runs.append(dict(what=f"hybrid decoder ({kernel}'s rec)", at=label,
+                         second=True, call=hybrid(X), want=X["rec"],
+                         info=dec_info("LIS steps", *X["geo"], cw)))
+    for label, kernel in (("A", "B2-log"), ("B", "B3-log")):
+        X = full[label]
+        pre = X["data"][:SEQ_PREFIX]
+        level = len(X["wire"][1])
+        rect = tuple(map(tuple, device_decoder.rect_table(
+            level, *X["geo"][3:], X["wire"]).reshape(-1, 4)))
+        runs.append(dict(
+            what=f"sequential decoder with the trace ({kernel}'s rec and "
+                 f"trace, {len(pre)}-byte prefix)", at=label, second=False,
+            call=sequential(X), want=X["trace"],
+            info=dec_info("list-entry steps", *X["geo"],
+                          (len(pre) * 8 + 31) // 32, level=level,
+                          rect_tab=rect, meta_rows=len(pre) * 8 + 1)))
+    cw = max((max(len(d) for d in datas) * 8 + 31) // 32, 1)
+    runs += [
+        dict(what=f"sorted-space encoder, batch of {len(datas)} (B4's "
+                  "streams)", at="A",
+             second=False, call=lambda: device_encoder.encode_device_batch(
+                 arrs_a, ll_h, ll_w, mbs_a, device=DEV),
+             want=[(er.encoded_bytes, er.max_n) for er in ers_a],
+             info=enc_info),
+        dict(what=f"hybrid decoder, batch of {len(datas)} (B5's recs)",
+             at="A",
+             second=False, call=lambda: device_decoder.decode_device_batch(
+                 datas, mns, c, h, w, ll_h, ll_w, device=DEV),
+             want=recs_b5,
+             info=dec_info("LIS steps", c, h, w, ll_h, ll_w, cw)),
+    ]
+
+    def same(got, want):
+        if isinstance(want, np.ndarray):
+            return np.array_equal(got, want)
+        if isinstance(want, tuple) and isinstance(want[0], np.ndarray):
+            return all(np.array_equal(x, y) for x, y in zip(got, want))
+        return got == want
+
+    saved = {f: os.environ.get(f) for f in FALLBACK_FLAGS}
+    os.environ.update({f: "0" for f in FALLBACK_FLAGS})
+    reset_counts()
+    rows = []
+    try:
+        n_cmp = fallback_small(cases)
+        for run in runs:
+            got, ms = wall_ms(run["call"])
+            check(same(got, run["want"]),
+                  f"{run['what']} at {run['at']} != the kernels'")
+            row = dict(machine=run["what"], at=run["at"], ms=ms,
+                       **run["info"]())
+            check(row["iterations"] > 0 and row.get("on", on) == on,
+                  f"{run['what']} at {run['at']}: no iterations on the card")
+            if run["second"]:
+                _, row["ms_second_call"] = wall_ms(run["call"])
+            rows.append(row)
+        try:
+            device_encoder.encode_device(B["arr"], *B["geo"][3:], mb,
+                                         device=DEV)
+        except ValueError as e:
+            check("even ll" in str(e), f"B: {e}")
+        else:
+            raise AssertionError("encode_device encoded B's odd LL")
+        torch.cuda.synchronize()
+        n = counts()
+        # the same calls routed to the kernels (flags at 1), timed beside
+        os.environ.update({f: "1" for f in FALLBACK_FLAGS})
+        for row, run in zip(rows, runs):
+            check(same(run["call"](), run["want"]),
+                  f"{row['machine']}: the kernels' route")
+            row["kernel_route_ms_median_of_3"] = median_ms(run["call"],
+                                                           reps=3)
+    finally:
+        for f, v in saved.items():
+            if v is None:
+                os.environ.pop(f, None)
+            else:
+                os.environ[f] = v
+    check(not any(n.values()), f"phase 20: machine kernels launched {n}")
+    for row in rows:
+        print(json.dumps({"phase": "20 fallback machine", **row,
+                          "card": smi}))
+    print(json.dumps({
+        "phase": "20 fallback machines ok", "small_comparisons": n_cmp,
+        "kernel_launches": sum(n.values()), "card": smi,
+        "seconds": time.perf_counter() - t0,
+        "timing": "host ms from sync to sync; the first call of a "
+                  "machine includes its first eager chunk and the CUDA "
+                  "graph's capture; ms_second_call repeats it",
+    }))
+
+
 def run_phases() -> list:
-    """Phases 2-19; returns the kernels' rows of the result line."""
+    """Phases 2-20; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -1960,6 +2260,9 @@ def run_phases() -> list:
 
     # ---- phase 19: the host surface (colour models, backends, CLI) ----
     phase_host_surface(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a)
+
+    # ---- phase 20: the fallback machines (no kernel of theirs) ----
+    phase_fallback(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a)
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),

@@ -1,10 +1,13 @@
-"""Which device an entry point runs on."""
+"""Which device an entry point runs on, and whether a routed entry point
+runs its hand-written kernel there."""
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "use_kernel"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -22,3 +25,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def use_kernel(flag: str, dev: torch.device) -> bool:
+    """The JAX package's routing flags (``SPIHT_TPU_PALLAS_ENCODER``,
+    ``_DECODER``, ``_META``): set, "1" runs the hand-written kernel (its
+    plain version on CPU tensors) and any other value the fallback
+    machine; unset, the kernel runs on the card and the machine on the
+    CPU, as the JAX package keeps the machines on its CPU."""
+    v = os.environ.get(flag)
+    if v is not None:
+        return v == "1"
+    return dev.type == "cuda"

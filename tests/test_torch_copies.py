@@ -1,10 +1,10 @@
 """The port's copies of the JAX package's JAX-free modules equal the
-originals: their code (the colour models, the quantize step and the image
-utilities included), filter taps, subband geometry, queue bounds, the bit
-machines' geometry tables, the max_n threshold table, colour constants and
-the settings containers; the native scheduler's C++ sources, its ctypes
-bindings and its outputs; the metadata trace's rect and node tables; the
-planner's numpy functions."""
+originals: their code (the colour models, the quantize step, the image
+utilities and the order prototype included), filter taps, subband
+geometry, queue bounds, the bit machines' geometry tables, the max_n
+threshold table, colour constants and the settings containers; the native
+scheduler's C++ sources, its ctypes bindings and its outputs; the metadata
+trace's rect and node tables; the planner's numpy functions."""
 
 import ast
 import dataclasses
@@ -18,6 +18,7 @@ import torch
 from spiht_tpu.codec import device_decoder as jdd
 from spiht_tpu.codec import device_encoder as jde
 from spiht_tpu.codec import meta_expand as jme
+from spiht_tpu.codec import order_prototype as jop
 from spiht_tpu.codec import planning as jplan
 from spiht_tpu.codec import tree_bounds as jtb
 from spiht_tpu.native import runtime as jrt
@@ -34,6 +35,7 @@ from spiht_tpu_torch import settings as tset
 from spiht_tpu_torch.codec import geom as tgeom
 from spiht_tpu_torch.codec import maxn as tmaxn
 from spiht_tpu_torch.codec import meta_expand as tme
+from spiht_tpu_torch.codec import order_prototype as top
 from spiht_tpu_torch.codec import planning as tplan
 from spiht_tpu_torch.codec import tree_bounds as ttb
 from spiht_tpu_torch.native import runtime as trt
@@ -80,7 +82,7 @@ def _code(module) -> str:
 
 @pytest.mark.parametrize("pair", [
     (jf, tf), (jcoif, tcoif), (jref, tref), (jgeo, tgeo), (jtb, ttb),
-    (jset, tset), (jcm, tcm), (jq, tq), (jutils, tutils),
+    (jset, tset), (jcm, tcm), (jq, tq), (jutils, tutils), (jop, top),
 ], ids=lambda p: p[0].__name__)
 def test_copied_code_identical(pair):
     assert _code(pair[0]) == _code(pair[1])

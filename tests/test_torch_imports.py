@@ -32,6 +32,9 @@ def test_scan_covers_the_package():
             "spiht_tpu_torch/codec/encoder.py",
             "spiht_tpu_torch/codec/decoder.py",
             "spiht_tpu_torch/codec/meta_expand.py",
+            "spiht_tpu_torch/codec/device_encoder.py",
+            "spiht_tpu_torch/codec/device_decoder.py",
+            "spiht_tpu_torch/codec/order_prototype.py",
             "spiht_tpu_torch/codec/planning.py",
             "spiht_tpu_torch/native/__init__.py",
             "spiht_tpu_torch/native/runtime.py",
