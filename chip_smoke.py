@@ -84,6 +84,29 @@ Phases:
       at B on a 2048-byte prefix; (c) phase 8's 16 A images through the
       lockstep batches equal B4's streams and B5's recs; no kernel
       launches, each machine's wall time and iterations printed
+  21. parallel/ and the examples (meshes of cuda:0 repeated: n shards on
+      the one card): (a) every geometry of tests/test_torch_parallel.py at
+      2, 4 and 8 shards (2x4 with a placed batch) equal to the unsharded
+      transform on the card and to the same sharded call on the CPU, plane
+      statistics too; (b) configuration A's settings on an 8K image
+      (3x4320x7680, 1.0 bpp) through encode_image_sharded on (1, 4): B1
+      once, coefficients equal to forward's, stream equal to
+      encode_image_device's and the native scheduler's, decoded by
+      decode_image_device (B3 at its odd LL), whose coefficients equal the
+      native decode's and whose image equals their inverse; (c) B's
+      settings at 3x4320x7681 on (1, 8),
+      stream equal to the unsharded one; (d) sharded plane statistics of
+      the 8K coefficients, replication discrepancy (0, and > 0 one ulp
+      off), checked_call on log(-1); (e) the 8K DWT at 1, 2, 4, 8 shards
+      against unsharded, reported; (f) probe_devices, robust_encode_images
+      on phase 8's images (checkpoint, resume, degraded route with its
+      warning, the degraded ids), a one-process NCCL group's barrier;
+      (g) the four examples in-process with their defaults (the card),
+      each output held against the native scheduler: demonstrate's
+      streams and reconstructions, on_device_codec's stream and preview,
+      metadata_ml_consumer's trace (its own check), progressive_gif's GIF
+      (of a 3x256x256 image) byte for byte against one built from the
+      native decodes
 """
 
 from __future__ import annotations
@@ -102,7 +125,7 @@ import numpy as np
 import torch
 
 import spiht_tpu_torch as pt
-from spiht_tpu_torch import _build, cli, metrics
+from spiht_tpu_torch import _build, cli, metrics, parallel
 from spiht_tpu_torch import transform as host_transform
 from spiht_tpu_torch.codec import decoder, encoder, meta_expand
 from spiht_tpu_torch.codec.planning import plan_image
@@ -114,6 +137,9 @@ from spiht_tpu_torch.tools import (
     spike_pallas_machine, spike_pallas_seq, spike_token_matmul,
 )
 from spiht_tpu_torch.torch_transform import _scaled_coeffs, forward, inverse
+from spiht_tpu_torch.utils import imload, imsave
+from spiht_tpu_torch.wavelets import dwt
+from spiht_tpu_torch.wavelets.filters import build_wavelet, dwt_max_level
 from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W), the bound's denominators: the
@@ -2168,8 +2194,480 @@ def phase_fallback(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a):
     }))
 
 
+# ---------------------------------------------------------------------------
+# phase 21: parallel/ (the sharded DWT and encode, plane statistics,
+# consistency tools, health and multi-process glue) and the four examples
+# ---------------------------------------------------------------------------
+
+# (a): tests/test_torch_parallel.py's geometries (shape, wavelet, mode,
+# level); level 0 is the one-level sharded_dwt2_level1
+SHARD_SMALL = (
+    ((3, 40, 64), "bior2.2", "reflect", 0),
+    ((3, 40, 160), "bior6.8", "symmetric", 0),
+    ((3, 48, 96), "bior2.2", "reflect", 3),
+    ((2, 3, 32, 64), "bior2.2", "reflect", 2),
+    ((2, 1, 16, 60), "bior2.2", "reflect", 2),
+    ((1, 32, 1024), "bior2.2", "reflect", 4),
+    ((1, 16, 7900), "bior2.2", "reflect", 5),
+    ((2, 12, 3001), "bior6.8", "symmetric", 4),
+    ((2, 20, 77), "db3", "periodization", 2),
+)
+SIDE_8K = (4320, 7680)
+
+
+def card_mesh(n, dp=1):
+    """A (dp, n) mesh of cuda:0 repeated: n shards on the one card."""
+    return parallel.make_mesh((dp, n), devices=[torch.device(DEV, 0)] * (dp * n))
+
+
+def cpu_mesh(n, dp=1):
+    return parallel.make_mesh((dp, n), devices=["cpu"] * (dp * n))
+
+
+def plane_stats_plain(arr):
+    """Unsharded max |x| and per-plane counts of an int32 array."""
+    mag = torch.abs(arr).to(torch.int64)
+    return mag.max(), torch.stack([(mag >= (1 << p)).sum() for p in range(32)])
+
+
+def phase_parallel_small():
+    """Phase 21 (a): every CPU test geometry on meshes of cuda:0 repeated
+    2, 4 and 8 times (and 2x4 with a placed batch), each output equal to
+    the unsharded transform on the card and to the same sharded call on
+    the CPU; plane statistics at 2, 4, 8 shards and of a placed batch
+    equal the unsharded ones."""
+    n_cmp = 0
+    for shape, wav, mode, level in SHARD_SMALL:
+        x = np.random.default_rng(shape[-1]).standard_normal(shape)
+        xc = torch.as_tensor(x, device=DEV)
+        for n in (2, 4, 8):
+            if level == 0:
+                if (shape[-1] // n) % 2 or shape[-1] // n < 18:
+                    continue  # rejected widths: the CPU tests hold those
+                ref = dwt.dwt2(xc, wav, mode)
+                got = parallel.sharded_dwt2_level1(xc, wav, mode, card_mesh(n))
+                cpu = parallel.sharded_dwt2_level1(torch.as_tensor(x), wav,
+                                                   mode, cpu_mesh(n))
+                for k in ref:
+                    check(torch.equal(got[k], ref[k])
+                          and got[k].device == xc.device
+                          and torch.equal(got[k].cpu(), cpu[k]),
+                          f"21a dwt2 {shape} {wav} n={n} {k}")
+                n_cmp += 1
+                continue
+            ref = dwt.wavedec2_packed(xc, wav, mode, level)
+            meshes = [(card_mesh(n), cpu_mesh(n))]
+            if len(shape) == 4 and n == 4:
+                meshes.append((card_mesh(4, 2), cpu_mesh(4, 2)))
+            for mc, mh in meshes:
+                xin = xc
+                if mc.shape["batch"] > 1:  # an input placed on the mesh
+                    xin = parallel.place(xc, parallel.image_sharding(mc))
+                got = parallel.sharded_wavedec2_packed(xin, wav, mode, level,
+                                                       mc)
+                cpu = parallel.sharded_wavedec2_packed(
+                    torch.as_tensor(x), wav, mode, level, mh)
+                check(got[1:] == ref[1:] == cpu[1:]
+                      and torch.equal(got[0], ref[0])
+                      and torch.equal(got[0].cpu(), cpu[0]),
+                      f"21a wavedec2_packed {shape} {wav} n={n} {mc.shape}")
+                n_cmp += 1
+    arr = torch.as_tensor(
+        (np.random.default_rng(5).standard_normal((3, 40, 64)) * 5000
+         ).astype(np.int32), device=DEV)
+    want = plane_stats_plain(arr)
+    for n in (2, 4, 8):
+        got = parallel.sharded_plane_stats(arr, card_mesh(n))
+        check(int(got[0]) == int(want[0])
+              and got[1].tolist() == want[1].tolist(),
+              f"21a plane stats n={n}")
+        n_cmp += 1
+    # a batch placed over both axes: each row of shards tallies its half
+    batch = torch.stack([arr, arr.flip(-1) // 3])
+    want = plane_stats_plain(batch)
+    mesh = card_mesh(4, 2)
+    got = parallel.sharded_plane_stats(
+        parallel.place(batch, parallel.image_sharding(mesh)), mesh)
+    check(int(got[0]) == int(want[0]) and got[1].tolist() == want[1].tolist(),
+          "21a plane stats of a batch placed on a (2, 4) mesh")
+    return n_cmp + 1
+
+
+def phase_parallel(ims16, smi):
+    """Phase 21: parallel/ and the examples on the card (module docstring
+    21 (a)-(g))."""
+    from spiht_tpu_torch.parallel import codec as pcodec
+    from spiht_tpu_torch.parallel.spatial import levels_plan
+
+    t0 = time.perf_counter()
+    secs = {}
+
+    def lap(part):
+        secs[part] = time.perf_counter() - t0 - sum(secs.values())
+
+    out = {"phase": "21 parallel", "card": smi}
+    out["small_comparisons"] = phase_parallel_small()
+    lap("a")
+    nat = native.load()
+
+    # ---- (b) configuration A's settings on an 8K image, (1, 4) mesh ----
+    h, w = SIDE_8K
+    im = image(21, (3, h, w))
+    lap("b_image")
+    budget = h * w  # 1.0 bpp
+    mesh4 = card_mesh(4)
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, CONFIG_A, None)
+    geo = (3, enc_h, enc_w, slices[0][1].stop, slices[0][2].stop)
+    reset_counts()
+    er, gib = peak_gb(lambda: parallel.encode_image_sharded(
+        im, CONFIG_A, mesh4, None, budget))
+    launched("spiht_encode")
+    lap("b_first_call")
+    _, sharded_ms = wall_ms(lambda: parallel.encode_image_sharded(
+        im, CONFIG_A, mesh4, None, budget))
+    er_dev, single_ms = wall_ms(lambda: pt.encode_image_device(
+        im, CONFIG_A, None, budget, device=DEV))
+    check(er.encoded_bytes == er_dev.encoded_bytes and er.max_n == er_dev.max_n,
+          "21b: the sharded stream != encode_image_device's")
+    x = torch.as_tensor(im, device=DEV)
+    f_a = build_wavelet(CONFIG_A.wavelet).dec_len
+    lv = min(dwt_max_level(h, f_a), dwt_max_level(w, f_a))
+    plan_a = levels_plan(w, 4, f_a, CONFIG_A.mode, lv)
+    arr = pcodec._sharded_forward(x, CONFIG_A, lv, mesh4, "tile")
+    arr_ref = forward(x, CONFIG_A, None)[0]
+    check(torch.equal(arr, arr_ref),
+          "21b: sharded coefficients != torch_transform.forward's")
+    del arr_ref
+    lap("b")
+    want = nat.encode(arr.cpu().numpy(), *geo[3:], budget)
+    check((er.encoded_bytes, er.max_n) == want,
+          "21b: the sharded stream != the native scheduler's")
+    lap("b_native")
+    odd = decoder.has_duplicate_parents(*geo[1:])
+    dec = "spiht_decode_seq" if odd else "spiht_decode_lsp"
+    reset_counts()
+    rec, dec_ms = wall_ms(lambda: pt.decode_image_device(er, CONFIG_A,
+                                                         device=DEV))
+    launched(dec)
+    # the decode held against the native scheduler's: its coefficients one
+    # for one (a second call of the decode kernel, outside the count), and
+    # the image against the same inverse of the native coefficients
+    rec_nat = nat.decode(er.encoded_bytes, er.max_n, *geo)
+    coef = decoder.decode(er.encoded_bytes, er.max_n, *geo, device=DEV)
+    check(np.array_equal(coef.cpu().numpy(), rec_nat),
+          f"21b: {dec}'s coefficients != the native scheduler's")
+    del coef
+    want_img = inverse(torch.as_tensor(rec_nat, device=DEV), h, w, None,
+                       CONFIG_A, torch.float64)
+    check(torch.equal(rec, want_img),
+          "21b: decode_image_device != the inverse of the native decode")
+    del want_img, rec_nat
+    mse = float(((rec[:, :h, :w] - x) ** 2).mean())
+    del rec
+    out["8k_A"] = {
+        "geometry": list(geo[:3]), "ll": list(geo[3:]), "odd_ll": odd,
+        "mesh": "(1, 4) of cuda:0", "bits": len(er.encoded_bytes) * 8,
+        "max_n": er.max_n, "levels": lv, "levels_sharded": len(plan_a),
+        "tail_fixups": sum(len(r[2]) for _, _, r in plan_a if r),
+        "encode_image_sharded_ms": sharded_ms,
+        "encode_image_device_ms": single_ms,
+        "decode_image_device_ms": dec_ms, "decode_kernel": dec,
+        "psnr_db": 10 * np.log10(1.0 / mse),
+        "device_peak_gib_sharded_encode": gib,
+        "launches_sharded_encode": {"spiht_encode": 1},
+        "equal": "coefficients to forward's, stream to "
+                 "encode_image_device's and the native scheduler's, the "
+                 "decode's coefficients to the native decode's and its "
+                 "image to their inverse",
+    }
+
+    lap("b_decode")
+
+    # ---- (d) plane statistics and consistency on the 8K coefficients ----
+    pad = (-arr.shape[-1]) % 4  # zero columns: no count, no larger max
+    arr_p = torch.nn.functional.pad(arr, (0, pad))
+    got = parallel.sharded_plane_stats(arr_p, mesh4)
+    want = plane_stats_plain(arr)
+    check(int(got[0]) == int(want[0]) and got[1].tolist() == want[1].tolist(),
+          "21d: sharded plane stats != unsharded")
+    del arr, arr_p
+    d1 = parallel.sharded_dwt2_level1(x, "bior2.2", "reflect", mesh4)
+    ref1 = dwt.dwt2(x, "bior2.2", "reflect")
+    check(all(torch.equal(d1[k], ref1[k]) for k in ref1),
+          "21d: sharded level 1 != dwt2")
+    del ref1
+    disc = float(parallel.replication_discrepancy(d1["dd"], mesh4, "tile"))
+    copies = [d1["dd"].clone() for _ in range(4)]
+    flat = copies[2].view(-1)
+    k = flat.numel() // 3
+    flat[k] = torch.nextafter(flat[k], flat[k] + 1)
+    disc_ulp = float(parallel.replication_discrepancy(copies, mesh4, "tile"))
+    check(disc == 0.0 and disc_ulp > 0.0,
+          f"21d: replication discrepancy {disc}, one ulp off {disc_ulp}")
+    del d1, copies, flat
+    try:
+        parallel.checked_call(lambda v: torch.log(v).sum(),
+                              torch.tensor([-1.0, 2.0], device=DEV))
+    except FloatingPointError as e:
+        caught = str(e)
+    else:
+        raise AssertionError("21d: checked_call passed log(-1)")
+    v = torch.tensor([1.0, 2.0], device=DEV)
+    check(float(parallel.checked_call(lambda t: torch.log(t).sum(), v))
+          == float(torch.log(v).sum()), "21d: checked_call changed a value")
+    out["8k_A"].update(plane_max=int(got[0]), replication_discrepancy=disc,
+                       one_ulp_off=disc_ulp, checked_call_log_neg=caught)
+
+    lap("d")
+
+    # ---- (e) strong scaling on one card (reported, not gated) ----
+    xc = torch_models.convert(x, "RGB", "ipt")
+    scaling = {"unsharded_ms": median_ms(
+        lambda: dwt.wavedec2_packed(xc, "bior2.2", "reflect", lv))}
+    for n in (1, 2, 4, 8):
+        mesh = card_mesh(n)
+        scaling[f"n{n}_ms"] = median_ms(
+            lambda: parallel.sharded_wavedec2_packed(
+                xc, "bior2.2", "reflect", lv, mesh))
+    scaling["what"] = ("median of 5, host clock to a sync, the 8K packed "
+                       "DWT (A's settings); one card runs the shards one "
+                       "after another, so the ratio to unsharded is the "
+                       "cost of halos, reshards and gathers, not "
+                       "multi-GPU scaling")
+    out["strong_scaling_one_card"] = scaling
+    del x, xc
+    torch.cuda.empty_cache()
+    lap("e")
+
+    # ---- (c) B's settings, odd width, (1, 8) mesh: reshard and tails ----
+    wc = w + 1
+    im_c = np.pad(im, ((0, 0), (0, 0), (0, 1)), mode="edge")
+    del im
+    plan = levels_plan(wc, 8, build_wavelet(CONFIG_B.wavelet).dec_len,
+                       CONFIG_B.mode, 3)
+    reset_counts()
+    er_c, ms_c = wall_ms(lambda: parallel.encode_image_sharded(
+        im_c, CONFIG_B, card_mesh(8), 3, h * wc))
+    launched("spiht_encode")
+    lap("c_first_call")
+    er_c1, ms_c1 = wall_ms(lambda: pt.encode_image_device(
+        im_c, CONFIG_B, 3, h * wc, device=DEV))
+    check(er_c.encoded_bytes == er_c1.encoded_bytes
+          and er_c.max_n == er_c1.max_n,
+          "21c: the sharded stream != encode_image_device's")
+    out["8k_B_odd_width"] = {
+        "image": [3, h, wc], "mesh": "(1, 8) of cuda:0", "level": 3,
+        "bits": len(er_c.encoded_bytes) * 8,
+        "levels_sharded": len(plan),
+        "tail_fixups": sum(len(r[2]) for _, _, r in plan if r),
+        "encode_image_sharded_ms_first_call": ms_c,
+        "encode_image_device_ms": ms_c1,
+    }
+    del im_c
+    torch.cuda.empty_cache()
+    lap("c")
+
+    # ---- (f) health and multi-process glue ----
+    probes = parallel.probe_devices()
+    check(probes and all(p.ok for p in probes), f"21f: probes {probes}")
+    calls = []
+
+    def counting(imgs, s, **kw):
+        calls.append(len(imgs))
+        return pt.encode_images(imgs, s, device=DEV, **kw)
+
+    mb = 512 * 512
+    want16 = [e.encoded_bytes for e in
+              pt.encode_images(ims16, CONFIG_A, max_bits=mb, device=DEV)]
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = os.path.join(tmp, "m.json")
+        got16 = parallel.robust_encode_images(
+            ims16, CONFIG_A, max_bits=mb, chunk=4, manifest_path=manifest,
+            encode_fn=counting)
+        first_calls = len(calls)
+        again = parallel.robust_encode_images(
+            ims16, CONFIG_A, max_bits=mb, chunk=4, manifest_path=manifest,
+            encode_fn=counting)
+        resumed_calls = len(calls) - first_calls
+
+        def dead(imgs, s, **kw):
+            raise torch.AcceleratorError("CUDA error: injected for phase 21")
+
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught_w:
+            warnings.simplefilter("always")
+            degraded = parallel.robust_encode_images(
+                ims16, CONFIG_A, max_bits=mb, chunk=16,
+                manifest_path=os.path.join(tmp, "d.json"), encode_fn=dead,
+                retries=1)
+        warned = [str(m.message) for m in caught_w
+                  if "on the host" in str(m.message)]
+    check([got16[i].encoded_bytes for i in range(16)] == want16
+          and [again[i].encoded_bytes for i in range(16)] == want16
+          and [degraded[i].encoded_bytes for i in range(16)] == want16,
+          "21f: robust_encode_images' streams != encode_images'")
+    check(first_calls == 4 and resumed_calls == 0,
+          f"21f: encode calls {first_calls}, on resume {resumed_calls}")
+    check(len(warned) == 1 and str(list(range(16))) in warned[0]
+          and degraded.degraded == list(range(16))
+          and got16.degraded == again.degraded == [],
+          f"21f: degraded warnings {warned}, ids {degraded.degraded}")
+    import socket
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "21f: not a one-process NCCL group")
+        sl = parallel.host_batch_slice(16)
+    finally:
+        dist.destroy_process_group()
+    out["health"] = {
+        "probe_latency_s": [p.latency_s for p in probes],
+        "robust_encode_calls": first_calls, "on_resume": resumed_calls,
+        "degraded_warning": warned[0], "nccl_barrier": "ok",
+        "host_batch_slice": [sl.start, sl.stop],
+    }
+    lap("f")
+
+    # ---- (g) the four examples, in-process, with their defaults ----
+    from spiht_tpu_torch.examples import (
+        demonstrate, metadata_ml_consumer, on_device_codec, progressive_gif,
+    )
+    ex = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "im.png")
+        imsave(png, image(23, (3, 512, 512)))
+        src = imload(png)
+        prev = host_transform._BACKEND
+        try:
+            reset_counts()
+            points = demonstrate.main([png, os.path.join(tmp, "demo")])
+            ex["demonstrate"] = {"launches": nonzero()}
+            ex["demonstrate"]["psnr_db"] = hold_demonstrate(src, points, nat)
+            reset_counts()
+            got = on_device_codec.main([png])
+            ex["on_device_codec"] = {"launches": nonzero(),
+                                     "psnr_db": got["psnr_db"]}
+            hold_on_device_codec(src, got, nat)
+            reset_counts()
+            metadata_ml_consumer.main([])  # SystemExit("MISMATCH") if not
+            ex["metadata_ml_consumer"] = {"launches": nonzero()}
+            # 3x256x256: the GIF's 40 palette conversions, done twice here,
+            # cost seconds a time at 512x512
+            png_s = os.path.join(tmp, "small.png")
+            imsave(png_s, image(24, (3, 256, 256)))
+            reset_counts()
+            gif = os.path.join(tmp, "p.gif")
+            rc = progressive_gif.main([png_s, gif])
+            ex["progressive_gif"] = {"launches": nonzero()}
+            ref = os.path.join(tmp, "ref.gif")
+            progressive_reference(png_s, ref, nat)
+            with open(gif, "rb") as f, open(ref, "rb") as g:
+                same = f.read() == g.read()
+            check(rc == 0 and same,
+                  f"21g progressive_gif: rc {rc}, GIF equal to the one "
+                  f"built from the native decodes: {same}")
+        finally:
+            host_transform._BACKEND = prev
+    reset_counts()
+    lap("g")
+    out["examples"] = ex
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = secs
+    print(json.dumps(out))
+
+
+def nonzero():
+    return {k: v for k, v in counts().items() if v}
+
+
+def _geo(h, w, settings, level):
+    slices, eh, ew = get_slices_and_h_w(h, w, settings, level)
+    return slices, (3, eh, ew, slices[0][1].stop, slices[0][2].stop)
+
+
+def hold_demonstrate(src, points, nat):
+    """Phase 21 (g): each bpp point of the demonstrate example holds its
+    stream against the native scheduler's on the card's coefficients, and
+    its reconstruction against the inverse (on the card) of the native
+    decode of that stream. Returns the PSNRs."""
+    from spiht_tpu_torch.examples import demonstrate
+
+    s = demonstrate.SETTINGS
+    _, h, w = src.shape
+    slices, geo = _geo(h, w, s, None)
+    arr = forward(torch.as_tensor(src, device=DEV), s, None)[0].cpu().numpy()
+    for (_, er, rec), bpp in zip(points, (0.1, 0.5, 1.0)):
+        check((er.encoded_bytes, er.max_n)
+              == nat.encode(arr, *geo[3:], round(bpp * h * w)),
+              f"21g demonstrate {bpp} bpp: the stream != the native "
+              "scheduler's")
+        want = pt.decode_from_rec_arr(
+            nat.decode(er.encoded_bytes, er.max_n, *geo), h, w, None, s,
+            slices, DEV)[..., :h, :w]
+        check(np.array_equal(rec, want),
+              f"21g demonstrate {bpp} bpp: the reconstruction != the "
+              "inverse of the native decode")
+    return [st.psnr_db for st, _, _ in points]
+
+
+def hold_on_device_codec(src, got, nat):
+    """Phase 21 (g): the on-device example's stream (read from the card
+    only here) against the native scheduler's on the float32 transform's
+    coefficients, and its uint8 preview against the same inverse of the
+    native decode."""
+    from spiht_tpu_torch.examples import on_device_codec as odc
+
+    _, h, w = src.shape
+    _, geo = _geo(h, w, odc.SETTINGS, odc.LEVEL)
+    arr = forward(torch.as_tensor(src, dtype=torch.float32, device=DEV),
+                  odc.SETTINGS, odc.LEVEL, torch.float32)[0]
+    data = encoder.stream_bytes(got["words"], got["bits"])
+    check((data, got["max_n"]) == nat.encode(arr.cpu().numpy(), *geo[3:],
+                                             h * w),
+          "21g on_device_codec: the stream != the native scheduler's")
+    want = inverse(torch.as_tensor(nat.decode(data, got["max_n"], *geo),
+                                   device=DEV),
+                   h, w, odc.LEVEL, odc.SETTINGS, torch.float32, True)
+    check(torch.equal(got["rec"], want),
+          "21g on_device_codec: the preview != the inverse of the native "
+          "decode")
+
+
+def progressive_reference(png, out, nat):
+    """Phase 21 (g): the GIF of ``cli progressive`` at the example's
+    arguments, built from the native scheduler's stream on the card's
+    coefficients and its decodes of each prefix (inverted on the card)."""
+    from PIL import Image
+
+    args = cli.build_parser().parse_args(
+        ["progressive", png, out, "--frames", "40", "--bpp", "2.0"])
+    s = cli._settings_from_args(args)
+    src = imload(png)
+    _, h, w = src.shape
+    level = cli._level(args, h, w)
+    slices, geo = _geo(h, w, s, level)
+    arr = forward(torch.as_tensor(src, device=DEV), s, level)[0]
+    data, mn = nat.encode(arr.cpu().numpy(), *geo[3:],
+                          round(args.bpp * h * w))
+    frames = []
+    for f in range(1, args.frames + 1):
+        nb = max(1, round(len(data) * f / args.frames))
+        rec = pt.decode_from_rec_arr(nat.decode(data[:nb], mn, *geo), h, w,
+                                     level, s, slices, DEV)[..., :h, :w]
+        a = (np.clip(rec, 0, 1) * 255).astype(np.uint8)
+        frames.append(Image.fromarray(np.moveaxis(a, 0, -1)))
+    frames[0].save(out, save_all=True, append_images=frames[1:],
+                   duration=args.duration, loop=0)
+
+
 def run_phases() -> list:
-    """Phases 2-20; returns the kernels' rows of the result line."""
+    """Phases 2-21; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -2263,6 +2761,9 @@ def run_phases() -> list:
 
     # ---- phase 20: the fallback machines (no kernel of theirs) ----
     phase_fallback(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a)
+
+    # ---- phase 21: parallel/ and the examples ----
+    phase_parallel(ims_a, card())
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),

@@ -334,11 +334,12 @@ def encode_images(
     max_bits=None,
     device=None,
     dtype: torch.dtype = torch.float64,
+    backend: Optional[str] = None,
 ):
     """Batched encode: list of (C,H,W) float images -> list of
     EncodingResult, the host-scheduled throughput path; the serial bit
     scheduling runs in the native scheduler's threads. By backend
-    (``transform.get_backend``):
+    (``backend``, for this call only, else ``transform.get_backend``):
 
     * 'torch': images are grouped by shape and each group's transform
       runs as one batch on the device. With every budget below 2^40, and
@@ -368,7 +369,7 @@ def encode_images(
         _validate_image(im)
     dev = resolve_device(device)
     nat = native.load()
-    backend = transform.get_backend()
+    backend = backend or transform.get_backend()
 
     if backend == "native":
         def work(i):

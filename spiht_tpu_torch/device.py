@@ -7,7 +7,7 @@ import os
 
 import torch
 
-__all__ = ["resolve_device", "use_kernel"]
+__all__ = ["cuda_devices", "resolve_device", "use_kernel"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -25,6 +25,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def cuda_devices() -> list:
+    """Every CUDA device, the default of the device lists in
+    ``parallel``; without a card, raise (``resolve_device``'s rule)."""
+    resolve_device(None)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def use_kernel(flag: str, dev: torch.device) -> bool:

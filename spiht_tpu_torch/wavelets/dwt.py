@@ -34,6 +34,7 @@ __all__ = [
     "wavedec2",
     "waverec2",
     "wavedec2_packed",
+    "pack",
 ]
 
 
@@ -282,12 +283,17 @@ def wavedec2_packed(
     """Multilevel DWT of (..., H, W) -> (packed array, ll_h, ll_w): LL at
     the top-left, then per level 'ad' top-right / 'da' bottom-left /
     'dd' bottom-right."""
-    coeffs = wavedec2(x, wavelet, mode, level, axes=(-2, -1))
+    return pack(wavedec2(x, wavelet, mode, level, axes=(-2, -1)), x.dtype)
+
+
+def pack(coeffs, dtype: torch.dtype) -> Tuple[torch.Tensor, int, int]:
+    """``wavedec2``'s coefficient list -> (packed ``dtype`` array on cA's
+    device, ll_h, ll_w), in ``wavedec2_packed``'s layout."""
     a = coeffs[0]
     ll_h, ll_w = a.shape[-2], a.shape[-1]
     total_h = ll_h + sum(d["dd"].shape[-2] for d in coeffs[1:])
     total_w = ll_w + sum(d["dd"].shape[-1] for d in coeffs[1:])
-    arr = x.new_zeros(tuple(a.shape[:-2]) + (total_h, total_w))
+    arr = a.new_zeros(tuple(a.shape[:-2]) + (total_h, total_w), dtype=dtype)
     arr[..., :ll_h, :ll_w] = a
     sh, sw = ll_h, ll_w
     for d in coeffs[1:]:

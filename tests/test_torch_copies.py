@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's JAX-free modules equal the
 originals: their code (the colour models, the quantize step, the image
-utilities and the order prototype included), filter taps, subband
+utilities, the order prototype and the scaling-floor canary included), the
+manifest functions and ``as_numpy_image``, filter taps, subband
 geometry, queue bounds, the bit machines' geometry tables, the max_n
 threshold table, colour constants and the settings containers; the native
 scheduler's C++ sources, its ctypes bindings and its outputs; the metadata
@@ -22,6 +23,9 @@ from spiht_tpu.codec import order_prototype as jop
 from spiht_tpu.codec import planning as jplan
 from spiht_tpu.codec import tree_bounds as jtb
 from spiht_tpu.native import runtime as jrt
+from spiht_tpu import interop as jinterop
+from spiht_tpu.parallel import distributed as jdist
+from spiht_tpu.parallel import scaling_check as jsc
 from spiht_tpu.color import models as jcm
 from spiht_tpu.ops import quantize as jq
 from spiht_tpu import settings as jset
@@ -39,6 +43,9 @@ from spiht_tpu_torch.codec import order_prototype as top
 from spiht_tpu_torch.codec import planning as tplan
 from spiht_tpu_torch.codec import tree_bounds as ttb
 from spiht_tpu_torch.native import runtime as trt
+from spiht_tpu_torch import interop as tinterop
+from spiht_tpu_torch.parallel import distributed as tdist
+from spiht_tpu_torch.parallel import scaling_check as tsc
 from spiht_tpu_torch.color import models as tcm
 from spiht_tpu_torch.ops import quantize as tq
 from spiht_tpu_torch import utils as tutils
@@ -83,6 +90,7 @@ def _code(module) -> str:
 @pytest.mark.parametrize("pair", [
     (jf, tf), (jcoif, tcoif), (jref, tref), (jgeo, tgeo), (jtb, ttb),
     (jset, tset), (jcm, tcm), (jq, tq), (jutils, tutils), (jop, top),
+    (jsc, tsc),
 ], ids=lambda p: p[0].__name__)
 def test_copied_code_identical(pair):
     assert _code(pair[0]) == _code(pair[1])
@@ -304,3 +312,23 @@ def test_planning_numpy_copies_identical(name):
         return ast.dump(ast.parse(inspect.getsource(fn)))
 
     assert tree(getattr(tplan, name)) == tree(getattr(jplan, name))
+
+
+@pytest.mark.parametrize("pair", [
+    (jdist.encode_manifest, tdist.encode_manifest),
+    (jdist.load_manifest, tdist.load_manifest),
+    (jdist.merge_manifests, tdist.merge_manifests),
+    (jinterop._is_torch, tinterop._is_torch),
+    (jinterop.as_numpy_image, tinterop.as_numpy_image),
+], ids=lambda p: p[0].__name__)
+def test_copied_functions_identical(pair):
+    """The JAX-free functions the port copies (docstrings aside)."""
+    def tree(fn):
+        node = ast.parse(inspect.getsource(fn)).body[0]
+        body = node.body
+        if (isinstance(body[0], ast.Expr) and isinstance(body[0].value,
+                                                         ast.Constant)):
+            node.body = body[1:]
+        return ast.dump(node)
+
+    assert tree(pair[0]) == tree(pair[1])

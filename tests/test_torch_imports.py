@@ -54,7 +54,10 @@ def test_scan_covers_the_package():
             "spiht_tpu_torch/utils.py",
             "spiht_tpu_torch/color/models.py",
             "spiht_tpu_torch/color/torch_models.py",
-            "spiht_tpu_torch/ops/quantize.py"} <= names
+            "spiht_tpu_torch/ops/quantize.py",
+            "spiht_tpu_torch/parallel/spatial.py",
+            "spiht_tpu_torch/parallel/health.py",
+            "spiht_tpu_torch/examples/metadata_ml_consumer.py"} <= names
 
 
 def test_console_script_names_the_ports_cli():
