@@ -107,6 +107,18 @@ Phases:
       metadata_ml_consumer's trace (its own check), progressive_gif's GIF
       (of a 3x256x256 image) byte for byte against one built from the
       native decodes
+  22. the port's closed surface: (a) every entry point on the card raises
+      ValueError at LL 1x3 (1x8x23) and at level 0 (3x2x40), and the
+      images that pack to them, with every kernel's launch count still 0;
+      (b) the JAX package's names on the card (pallas_encode, its fn,
+      batch and seq forms, pallas_decode, its fn, batch and int16 forms,
+      pallas_decode_with_metadata, quantize_compact_m) equal the existing
+      entry points' outputs at A and B, each launching its kernel once;
+      (c) the bench, python -m spiht_tpu_torch.codec.device_bench, as a
+      subprocess at its defaults with fast=1 batch=8 ebatch=8, and with
+      every lane at 128x128 level 4: exit 0, every exact_* true, B1, B2,
+      B4 and B5 launched, every lane's kernel rate (torch.profiler's
+      kernel time) above its rate to the host; its JSON lines printed
 """
 
 from __future__ import annotations
@@ -116,6 +128,7 @@ import hashlib
 import json
 import os
 import statistics
+import subprocess
 import tempfile
 import sys
 import threading
@@ -131,7 +144,9 @@ from spiht_tpu_torch.codec import decoder, encoder, meta_expand
 from spiht_tpu_torch.codec.planning import plan_image
 from spiht_tpu_torch.color import torch_models
 from spiht_tpu_torch.native import runtime as native
-from spiht_tpu_torch.ops.quantize_kernels import quantize_compact
+from spiht_tpu_torch.ops.quantize_kernels import (
+    quantize_compact, quantize_compact_m,
+)
 from spiht_tpu_torch.tools import (
     card, spike_hbm_table, spike_pallas_block, spike_pallas_ilp,
     spike_pallas_machine, spike_pallas_seq, spike_token_matmul,
@@ -2666,8 +2681,207 @@ def progressive_reference(png, out, nat):
                    duration=args.duration, loop=0)
 
 
+# phase 22's refused geometries: (c, h, w), LL, and an image packing to it
+REFUSED = [((1, 8, 23), (1, 3), (1, 8, 21),
+            pt.SpihtSettings(wavelet="db1", mode="zero"), 3),
+           ((3, 2, 40), (2, 40), (3, 2, 40), pt.SpihtSettings(), 0)]
+BENCH_RUNS = (["fast=1", "batch=8", "ebatch=8"], ["128x128", "4"])
+
+
+def refusals(c, h, w, ll_h, ll_w, shape, s, level):
+    """Phase 22a's calls at one refused geometry, each on the card."""
+    from spiht_tpu_torch.codec import device_decoder, device_encoder
+
+    arr = torch.zeros((c, h, w), dtype=torch.int32, device=DEV)
+    data = b"\xa5\x3c\xff\x00\x81\x7e\x11\xee"
+    g = (c, h, w, ll_h, ll_w)
+    wire = ([0, ll_h, ll_w], [[ll_h, ll_w, 0, h - ll_h, w - ll_w]])
+    im = image(5, shape)
+    er = pt.EncodingResult(data, shape[1], shape[2], shape[0], 6, level)
+    return {
+        "encode": lambda: pt.encode(arr, ll_h, ll_w, device=DEV),
+        "decode": lambda: pt.decode(data, 6, *g, device=DEV),
+        "decode_with_metadata": lambda: pt.decode_with_metadata(
+            data, 6, *g, *wire, device=DEV),
+        "pallas_encode": lambda: encoder.pallas_encode(arr, ll_h, ll_w,
+                                                       device=DEV),
+        "pallas_encode_fn": lambda: encoder.pallas_encode_fn(*g, 4,
+                                                             device=DEV),
+        "pallas_encode_batch": lambda: encoder.pallas_encode_batch(
+            arr[None], ll_h, ll_w, 1000, device=DEV),
+        "pallas_decode": lambda: decoder.pallas_decode(data, 6, *g,
+                                                       device=DEV),
+        "pallas_decode_batch_fn": lambda: decoder.pallas_decode_batch_fn(
+            *g, 4, device=DEV),
+        "pallas_decode_with_metadata":
+            lambda: meta_expand.pallas_decode_with_metadata(
+                data, 6, *g, *wire, device=DEV),
+        "encode_device": lambda: device_encoder.encode_device(
+            arr, ll_h, ll_w, 1000, device=DEV),
+        "decode_device_batch": lambda: device_decoder.decode_device_batch(
+            [data], 6, *g, device=DEV),
+        "encode_image_device": lambda: pt.encode_image_device(
+            im, s, level, device=DEV),
+        "encode_images_device": lambda: pt.encode_images_device(
+            [im, im], s, level, device=DEV),
+        "decode_images_device": lambda: pt.decode_images_device(
+            [er, er], s, device=DEV),
+        "encode_image": lambda: pt.encode_image(im, s, level, device=DEV),
+        "decode_image": lambda: pt.decode_image(er, s, device=DEV),
+    }
+
+
+def hold_names(label, im, er, settings, level):
+    """Phase 22b at one configuration: each JAX package's name on the card
+    equal to the existing entry point's output, one launch of its kernel
+    (checked with ``launched``)."""
+    arr, ll_h, ll_w = forward(torch.as_tensor(im, device=DEV), settings,
+                              level)
+    c, h, w = arr.shape
+    g = (c, h, w, ll_h, ll_w)
+    mb = im.shape[1] * im.shape[2]
+    dup = decoder.has_duplicate_parents(h, w, ll_h, ll_w)
+    dec = "spiht_decode_seq" if dup else "spiht_decode_lsp"
+    want = (er.encoded_bytes, er.max_n)
+    reset_counts()
+    check(encoder.pallas_encode(arr, ll_h, ll_w, mb, device=DEV) == want,
+          f"{label}: pallas_encode != encode_image_device's stream")
+    launched("spiht_encode")
+    check(encoder.pallas_encode(arr, ll_h, ll_w, mb, "seq", device=DEV)
+          == want, f"{label}: pallas_encode(seq) != B1's stream")
+    launched("spiht_encode_seq")
+    fn = encoder.pallas_encode_fn(*g, encoder.cap_words_for(c, h, w, mb),
+                                  device=DEV)
+    words, total, ovf = fn(arr, er.max_n, mb)
+    check(not bool(ovf) and encoder.stream_bytes(words, int(total))
+          == want[0], f"{label}: pallas_encode_fn's stream")
+    launched("spiht_encode")
+    arrs = torch.stack([arr, arr])
+    check(encoder.pallas_encode_batch(arrs, ll_h, ll_w, [mb, mb // 4],
+                                      device=DEV)
+          == [want, pt.encode(arr, ll_h, ll_w, mb // 4, device=DEV)],
+          f"{label}: pallas_encode_batch's streams")
+    counts_b = counts()
+    check(counts_b["spiht_encode_batch"] == 1
+          and counts_b["spiht_encode"] == 1, f"{label}: batch launches")
+    reset_counts()
+    rec = pt.decode(er.encoded_bytes, er.max_n, *g, device=DEV)
+    reset_counts()
+    check(np.array_equal(decoder.pallas_decode(
+        er.encoded_bytes, er.max_n, *g, device=DEV), rec),
+        f"{label}: pallas_decode != decode")
+    launched(dec)
+    words, nbits = decoder.words_tensor(er.encoded_bytes, DEV)
+    od = "int16" if er.max_n <= 13 else "int32"
+    fn = decoder.pallas_decode_fn(*g, words.numel(), out_dtype=od,
+                                  device=DEV)
+    check(np.array_equal(fn(words, nbits, er.max_n).cpu().numpy(), rec),
+          f"{label}: pallas_decode_fn ({od}) != decode")
+    launched(dec)
+    half = er.encoded_bytes[: len(er.encoded_bytes) // 2]
+    recb = decoder.pallas_decode_batch([er.encoded_bytes, half], er.max_n,
+                                       *g, device=DEV)
+    want_b = decoder.decode_batch([er.encoded_bytes, half], er.max_n, *g,
+                                  device=DEV).cpu().numpy()
+    check(np.array_equal(recb, want_b) and np.array_equal(recb[0], rec),
+          f"{label}: pallas_decode_batch != decode_batch")
+    n = counts()
+    batch_dec = dec + "_batch"
+    check(n[batch_dec] == 2, f"{label}: {batch_dec} launches {n}")
+    reset_counts()
+    slices, _, _ = get_slices_and_h_w(er.h, er.w, settings, level)
+    wire = slices_to_wire(slices)
+    got = meta_expand.pallas_decode_with_metadata(
+        er.encoded_bytes, er.max_n, *g, *wire, device=DEV)
+    launched(dec + "_log")
+    trec, tmeta = meta_expand.decode_with_metadata(
+        er.encoded_bytes, er.max_n, *g, *wire, DEV)
+    reset_counts()
+    check(np.array_equal(got[0], trec.cpu().numpy())
+          and np.array_equal(got[1], tmeta.cpu().numpy()),
+          f"{label}: pallas_decode_with_metadata != decode_with_metadata")
+    coeffs, _, _ = _scaled_coeffs(torch.as_tensor(im, device=DEV), settings,
+                                  level, torch.float32)
+    q = quantize_compact_m(coeffs, settings.quantization_scale)
+    launched("spiht_quantize_compact")
+    q0 = quantize_compact(coeffs, settings.quantization_scale)
+    reset_counts()
+    check(all(torch.equal(a, b) for a, b in zip(q, q0)),
+          f"{label}: quantize_compact_m != quantize_compact")
+    print(f"phase 22b {label}: pallas_encode (B1, B7), its fn and batch "
+          f"(B4), pallas_decode, its {od} fn and batch ({dec}, "
+          f"{batch_dec}), pallas_decode_with_metadata ({dec}_log) and "
+          "quantize_compact_m (B6) equal the entry points' outputs")
+
+
+def run_bench(args, expect):
+    """Phase 22c: the bench as a subprocess; its JSON line, checked."""
+    cmd = [sys.executable, "-m", "spiht_tpu_torch.codec.device_bench", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=420)
+    secs = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr)
+    check(proc.returncode == 0, f"{' '.join(cmd)}: exit {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    check(len(lines) == 1, f"device_bench printed {len(lines)} lines")
+    out = json.loads(lines[0])
+    bad = [k for k, v in out.items() if k.startswith("exact_") and not v]
+    check(not bad, f"device_bench not exact: {bad}")
+    for lane, kernel in expect.items():
+        check(out.get(f"launches_{lane}", {}).get(kernel, 0) > 0,
+              f"device_bench lane {lane} launched no {kernel}")
+    # the kernels' device time of a call is part of its time to the host
+    for k in [k for k in out if k.endswith("_kernel")]:
+        host = out[k[: -len("kernel")] + "materialized"]
+        check(out[k] > host, f"device_bench {k} {out[k]} <= to the host "
+              f"{host}")
+    print(f"device_bench {' '.join(args)} ({secs:.1f} s): {lines[0]}")
+    return out
+
+
+def phase_surface(im_a, im_b, er_a, er_b):
+    """Phase 22: refusals before any launch, the reference's names on the
+    card, and the bench."""
+    t0 = time.perf_counter()
+    reset_counts()
+    n_calls = 0
+    for (c, h, w), (ll_h, ll_w), shape, s, level in REFUSED:
+        for name, call in refusals(c, h, w, ll_h, ll_w, shape, s,
+                                   level).items():
+            try:
+                call()
+            except ValueError as e:
+                check("ll dims must be > 1" in str(e), f"{name}: {e}")
+            else:
+                raise AssertionError(f"{name} at {c}x{h}x{w} LL "
+                                     f"{ll_h}x{ll_w} did not raise")
+            n_calls += 1
+    check(not any(counts().values()), f"refusals launched {counts()}")
+    print(f"phase 22a: {n_calls} calls at LL 1x3 and level 0 raised "
+          "ValueError, no kernel launched")
+    hold_names("A", im_a, er_a, CONFIG_A, None)
+    hold_names("B", im_b, er_b, CONFIG_B, 3)
+    ilv = os.environ.get("SPIHT_TPU_BENCH_ILV", "16")
+    fast = run_bench(BENCH_RUNS[0], {
+        "full": "spiht_encode", "dec_full": "spiht_decode_lsp",
+        "enc_batch8": "spiht_encode_batch",
+        "dec_batch8": "spiht_decode_lsp_batch",
+        f"enc_ilv{ilv}": "spiht_encode_batch",
+        f"dec_ilv{ilv}": "spiht_decode_lsp_batch"})
+    every = run_bench(BENCH_RUNS[1], {
+        "full": "spiht_encode", "dec_full": "spiht_decode_lsp",
+        f"enc_ilv{ilv}": "spiht_encode_batch",
+        f"dec_ilv{ilv}": "spiht_decode_lsp_batch"})
+    check(not every["launches_dec_hybrid_full"]
+          and not every["launches_enc_sorted_full"],
+          "the fallback lanes launched a kernel")
+    print(json.dumps({"phase": 22, "phase_s": time.perf_counter() - t0,
+                      "bench_fast_keys": len(fast),
+                      "bench_all_keys": len(every)}))
+
+
 def run_phases() -> list:
-    """Phases 2-21; returns the kernels' rows of the result line."""
+    """Phases 2-22; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -2764,6 +2978,9 @@ def run_phases() -> list:
 
     # ---- phase 21: parallel/ and the examples ----
     phase_parallel(ims_a, card())
+
+    # ---- phase 22: refusals, the reference's names, the bench ----
+    phase_surface(im_a, im_b, er_a, er_b)
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),

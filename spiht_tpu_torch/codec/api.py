@@ -75,6 +75,7 @@ __all__ = [
     "decode_image_device",
     "encode_images_device",
     "decode_images_device",
+    "get_slices_and_h_w",
 ]
 
 _MAX_BITS = 2**31 - 2  # the most an int32 bit count holds
@@ -367,6 +368,11 @@ def encode_images(
         raise ValueError("max_bits sequence length != number of images")
     for im in images:
         _validate_image(im)
+    for c, h, w in {im.shape for im in images}:
+        slices, enc_h, enc_w = get_slices_and_h_w(h, w, spiht_settings,
+                                                  level)
+        encoder.check_geometry(c, enc_h, enc_w, slices[0][1].stop,
+                               slices[0][2].stop)
     dev = resolve_device(device)
     nat = native.load()
     backend = backend or transform.get_backend()
@@ -455,6 +461,7 @@ def decode_images(
             er.h, er.w, spiht_settings, er.level
         )
         geo.append((enc_h, enc_w, slices[0][1].stop, slices[0][2].stop))
+        encoder.check_geometry(er.c, *geo[-1])
     dev = resolve_device(device)
     nat = native.load()
     backend = transform.get_backend()

@@ -25,6 +25,14 @@ Each wrapper takes its plain version (``_decode_machine_plain``, the same
 state layout, stream by stream for a batch) for CPU tensors only; for
 CUDA tensors it launches the kernel or raises. All honour byte-prefix
 truncation exactly.
+
+The JAX package's ``pallas_decode``, ``pallas_decode_fn``,
+``pallas_decode_batch`` and ``pallas_decode_batch_fn`` are thin functions
+over B2, B3 and B5, with the reference's signatures less the TPU-only
+``interpret``; ``machine_fits``, ``interleaved_fits`` and
+``MachineResourceLimit`` answer the port's limits (``encoder.py``), B5
+taking only duplicate-free geometries, as the reference's interleaved
+machine does.
 """
 
 from __future__ import annotations
@@ -37,8 +45,8 @@ import torch
 
 from ..device import resolve_device
 from .encoder import (
-    MAX_CELLS, STAT_LEN, _Stop, _check_i32, check_geometry, check_stat,
-    machine_caps,
+    MAX_CELLS, STAT_LEN, MachineResourceLimit, _Stop, _check_i32,
+    _fits_or_raise, check_geometry, check_stat, machine_caps, machine_fits,
 )
 from .geom import (
     A_DESC, A_LIP, A_LIPSIGN, A_LSIG, A_OFF, A_OFFSIGN, A_REF, _F_AD, _F_DA,
@@ -62,6 +70,13 @@ __all__ = [
     "decode",
     "decode_batch",
     "words_batch",
+    "MachineResourceLimit",
+    "machine_fits",
+    "interleaved_fits",
+    "pallas_decode",
+    "pallas_decode_fn",
+    "pallas_decode_batch",
+    "pallas_decode_batch_fn",
 ]
 
 
@@ -561,21 +576,14 @@ def decode_coeffs(
 ) -> torch.Tensor:
     """Decode stream words on their device -> rec (c, h, w), routed as
     ``pallas_decode_fn``: B3 for duplicate-parent geometries, else B2
-    plus the scatter. ``out_dtype=torch.int16`` is value-identical for
-    max_n <= 13 (|rec| < 2^(max_n+1)) and halves the bytes."""
-    if out_dtype not in (torch.int32, torch.int16):
-        raise ValueError("out_dtype must be torch.int32 or torch.int16")
-    if out_dtype == torch.int16 and max_n > 13:
-        raise ValueError("int16 rec needs max_n <= 13")
-    args = machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
-    if has_duplicate_parents(h, w, ll_h, ll_w):
-        rec, stat = decode_seq(*args)
-        check_stat(stat, "spiht_decode_seq")
-    else:
-        lsp, lsp_val, stat = decode_lsp(*args)
-        check_stat(stat, "spiht_decode_lsp")
-        rec = scatter_rec(lsp, lsp_val, stat, c * h * w)
-    return rec.reshape(c, h, w).to(out_dtype)
+    plus the scatter; raises on a machine error (syncs the device).
+    ``out_dtype=torch.int16`` is value-identical for max_n <= 13
+    (|rec| < 2^(max_n+1)) and halves the bytes."""
+    od = _checked_out_dtype(out_dtype, [max_n])
+    core = _dec_core(c, h, w, ll_h, ll_w, words.numel(), None, words.device)
+    rec, stat, name = core(words.reshape(-1), nbits, int(max_n))
+    check_stat(stat, name)
+    return rec.reshape(c, h, w).to(od)
 
 
 def decode_coeffs_batch(
@@ -588,25 +596,44 @@ def decode_coeffs_batch(
     ll_h: int,
     ll_w: int,
     out_dtype: torch.dtype = torch.int32,
+    machine=None,
 ) -> torch.Tensor:
     """Decode B streams of one geometry on their device -> rec (B, c, h, w)
     in one launch, routed as ``decode_coeffs``: batched B3 for
-    duplicate-parent geometries, else B5 plus one scatter. words: int32
+    duplicate-parent geometries or ``machine="seq"``, else B5 plus one
+    scatter; raises on a machine error in any stream. words: int32
     (B, cap_words); nbits, max_ns: B host ints. ``out_dtype=torch.int16``
     needs every max_n <= 13."""
-    if out_dtype not in (torch.int32, torch.int16):
-        raise ValueError("out_dtype must be torch.int32 or torch.int16")
-    if out_dtype == torch.int16 and max(max_ns, default=0) > 13:
-        raise ValueError("int16 rec needs max_n <= 13")
-    args = batch_machine_args(words, nbits, max_ns, c, h, w, ll_h, ll_w)
-    if has_duplicate_parents(h, w, ll_h, ll_w):
-        rec, stat = decode_seq_batch(*args)
-        check_stat(stat, "spiht_decode_seq_batch")
-    else:
-        lsp, lsp_val, stat = decode_lsp_batch(*args)
-        check_stat(stat, "spiht_decode_lsp_batch")
-        rec = scatter_rec(lsp, lsp_val, stat, c * h * w)
-    return rec.reshape(-1, c, h, w).to(out_dtype)
+    od = _checked_out_dtype(out_dtype, max_ns)
+    core = _dec_core(c, h, w, ll_h, ll_w, words.shape[-1], machine,
+                     words.device)
+    nb, mn = _batch_scalars(words, nbits, max_ns)
+    rec, stat, name = core(words, nb, mn)
+    check_stat(stat, name)
+    return rec.reshape(-1, c, h, w).to(od)
+
+
+def _batch_scalars(words: torch.Tensor, nbits, max_ns):
+    """B host ints each of nbits and max_n, checked against (B, cap_words)
+    words, as two int32 (B,) tensors on the words' device (one copy)."""
+    if words.dim() != 2:
+        raise ValueError("words must be (B, cap_words)")
+    B, cap_words = words.shape
+    nbits, max_ns = [int(v) for v in nbits], [int(v) for v in max_ns]
+    if len(nbits) != B or len(max_ns) != B:
+        raise ValueError(f"need {B} nbits and max_n values")
+    if not all(0 <= nb <= cap_words * 32 for nb in nbits):
+        raise ValueError("nbits must lie in [0, 32 * cap_words]")
+    sc = torch.tensor([nbits, max_ns], dtype=torch.int32).to(words.device)
+    return sc[0], sc[1]
+
+
+def _machine_tail(c, h, w, ll_h, ll_w, cap_words, dev):
+    """The machines' arguments after the stream's: the geometry tables on
+    ``dev``, w, and the queue capacities narrowed to cap_words."""
+    tabs = machine_tables(c, h, w, ll_h, ll_w, dev)
+    return (tabs["geo"], tabs["lip0"], tabs["lis0"], w,
+            machine_caps(c, h, w, ll_h, ll_w, cap_words))
 
 
 def batch_machine_args(
@@ -617,20 +644,10 @@ def batch_machine_args(
     rows on their device and B host ints each of nbits and max_n: those
     two as int32 (B,) tensors (one copy), the geometry tables, and queue
     capacities narrowed to the row length."""
-    check_geometry(c, h, w)
-    if words.dim() != 2:
-        raise ValueError("words must be (B, cap_words)")
-    B, cap_words = words.shape
-    nbits, max_ns = [int(v) for v in nbits], [int(v) for v in max_ns]
-    if len(nbits) != B or len(max_ns) != B:
-        raise ValueError(f"need {B} nbits and max_n values")
-    if not all(0 <= nb <= cap_words * 32 for nb in nbits):
-        raise ValueError("nbits must lie in [0, 32 * cap_words]")
-    sc = torch.tensor([nbits, max_ns], dtype=torch.int32).to(words.device)
-    tabs = machine_tables(c, h, w, ll_h, ll_w, words.device)
-    caps = machine_caps(c, h, w, ll_h, ll_w, cap_words)
-    return (words, sc[0], sc[1], tabs["geo"], tabs["lip0"], tabs["lis0"], w,
-            caps)
+    check_geometry(c, h, w, ll_h, ll_w)
+    nb, mn = _batch_scalars(words, nbits, max_ns)
+    return (words, nb, mn) + _machine_tail(c, h, w, ll_h, ll_w,
+                                           words.shape[1], words.device)
 
 
 def machine_args(
@@ -640,11 +657,9 @@ def machine_args(
     """``decode_lsp``/``decode_seq``'s arguments for stream words on their
     device: the geometry tables and the queue capacities narrowed to the
     stream's length."""
-    check_geometry(c, h, w)
-    tabs = machine_tables(c, h, w, ll_h, ll_w, words.device)
-    caps = machine_caps(c, h, w, ll_h, ll_w, words.numel())
-    return (words, nbits, int(max_n), tabs["geo"], tabs["lip0"],
-            tabs["lis0"], w, caps)
+    check_geometry(c, h, w, ll_h, ll_w)
+    return (words, nbits, int(max_n)) + _machine_tail(
+        c, h, w, ll_h, ll_w, words.numel(), words.device)
 
 
 def words_tensor(data: bytes, device) -> Tuple[torch.Tensor, int]:
@@ -670,23 +685,172 @@ def decode(
     data: bytes, max_n: int, c: int, h: int, w: int, ll_h: int, ll_w: int,
     device=None,
 ) -> torch.Tensor:
-    """Decode stream bytes -> (c, h, w) int32 rec on the device (the
-    port's counterpart of ``pallas_decode``). Prefix-tolerant."""
+    """Decode stream bytes -> (c, h, w) int32 rec on the device.
+    Prefix-tolerant."""
     words, nbits = words_tensor(data, resolve_device(device))
     return decode_coeffs(words, nbits, int(max_n), c, h, w, ll_h, ll_w)
 
 
 def decode_batch(
     datas, max_ns, c: int, h: int, w: int, ll_h: int, ll_w: int,
-    device=None, out_dtype: torch.dtype = torch.int32,
+    device=None, out_dtype: torch.dtype = torch.int32, machine=None,
 ) -> torch.Tensor:
     """Decode B streams' bytes of one geometry -> (B, c, h, w) rec on the
-    device, in one launch (the port's counterpart of
-    ``pallas_decode_batch``). ``max_ns`` is one int for every stream or
-    a list of B. Prefix-tolerant, each stream on its own length."""
+    device, in one launch (``machine="seq"``: batched B3 in every
+    geometry). ``max_ns`` is one int for every stream or a list of B.
+    Prefix-tolerant, each stream on its own length."""
     datas = list(datas)
     words, nbits = words_batch(datas, resolve_device(device))
     if np.isscalar(max_ns):
         max_ns = [max_ns] * len(datas)
     return decode_coeffs_batch(words, nbits, max_ns, c, h, w, ll_h, ll_w,
-                               out_dtype)
+                               out_dtype, machine)
+
+
+# pallas_decode_fn's machine names: "seq" is B3 in every geometry; the
+# others run B2 (B5 for a batch) where the geometry has no duplicate
+# parents, else B3, whose one kernel computes what each layout computes
+DEC_MACHINES = (None, "hybrid", "hybrid_hbm", "seq")
+_OUT_DTYPES = {"int32": torch.int32, "int16": torch.int16,
+               torch.int32: torch.int32, torch.int16: torch.int16}
+
+
+def interleaved_fits(
+    B: int, c: int, h: int, w: int, ll_h: int, ll_w: int, cap_words: int = 1,
+) -> bool:
+    """Whether B5 takes B streams of this geometry: ``machine_fits``,
+    B >= 1, and no duplicate parents (odd-LL batches run batched B3)."""
+    return (B >= 1 and machine_fits(c, h, w, ll_h, ll_w, cap_words)
+            and not has_duplicate_parents(h, w, ll_h, ll_w))
+
+
+def _as_words(words, dev: torch.device) -> torch.Tensor:
+    """Stream words (a tensor, or a numpy uint32 or int32 array) as a
+    contiguous int32 tensor on ``dev``."""
+    if not isinstance(words, torch.Tensor):
+        words = torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+    return words.to(dev).contiguous()
+
+
+def _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev):
+    """The one decode route. core(words, nbits, max_n) -> (rec int32
+    (..., c*h*w), stat, kernel name), no host sync: one stream (1-D words,
+    ints) through B2 + the scatter or B3, or a batch ((B, cap_words)
+    words, int32 (B,) tensors) through B5 + the scatter or batched B3.
+    The geometry and the machine name are refused before the device."""
+    if machine not in DEC_MACHINES:
+        raise ValueError(
+            f"machine must be one of {DEC_MACHINES}, got {machine!r}")
+    check_geometry(c, h, w, ll_h, ll_w)
+    tail = _machine_tail(c, h, w, ll_h, ll_w, cap_words, dev)
+    seq = machine == "seq" or has_duplicate_parents(h, w, ll_h, ll_w)
+
+    def core(words, nbits, max_n):
+        batch = words.dim() == 2
+        if words.shape[-1] != cap_words:
+            raise ValueError(f"words must hold {cap_words} words a stream")
+        if seq:
+            run = decode_seq_batch if batch else decode_seq
+            rec, stat = run(words, nbits, max_n, *tail)
+        else:
+            run = decode_lsp_batch if batch else decode_lsp
+            lsp, lsp_val, stat = run(words, nbits, max_n, *tail)
+            rec = scatter_rec(lsp, lsp_val, stat, c * h * w)
+        name = "spiht_decode_" + ("seq" if seq else "lsp")
+        return rec, stat, name + ("_batch" if batch else "")
+
+    return core
+
+
+def _checked_out_dtype(out_dtype, max_ns) -> torch.dtype:
+    """``out_dtype`` (a name or a torch dtype) as a torch dtype; int16
+    needs every max_n <= 13 (|rec| < 2^14)."""
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"out_dtype must be int32 or int16, got "
+                         f"{out_dtype!r}")
+    od = _OUT_DTYPES[out_dtype]
+    if od == torch.int16 and max((int(m) for m in max_ns), default=0) > 13:
+        raise ValueError("int16 rec needs max_n <= 13")
+    return od
+
+
+def pallas_decode_fn(
+    c: int, h: int, w: int, ll_h: int, ll_w: int, cap_words: int,
+    machine=None, out_dtype="int32", device=None,
+):
+    """fn(words int32[cap_words] (or a numpy uint32 array), nbits, max_n)
+    -> rec (c, h, w) on ``device`` (None: the card): kernel B2 and the
+    rec scatter, or B3 at odd LL or for ``machine="seq"``. No host sync
+    beyond reading an int. ``out_dtype="int16"`` (max_n <= 13) is
+    value-identical. As the JAX package's, it reports no machine error
+    (a queue overflow, a corrupt stream): ``decode_coeffs`` and
+    ``pallas_decode`` check the machine's status and raise."""
+    _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, None)
+    _checked_out_dtype(out_dtype, [])
+    dev = resolve_device(device)
+    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev)
+
+    def fn(words, nbits, max_n):
+        od = _checked_out_dtype(out_dtype, [max_n])
+        rec, _, _ = core(_as_words(words, dev).reshape(-1), int(nbits),
+                         int(max_n))
+        return rec.reshape(c, h, w).to(od)
+
+    return fn
+
+
+def pallas_decode_batch_fn(
+    c: int, h: int, w: int, ll_h: int, ll_w: int, cap_words: int,
+    machine=None, out_dtype="int32", device=None,
+):
+    """fn(words int32 (B, cap_words), nbits (B,), max_ns (B,)) -> rec
+    (B, c, h, w) on ``device`` (None: the card), in one launch: kernel B5
+    and one rec scatter, or batched B3 at odd LL or for
+    ``machine="seq"``; each stream stops at its own nbits. Like
+    ``pallas_decode_fn``, it reports no machine error
+    (``decode_coeffs_batch`` and ``pallas_decode_batch`` do)."""
+    _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, None)
+    _checked_out_dtype(out_dtype, [])
+    dev = resolve_device(device)
+    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev)
+
+    def fn(words, nbits, max_ns):
+        words = _as_words(words, dev)
+        B = words.shape[0]
+        # host lists need no sync for the check
+        od = _checked_out_dtype(out_dtype, max_ns)
+        nb = torch.as_tensor(nbits).to(device=dev, dtype=torch.int32)
+        mn = torch.as_tensor(max_ns).to(device=dev, dtype=torch.int32)
+        rec, _, _ = core(words, nb.reshape(B), mn.reshape(B))
+        return rec.reshape(B, c, h, w).to(od)
+
+    return fn
+
+
+def pallas_decode(
+    data: bytes, max_n: int, c: int, h: int, w: int, ll_h: int, ll_w: int,
+    device=None,
+) -> np.ndarray:
+    """Decode stream bytes on ``device`` (None: the card) -> (c, h, w)
+    int32 numpy array: ``decode`` (kernel B2, B3 at odd LL). ``ValueError``
+    for a refused LL, ``MachineResourceLimit`` where ``machine_fits`` is
+    false. Prefix-tolerant."""
+    _fits_or_raise(c, h, w, ll_h, ll_w, max((len(data) * 8 + 31) // 32, 1),
+                   None)
+    return decode(data, max_n, c, h, w, ll_h, ll_w, device).cpu().numpy()
+
+
+def pallas_decode_batch(
+    datas, max_ns, c: int, h: int, w: int, ll_h: int, ll_w: int,
+    machine=None, device=None,
+) -> np.ndarray:
+    """Decode B streams' bytes of one geometry on ``device`` (None: the
+    card) -> (B, c, h, w) int32 numpy array: ``decode_batch``, one launch
+    of kernel B5 (batched B3 at odd LL or for ``machine="seq"``).
+    ``max_ns`` is one int or one per stream. The refusals are
+    ``pallas_decode``'s."""
+    datas = list(datas)
+    cap_words = max([(len(d) * 8 + 31) // 32 for d in datas] + [1])
+    _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, None)
+    return decode_batch(datas, max_ns, c, h, w, ll_h, ll_w, device,
+                        machine=machine).cpu().numpy()

@@ -51,8 +51,10 @@ the CPU (the reference's CPU route). ``SPIHT_TPU_DISABLE_HBM_MACHINES``
 means nothing here: the card has no VMEM/HBM split. The reference's
 c*h*w < 2^26 gate is not copied (the port's kernels take c*h*w < 2^29);
 the machines keep their own c*h*w < 2^24 bound. Nothing falls back: an
-error raises. ``codec/api.py``'s raw ``decode``/``decode_with_metadata``
-and the pipelines of ``torch_transform.py`` stay on the kernels; the
+error raises, and every entry first refuses, with ``ValueError``, what
+the native scheduler refuses (``encoder.check_geometry``).
+``codec/api.py``'s raw ``decode``/``decode_with_metadata`` and the
+pipelines of ``torch_transform.py`` stay on the kernels; the
 reference's ``machine = "xla"`` branch only catches a VMEM overflow,
 which the port cannot have, so it is not ported.
 """
@@ -68,6 +70,7 @@ import torch
 
 from ..device import resolve_device, use_kernel
 from . import decoder, meta_expand
+from .encoder import check_geometry
 from .geom import (
     A_DESC, A_LIP, A_LIPSIGN, A_LSIG, A_OFF, A_OFFSIGN, A_REF, _F_LL,
     dec_geom, rect_table,
@@ -811,7 +814,9 @@ def decode_device_fn(
     fn(words int32[cap_words], nbits, max_n) -> rec (c, h, w) int32 (the
     hybrid machine, ``meta_rows`` 0), or (rec, meta (meta_rows, 8)) (the
     sequential machine with the trace), tensors on the words' device.
-    ``fn.machine`` is the batched machine it runs."""
+    ``fn.machine`` is the batched machine it runs. A geometry the native
+    scheduler refuses raises ``ValueError`` (``encoder.check_geometry``)."""
+    check_geometry(c, h, w, ll_h, ll_w)
     if meta_rows == 0:
         machine = _hybrid(c, h, w, ll_h, ll_w, cap_words)
     else:
@@ -842,6 +847,7 @@ def decode_device(
     LL), or the hybrid machine. Prefix-tolerant: any byte prefix decodes,
     the machine stopping mid-entry as the reference does; the byte-padded
     bit length is read, as the wire format reads it."""
+    check_geometry(c, h, w, ll_h, ll_w)
     dev = resolve_device(device)
     if use_kernel("SPIHT_TPU_PALLAS_DECODER", dev):
         return decoder.decode(data, n, c, h, w, ll_h, ll_w, dev).cpu().numpy()
@@ -866,6 +872,7 @@ def decode_device_with_metadata(
     ``device`` (None: the card). ``SPIHT_TPU_PALLAS_META`` (unset: as
     ``SPIHT_TPU_PALLAS_DECODER``) routes it: kernel B2-log (B3-log at odd
     LL) and the log's expansion, or the sequential machine."""
+    check_geometry(c, h, w, ll_h, ll_w)
     dev = resolve_device(device)
     flag = os.environ.get("SPIHT_TPU_PALLAS_META")
     if flag == "1" or (
@@ -889,6 +896,7 @@ def decode_device_batch(datas, ns, c, h, w, ll_h, ll_w, device=None):
     card) -> (B, C, H, W) int32, routed by ``SPIHT_TPU_PALLAS_DECODER``:
     kernel B5 (batched B3 at odd LL), or the hybrid machine over B
     streams in lockstep. ns: one max_n or one per stream."""
+    check_geometry(c, h, w, ll_h, ll_w)
     dev = resolve_device(device)
     datas = list(datas)
     B = len(datas)

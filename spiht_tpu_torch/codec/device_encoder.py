@@ -43,7 +43,9 @@ errors. ``codec/api.py``'s raw ``encode`` and the pipelines of
 
 Even LL dims only (``_geom`` raises ``ValueError`` otherwise): with odd
 LL the parity child map is not injective, so the parent gathers do not
-apply.
+apply. Every entry first refuses what the native scheduler refuses
+(``encoder.check_geometry``: LL dims of 1, or a level-0 "pyramid"), with
+``ValueError``; the reference's XLA route returns a stream there.
 """
 
 from __future__ import annotations
@@ -632,8 +634,10 @@ def encode_device_fn(
     LSB-first, total_bits, overflow), tensors on the array's device.
     `overflow` true means in-budget bits did not fit the buffer and were
     dropped: the stream is invalid (see CapacityOverflow). ``fn.machine``
-    is the batched machine it runs.
+    is the batched machine it runs. A geometry the native scheduler
+    refuses raises ``ValueError`` (``encoder.check_geometry``).
     """
+    encoder.check_geometry(c, h, w, ll_h, ll_w)
     machine = _machine(c, h, w, ll_h, ll_w, bits_per_cell)
 
     def fn(arr, max_n, max_bits):
@@ -657,6 +661,7 @@ def encode_device(
     ``SPIHT_TPU_PALLAS_ENCODER`` (module docstring): kernel B1, or this
     machine. max_n follows the reference's float32 rule
     (``maxn.device_max_n``)."""
+    encoder.check_geometry(*np.shape(arr), ll_h, ll_w)
     dev = resolve_device(device)
     arr = encoder._as_coeffs(arr, dev)
     if use_kernel("SPIHT_TPU_PALLAS_ENCODER", dev):
@@ -680,6 +685,7 @@ def encode_device_batch(
     ``device`` (None: the card), routed by ``SPIHT_TPU_PALLAS_ENCODER``:
     kernel B4, or this machine over B streams in lockstep. max_bits: one
     budget or one per stream."""
+    encoder.check_geometry(*np.shape(arrs)[1:], ll_h, ll_w)
     dev = resolve_device(device)
     arrs = encoder._as_coeffs(arrs, dev)
     B, c, h, w = arrs.shape

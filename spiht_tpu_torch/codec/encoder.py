@@ -20,7 +20,20 @@ for CPU tensors only; for CUDA tensors they launch the kernel or raise.
 
 The word buffer is sized from the real budget, ``cap_words_for(c, h, w,
 max_bits)``, so the stream cannot outgrow it; the stream-capacity error is
-kept as a check and raises.
+kept as a check and raises ``EncCapacityOverflow``.
+
+``check_geometry`` refuses what the reference's native scheduler refuses
+(``spiht_tpu/native/spiht_kernel.cpp:398-402``): LL dims of 1, and LL
+children past the array (a level-0 "pyramid"), both with ``ValueError``,
+before any table is built. Every machine entry of the port calls it.
+
+The JAX package's names ``pallas_encode``, ``pallas_encode_fn``,
+``pallas_encode_batch`` and ``pallas_encode_batch_fn`` are thin functions
+over B1 and B4 (B7 for ``machine="seq"``), with the reference's
+signatures less the TPU-only ``interpret``. ``machine_fits`` and
+``interleaved_fits`` answer the port's real limits, c*h*w < 2^29 and the
+LL rule: the card has no VMEM budget, so no geometry the machines take is
+refused for its state's size.
 """
 
 from __future__ import annotations
@@ -39,6 +52,11 @@ from .tree_bounds import narrowed_caps, queue_bounds
 __all__ = [
     "MAX_CELLS",
     "STAT_LEN",
+    "EncCapacityOverflow",
+    "MachineResourceLimit",
+    "check_geometry",
+    "machine_fits",
+    "interleaved_fits",
     "cap_words_for",
     "machine_caps",
     "encode_tables",
@@ -55,6 +73,10 @@ __all__ = [
     "check_stat",
     "stream_bytes",
     "batch_stream_bytes",
+    "pallas_encode",
+    "pallas_encode_fn",
+    "pallas_encode_batch",
+    "pallas_encode_batch_fn",
 ]
 
 # bits per coefficient cell that provably cover any stream
@@ -72,19 +94,29 @@ _ERRORS = {
 }
 
 
+class EncCapacityOverflow(RuntimeError):
+    """The stream hit the word buffer's capacity before its budget."""
+
+
+class MachineResourceLimit(RuntimeError):
+    """The geometry lies beyond what the machines take (``machine_fits``)."""
+
+
 class _Stop(Exception):
     """The plain machines' way out: budget spent or stream exhausted."""
 
 
 def check_stat(stat: torch.Tensor, what: str) -> list:
     """stat as a host list, a list of rows for a (B, STAT_LEN) batch;
-    raises on a machine error in any stream (syncs the device)."""
+    raises on a machine error in any stream (syncs the device):
+    ``EncCapacityOverflow`` for error 1, else ``RuntimeError``."""
     s = stat.tolist()
     rows = s if stat.dim() == 2 else [s]
     for b, row in enumerate(rows):
         if row[1] != 0:
             at = f" stream {b}" if stat.dim() == 2 else ""
-            raise RuntimeError(
+            err = EncCapacityOverflow if row[1] == 1 else RuntimeError
+            raise err(
                 f"{what}{at}: {_ERRORS.get(row[1], row[1])} (stat {row})"
             )
     return s
@@ -104,11 +136,43 @@ def machine_caps(
     return narrowed_caps(queue_bounds(c, h, w, ll_h, ll_w), cap_words)
 
 
-def check_geometry(c: int, h: int, w: int) -> None:
+def _ll_refused(h: int, w: int, ll_h: int, ll_w: int) -> str:
+    """Why the native scheduler refuses this LL, or "" if it does not."""
+    if ll_h <= 1 or ll_w <= 1:
+        return "ll dims must be > 1"
+    if 2 * ll_h > h or 2 * ll_w > w:
+        # the LL parity children live at rows/cols up to 2*ll - 1
+        return "ll dims must be > 1 and 2*ll within the array"
+    return ""
+
+
+def check_geometry(c: int, h: int, w: int, ll_h: int, ll_w: int) -> None:
+    """Raise ``ValueError`` for a geometry the machines do not take:
+    c*h*w >= 2^29, or an LL the reference's native scheduler refuses."""
     if c * h * w >= MAX_CELLS:
         raise ValueError(
             f"{c}x{h}x{w} has c*h*w >= 2^29, beyond the machines' packing"
         )
+    why = _ll_refused(h, w, ll_h, ll_w)
+    if why:
+        raise ValueError(f"{c}x{h}x{w} with LL {ll_h}x{ll_w}: {why}")
+
+
+def machine_fits(
+    c: int, h: int, w: int, ll_h: int, ll_w: int, cap_words: int = 1,
+) -> bool:
+    """Whether B1, B2 and B3 take this geometry: c*h*w < 2^29 and the LL
+    rule of ``check_geometry``. ``cap_words`` is the reference's argument;
+    a word buffer of any size fits the card's memory budget here."""
+    return c * h * w < MAX_CELLS and not _ll_refused(h, w, ll_h, ll_w)
+
+
+def interleaved_fits(
+    B: int, c: int, h: int, w: int, ll_h: int, ll_w: int, cap_words: int = 1,
+) -> bool:
+    """Whether B4 takes B streams of this geometry: ``machine_fits``, and
+    B >= 1 (B4 runs one block a stream)."""
+    return B >= 1 and machine_fits(c, h, w, ll_h, ll_w, cap_words)
 
 
 def encode_tables(
@@ -449,6 +513,23 @@ def encode_machine_batch(
 encode_machine_batch.launches = 0
 
 
+def _budget(max_bits, cap_words: int) -> Tuple[int, bool]:
+    """(the budget clamped to an int32 bit count and to the word buffer,
+    whether the buffer cut it: the stream is then invalid)."""
+    max_bits = min(int(max_bits), 2**31 - 2)
+    mb = min(max_bits, cap_words * 32)
+    return mb, max_bits > mb
+
+
+def _lead_args(arr: torch.Tensor, ll_h: int, ll_w: int) -> tuple:
+    """The machines' first six arguments for an int32 (..., c, h, w) array
+    on its device: (t1, t3s, child0, lip0, lis0, w)."""
+    c, h, w = arr.shape[-3:]
+    tabs = machine_tables(c, h, w, ll_h, ll_w, arr.device)
+    t1, t3s = encode_tables(arr, ll_h, ll_w)
+    return (t1, t3s, tabs["child0"], tabs["lip0"], tabs["lis0"], w)
+
+
 def machine_args(arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int):
     """``encode_machine``'s arguments for an int32 (c, h, w) array on its
     device: the tables, max_n, the budget clamped to a buffer sized from
@@ -456,16 +537,12 @@ def machine_args(arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int):
     if arr.dtype != torch.int32 or arr.dim() != 3:
         raise ValueError("arr must be an int32 (c, h, w) tensor")
     c, h, w = arr.shape
-    check_geometry(c, h, w)
+    check_geometry(c, h, w, ll_h, ll_w)
     arr = arr.contiguous()
-    max_bits = min(int(max_bits), 2**31 - 2)
-    cap_words = cap_words_for(c, h, w, max_bits)
-    mb = min(max_bits, cap_words * 32)
-    tabs = machine_tables(c, h, w, ll_h, ll_w, arr.device)
-    t1, t3s = encode_tables(arr, ll_h, ll_w)
-    return (t1, t3s, tabs["child0"], tabs["lip0"], tabs["lis0"], w,
-            device_max_n(arr), mb, max_bits > mb,
-            machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
+    cap_words = cap_words_for(c, h, w, min(int(max_bits), 2**31 - 2))
+    return (_lead_args(arr, ll_h, ll_w) + (device_max_n(arr),)
+            + _budget(max_bits, cap_words)
+            + (machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words))
 
 
 def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
@@ -477,18 +554,16 @@ def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
     if arrs.dtype != torch.int32 or arrs.dim() != 4:
         raise ValueError("arrs must be an int32 (B, c, h, w) tensor")
     B, c, h, w = arrs.shape
-    check_geometry(c, h, w)
+    check_geometry(c, h, w, ll_h, ll_w)
     mbs = [min(int(m), 2**31 - 2) for m in max_bits]
     if len(mbs) != B or min(mbs, default=0) < 0:
         raise ValueError(f"need {B} budgets >= 0, got {list(max_bits)}")
     arrs = arrs.contiguous()
     cap_words = cap_words_for(c, h, w, max(mbs, default=0))
-    tabs = machine_tables(c, h, w, ll_h, ll_w, arrs.device)
-    t1, t3s = encode_tables(arrs, ll_h, ll_w)
-    return (t1, t3s, tabs["child0"], tabs["lip0"], tabs["lis0"], w,
-            device_max_n(arrs),
-            torch.tensor(mbs, dtype=torch.int32).to(arrs.device),
-            machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
+    return _lead_args(arrs, ll_h, ll_w) + (
+        device_max_n(arrs),
+        torch.tensor(mbs, dtype=torch.int32).to(arrs.device),
+        machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
 
 
 def encode_coeffs(
@@ -568,3 +643,108 @@ def encode_batch(
     words, stat, max_ns = encode_coeffs_batch(arrs, ll_h, ll_w, mbs)
     totals = [row[0] for row in check_stat(stat, "spiht_encode_batch")]
     return list(zip(batch_stream_bytes(words, totals), max_ns.tolist()))
+
+
+def _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine) -> None:
+    """The reference's refusals, in its order of meaning: ``ValueError``
+    for a geometry the native scheduler refuses, ``MachineResourceLimit``
+    for one the machines cannot hold, ``ValueError`` for a machine name."""
+    why = _ll_refused(h, w, ll_h, ll_w)
+    if why:
+        raise ValueError(f"{c}x{h}x{w} with LL {ll_h}x{ll_w}: {why}")
+    if not machine_fits(c, h, w, ll_h, ll_w, cap_words):
+        raise MachineResourceLimit(f"{c}x{h}x{w}")
+    if machine not in MACHINES:
+        raise ValueError(f"machine must be one of {MACHINES}, got {machine!r}")
+
+
+def pallas_encode_fn(
+    c: int, h: int, w: int, ll_h: int, ll_w: int, cap_words: int,
+    machine=None, device=None,
+):
+    """fn(arr int32 (c, h, w), max_n, max_bits) -> (words int32
+    [cap_words], total_bits, overflow), 0-d tensors on ``device`` (None:
+    the card), with no host sync: kernel B1, or B7 for ``machine="seq"``.
+    The budget is clamped to the buffer; ``overflow`` is true where that
+    clamp cut the stream (the stream is then invalid)."""
+    _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine)
+    dev = resolve_device(device)
+    caps = machine_caps(c, h, w, ll_h, ll_w, cap_words)
+    run = encode_machine_seq if machine == "seq" else encode_machine
+
+    def fn(arr, max_n, max_bits):
+        arr = _as_coeffs(arr, dev).contiguous()
+        if tuple(arr.shape) != (c, h, w):
+            raise ValueError(f"arr must be ({c}, {h}, {w}), got {arr.shape}")
+        if isinstance(max_n, torch.Tensor):
+            max_n = max_n.to(device=dev, dtype=torch.int32).reshape(())
+        words, stat = run(*_lead_args(arr, ll_h, ll_w), max_n,
+                          *_budget(max_bits, cap_words), caps, cap_words)
+        return words, stat[0], stat[1] != 0
+
+    return fn
+
+
+def pallas_encode_batch_fn(
+    c: int, h: int, w: int, ll_h: int, ll_w: int, cap_words: int,
+    machine=None, device=None,
+):
+    """fn(arrs int32 (B, c, h, w), max_ns (B,), max_bits (B,)) -> (words
+    int32 (B, cap_words), totals (B,), overflows (B,)) on ``device``
+    (None: the card), with no host sync: one launch of kernel B4, or B7
+    stream by stream for ``machine="seq"``."""
+    _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine)
+    dev = resolve_device(device)
+    caps = machine_caps(c, h, w, ll_h, ll_w, cap_words)
+    single = pallas_encode_fn(c, h, w, ll_h, ll_w, cap_words, machine, dev)
+
+    def fn(arrs, max_ns, max_bits):
+        arrs = _as_coeffs(arrs, dev).contiguous()
+        B = arrs.shape[0]
+        if arrs.dim() != 4 or tuple(arrs.shape[1:]) != (c, h, w) or B < 1:
+            raise ValueError(f"arrs must be (B, {c}, {h}, {w}), B >= 1")
+        mns = torch.as_tensor(max_ns).to(device=dev, dtype=torch.int32)
+        mbs = [min(int(m), 2**31 - 2) for m in max_bits]
+        if machine == "seq":
+            outs = [single(arrs[b], mns[b], mbs[b]) for b in range(B)]
+            return tuple(torch.stack(x) for x in zip(*outs))
+        words, stat = encode_machine_batch(
+            *_lead_args(arrs, ll_h, ll_w), mns.reshape(B),
+            torch.tensor(mbs, dtype=torch.int32).to(dev), caps, cap_words,
+        )
+        return words, stat[:, 0], stat[:, 1] != 0
+
+    return fn
+
+
+def pallas_encode(
+    arr, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2, machine=None,
+    device=None,
+) -> Tuple[bytes, int]:
+    """(bytes, max_n) of a (c, h, w) int32 array on ``device`` (None: the
+    card): kernel B1, or B7 for ``machine="seq"``. Raises ``ValueError``
+    for a refused LL, ``MachineResourceLimit`` where ``machine_fits`` is
+    false, ``EncCapacityOverflow`` if the stream outgrew its buffer."""
+    c, h, w = np.shape(arr)
+    max_bits = min(int(max_bits), 2**31 - 2)
+    _fits_or_raise(c, h, w, ll_h, ll_w, cap_words_for(c, h, w, max_bits),
+                   machine)
+    return encode(arr, ll_h, ll_w, max_bits, device, machine)
+
+
+def pallas_encode_batch(
+    arrs, ll_h: int, ll_w: int, max_bits, machine=None, device=None,
+) -> list:
+    """[(bytes, max_n)] of a (B, c, h, w) int32 batch on ``device`` (None:
+    the card), in one launch of kernel B4 (B7 stream by stream for
+    ``machine="seq"``). ``max_bits`` is one budget or one per stream. The
+    refusals are ``pallas_encode``'s."""
+    B, c, h, w = np.shape(arrs)
+    mbs = [max_bits] * B if np.isscalar(max_bits) else list(max_bits)
+    cap_words = cap_words_for(
+        c, h, w, max((min(int(m), 2**31 - 2) for m in mbs), default=0))
+    _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine)
+    if machine != "seq":
+        return encode_batch(arrs, ll_h, ll_w, mbs, device)
+    return [encode(a, ll_h, ll_w, mb, device, machine)
+            for a, mb in zip(arrs, mbs)]

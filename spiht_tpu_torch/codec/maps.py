@@ -1,5 +1,5 @@
 """Significance level maps in PyTorch, the port of
-``spiht_tpu/codec/maps.py:45-104``.
+``spiht_tpu/codec/maps.py:45-117``.
 
   M[k,i,j] = floor(log2 |x|)   (-1 for 0)          element level
   D[k,i,j] = max over all strict descendants of M   set level
@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["significance_maps", "tree_height"]
+__all__ = ["significance_maps", "tree_height", "max_n_from_maps"]
 
 
 @lru_cache(maxsize=None)
@@ -79,3 +79,11 @@ def significance_maps(
         d = _child_max(torch.maximum(m, d), ll_h, ll_w)
     g = _child_max(d, ll_h, ll_w)
     return m, d, g
+
+
+def max_n_from_maps(m: torch.Tensor) -> torch.Tensor:
+    """The exact initial bit-plane index max(floor(log2 |x|), 0) per
+    (..., H, W) map M, as int32. For planning and statistics: the stream's
+    max_n follows the reference's float32 rule (``maxn.device_max_n``),
+    which is one more for magnitudes >= 2^24 just below a power of two."""
+    return torch.clamp(m.amax(dim=(-2, -1)), min=0).to(torch.int32)

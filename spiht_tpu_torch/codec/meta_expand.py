@@ -38,14 +38,18 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .decoder import (
     decode_lsp_log, decode_seq_log, has_duplicate_parents, machine_args,
     scatter_rec, words_tensor,
 )
-from .encoder import MAX_CELLS, check_stat
+from .encoder import MAX_CELLS, check_geometry, check_stat
 from .geom import dec_geom, rect_table
 
-__all__ = ["decode_event_log", "expand_event_log", "decode_with_metadata"]
+__all__ = [
+    "decode_event_log", "expand_event_log", "decode_with_metadata",
+    "pallas_decode_with_metadata",
+]
 
 
 @lru_cache(maxsize=4)
@@ -185,6 +189,7 @@ def expand_event_log(
     trace, on the log's device. Row layout: ``[action, local_h, local_w,
     channel, filter, depth, n, value]``; ``words`` are the stream's int32
     words."""
+    check_geometry(c, h, w, ll_h, ll_w)
     level = len(other_slices)
     dev = log.device
     dup = has_duplicate_parents(h, w, ll_h, ll_w)
@@ -261,6 +266,7 @@ def decode_event_log(
     40`` (0 = no event; the filter 0 from B2-log), and the bit itself is
     ``words[t >> 5] >> (t & 31) & 1``.
     """
+    check_geometry(c, h, w, ll_h, ll_w)
     words, nbits = words_tensor(data, device)
     args = machine_args(words, nbits, max_n, c, h, w, ll_h, ll_w)
     if has_duplicate_parents(h, w, ll_h, ll_w):
@@ -296,3 +302,27 @@ def decode_with_metadata(
         log, words, nbits, c, h, w, ll_h, ll_w, top_slice, other_slices
     )
     return rec, meta
+
+
+def pallas_decode_with_metadata(
+    data: bytes,
+    max_n: int,
+    c: int,
+    h: int,
+    w: int,
+    ll_h: int,
+    ll_w: int,
+    top_slice,
+    other_slices,
+    device=None,
+):
+    """(rec (c, h, w), trace (nbits+1, 8)) as int32 numpy arrays, decoded
+    on ``device`` (None: the card): kernel B2-log, or B3-log at odd LL
+    (where the reference raises ``MachineResourceLimit``), then the log's
+    expansion (``decode_with_metadata``)."""
+    check_geometry(c, h, w, ll_h, ll_w)
+    rec, meta = decode_with_metadata(
+        data, max_n, c, h, w, ll_h, ll_w, top_slice, other_slices,
+        resolve_device(device),
+    )
+    return rec.cpu().numpy(), meta.cpu().numpy()

@@ -4,6 +4,7 @@ the port of ``spiht_tpu/ops/pallas_kernels.py`` (``_kernel`` :36, ``_run``
 
 ``quantize_compact`` launches ``csrc/spiht_quantize.cu`` for a CUDA tensor
 and runs the plain version, torch ops on the same inputs, for a CPU one.
+``quantize_compact_m`` is the JAX package's name and signature for it.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["quantize_compact"]
+__all__ = ["quantize_compact", "quantize_compact_m"]
 
 
 def _quantize_compact_plain(x: torch.Tensor, scale: torch.Tensor):
@@ -67,3 +68,12 @@ def quantize_compact(
 
 
 quantize_compact.launches = 0
+
+
+def quantize_compact_m(
+    coeffs: torch.Tensor, q_scale
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B6 under the JAX package's name: (arr_i32, arr_i16, M_i8,
+    overflow_bool) of float32 (..., H, W) scaled coefficients, with the
+    input's leading shape, on its device (``quantize_compact``)."""
+    return quantize_compact(coeffs, q_scale)

@@ -22,6 +22,12 @@
   ``_narrow_jit`` :736-746): the two device phases of the budget-narrowed
   batch encode.
 
+* ``analysis_fn``, ``synthesis_fn``, ``forward_with_maps`` and
+  ``default_dtype`` (:196, :214, :681, :48): the JAX package's factories
+  and host step, over ``forward`` and ``inverse``. ``default_dtype`` is
+  float64, the port's working default on every device (the JAX package
+  picks float32 without x64).
+
 ``forward`` and ``inverse`` take leading batch dims: every step is
 elementwise or works along H and W, so no value depends on the batch and
 each image of a batch gets exactly what it gets alone.
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .codec.decoder import decode_coeffs, decode_coeffs_batch
@@ -49,6 +56,7 @@ from .wavelets.geometry import get_slices_and_h_w
 
 __all__ = [
     "forward",
+    "forward_with_maps",
     "forward_compact",
     "forward_plan",
     "narrow",
@@ -57,7 +65,24 @@ __all__ = [
     "decode_pipeline_fn",
     "encode_pipeline_batch_fn",
     "decode_pipeline_batch_fn",
+    "analysis_fn",
+    "synthesis_fn",
+    "default_dtype",
 ]
+
+
+def default_dtype() -> torch.dtype:
+    """The working dtype: float64 on every device, so that streams equal
+    the host float64 path."""
+    return torch.float64
+
+
+def _as_dtype(dtype: Optional[str]) -> torch.dtype:
+    """The factories' dtype, as the JAX package takes it: None
+    (``default_dtype``) or a name such as "float32"."""
+    if dtype is None:
+        return default_dtype()
+    return getattr(torch, np.dtype(dtype).name)
 
 
 def _mults(pcs, x: torch.Tensor) -> torch.Tensor:
@@ -89,6 +114,57 @@ def forward(
     # truncate toward zero, as the reference's integer cast
     arr = (arr * float(settings.quantization_scale)).to(torch.int32)
     return arr, ll_h, ll_w
+
+
+def forward_with_maps(
+    image: torch.Tensor,
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+):
+    """``forward`` in ``default_dtype`` plus the significance maps: (arr
+    int32, (M, D, G) int8, ll_h, ll_w), tensors on the image's device."""
+    arr, ll_h, ll_w = forward(image, settings, level, default_dtype())
+    return arr, significance_maps(arr, ll_h, ll_w), ll_h, ll_w
+
+
+def analysis_fn(
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+    with_maps: bool = True,
+    dtype: Optional[str] = None,
+):
+    """fn(image(s) (..., C, H, W) tensor) -> arr int32, or (arr, M, D, G)
+    with ``with_maps``: colour, DWT, scales and quantization
+    (``forward``), then the maps, on the image's device. ``dtype``: None
+    (``default_dtype``) or a name such as "float32"."""
+    dt = _as_dtype(dtype)
+
+    def fn(image: torch.Tensor):
+        arr, ll_h, ll_w = forward(image, settings, level, dt)
+        if with_maps:
+            return (arr,) + significance_maps(arr, ll_h, ll_w)
+        return arr
+
+    return fn
+
+
+def synthesis_fn(
+    settings: SpihtSettings,
+    h: int,
+    w: int,
+    level: Optional[int] = None,
+    dtype: Optional[str] = None,
+    as_uint8: bool = False,
+):
+    """fn(rec_arr int32 (..., C, enc_h, enc_w) tensor) -> image(s) on the
+    array's device: ``inverse`` in ``dtype`` (as ``analysis_fn`` takes
+    it)."""
+    dt = _as_dtype(dtype)
+
+    def fn(rec_arr: torch.Tensor):
+        return inverse(rec_arr, h, w, level, settings, dt, as_uint8)
+
+    return fn
 
 
 def forward_compact(

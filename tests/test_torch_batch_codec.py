@@ -174,7 +174,8 @@ def test_batch_wrappers_check_inputs():
     with pytest.raises(ValueError, match="one entry per stream"):
         encoder.encode_machine_batch(t, t, one, one[:1], one[:1], 4, b2[:1],
                                      b2, caps, 1)
+    # LL 2x2, the smallest the machines take (LL 1x1 is refused first)
     with pytest.raises(ValueError, match="nbits"):
-        decoder.decode_coeffs_batch(t, [0, 33 * 16], [0, 0], 1, 4, 4, 1, 1)
+        decoder.decode_coeffs_batch(t, [0, 33 * 16], [0, 0], 1, 4, 4, 2, 2)
     with pytest.raises(ValueError, match="need 2 nbits"):
-        decoder.decode_coeffs_batch(t, [0], [0], 1, 4, 4, 1, 1)
+        decoder.decode_coeffs_batch(t, [0], [0], 1, 4, 4, 2, 2)

@@ -120,4 +120,4 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="max_bits"):
         encoder.encode_machine(t, t, t, t[:1], t[:1], 4, 0, 64, False, caps, 1)
     with pytest.raises(ValueError, match="2\\^29"):
-        encoder.check_geometry(3, 16384, 16384)
+        encoder.check_geometry(3, 16384, 16384, 64, 64)

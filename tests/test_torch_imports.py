@@ -1,8 +1,11 @@
 """The port stands alone: no file of spiht_tpu_torch (its tools included),
 nor chip_smoke.py or the scripts beside it, imports jax or the JAX package
-(static AST scan). And its public surface covers the JAX package's."""
+(static AST scan). And its public surface covers the JAX package's: every
+module's ``__all__``, compared by AST with its port counterpart's, lacks
+exactly the names the README lists as left out."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -107,3 +110,69 @@ def test_public_surface_covers_the_reference(h, w, kw, level):
     got = spiht_tpu_torch.get_slices_and_h_w(
         h, w, spiht_tpu_torch.SpihtSettings(**kw), level)
     assert got == want
+
+
+# spiht_tpu module -> its port counterpart, where the names differ
+COUNTERPART = {
+    "jax_transform.py": "torch_transform.py",
+    "codec/pallas_encoder.py": "codec/encoder.py",
+    "codec/pallas_decoder.py": "codec/decoder.py",
+    "ops/pallas_kernels.py": "ops/quantize_kernels.py",
+    "color/jax_models.py": "color/torch_models.py",
+}
+
+
+def _all(path):
+    """A module's ``__all__`` by AST (None where it has none)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return None
+
+
+def _missing():
+    """{(reference module, name)} of every name in a ``spiht_tpu``
+    module's ``__all__`` that its port counterpart does not export."""
+    gap = set()
+    for path in sorted((ROOT / "spiht_tpu").rglob("*.py")):
+        rel = str(path.relative_to(ROOT / "spiht_tpu"))
+        names = _all(path)
+        if not names:
+            continue
+        port = ROOT / "spiht_tpu_torch" / COUNTERPART.get(rel, rel)
+        have = (_all(port) or set()) if port.exists() else set()
+        gap |= {(rel, n) for n in names - have}
+    return gap
+
+
+def _readme_left_out():
+    """The README's table of names left out: {(module, name)}, a name
+    ``*`` standing for the module's whole ``__all__``."""
+    text = (ROOT / "README.md").read_text()
+    table = text.split("| left out | reason |", 1)[1].split("\n\n", 1)[0]
+    rows = re.findall(r"^ *\| `([^`:]+):([^`]+)` \| (.+) \|$", table, re.M)
+    assert rows and all(reason.strip() for _, _, reason in rows)
+    out = set()
+    for mod, name, _ in rows:
+        names = _all(ROOT / "spiht_tpu" / mod) if name == "*" else {name}
+        out |= {(mod, n) for n in names}
+    return out
+
+
+def test_every_reference_name_is_exported_or_left_out_in_the_readme():
+    gap = _missing()
+    assert gap == _readme_left_out(), sorted(gap ^ _readme_left_out())
+
+
+def test_exported_names_exist():
+    """Each port module's ``__all__`` names attributes it has."""
+    import importlib
+
+    for path in sorted((ROOT / "spiht_tpu_torch").rglob("*.py")):
+        names = _all(path)
+        if not names or "tools" in path.parts:
+            continue
+        mod = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+        m = importlib.import_module(mod.removesuffix(".__init__"))
+        assert all(hasattr(m, n) for n in names), (mod, names)
