@@ -28,15 +28,24 @@ Phases:
   10. throughput at configuration A, batches of 16 and 128 images
   11. kernels B2-log and B3-log (the metadata trace's event logs), B6
       (fused quantize) and B7 (sequential encoder) vs their plain versions
-      at small shapes, with budget cuts and byte prefixes
+      at small shapes, with budget cuts, byte prefixes and B7 stopped by
+      each queue's capacity; B6 at sizes 0-17, 4099 and 65,537 at element
+      offsets 0-7 with its edge values
   12. the metadata trace at A and at B (odd LL: B3-log), 1.0 bpp (262,145
       x 8 traces): equal to the plain version's and to the native
       scheduler's, its rec to the on-device decode's; decode_image with
-      the trace at B; B7 encoding A at 1.0 bpp, equal to B1
+      the trace at B; B7 encoding A at 1.0 bpp, equal to B1; B7 at A and
+      B, full stream and 1.0 bpp, equal to B1 and the plain version, ms
+      and ns a stream bit; SPIHT_TPU_PALLAS_ENC_MACHINE=seq sends
+      pallas_encode to B7 and SPIHT_TPU_PALLAS_DEC_MACHINE=seq
+      pallas_decode to B3, once each
   13. the host-scheduled batch codec at A, 16 images: encode_images on the
       B6 path (float32) and on the budget path, streams equal to
       encode_images_device's; decode_images equal to decode_images_device;
-      images/s of both codecs
+      images/s of both codecs; B6 alone on the batch's 13.9 M scaled
+      coefficients, 21 launches cold (L2 flushed) and 21 warm, median,
+      min and max, on the tensor and on a view of it 4 bytes off a
+      16-byte boundary
   14. byte-prefix sweep of A's stream through B2, B2-log and B5, and of B's
       through B3 and batched B3 (64 cuts each: near the start, through the
       stream, in the last word), each equal to its plain version: the cut
@@ -46,14 +55,16 @@ Phases:
       budgets each (the first 9 bits, the last 9 of the 1 bpp stream, the
       rest seeded) and as one B4 batch of those 64 budgets, each equal to
       its plain version and a prefix of the 1 bpp stream; at A, narrowed
-      queue capacities that stop B1 and B4 with each queue's error code,
-      and a budget clamped by a small word buffer (the capped code)
+      queue capacities that stop B1, B4 and B7 with each queue's error
+      code, and a budget clamped by a small word buffer (the capped code)
   16. large geometries: configuration A's settings at 3x2048^2, 3x4096^2
       and 3x4243^2 (BASELINE.md round 5's geometry; odd LL), and B's at
       3x4096^2 (odd LL), 1.0 bpp, through B1, B2 or B3 and the matching log
       kernel (B2-log or B3-log) at the full stream and at a byte prefix,
       held against the native scheduler (streams, rec and traces); kernel
-      ms and peak memory; then an A batch of 800 streams (more than one
+      ms and peak memory; B7 at 3x2048^2 (its ring wraps thousands of
+      times) equal to B1 and the plain version; then an A batch of 800
+      streams (more than one
       wave of B4 or B5 blocks) through B4 and B5, stream by stream equal
       to B1 and B2
   17. the dependent-chain spikes (spiht_tpu_torch/tools): their entry
@@ -133,6 +144,7 @@ import tempfile
 import sys
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -809,21 +821,42 @@ def cmp_decode_log(data, max_n, c, h, w, ll_h, ll_w, stats=None):
     return kout
 
 
-def cmp_encode_seq(arr, ll_h, ll_w, max_bits, stats=None):
-    """B7 on the card vs its plain version and vs B1 on the same array:
-    words and stat exactly equal. Returns (bytes, max_n)."""
-    args = encoder.machine_args(arr, ll_h, ll_w, max_bits)
+def cmp_encode_seq_args(args, stats=None):
+    """B7 on the card vs its plain version and vs B1 on ``encode_machine``'s
+    arguments as given (narrowed capacities, a clamped budget): words and
+    stat exactly equal, the error code included. Returns (words, stat
+    list)."""
     kw, ks = encoder.encode_machine_seq(*args)
     bw, bs = encoder.encode_machine(*args)
     torch.cuda.synchronize()
     (pw, ps), plain_ms = timed(encoder.encode_machine_seq, *to_cpu(args))
-    ks = encoder.check_stat(ks, "spiht_encode_seq")
-    check(ks == ps.tolist() == bs.tolist(), f"B7 stat {ks} != plain or B1")
+    ks = ks.tolist()
+    check(ks == ps.tolist() == bs.tolist(),
+          f"B7 stat {ks} != plain {ps.tolist()} or B1 {bs.tolist()}")
     err = max_abs(kw.cpu().numpy().view(np.uint32), pw.numpy().view(np.uint32))
     check(err == 0 and torch.equal(kw, bw), "B7 words != plain or B1 words")
     if stats is not None:
         stats.update(args=args, stat=ks, plain_ms=plain_ms, max_abs_err=err)
+    return kw, ks
+
+
+def cmp_encode_seq(arr, ll_h, ll_w, max_bits, stats=None):
+    """B7 on the card vs its plain version and vs B1 on the same array:
+    words and stat exactly equal, no error. Returns (bytes, max_n)."""
+    args = encoder.machine_args(arr, ll_h, ll_w, max_bits)
+    kw, ks = cmp_encode_seq_args(args, stats)
+    encoder.check_stat(torch.tensor(ks), "spiht_encode_seq")
     return encoder.stream_bytes(kw, ks[0]), int(args[6])
+
+
+def seq_timing(label, stats):
+    """B7's ms by CUDA events at ``stats``' arguments, and ns a stream
+    bit."""
+    ms = time_kernel(encoder.encode_machine_seq, stats["args"])
+    bits = stats["stat"][0]
+    return {"config": label, "bits": bits, "ms": ms,
+            "ns_per_stream_bit": ms * 1e6 / max(bits, 1),
+            "plain_ms": stats["plain_ms"]}
 
 
 def cmp_quantize(x, scale, stats=None):
@@ -839,11 +872,78 @@ def cmp_quantize(x, scale, stats=None):
     return kout
 
 
+def quantize_cases():
+    """B6's edge inputs (tests/test_torch_kernel_source.py runs them on the
+    host build): for each size n in 0-17, 4099 and 65,537, a seeded
+    buffer of n + 8 float32 values
+    with +-32767, +-32768, powers of two and their neighbours, 0 and
+    +-0.99 spread through it; its views at element offsets 0-7 are the
+    cases (x unaligned for 16-byte loads at offsets 1-3 and 5-7)."""
+    edges = [0.0, 0.99, -0.99, 32767.0, -32767.0, 32768.0, -32768.0]
+    for k in range(31):
+        edges += [s * (2.0**k + d) for s in (1, -1) for d in (-1, 0, 1)]
+    edges = np.asarray(edges, np.float32)
+    rng = np.random.default_rng(12)
+    out = []
+    for n in list(range(18)) + [4099, 65537]:
+        buf = (rng.standard_normal(n + 8) * rng.choice([3.0, 900.0, 4e4])
+               ).astype(np.float32)
+        at = rng.choice(n + 8, min(n + 8, len(edges)), replace=False)
+        buf[at] = rng.permutation(edges)[: len(at)]
+        out.append((n, buf))
+    return out
+
+
+def quantize_cold_warm(x, scale, lib=None, reps=21):
+    """B6 alone on ``x`` (the launch of ``lib``, by default the build's),
+    by CUDA events launch by launch: ``reps`` launches each after a 128 MB
+    buffer is written (the 50 MB L2 holds none of x), then ``reps`` back
+    to back (warm). The outputs are allocated once and held to the
+    wrapper's. Returns {"cold": {median, min, max}, "warm": {...}} in
+    ms."""
+    lib = lib or _build.load("spiht_quantize")
+    outs = [torch.empty(x.shape, dtype=t, device=DEV)
+            for t in (torch.int32, torch.int16, torch.int8)]
+    ofl = torch.zeros((), dtype=torch.int32, device=DEV)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.spiht_quantize_compact_launch(
+            x.data_ptr(), x.numel(), float(np.float32(scale)),
+            *(o.data_ptr() for o in outs), ofl.data_ptr(), stream)
+        check(rc == 0, f"B6 launch: CUDA error {rc}")
+
+    launch()
+    want = quantize_compact(x, scale)
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, w) for o, w in zip(outs, want))
+          and bool(ofl != 0) == bool(want[3]), "B6 alone != its wrapper")
+    res = {}
+    for kind in ("cold", "warm"):
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(reps)]
+        for e0, e1 in ev:
+            if kind == "cold":
+                flush.fill_(1)
+            e0.record()
+            launch()
+            e1.record()
+        torch.cuda.synchronize()
+        t = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
+        res[kind] = {"median_ms": statistics.median(t), "min_ms": t[0],
+                     "max_ms": t[-1], "launches": reps}
+    del flush
+    return res
+
+
 def phase_new_kernels_small():
     """Phase 11: B2-log, B7 and B6 vs their plain versions at small
-    shapes: B7 at budgets cut inside a symbol (and equal to B1), B2-log on
-    those streams and on byte prefixes of the full one, B6 with its
-    overflow flag set and clear."""
+    shapes: B7 at budgets cut inside a symbol and at each queue's
+    capacity stop (and equal to B1), B2-log on those streams and on byte
+    prefixes of the full one, B6 with its overflow flag set and clear and
+    at sizes 0-17, 4099 and 65,537 at element offsets 0-7 with its edge
+    values (``quantize_cases``)."""
     rng = np.random.default_rng(11)
     arr, ll_h, ll_w = forward(
         torch.as_tensor(image(1, (3, 64, 64)), device=DEV),
@@ -868,6 +968,18 @@ def phase_new_kernels_small():
         for cut in ((None, 1, 7, len(data) // 2) if mb == FULL else (None,)):
             cmp_decode_log(data[:cut], mn, 3, 19, 19, 5, 5)
             n_cmp += 1
+    # B7 stopped by each queue's capacity, half its length at the end
+    for a, ll in ((arr, (ll_h, ll_w)), (odd, (5, 5))):
+        args = encoder.machine_args(a, *ll, FULL)
+        _, st = cmp_encode_seq_args(args)
+        init = (args[3].numel(), args[4].numel(), 0)
+        for which in range(3):
+            caps = list(args[9])
+            caps[which] = max(init[which], st[2 + which] // 2)
+            _, cut = cmp_encode_seq_args(args[:9] + (tuple(caps),)
+                                         + args[10:])
+            check(cut[1] != 0, f"B7 at capacities {caps}: no stop")
+            n_cmp += 1
     for spread, shape in ((3.0, (3, 64, 64)), (900.0, (3, 77, 77)),
                           (40000.0, (5, 333))):
         x = torch.as_tensor(
@@ -876,6 +988,12 @@ def phase_new_kernels_small():
         out = cmp_quantize(x, 1.7)
         check(bool(out[3]) == (spread > 10000), f"B6 overflow at {spread}")
         n_cmp += 1
+    for n, buf in quantize_cases():
+        tb = torch.as_tensor(buf, device=DEV)
+        for off in range(8):
+            for scale in (1.0, 1.7):
+                cmp_quantize(tb[off: off + n], scale)
+                n_cmp += 1
     print(f"phase 11 ok: {n_cmp} exact comparisons of B2-log, B3-log, B7 "
           "and B6 with their plain versions (B7 also with B1)")
 
@@ -922,10 +1040,15 @@ def trace_at(label, er, settings, level, kernel):
     return log_stats, n[kernel], meta
 
 
-def phase_metadata(im_a, er_a, er_b):
+def phase_metadata(im_a, im_b, er_a, er_b):
     """Phase 12: the metadata trace at A (B2-log) and at B (odd LL:
     B3-log), each through the API on the card (``trace_at``);
-    decode_image with the trace at B. Then B7 encodes A through the API."""
+    decode_image with the trace at B. Then B7 encodes A through the API;
+    B7 at A and B at the full stream and 1.0 bpp, equal to B1 and the
+    plain version, timed (ms and ns a stream bit); and the reference's
+    switches: SPIHT_TPU_PALLAS_ENC_MACHINE=seq sends pallas_encode to B7,
+    SPIHT_TPU_PALLAS_DEC_MACHINE=seq pallas_decode at A's even LL to B3,
+    once each."""
     log_a, n_log, _ = trace_at("A", er_a, CONFIG_A, None,
                                "spiht_decode_lsp_log")
     log_b, n_log_b, meta_b = trace_at("B", er_b, CONFIG_B, 3,
@@ -944,7 +1067,7 @@ def phase_metadata(im_a, er_a, er_b):
     print(f"  B: decode_image(return_metadata=True) on the card: trace "
           f"{meta.shape}, image {img.shape} equal to decode_image's")
     # B7 at A's 1.0 bpp, through the raw encode entry point
-    slices, _, _ = get_slices_and_h_w(*im_a.shape[1:], CONFIG_A, None)
+    slices, enc_h, enc_w = get_slices_and_h_w(*im_a.shape[1:], CONFIG_A, None)
     ll = (slices[0][1].stop, slices[0][2].stop)
     arr, _, _ = forward(torch.as_tensor(im_a, device=DEV), CONFIG_A, None)
     reset_counts()
@@ -958,8 +1081,41 @@ def phase_metadata(im_a, er_a, er_b):
           "B7's stream at A != encode_image_device's")
     seq_stats = {}
     cmp_encode_seq(arr, *ll, 512 * 512, seq_stats)
-    print(json.dumps({"phase": "12 B7 at A", "bytes": len(data7),
-                      "launches": n7, "equals_b1_and_plain": True}))
+    rows = [seq_timing("A 1.0 bpp", seq_stats)]
+    arr_b, llb_h, llb_w = forward(torch.as_tensor(im_b, device=DEV),
+                                  CONFIG_B, 3)
+    for label, a, lh, lw, budgets in (
+            ("A", arr, *ll, ("full",)),
+            ("B", arr_b, llb_h, llb_w, ("full", "1.0 bpp"))):
+        for what in budgets:
+            st = {}
+            cmp_encode_seq(a, lh, lw, FULL if what == "full" else 512 * 512,
+                           st)
+            rows.append(seq_timing(f"{label} {what}", st))
+    # the reference's machine switches, each path with the counts set to
+    # 0 just before and read just after
+    with mock.patch.dict(os.environ,
+                         {"SPIHT_TPU_PALLAS_ENC_MACHINE": "seq"}):
+        reset_counts()
+        got = encoder.pallas_encode(arr, *ll, 512 * 512, device=DEV)
+        launched("spiht_encode_seq")
+    check(got == (er_a.encoded_bytes, er_a.max_n),
+          "pallas_encode under ENC_MACHINE=seq != encode_image_device")
+    geo_a = (3, enc_h, enc_w, *ll)
+    with mock.patch.dict(os.environ,
+                         {"SPIHT_TPU_PALLAS_DEC_MACHINE": "seq"}):
+        reset_counts()
+        rec = decoder.pallas_decode(er_a.encoded_bytes, er_a.max_n, *geo_a,
+                                    device=DEV)
+        launched("spiht_decode_seq")
+    check(np.array_equal(rec, decoder.decode(
+        er_a.encoded_bytes, er_a.max_n, *geo_a, device=DEV).cpu().numpy()),
+          "pallas_decode under DEC_MACHINE=seq != B2's rec")
+    print(json.dumps({"phase": "12 B7 at A and B", "card": card(),
+                      "launches": n7, "equals_b1_and_plain": True,
+                      "switches": {"enc_seq": {"spiht_encode_seq": 1},
+                                   "dec_seq": {"spiht_decode_seq": 1}},
+                      "b7": rows}))
     return log_a, n_log, log_b, n_log_b, seq_stats, n7["spiht_encode_seq"]
 
 
@@ -1067,7 +1223,19 @@ def phase_host_batch(ims, mbs):
                             f32)[0].to(f32)
     q_stats = {}
     cmp_quantize(coeffs, CONFIG_A.quantization_scale, q_stats)
-    del coeffs
+    # the same values one element into a buffer: x 4 bytes past a 16-byte
+    # boundary, so the vectors load x 4 bytes at a time
+    shifted = torch.empty(coeffs.numel() + 1, dtype=f32, device=DEV)
+    shifted[1:] = coeffs.reshape(-1)
+    print(json.dumps({
+        "phase": "13 B6 alone on the A batch's scaled coefficients",
+        "card": card(), "elements": coeffs.numel(),
+        "bound_ms": coeffs.numel() * 11 / HBM_BYTES_PER_S * 1e3,
+        **quantize_cold_warm(coeffs, CONFIG_A.quantization_scale),
+        "offset_view": quantize_cold_warm(shifted[1:],
+                                          CONFIG_A.quantization_scale),
+    }))
+    del coeffs, shifted
     t = {
         "encode_images_b6_path_ms": lambda: pt.encode_images(
             ims, CONFIG_A, None, None, device=DEV, dtype=f32),
@@ -1237,18 +1405,24 @@ def phase_encode_edges(im_a, im_b):
             check(cmp_encode_batch_args(bargs[:8] + (tuple(caps),)
                                         + bargs[9:]) == [st],
                   "B4 at narrowed capacities != B1")
+            check(cmp_encode_seq_args(args[:9] + (tuple(caps),)
+                                      + args[10:])[1] == st,
+                  "B7 at narrowed capacities != B1")
             errs.append(st[1])
         # a budget clamped to a 1000-word buffer
-        st = cmp_encode_args(args[:7] + (32000, True) + args[9:10] + (1000,))
+        clamped = args[:7] + (32000, True) + args[9:10] + (1000,)
+        st = cmp_encode_args(clamped)
         check(cmp_encode_batch_args(bargs[:9] + (1000,)) == [st],
               "B4 with a clamped budget != B1")
+        check(cmp_encode_seq_args(clamped)[1] == st,
+              "B7 with a clamped budget != B1")
         errs.append(st[1])
         check(errs == [2, 3, 4, 1], f"A: error codes {errs}, want [2, 3, 4, 1]")
-        n_cmp += 8
+        n_cmp += 12
         print(f"  A: narrowed LIP, LIS, LSP and a clamped budget: error codes "
-              f"{errs} on the card == plain, B4 == B1")
-    print(f"phase 15 ok: {n_cmp} exact comparisons of B1 and B4 with their "
-          "plain versions")
+              f"{errs} on the card == plain, B4 == B7 == B1")
+    print(f"phase 15 ok: {n_cmp} exact comparisons of B1, B4 and B7 with "
+          "their plain versions")
 
 
 # phase 16's geometries: (label, settings, level, input side), 1.0 bpp
@@ -1332,13 +1506,19 @@ def phase_large():
             del trec, meta, nrec, nmeta
         words, nbits = decoder.words_tensor(data, DEV)
         dargs = decoder.machine_args(words, nbits, mn, *geo)
+        eargs = encoder.machine_args(arr, *geo[3:], budget)
         ms = {
-            "spiht_encode": time_kernel(
-                encoder.encode_machine,
-                encoder.machine_args(arr, *geo[3:], budget)),
+            "spiht_encode": time_kernel(encoder.encode_machine, eargs),
             dec: time_kernel(KERNELS[dec]["wrapper"], dargs),
             log: time_kernel(KERNELS[log]["wrapper"], dargs),
         }
+        b7 = None
+        if side == 2048:  # B7, its ring wrapped thousands of times
+            st = {}
+            kw, _ = cmp_encode_seq_args(eargs, st)
+            check(encoder.stream_bytes(kw, st["stat"][0]) == data,
+                  f"{label}: B7's stream != B1's")
+            b7 = seq_timing(label + " 1.0 bpp", st)
         trace_ms = median_ms(lambda: meta_expand.decode_with_metadata(
             data, mn, *geo, *wire, DEV), reps=3)
         reset_counts()
@@ -1346,13 +1526,13 @@ def phase_large():
             "phase": f"16 {label}", "geometry": list(geo[:3]),
             "ll": list(geo[3:]), "cells": 3 * enc_h * enc_w,
             "odd_ll": odd, "bits": len(data) * 8, "prefix_bytes": cut,
-            "max_n": mn, "kernel_ms": ms,
+            "max_n": mn, "kernel_ms": ms, "b7": b7,
             "trace_ms_median_of_3": trace_ms,
             "device_peak_gib": gb,
             "equal_native_stream_rec_trace": True,
             "phase_s": time.perf_counter() - t0,
         }))
-        del arr, words, dargs
+        del arr, words, dargs, eargs
     torch.cuda.empty_cache()
 
 
@@ -2951,7 +3131,7 @@ def run_phases() -> list:
     # ---- phases 11-13: B2-log, B6, B7 and the paths that run them ----
     phase_new_kernels_small()
     log_a, n_log, log_b, n_log_b, seq_a, n_seq = phase_metadata(
-        im_a, er_a, er_b)
+        im_a, im_b, er_a, er_b)
     q_a, n_q = phase_host_batch(ims_a, mbs_a)
 
     # ---- phase 14: the decoders' step edges on the card ----

@@ -15,9 +15,15 @@ one untimed round trip (which builds the kernels if need be). With
 ``--kernels`` it times the machine kernels instead, by CUDA events as
 chip_smoke.py's ``time_kernel`` does, at the shapes of chip_smoke.py's
 kernel table (B1, B2, B2-log at A; B3 and, where the tree has it, B3-log
-at B; B4 and B5 at the A batch of 16; batched B3 at the B batch of 8),
-and the metadata trace at A (host clock to a sync, median of 5). It prints
-one JSON line a process, then one a tree with every process's numbers.
+at B; B4 and B5 at the A batch of 16; batched B3 at the B batch of 8;
+B7 at A), the metadata trace at A (host clock to a sync, median of 5),
+and B6 on the A batch's 13.9 M scaled coefficients: its wrapper as
+time_kernel times it, and the kernel alone, cold and warm ([median, min,
+max]), by chip_smoke.py's ``quantize_cold_warm`` (its launch on outputs
+allocated once, 21 times after a 128 MB write that flushes the L2 and 21
+times back to back; a copy of it for a tree whose chip_smoke.py lacks
+it). It prints one JSON line a process, then one a tree with every
+process's numbers.
 """
 
 from __future__ import annotations
@@ -53,8 +59,47 @@ import numpy as np
 import torch
 import chip_smoke as cs
 import spiht_tpu_torch as pt
+from spiht_tpu_torch import _build
+from spiht_tpu_torch.codec import api as tapi
 from spiht_tpu_torch.codec import decoder, encoder
+from spiht_tpu_torch.ops.quantize_kernels import quantize_compact
+from spiht_tpu_torch.torch_transform import _scaled_coeffs
 from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
+
+
+# chip_smoke.quantize_cold_warm's measurement, for a tree that lacks it:
+# B6's launch on outputs allocated once, reps times each after a 128 MB
+# write (cold) and back to back (warm), by CUDA events, after one untimed
+# launch
+def quantize_cold_warm(x, scale, reps=21):
+    go = _build.load("spiht_quantize").spiht_quantize_compact_launch
+    outs = [torch.empty(x.shape, dtype=t, device=cs.DEV)
+            for t in (torch.int32, torch.int16, torch.int8)]
+    ofl = torch.zeros((), dtype=torch.int32, device=cs.DEV)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=cs.DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        assert go(x.data_ptr(), x.numel(), float(np.float32(scale)),
+                  *(o.data_ptr() for o in outs), ofl.data_ptr(),
+                  stream) == 0
+
+    launch()
+    res = {}
+    for kind in ("cold", "warm"):
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(reps)]
+        for e0, e1 in ev:
+            if kind == "cold":
+                flush.fill_(1)
+            e0.record()
+            launch()
+            e1.record()
+        torch.cuda.synchronize()
+        t = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
+        res[kind] = {"median_ms": t[reps // 2], "min_ms": t[0],
+                     "max_ms": t[-1]}
+    return res
 
 out = {}
 for label, seed, settings, level in (("A", 1, cs.CONFIG_A, None),
@@ -65,6 +110,10 @@ for label, seed, settings, level in (("A", 1, cs.CONFIG_A, None),
     out[label + " B1"] = cs.time_kernel(
         encoder.encode_machine, encoder.machine_args(arr, ll_h, ll_w,
                                                      512 * 512))
+    if label == "A":
+        out["A B7"] = cs.time_kernel(
+            encoder.encode_machine_seq,
+            encoder.machine_args(arr, ll_h, ll_w, 512 * 512))
     er = pt.encode_image_device(im, settings, level, 512 * 512,
                                 device=cs.DEV)
     words, nbits = decoder.words_tensor(er.encoded_bytes, cs.DEV)
@@ -101,6 +150,17 @@ for label, settings, level, n, dec, fn in (
     args = decoder.batch_machine_args(words, nbits, [e.max_n for e in ers],
                                       *arrs.shape[1:], ll_h, ll_w)
     out[label + " " + dec] = cs.time_kernel(getattr(decoder, fn), args)
+    if n == 16:  # B6 on the batch's scaled float32 coefficients
+        x = _scaled_coeffs(tapi._device_batch(ims, cs.DEV), settings, level,
+                           torch.float32)[0].to(torch.float32)
+        scale = settings.quantization_scale
+        out["B6 wrapper"] = cs.time_kernel(quantize_compact, (x, scale))
+        # the kernel alone, cold and warm, as chip_smoke.py's phase 13
+        # times it; a tree whose chip_smoke.py lacks that gets a copy
+        cold_warm = getattr(cs, "quantize_cold_warm", quantize_cold_warm)
+        for kind, r in cold_warm(x, scale).items():
+            out[f"B6 {kind}"] = [r["median_ms"], r["min_ms"], r["max_ms"]]
+        del x
 print(json.dumps(out))
 """
 

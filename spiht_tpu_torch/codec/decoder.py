@@ -32,7 +32,8 @@ over B2, B3 and B5, with the reference's signatures less the TPU-only
 ``interpret``; ``machine_fits``, ``interleaved_fits`` and
 ``MachineResourceLimit`` answer the port's limits (``encoder.py``), B5
 taking only duplicate-free geometries, as the reference's interleaved
-machine does.
+machine does. For a ``machine`` of None the four read the reference's
+switch ``SPIHT_TPU_PALLAS_DEC_MACHINE`` (``seq``: B3 in every geometry).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ import torch
 from ..device import resolve_device
 from .encoder import (
     MAX_CELLS, STAT_LEN, MachineResourceLimit, _Stop, _check_i32,
-    _fits_or_raise, check_geometry, check_stat, machine_caps, machine_fits,
+    _env_machine, _fits_or_raise, check_geometry, check_stat, machine_caps,
+    machine_fits,
 )
 from .geom import (
     A_DESC, A_LIP, A_LIPSIGN, A_LSIG, A_OFF, A_OFFSIGN, A_REF, _F_AD, _F_DA,
@@ -573,14 +575,16 @@ def decode_coeffs(
     ll_h: int,
     ll_w: int,
     out_dtype: torch.dtype = torch.int32,
+    machine=None,
 ) -> torch.Tensor:
     """Decode stream words on their device -> rec (c, h, w), routed as
-    ``pallas_decode_fn``: B3 for duplicate-parent geometries, else B2
-    plus the scatter; raises on a machine error (syncs the device).
-    ``out_dtype=torch.int16`` is value-identical for max_n <= 13
-    (|rec| < 2^(max_n+1)) and halves the bytes."""
+    ``pallas_decode_fn``: B3 for duplicate-parent geometries or
+    ``machine="seq"``, else B2 plus the scatter; raises on a machine error
+    (syncs the device). ``out_dtype=torch.int16`` is value-identical for
+    max_n <= 13 (|rec| < 2^(max_n+1)) and halves the bytes."""
     od = _checked_out_dtype(out_dtype, [max_n])
-    core = _dec_core(c, h, w, ll_h, ll_w, words.numel(), None, words.device)
+    core = _dec_core(c, h, w, ll_h, ll_w, words.numel(), machine,
+                     words.device)
     rec, stat, name = core(words.reshape(-1), nbits, int(max_n))
     check_stat(stat, name)
     return rec.reshape(c, h, w).to(od)
@@ -711,8 +715,16 @@ def decode_batch(
 # others run B2 (B5 for a batch) where the geometry has no duplicate
 # parents, else B3, whose one kernel computes what each layout computes
 DEC_MACHINES = (None, "hybrid", "hybrid_hbm", "seq")
+# the reference's switch for the machine of the pallas_* functions
+# (pallas_decoder.py:176, :2132, :2182-2183), read for a machine of None
+_DEC_MACHINE_ENV = "SPIHT_TPU_PALLAS_DEC_MACHINE"
 _OUT_DTYPES = {"int32": torch.int32, "int16": torch.int16,
                torch.int32: torch.int32, torch.int16: torch.int16}
+
+
+def _dec_machine(machine):
+    """``machine``, or for None ``SPIHT_TPU_PALLAS_DEC_MACHINE``."""
+    return _env_machine(machine, _DEC_MACHINE_ENV, DEC_MACHINES)
 
 
 def interleaved_fits(
@@ -784,11 +796,13 @@ def pallas_decode_fn(
     beyond reading an int. ``out_dtype="int16"`` (max_n <= 13) is
     value-identical. As the JAX package's, it reports no machine error
     (a queue overflow, a corrupt stream): ``decode_coeffs`` and
-    ``pallas_decode`` check the machine's status and raise."""
+    ``pallas_decode`` check the machine's status and raise. A ``machine``
+    of None reads ``SPIHT_TPU_PALLAS_DEC_MACHINE``."""
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, None)
     _checked_out_dtype(out_dtype, [])
     dev = resolve_device(device)
-    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev)
+    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, _dec_machine(machine),
+                     dev)
 
     def fn(words, nbits, max_n):
         od = _checked_out_dtype(out_dtype, [max_n])
@@ -808,11 +822,13 @@ def pallas_decode_batch_fn(
     and one rec scatter, or batched B3 at odd LL or for
     ``machine="seq"``; each stream stops at its own nbits. Like
     ``pallas_decode_fn``, it reports no machine error
-    (``decode_coeffs_batch`` and ``pallas_decode_batch`` do)."""
+    (``decode_coeffs_batch`` and ``pallas_decode_batch`` do). A
+    ``machine`` of None reads ``SPIHT_TPU_PALLAS_DEC_MACHINE``."""
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, None)
     _checked_out_dtype(out_dtype, [])
     dev = resolve_device(device)
-    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev)
+    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, _dec_machine(machine),
+                     dev)
 
     def fn(words, nbits, max_ns):
         words = _as_words(words, dev)
@@ -832,12 +848,15 @@ def pallas_decode(
     device=None,
 ) -> np.ndarray:
     """Decode stream bytes on ``device`` (None: the card) -> (c, h, w)
-    int32 numpy array: ``decode`` (kernel B2, B3 at odd LL). ``ValueError``
-    for a refused LL, ``MachineResourceLimit`` where ``machine_fits`` is
-    false. Prefix-tolerant."""
+    int32 numpy array: kernel B2 and the rec scatter, B3 at odd LL or
+    where ``SPIHT_TPU_PALLAS_DEC_MACHINE`` is ``seq``. ``ValueError`` for a
+    refused LL, ``MachineResourceLimit`` where ``machine_fits`` is false.
+    Prefix-tolerant."""
     _fits_or_raise(c, h, w, ll_h, ll_w, max((len(data) * 8 + 31) // 32, 1),
                    None)
-    return decode(data, max_n, c, h, w, ll_h, ll_w, device).cpu().numpy()
+    words, nbits = words_tensor(data, resolve_device(device))
+    return decode_coeffs(words, nbits, int(max_n), c, h, w, ll_h, ll_w,
+                         machine=_dec_machine(None)).cpu().numpy()
 
 
 def pallas_decode_batch(
@@ -846,11 +865,11 @@ def pallas_decode_batch(
 ) -> np.ndarray:
     """Decode B streams' bytes of one geometry on ``device`` (None: the
     card) -> (B, c, h, w) int32 numpy array: ``decode_batch``, one launch
-    of kernel B5 (batched B3 at odd LL or for ``machine="seq"``).
-    ``max_ns`` is one int or one per stream. The refusals are
-    ``pallas_decode``'s."""
+    of kernel B5 (batched B3 at odd LL or for ``machine="seq"``; None
+    reads ``SPIHT_TPU_PALLAS_DEC_MACHINE``). ``max_ns`` is one int or one
+    per stream. The refusals are ``pallas_decode``'s."""
     datas = list(datas)
     cap_words = max([(len(d) * 8 + 31) // 32 for d in datas] + [1])
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, None)
     return decode_batch(datas, max_ns, c, h, w, ll_h, ll_w, device,
-                        machine=machine).cpu().numpy()
+                        machine=_dec_machine(machine)).cpu().numpy()

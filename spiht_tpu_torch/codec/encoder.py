@@ -33,11 +33,19 @@ over B1 and B4 (B7 for ``machine="seq"``), with the reference's
 signatures less the TPU-only ``interpret``. ``machine_fits`` and
 ``interleaved_fits`` answer the port's real limits, c*h*w < 2^29 and the
 LL rule: the card has no VMEM budget, so no geometry the machines take is
-refused for its state's size.
+refused for its state's size. Where the reference reads
+``SPIHT_TPU_PALLAS_ENC_MACHINE`` (``pallas_encoder.py:205``, :2165,
+:2217-2218, :2368-2378), the four ``pallas_*`` functions read it for a
+``machine`` of None: ``seq`` runs B7; ``pallas_encode`` (and
+``pallas_encode_batch``) refuse ``compact``/``compact_hbm`` for max_n > 15
+with ``MachineResourceLimit``, as the reference does, for an explicit
+machine too. A value the switch does not name runs B7, as the reference
+runs its sequential machine for any name it does not know.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -445,6 +453,19 @@ encode_machine_seq.launches = 0
 # pallas_encode_fn's machine names: "seq" is B7; every other layout is B1,
 # whose one kernel computes the function of all of them
 MACHINES = (None, "hybrid", "compact", "compact_hbm", "seq")
+# the reference's switch for the machine of the pallas_* functions
+_ENC_MACHINE_ENV = "SPIHT_TPU_PALLAS_ENC_MACHINE"
+# layouts that pack magnitudes into 16 bits on the TPU: max_n <= 15 only
+_COMPACT = ("compact", "compact_hbm")
+
+
+def _env_machine(machine, var: str = _ENC_MACHINE_ENV, names=MACHINES):
+    """``machine``, or for None the switch ``var`` where it is set: a
+    value in ``names``, else ``"seq"``, as the reference runs its
+    sequential machine for any name it does not know."""
+    if machine is not None or var not in os.environ:
+        return machine
+    return os.environ[var] if os.environ[var] in names else "seq"
 
 
 def encode_machine_batch(
@@ -666,7 +687,9 @@ def pallas_encode_fn(
     [cap_words], total_bits, overflow), 0-d tensors on ``device`` (None:
     the card), with no host sync: kernel B1, or B7 for ``machine="seq"``.
     The budget is clamped to the buffer; ``overflow`` is true where that
-    clamp cut the stream (the stream is then invalid)."""
+    clamp cut the stream (the stream is then invalid). A ``machine`` of
+    None reads ``SPIHT_TPU_PALLAS_ENC_MACHINE``."""
+    machine = _env_machine(machine)
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine)
     dev = resolve_device(device)
     caps = machine_caps(c, h, w, ll_h, ll_w, cap_words)
@@ -692,7 +715,9 @@ def pallas_encode_batch_fn(
     """fn(arrs int32 (B, c, h, w), max_ns (B,), max_bits (B,)) -> (words
     int32 (B, cap_words), totals (B,), overflows (B,)) on ``device``
     (None: the card), with no host sync: one launch of kernel B4, or B7
-    stream by stream for ``machine="seq"``."""
+    stream by stream for ``machine="seq"`` (None reads
+    ``SPIHT_TPU_PALLAS_ENC_MACHINE``)."""
+    machine = _env_machine(machine)
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine)
     dev = resolve_device(device)
     caps = machine_caps(c, h, w, ll_h, ll_w, cap_words)
@@ -717,19 +742,35 @@ def pallas_encode_batch_fn(
     return fn
 
 
+def _compact_refused(machine, arrs, dev) -> None:
+    """The reference's refusal of the compact layouts past max_n 15
+    (``pallas_encoder.py:2372``, :2318) for an array or a batch; max_n is
+    computed (a host sync) only for a compact machine."""
+    if machine in _COMPACT:
+        mns = device_max_n(_as_coeffs(arrs, dev))
+        mn = int(mns.max()) if mns.numel() else 0
+        if mn > 15:
+            raise MachineResourceLimit(f"max_n={mn} > 15 (compact)")
+
+
 def pallas_encode(
     arr, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2, machine=None,
     device=None,
 ) -> Tuple[bytes, int]:
     """(bytes, max_n) of a (c, h, w) int32 array on ``device`` (None: the
-    card): kernel B1, or B7 for ``machine="seq"``. Raises ``ValueError``
-    for a refused LL, ``MachineResourceLimit`` where ``machine_fits`` is
-    false, ``EncCapacityOverflow`` if the stream outgrew its buffer."""
+    card): kernel B1, or B7 for ``machine="seq"`` (None reads
+    ``SPIHT_TPU_PALLAS_ENC_MACHINE``). Raises ``ValueError`` for a refused
+    LL, ``MachineResourceLimit`` where ``machine_fits`` is false or a
+    compact machine meets max_n > 15, ``EncCapacityOverflow`` if the
+    stream outgrew its buffer."""
     c, h, w = np.shape(arr)
     max_bits = min(int(max_bits), 2**31 - 2)
+    machine = _env_machine(machine)
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words_for(c, h, w, max_bits),
                    machine)
-    return encode(arr, ll_h, ll_w, max_bits, device, machine)
+    dev = resolve_device(device)
+    _compact_refused(machine, arr, dev)
+    return encode(arr, ll_h, ll_w, max_bits, dev, machine)
 
 
 def pallas_encode_batch(
@@ -737,13 +778,16 @@ def pallas_encode_batch(
 ) -> list:
     """[(bytes, max_n)] of a (B, c, h, w) int32 batch on ``device`` (None:
     the card), in one launch of kernel B4 (B7 stream by stream for
-    ``machine="seq"``). ``max_bits`` is one budget or one per stream. The
-    refusals are ``pallas_encode``'s."""
+    ``machine="seq"``; None reads ``SPIHT_TPU_PALLAS_ENC_MACHINE``).
+    ``max_bits`` is one budget or one per stream. The refusals are
+    ``pallas_encode``'s."""
     B, c, h, w = np.shape(arrs)
     mbs = [max_bits] * B if np.isscalar(max_bits) else list(max_bits)
     cap_words = cap_words_for(
         c, h, w, max((min(int(m), 2**31 - 2) for m in mbs), default=0))
+    machine = _env_machine(machine)
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine)
+    _compact_refused(machine, arrs, resolve_device(device))
     if machine != "seq":
         return encode_batch(arrs, ll_h, ll_w, mbs, device)
     return [encode(a, ll_h, ll_w, mb, device, machine)

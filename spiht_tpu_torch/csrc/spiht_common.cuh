@@ -10,8 +10,9 @@
 // have gathered what the chunk of entries will need into shared memory and
 // staged the stream words it can reach. The encoder (B1, B4) decides a
 // whole chunk with the whole block: one block scan (warp scans, then the
-// warp totals in shared memory) places every entry; B7, the sequential
-// encoder, is one thread. Control flow around every barrier and every warp
+// warp totals in shared memory) places every entry; in B7, the sequential
+// encoder, one thread decides every entry while loader warps fill a ring of
+// its entries' table words in shared memory. Control flow around every barrier and every warp
 // collective is uniform: the values it depends on are read from shared
 // memory after a barrier, or are the same in every lane.
 //
@@ -73,7 +74,7 @@ enum SpihtError : int32_t {
 #define SPIHT_STAT_LEN 6
 
 // The decoders' queue entries gathered per chunk, and the block size of
-// every kernel but B1 (spiht_encode.cu sets the encoder's).
+// every kernel but B1 and B7 (spiht_encode.cu sets theirs).
 #define SPIHT_CHUNK 512
 #define SPIHT_THREADS 256
 #define SPIHT_WARP 32
@@ -83,13 +84,6 @@ struct Published {
   int32_t lip_n, lis_n, lsp_n, stop;
 };
 
-// B7's output: bits go into the zeroed word buffer one at a time.
-struct BitWriter {
-  uint32_t* words;
-  int32_t pos;
-  int32_t limit;
-};
-
 // OR the low `len` bits of v (len <= 32) into zeroed words at bit `pos`
 // (B1's staged words: threads OR disjoint bit ranges of one word at once).
 SPIHT_HD void or_bits(uint32_t* words, int32_t pos, uint32_t v, int len) {
@@ -97,15 +91,6 @@ SPIHT_HD void or_bits(uint32_t* words, int32_t pos, uint32_t v, int len) {
   const int sh = pos & 31;
   ATOMIC_OR(&words[pos >> 5], v << sh);
   if (sh && sh + len > 32) ATOMIC_OR(&words[(pos >> 5) + 1], v >> (32 - sh));
-}
-
-// Append one bit. Returns false (and writes nothing) once `limit` bits are
-// out: the caller stops exactly there, mid-symbol if need be.
-SPIHT_HD bool put_bit(BitWriter& bw, uint32_t bit) {
-  if (bw.pos >= bw.limit) return false;
-  if (bit) ATOMIC_OR(&bw.words[bw.pos >> 5], 1u << (bw.pos & 31));
-  ++bw.pos;
-  return true;
 }
 
 // Inclusive sum over lanes 0..lane of warp 0.

@@ -567,34 +567,178 @@ SPIHT_HD void encode_block(const EncArgs& a, const int32_t* lip0,
   encode_machine<NT, E>(a, sh, tid);
 }
 
-// ---- kernel B7: the sequential machine, one entry per iteration ----
+// ---- kernel B7: the sequential machine, fed by loader warps ----
 //
 // Replaces spiht_tpu/codec/pallas_encoder.py:_seq_fn (the encoder that
 // pallas_encode_fn runs for machine="seq"). It computes B1's function on
 // B1's tables (EncArgs), with the same exact mid-symbol max_bits cut and the
-// same stat words, one queue entry at a time in one thread, straight from
-// global memory; its queues hold node indices, as the plain version's do.
+// same stat words. One thread, the decider, decides every queue entry, one
+// at a time, in the wire order; its queues hold node indices, as the plain
+// version's do: LIP and LSP nodes, LIS entries node << 1 | type_A, LIP and
+// LIS in-place FIFOs with the retain cursor `keep` trailing the read cursor,
+// LIS appends visited in the same pass, refinement of the lsp_len snapshot.
 //
-// What bounds it on an H100: the one thread's chain of dependent loads
-// (entry -> t1 -> child0 -> the children's t1/t3s) and branches, a few
-// hundred cycles an entry; bytes and arithmetic are a thousandth of that.
-// The design does nothing about it on purpose: it is the simple machine,
-// kept as the reference point for B1's block-wide one.
+// What bounds it on an H100: the decider's chain. Run straight from global
+// memory, each entry waited on one to three dependent L2 or HBM loads
+// (entry -> t1 -> child0 -> the children's t1 and t3s), ~140 ns a stream
+// bit; bytes and arithmetic are a thousandth of that. The design takes
+// every load off that chain. Loader warps fill a ring of SEQ_RING slots in
+// shared memory ahead of the decider (SeqSlot: an entry's queue word, its
+// node's t1 and t3s; for a LIS entry that fires at this plane, its first
+// child's index and, for type A, the four children's t1 and t3s: whether an
+// entry fires is a function of its own t1 and the plane, so a loader knows
+// what to fetch). The decider reads only the ring. What is left on its
+// chain is one thread's instructions: with no other warp to hide their
+// latency, each costs its full latency and a branch costs more, so the
+// decider places its entries in branch-free runs (below). On the card the
+// loaders wait on a full ring most of the time and the decider waits on
+// them for under 1% of its cycles (encode_clocks.py); its time goes to the
+// LIS entries, ~130 instructions each, and grows with the entries a stream
+// bit (PERF.md has the cycles of each pass).
+//
+// The ring runs over one count of items (entries) for the whole machine:
+// item A lies in slot A % SEQ_RING, and each pass starts at a multiple of 32,
+// so 32 items make a group that one loader warp fills, a lane an item, and
+// publishes with one release of the group's frontier (the items below it
+// are filled). The decider acquires a group's frontier once, publishes the
+// items it has consumed (the loaders reuse their slots) and, in the LIS
+// pass, the queue's tail (the loaders read lis[r] only below it) whenever
+// it comes to the end of what is filled. How far the loaders may run ahead:
+// in the LIP pass the entries lip[0, lip_n) are known when it starts and
+// it appends nothing to the LIP, in the refinement lsp[0, snap); in the LIS
+// pass retained entries are written at keep <= r, never ahead of the read
+// cursor, so an entry fetched ahead stays valid. Pass boundaries are block
+// barriers, where the decider publishes the next pass (SeqPass: its kind,
+// plane, first item and length); a stop (budget or queue cap) is a flag the
+// loaders see in every wait. Loaders never read a queue past its published
+// length, and the children only of entries that fire.
+//
+// Copies: each slot is gathered by ld.global and st.shared. The gathers are
+// chains (queue entry -> t1 -> child0 -> the children), each level's
+// addresses taken from the level before, so the values pass through the
+// loader's registers in any case; cp.async could serve only the last level
+// and a bulk (TMA) copy only the contiguous first one, the queue words of
+// a group, which is one coalesced load already.
+//
+// The decision code (seq_pass, seq_run, the *_exact forms) is SPIHT_HD and
+// takes slots; the host build runs it with a plain loop that fills the ring
+// in the loaders' place (HostFeed): a ring of a few slots wraps in every
+// pass, one of 64 gives the decider whole groups.
 
-// The machine state of the one thread.
-struct EncState {
+#define SEQ_LOADERS 7  // loader warps beside the decider's (PERF.md)
+#define SEQ_THREADS (32 * (1 + SEQ_LOADERS))
+#define SEQ_RING 1024  // slots (a power of two, at least 64)
+#define SEQ_GROUPS (SEQ_RING / 32)
+
+// What the decider reads of one entry.
+struct alignas(16) SeqSlot {
+  int32_t e;       // queue word: LIP or LSP node, LIS node << 1 | type_A
+  int32_t t, x;    // t1 and t3s of the node
+  int32_t c0;      // a fired LIS entry: its first child
+  int32_t kt[4];   // a fired type-A entry: its children's t1
+  int32_t kx[4];   // and t3s
+};
+
+enum SeqKind : int32_t { SEQ_LIP = 0, SEQ_LIS = 1, SEQ_REF = 2, SEQ_END = 3 };
+
+// A pass as the decider publishes it: items [seq0, seq0 + len) of the
+// ring's count (the LIS pass's len is its length at the start).
+struct SeqPass {
+  int32_t kind, n, len;
+  uint32_t seq0;
+  uint32_t id;  // passes so far
+};
+
+// The decider's state. The stream's current word is `cur` (bits below
+// pos & 31), stored when full.
+struct BitWriter {
+  uint32_t* words;
+  uint32_t cur;
+  int32_t pos, limit;
+};
+
+struct SeqState {
   BitWriter bw;
   int32_t err;
   int32_t lip_n, lis_n, lsp_n;
   int32_t keep;  // retain cursor of the pass in progress
-  int32_t off[4];
+  int32_t snap;  // the LSP's length when the plane began
 };
 
-// One LIS entry of plane n, as the sequential machine runs it (appends at
-// the live tails, retention at s.keep). False when the machine stops.
-SPIHT_HD bool enc_seq_lis_entry(const EncArgs& a, int32_t e, int n,
-                                EncState& s) {
-  const int32_t node = e >> 1, t = a.t1[node];
+// Append one bit. Returns false (and writes nothing) once `limit` bits are
+// out: the caller stops exactly there, mid-symbol if need be.
+SPIHT_HD bool put_bit(BitWriter& bw, uint32_t bit) {
+  if (bw.pos >= bw.limit) return false;
+  bw.cur |= bit << (bw.pos & 31);
+  if ((++bw.pos & 31) == 0) {
+    bw.words[(bw.pos >> 5) - 1] = bw.cur;
+    bw.cur = 0;
+  }
+  return true;
+}
+
+// One item's slot from the tables, as a loader fills it (r: the entry's
+// index in its queue). Only the loaders read the tables.
+SPIHT_HD void seq_load(const EncArgs& a, const SeqPass& p, int32_t r,
+                       SeqSlot& sl) {
+  if (p.kind == SEQ_REF) {
+    sl.x = a.t3s[a.lsp[r]];
+    return;
+  }
+  const int32_t e = p.kind == SEQ_LIP ? a.lip[r] : a.lis[r];
+  const int32_t node = p.kind == SEQ_LIP ? e : e >> 1;
+  sl.e = e;
+  sl.t = a.t1[node];
+  if (p.kind == SEQ_LIP) {
+    sl.x = a.t3s[node];
+    return;
+  }
+  if (!((e & 1) ? level_d(sl.t) >= p.n : level_g(sl.t) >= p.n)) return;
+  sl.c0 = a.child0[node];
+  if (!(e & 1)) return;
+  const int32_t off[4] = {0, 1, a.w, a.w + 1};
+  for (int q = 0; q < 4; ++q) {
+    sl.kt[q] = a.t1[sl.c0 + off[q]];
+    sl.kx[q] = a.t3s[sl.c0 + off[q]];
+  }
+}
+
+// ---- the decider ----
+// One thread's step is bound by instruction and branch latency (nothing
+// hides it), so the decider places entries in runs without a branch: where
+// K entries are filled (a whole group of 32, else 1) and the most they
+// could write fits the budget and every queue (seq_fits), seq_run ORs each
+// entry's bits into a 64-bit accumulator, whose current word is stored
+// after every entry, and stores each possible append unconditionally at its
+// queue's running count, the count advancing only where the append is
+// real. A store that is not real lands where a later one overwrites it or
+// past the queue's final length: at the next free position of a queue, or
+// at the retain cursor (which never passes the entry being decided, whose
+// slot the loaders have already read). In a run of 32, one entry's loads
+// and tests overlap the last one's placement. Where a run might not fit
+// (the approach to a stop) the entry goes bit by bit (the *_exact forms),
+// checking the budget before every bit and each queue before its append,
+// and stops exactly there, as B1's stopping entry does. Each *_exact form
+// returns false when the machine stops (budget spent, or a queue would
+// overflow: s.err says which).
+
+SPIHT_HD bool seq_lip_exact(const EncArgs& a, const SeqSlot& sl, int n,
+                            SeqState& s) {
+  const uint32_t sig = level_m(sl.t) >= n;
+  if (!put_bit(s.bw, sig)) return false;
+  if (!sig) {
+    a.lip[s.keep++] = sl.e;
+    return true;
+  }
+  if (!put_bit(s.bw, (uint32_t)sl.x >> 31)) return false;
+  if (s.lsp_n >= a.lsp_cap) { s.err = SPIHT_ERR_LSP_CAP; return false; }
+  a.lsp[s.lsp_n++] = sl.e;
+  return true;
+}
+
+SPIHT_HD bool seq_lis_exact(const EncArgs& a, const SeqSlot& sl, int n,
+                            SeqState& s) {
+  const int32_t e = sl.e, t = sl.t;
   if (e & 1) {  // type A: any descendant significant?
     const uint32_t dsig = level_d(t) >= n;
     if (!put_bit(s.bw, dsig)) return false;
@@ -602,13 +746,13 @@ SPIHT_HD bool enc_seq_lis_entry(const EncArgs& a, int32_t e, int n,
       a.lis[s.keep++] = e;
       return true;
     }
-    const int32_t c0 = a.child0[node];
+    const int32_t off[4] = {0, 1, a.w, a.w + 1};
     for (int q = 0; q < 4; ++q) {
-      const int32_t ch = c0 + s.off[q];
-      const uint32_t sig = level_m(a.t1[ch]) >= n;
+      const int32_t ch = sl.c0 + off[q];
+      const uint32_t sig = level_m(sl.kt[q]) >= n;
       if (!put_bit(s.bw, sig)) return false;
       if (sig) {
-        if (!put_bit(s.bw, (uint32_t)a.t3s[ch] >> 31)) return false;
+        if (!put_bit(s.bw, (uint32_t)sl.kx[q] >> 31)) return false;
         if (s.lsp_n >= a.lsp_cap) { s.err = SPIHT_ERR_LSP_CAP; return false; }
         a.lsp[s.lsp_n++] = ch;
       } else {
@@ -628,50 +772,213 @@ SPIHT_HD bool enc_seq_lis_entry(const EncArgs& a, int32_t e, int n,
     a.lis[s.keep++] = e;
     return true;
   }
-  const int32_t c0 = a.child0[node];
   if (s.lis_n + 4 > a.lis_cap) { s.err = SPIHT_ERR_LIS_CAP; return false; }
-  for (int q = 0; q < 4; ++q) a.lis[s.lis_n++] = ((c0 + s.off[q]) << 1) | 1;
+  const int32_t off[4] = {0, 1, a.w, a.w + 1};
+  for (int q = 0; q < 4; ++q) a.lis[s.lis_n++] = ((sl.c0 + off[q]) << 1) | 1;
   return true;
 }
 
-// Every plane from max_n down; false when the machine stops.
-SPIHT_HD bool enc_seq_planes(const EncArgs& a, EncState& s) {
-  for (int n = a.max_n; n >= 0; --n) {
-    const int32_t lsp_snap = s.lsp_n;
-    s.keep = 0;  // ---- LIP pass ----
-    for (int32_t r = 0; r < s.lip_n; ++r) {
-      const int32_t node = a.lip[r];
-      const uint32_t sig = level_m(a.t1[node]) >= n;
-      if (!put_bit(s.bw, sig)) return false;
-      if (sig) {
-        if (!put_bit(s.bw, (uint32_t)a.t3s[node] >> 31)) return false;
-        if (s.lsp_n >= a.lsp_cap) { s.err = SPIHT_ERR_LSP_CAP; return false; }
-        a.lsp[s.lsp_n++] = node;
-      } else {
-        a.lip[s.keep++] = node;
-      }
+SPIHT_HD bool seq_exact(const EncArgs& a, const SeqSlot& sl, const SeqPass& p,
+                        SeqState& s) {
+  if (p.kind == SEQ_LIP) return seq_lip_exact(a, sl, p.n, s);
+  if (p.kind == SEQ_LIS) return seq_lis_exact(a, sl, p.n, s);
+  return put_bit(s.bw, ((sl.x & 0x7FFFFFFF) >> p.n) & 1);
+}
+
+// The stream's bits from pos on, as a run places them.
+struct BitAcc {
+  uint64_t v;  // the bits from word w's bit 0 on
+  int32_t fill;
+  int32_t w;
+};
+
+// Append the low nb bits of `bits` (nb <= 32, zero above) and store the
+// current word; a full word moves the accumulator on.
+SPIHT_HD void acc_put(BitAcc& c, uint32_t* words, uint32_t bits, int32_t nb) {
+  c.v |= (uint64_t)bits << c.fill;
+  c.fill += nb;
+  words[c.w] = (uint32_t)c.v;
+  const int32_t full = c.fill >= 32;
+  c.w += full;
+  c.v >>= 32 * full;
+  c.fill -= 32 * full;
+}
+
+#define SEQ_GROUP 32
+
+// Whether k entries of pass p fit whatever they write: the LIP's 2 bits
+// and one LSP append an entry, the LIS's 9 bits and 4 appends to each
+// queue, the refinement's one bit.
+SPIHT_HD bool seq_fits(const EncArgs& a, const SeqState& s, const SeqPass& p,
+                       int32_t k) {
+  if (p.kind == SEQ_REF) return s.bw.pos + k <= s.bw.limit;
+  if (p.kind == SEQ_LIP)
+    return s.bw.pos + 2 * k <= s.bw.limit && s.lsp_n + k <= a.lsp_cap;
+  return s.bw.pos + 9 * k <= s.bw.limit && s.lsp_n + 4 * k <= a.lsp_cap &&
+         s.lip_n + 4 * k <= a.lip_cap && s.lis_n + 4 * k <= a.lis_cap;
+}
+
+// Entries r .. r + K - 1 of pass p, filled, whose largest output fits,
+// placed straight through.
+template <int K, class Feed>
+SPIHT_HD void seq_run(const EncArgs& a, Feed& f, const SeqPass& p, int32_t r,
+                      SeqState& s) {
+  const int n = p.n;
+  BitAcc c{s.bw.cur, s.bw.pos & 31, s.bw.pos >> 5};
+  int32_t kp = s.keep, ls = s.lsp_n, li = s.lip_n, lt = s.lis_n;
+  if (p.kind == SEQ_REF) {  // one bit an entry
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      word |= ((uint32_t)(f.slot(p, r + k).x & 0x7FFFFFFF) >> n & 1u) << k;
+    acc_put(c, s.bw.words, word, K);
+  } else if (p.kind == SEQ_LIP) {  // 1 or 2 bits and one append an entry
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const SeqSlot& sl = f.slot(p, r + k);
+      const int32_t e = sl.e;
+      const uint32_t sig = level_m(sl.t) >= n;
+      acc_put(c, s.bw.words, sig | (sig & ((uint32_t)sl.x >> 31)) << 1,
+              1 + (int32_t)sig);
+      a.lsp[ls] = e;  // real where significant
+      a.lip[kp] = e;  // real where not: retained
+      ls += sig;
+      kp += 1 - sig;
     }
-    s.lip_n = s.keep;
-    s.keep = 0;  // ---- LIS pass (worklist: appends are visited now) ----
-    for (int32_t r = 0; r < s.lis_n; ++r)
-      if (!enc_seq_lis_entry(a, a.lis[r], n, s)) return false;
-    s.lis_n = s.keep;
-    for (int32_t r = 0; r < lsp_snap; ++r)  // ---- refinement ----
-      if (!put_bit(s.bw, ((a.t3s[a.lsp[r]] & 0x7FFFFFFF) >> n) & 1)) return false;
+  } else {  // LIS: up to 9 bits and 4 appends an entry
+    const int32_t off[4] = {0, 1, a.w, a.w + 1};
+#pragma unroll 2
+    for (int k = 0; k < K; ++k) {
+      const SeqSlot& sl = f.slot(p, r + k);
+      const int32_t e = sl.e, t = sl.t, c0 = sl.c0;
+      const uint32_t ta = e & 1;
+      const uint32_t fires = (ta ? level_d(t) : level_g(t)) >= n;
+      const uint32_t fa = fires & ta, fb = fires & (ta ^ 1);
+      const uint32_t hg = fa & (t >> 17) & 1;  // re-append as type B
+      a.lis[kp] = e;  // real where it does not fire: retained
+      kp += 1 - fires;
+      // a type-A fire: each child's bit and, if significant, its sign, and
+      // the child to the LSP or the LIP; a type-B fire: the four children
+      // to the LIS as type A (the first, or the re-appended entry, at lt)
+      uint32_t bits = 1, nb = 1;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t sig = level_m(sl.kt[q]) >= n;
+        bits |= (sig | (sig & ((uint32_t)sl.kx[q] >> 31)) << 1) << nb;
+        nb += 1 + sig;
+        const int32_t ch = c0 + off[q];
+        a.lsp[ls] = ch;
+        a.lip[li] = ch;
+        ls += fa & sig;
+        li += fa & (sig ^ 1);
+        if (q) a.lis[lt + q] = (ch << 1) | 1;
+      }
+      a.lis[lt] = hg ? (e & ~1) : (c0 << 1) | 1;
+      lt += 4 * fb + hg;
+      acc_put(c, s.bw.words, fa ? bits : fires, fa ? (int32_t)nb : 1);
+    }
   }
-  return true;
+  s.bw.cur = (uint32_t)c.v;
+  s.bw.pos = c.w * 32 + c.fill;
+  s.keep = kp;
+  s.lsp_n = ls;
+  s.lip_n = li;
+  s.lis_n = lt;
 }
 
-// The sequential machine in one thread; lip/lis hold their initial entries
-// and the word buffer is zeroed on entry.
-SPIHT_HD void encode_seq_machine(const EncArgs& a) {
-  EncState s{BitWriter{a.words, 0, a.max_bits}, SPIHT_OK,
-             a.n_lip0, a.n_lis0, 0, 0, {0, 1, a.w, a.w + 1}};
-  // a put_bit refused: the budget is spent (or a queue overflowed)
-  if (!enc_seq_planes(a, s) && s.err == SPIHT_OK && a.capped)
-    s.err = SPIHT_ERR_STREAM_CAP;
+SPIHT_HD SeqState seq_state(const EncArgs& a) {
+  return SeqState{BitWriter{a.words, 0u, 0, a.max_bits}, SPIHT_OK,
+                  a.n_lip0, a.n_lis0, 0, 0, 0};
+}
+
+// The machine's first pass: the LIP at plane max_n.
+SPIHT_HD SeqPass seq_first(const EncArgs& a) {
+  return SeqPass{SEQ_LIP, a.max_n, a.n_lip0, 0u, 0u};
+}
+
+// The machine has ended (stopped: a put_bit refused, the budget spent or a
+// queue overflowed): the last partial word out, then stat.
+SPIHT_HD void seq_finish(const EncArgs& a, SeqState& s, bool stopped) {
+  if (s.bw.pos & 31) s.bw.words[s.bw.pos >> 5] = s.bw.cur;
+  if (stopped && s.err == SPIHT_OK && a.capped) s.err = SPIHT_ERR_STREAM_CAP;
   write_stat(a, s.bw.pos, s.err, s.lip_n, s.lis_n, s.lsp_n);
 }
+
+// One pass of the decider, its entries through `f` (f.ready: how many
+// entries from r on are filled, waiting for one if need be, the pass
+// having lim entries so far; f.slot: entry r's slot); returns the next
+// pass (SEQ_END after the last, or a stop, with stat written).
+template <class Feed>
+SPIHT_HD SeqPass seq_pass(const EncArgs& a, Feed& f, SeqState& s,
+                          const SeqPass& p) {
+  f.begin(p);
+  bool ok = true;
+  int32_t r = 0;
+  if (p.kind == SEQ_LIP) s.snap = s.lsp_n;
+  s.keep = 0;
+  for (;;) {
+    // the LIS pass is a worklist: its appends are visited now
+    const int32_t len = p.kind == SEQ_LIS ? s.lis_n : p.len;
+    if (r >= len) break;
+    if (f.ready(p, r, len) >= SEQ_GROUP && seq_fits(a, s, p, SEQ_GROUP)) {
+      seq_run<SEQ_GROUP>(a, f, p, r, s);
+      r += SEQ_GROUP;
+    } else if (seq_fits(a, s, p, 1)) {
+      seq_run<1>(a, f, p, r++, s);
+    } else if (!(ok = seq_exact(a, f.slot(p, r++), p, s))) {
+      break;
+    }
+  }
+  if (ok && p.kind == SEQ_LIP) s.lip_n = s.keep;
+  if (ok && p.kind == SEQ_LIS) s.lis_n = s.keep;
+  f.end(p, r, ok);
+  SeqPass nx{SEQ_END, p.n, 0, (p.seq0 + (uint32_t)r + 31u) & ~31u, p.id + 1};
+  if (ok && p.kind == SEQ_LIP) {
+    nx.kind = SEQ_LIS;
+    nx.len = s.lis_n;
+  } else if (ok && p.kind == SEQ_LIS) {
+    nx.kind = SEQ_REF;
+    nx.len = s.snap;
+  } else if (ok && p.n > 0) {
+    nx.kind = SEQ_LIP;
+    nx.n = p.n - 1;
+    nx.len = s.lip_n;
+  }
+  if (nx.kind == SEQ_END) seq_finish(a, s, !ok);
+  return nx;
+}
+
+#ifndef __CUDACC__
+// The host build's feed: a plain loop fills the ring (`size` slots) ahead
+// of the decider, as far as the ring's free slots and the pass's length so
+// far allow, in the loaders' place.
+struct HostFeed {
+  const EncArgs& a;
+  SeqSlot* ring;
+  uint32_t size;
+  uint32_t filled;  // items of the ring's count filled so far
+  void begin(const SeqPass& p) { filled = p.seq0; }
+  int32_t ready(const SeqPass& p, int32_t r, int32_t lim) {
+    const uint32_t at = p.seq0 + (uint32_t)r;
+    // slot of item i + size is free once item i (< at) is decided
+    for (; filled < p.seq0 + (uint32_t)lim && filled < at + size; ++filled)
+      seq_load(a, p, (int32_t)(filled - p.seq0), ring[filled % size]);
+    return (int32_t)(filled - at);
+  }
+  const SeqSlot& slot(const SeqPass& p, int32_t r) {
+    return ring[(p.seq0 + (uint32_t)r) % size];
+  }
+  void end(const SeqPass&, int32_t, bool) {}
+};
+
+// B7 on the host: the decider fed by HostFeed through a ring of `size`
+// slots; lip/lis hold their initial entries and the words are zeroed.
+inline void encode_seq_host(const EncArgs& a, SeqSlot* ring, uint32_t size) {
+  HostFeed f{a, ring, size, 0u};
+  SeqState s = seq_state(a);
+  for (SeqPass p = seq_first(a); p.kind != SEQ_END;) p = seq_pass(a, f, s, p);
+}
+#endif
 
 // B7's start: zero the stream and copy the initial node lists, by every
 // thread of the block; a barrier must follow.
@@ -763,15 +1070,169 @@ spiht_encode_kernel(EncArgs a, const int32_t* __restrict__ max_n,
                                                   sh, threadIdx.x);
 }
 
-// B7: the block zeroes the stream and loads the queues, thread 0 encodes.
-__global__ void __launch_bounds__(SPIHT_THREADS)
+// ---- B7's ring, loaders and decider on the card ----
+
+// The ring in shared memory (dynamic: past the 48 KB of a static array).
+struct SeqRing {
+  SeqSlot slot[SEQ_RING];
+  uint32_t front[SEQ_GROUPS];  // a group's frontier: its items below it are filled
+  uint32_t consumed;           // the decider has read every item below it
+  uint32_t tail;               // LIS pass: the queue's entries below it exist
+  uint32_t closed;             // id of the last pass the decider finished
+  uint32_t stop;               // the machine has stopped
+  SeqPass pass[2];             // the next pass, by the parity of its id
+};
+
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.cta.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.cta.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// A wait that cannot end is a fault: trap (the launch fails) rather than
+// hang the card. 2^35 cycles is over ten seconds.
+__device__ __forceinline__ void seq_watchdog(long long t0) {
+  if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// The decider's feed: how many items from r on are filled (its group's
+// frontier has passed them), and their slots. At the end of what is filled
+// the decider publishes the items it has read (their slots go back to the
+// loaders) and, in the LIS pass, the tail, then waits on the frontier.
+struct DevFeed {
+  SeqRing& q;
+  uint32_t avail;  // items below it are filled
+  __device__ void begin(const SeqPass& p) { avail = p.seq0; }
+  __device__ int32_t ready(const SeqPass& p, int32_t r, int32_t lim) {
+    const uint32_t at = p.seq0 + (uint32_t)r;
+    if ((int32_t)(avail - at) <= 0) {
+      st_release(&q.consumed, at);
+      if (p.kind == SEQ_LIS) st_release(&q.tail, p.seq0 + (uint32_t)lim);
+      const uint32_t* fr = &q.front[(at >> 5) & (SEQ_GROUPS - 1)];
+      const long long t0 = clock64();
+      uint32_t f;
+      // the decider waits on the ring
+      while ((int32_t)((f = ld_acquire(fr)) - at) <= 0) seq_watchdog(t0);
+      avail = f;
+    }
+    return min32((int32_t)(avail - at), lim - r);
+  }
+  __device__ const SeqSlot& slot(const SeqPass& p, int32_t r) {
+    return q.slot[(p.seq0 + (uint32_t)r) & (SEQ_RING - 1)];
+  }
+  __device__ void end(const SeqPass& p, int32_t r, bool ok) {
+    st_release(&q.consumed, p.seq0 + (uint32_t)r);
+    st_release(&q.closed, p.id);
+    if (!ok) st_release(&q.stop, 1u);
+  }
+};
+
+#define SEQ_MASK 0xFFFFFFFFu
+
+// A loader warp waits until every lane has acquired `consumed` at or past
+// `need` (the group's slots are free): true; false once pass p has closed
+// (a LIS group past the queue's final tail: nothing is left to load) or the
+// machine has stopped.
+__device__ bool seq_wait_free(SeqRing& q, const SeqPass& p, uint32_t need) {
+  const long long t0 = clock64();
+  for (;;) {
+    if (__all_sync(SEQ_MASK, (int32_t)(ld_acquire(&q.consumed) - need) >= 0))
+      return true;
+    if (__any_sync(SEQ_MASK, ld_acquire(&q.closed) == p.id ||
+                                 ld_acquire(&q.stop) != 0))
+      return false;
+    __nanosleep(64);
+    seq_watchdog(t0);
+  }
+}
+
+// LIS pass: the least tail past `filled` that the warp's lanes have each
+// acquired (the tail only grows, so every lane may read the entries below
+// it), or `filled` once the pass has closed or the machine stopped (the
+// decider had read every entry, so none is left past `filled`).
+__device__ uint32_t seq_wait_tail(SeqRing& q, const SeqPass& p,
+                                  uint32_t filled) {
+  const long long t0 = clock64();
+  for (;;) {
+    const uint32_t ahead =
+        __reduce_min_sync(SEQ_MASK, ld_acquire(&q.tail) - filled);
+    if (ahead) return filled + ahead;
+    if (__any_sync(SEQ_MASK, ld_acquire(&q.closed) == p.id ||
+                                 ld_acquire(&q.stop) != 0))
+      return filled;
+    __nanosleep(32);
+    seq_watchdog(t0);
+  }
+}
+
+// Loader warp w's part of pass p: the groups w, w + SEQ_LOADERS, ... of its
+// items, a lane an item. A group is filled as far as the items exist (the
+// LIS's tail), its frontier released each time.
+__device__ void seq_loader_pass(const EncArgs& a, SeqRing& q,
+                                const SeqPass& p, int w, int lane) {
+  const bool lis = p.kind == SEQ_LIS;
+  const uint32_t end = p.seq0 + (uint32_t)p.len;  // LIP, refinement
+  for (uint32_t g0 = p.seq0 + 32u * w;; g0 += 32u * SEQ_LOADERS) {
+    if (!lis && (int32_t)(g0 - end) >= 0) return;
+    if (!seq_wait_free(q, p, g0 + 32u - SEQ_RING)) return;
+    for (uint32_t filled = g0; filled != g0 + 32u;) {
+      const uint32_t lim = lis ? seq_wait_tail(q, p, filled) : end;
+      if (lim == filled) return;
+      const uint32_t hi = (int32_t)(lim - (g0 + 32u)) < 0 ? lim : g0 + 32u;
+      const uint32_t at = g0 + (uint32_t)lane;
+      if ((int32_t)(at - filled) >= 0 && (int32_t)(at - hi) < 0) {
+        SeqSlot sl;
+        seq_load(a, p, (int32_t)(at - p.seq0), sl);
+        q.slot[at & (SEQ_RING - 1)] = sl;
+      }
+      __syncwarp();  // orders the lanes' slots before lane 0's release
+      if (lane == 0) st_release(&q.front[(g0 >> 5) & (SEQ_GROUPS - 1)], hi);
+      filled = hi;
+    }
+  }
+}
+
+// B7: the block zeroes the stream and loads the queues; then, pass by pass,
+// thread 0 decides while warps 1..SEQ_LOADERS fill the ring, and the whole
+// block meets at a barrier between passes.
+__global__ void __launch_bounds__(SEQ_THREADS)
 spiht_encode_seq_kernel(EncArgs a, const int32_t* __restrict__ max_n,
                         const int32_t* __restrict__ lip0,
                         const int32_t* __restrict__ lis0, int32_t cap_words) {
-  enc_prologue(a, lip0, lis0, cap_words, threadIdx.x, blockDim.x);
+  extern __shared__ __align__(16) unsigned char seq_smem[];
+  SeqRing& q = *reinterpret_cast<SeqRing*>(seq_smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  enc_prologue(a, lip0, lis0, cap_words, tid, SEQ_THREADS);
+  for (int i = tid; i < SEQ_GROUPS; i += SEQ_THREADS) q.front[i] = 0u;
+  if (tid == 0) {
+    q.consumed = 0u;
+    q.tail = 0u;
+    q.closed = ~0u;
+    q.stop = 0u;
+  }
   a.max_n = *max_n;
   __syncthreads();
-  if (threadIdx.x == 0) encode_seq_machine(a);
+  SeqPass p = seq_first(a);
+  SeqState s = seq_state(a);  // thread 0's
+  DevFeed f{q, 0u};
+  while (p.kind != SEQ_END) {
+    if (warp == 0) {
+      if (lane == 0) {
+        const SeqPass nx = seq_pass(a, f, s, p);
+        if (nx.kind == SEQ_LIS) q.tail = nx.seq0 + (uint32_t)nx.len;
+        q.pass[nx.id & 1] = nx;
+      }
+      __syncwarp();
+    } else {
+      seq_loader_pass(a, q, p, warp - 1, lane);
+    }
+    __syncthreads();
+    p = q.pass[(p.id + 1) & 1];
+  }
 }
 
 __global__ void __launch_bounds__(ENC_B4_THREADS, ENC_B4_BLOCKS_PER_SM)
@@ -805,7 +1266,12 @@ extern "C" int spiht_encode_seq_launch(
     int32_t* stat, void* stream) {
   EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, 0, max_bits, capped,
             lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
-  spiht_encode_seq_kernel<<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(
+  const int smem = (int)sizeof(SeqRing);
+  const cudaError_t e = cudaFuncSetAttribute(
+      spiht_encode_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  spiht_encode_seq_kernel<<<1, SEQ_THREADS, smem, (cudaStream_t)stream>>>(
       a, max_n, lip0, lis0, cap_words);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,12 @@ runs the same way, one host block per stream, against the batched plain
 versions. B2-log's and B3-log's machines (``decode_machine<false, true>``,
 ``<true, true>``) are held to the plain version's event log, B7's
 one-thread machine to B1's plain version,
-and B6's element body (``quantize_at``) to its plain torch version.
+B7's decider fed through a ring of a few slots (``encode_seq_host``) to
+B1's plain version and the JAX package at every budget edge and queue
+stop, and B6's element body (``quantize_at``) and vector body
+(``quantize_item``, at sizes and offsets that put the ragged ends and the
+unaligned loads everywhere) to its plain torch version and the Pallas
+kernel in interpret mode.
 The block spike's iterations (``block_spike``, ``csrc/spike_blocks.cu``)
 run on a host block of 128 threads against the spike's numpy model.
 """
@@ -41,6 +46,7 @@ torch.set_num_threads(1)
 
 CSRC = Path(__file__).resolve().parent.parent / "spiht_tpu_torch" / "csrc"
 THREADS = 64
+SEQ_RING = 4  # B7's host ring: a few slots, so it wraps in every pass
 
 HARNESS = r"""
 #include <string.h>
@@ -178,14 +184,15 @@ extern "C" void host_encode(int nt, const int32_t* t1, const int32_t* t3s,
     const int32_t* lis0, int32_t n_lis0, int32_t w, int32_t max_n,
     int32_t max_bits, int32_t capped, int32_t* lip, int32_t lip_cap,
     int32_t* lis, int32_t lis_cap, int32_t* lsp, int32_t lsp_cap,
-    uint32_t* words, int32_t cap_words, int32_t* stat) {
+    uint32_t* words, int32_t cap_words, int32_t* stat, int32_t ring) {
   EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, max_n, max_bits, capped,
             lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
-  if (nt == 1) {  // B7: the sequential machine in one thread
+  if (nt == 1) {  // B7: the decider, fed through a ring of `ring` slots
     memset(words, 0, 4 * (size_t)cap_words);
     memcpy(lip, lip0, 4 * (size_t)n_lip0);
     memcpy(lis, lis0, 4 * (size_t)n_lis0);
-    encode_seq_machine(a);
+    std::vector<SeqSlot> slots(ring);
+    encode_seq_host(a, slots.data(), (uint32_t)ring);
   } else if (nt == 64) {
     run_encoder<64, 8>(a, lip0, lis0, cap_words);
   } else if (nt == 256) {
@@ -222,6 +229,17 @@ extern "C" int32_t host_quantize(const float* x, int64_t n, float scale,
     int32_t* arr, int16_t* a16, int8_t* m) {
   bool over = false;
   for (int64_t i = 0; i < n; ++i) over |= quantize_at(x, scale, i, arr, a16, m);
+  return over;
+}
+// B6's kernel body over every vector index, as its threads take them (x's
+// 16-byte alignment chooses the vector loads, as the launch does)
+extern "C" int32_t host_quantize_vec(const float* x, int64_t n, float scale,
+    int32_t* arr, int16_t* a16, int8_t* m) {
+  bool over = false;
+  const bool x16 = ((uintptr_t)x & 15) == 0;
+  for (int64_t v = 0; v < quantize_items(n); ++v)
+    over |= x16 ? quantize_item<true>(x, n, scale, v, arr, a16, m)
+                : quantize_item<false>(x, n, scale, v, arr, a16, m);
   return over;
 }
 // spike_block's iterations on a host block of 128 threads
@@ -294,10 +312,11 @@ def _i(v):
     return ctypes.c_int32(int(v))
 
 
-def _host_encode_args(lib, args, threads=THREADS):
-    """B1's machine on ``threads`` host threads (B7's with one) on
-    ``encoder.encode_machine``'s arguments, held to the plain version:
-    words and stat. Returns (words, stat list)."""
+def _host_encode_args(lib, args, threads=THREADS, ring=SEQ_RING):
+    """B1's machine on ``threads`` host threads (B7's decider with one, fed
+    through a ring of ``ring`` slots) on ``encoder.encode_machine``'s
+    arguments, held to the plain version: words and stat. Returns (words,
+    stat list)."""
     t1, t3s, child0, lip0, lis0, w, max_n, mb, capped, caps, cw = args
     lip, lis, lsp = encoder.scratch_queues(caps)
     words = torch.empty(cw, dtype=torch.int32)
@@ -306,7 +325,7 @@ def _host_encode_args(lib, args, threads=THREADS):
         ctypes.c_int(threads), _p(t1), _p(t3s), _p(child0), _p(lip0),
         _i(lip0.numel()), _p(lis0), _i(lis0.numel()), _i(w), _i(max_n),
         _i(mb), _i(capped), _p(lip), _i(caps[0]), _p(lis), _i(caps[1]),
-        _p(lsp), _i(caps[2]), _p(words), _i(cw), _p(stat),
+        _p(lsp), _i(caps[2]), _p(words), _i(cw), _p(stat), _i(ring),
     )
     pw, ps = encoder.encode_machine(*args)
     assert stat.tolist() == ps.tolist()
@@ -447,6 +466,111 @@ def test_seq_encoder_source_equals_plain_version(host_lib, shape, ll):
     assert (full, max_n) == japi.encode(arr, *ll, 2**31 - 2)
     for mb in (1, 2, 3, 333, 1001, len(full) * 8 - 5):
         _host_encode(host_lib, arr, *ll, mb, threads=1)
+
+
+# B7's decider reads every entry from a ring of slots that loader warps
+# fill ahead of it; the host build fills the ring with a plain loop instead
+# (HostFeed). A ring of a few slots wraps several times in every pass, and
+# an entry fetched ahead of the decider's retains and appends is read from
+# its slot; a ring of 37 or 64 lets the decider take 32 filled entries at
+# once (seq_group) wherever their largest output fits. The cases below
+# hold it to the plain version and to the JAX package at every budget edge
+# and queue-capacity stop.
+
+
+@pytest.mark.parametrize("ring", [3, 5, 37, 64])
+@pytest.mark.parametrize(
+    "shape,ll",
+    [((3, 24, 32), (6, 8)), ((3, 19, 19), (5, 5))],
+    ids=["even_ll", "odd_ll"],
+)
+def test_seq_encoder_ring_at_every_budget(host_lib, shape, ll, ring):
+    """The full stream, every budget of 1-200 bits and each of the last 40
+    bits: words and stat equal the plain version's, the stream
+    ``spiht_tpu.codec.api.encode``'s."""
+    rng = np.random.default_rng(sum(shape) + ring)
+    arr = (rng.standard_normal(shape) * 900).astype(np.int32)
+    args = encoder.machine_args(torch.as_tensor(arr), *ll, 2**31 - 2)
+    words, stat = _host_encode_args(host_lib, args, 1, ring)
+    full, max_n = japi.encode(arr, *ll, 2**31 - 2)
+    assert encoder.stream_bytes(words, stat[0]) == full and stat[1] == 0
+    nbits = stat[0]
+    assert nbits > 2000
+    for mb in list(range(1, 201)) + list(range(nbits - 40, nbits)):
+        cut = args[:7] + (mb, False) + args[9:]
+        words, st = _host_encode_args(host_lib, cut, 1, ring)
+        assert st[0] == mb
+        assert (encoder.stream_bytes(words, mb), max_n) == japi.encode(
+            arr, *ll, mb)
+
+
+@pytest.mark.parametrize(
+    "shape,ll",
+    [((3, 24, 32), (6, 8)), ((3, 19, 19), (5, 5))],
+    ids=["even_ll", "odd_ll"],
+)
+def test_seq_encoder_ring_at_narrowed_capacities(host_lib, shape, ll):
+    """LIP, LIS and LSP capacities below the stream's need stop the
+    decider where the plain version stops, with its code in stat (2 LIP,
+    3 LIS, 4 LSP), through rings of 3, 5 and 64 slots."""
+    rng = np.random.default_rng(sum(shape) + 8)
+    arr = torch.as_tensor((rng.standard_normal(shape) * 900).astype(np.int32))
+    args = list(encoder.machine_args(arr, *ll, 2**31 - 2))
+    _, full = _host_encode_args(host_lib, args, 1)
+    init = (args[3].numel(), args[4].numel(), 0)
+    for which in range(3):
+        errs = set()
+        for frac in (0.3, 0.6, 0.9):
+            caps = list(args[9])
+            caps[which] = max(init[which], int(full[2 + which] * frac))
+            cut = args[:9] + [tuple(caps)] + args[10:]
+            for ring in (3, 5, 64):
+                errs.add(_host_encode_args(host_lib, cut, 1, ring)[1][1])
+        assert 2 + which in errs
+
+
+@pytest.mark.parametrize("scale", [1.0, 1.7])
+def test_quantize_vector_body_equals_plain_and_pallas(host_lib, scale):
+    """B6's kernel body (8-element vectors, 16-byte loads where x is
+    aligned, the elements past the last vector one by one) at sizes 0-17,
+    4099 and 65,537, at element offsets 0-7 into a buffer: all four
+    outputs equal the plain version's, and the plain version equals the
+    JAX package's Pallas kernel in interpret mode on the same values."""
+    import jax.numpy as jnp
+
+    from chip_smoke import quantize_cases  # the card's phase 11 runs them too
+    from spiht_tpu.ops import pallas_kernels as jpk
+    from spiht_tpu_torch.ops import quantize_kernels
+
+    cases = quantize_cases()
+    # the Pallas kernel once, on every buffer laid end to end
+    flat = np.concatenate([b for _, b in cases])
+    pad = (-flat.size) % 512
+    ref = jpk.quantize_compact_m(
+        jnp.asarray(np.pad(flat, (0, pad)).reshape(-1, 512)), scale,
+        interpret=True)
+    ref = [np.asarray(r).reshape(-1)[: flat.size] for r in ref[:3]]
+    host_lib.host_quantize_vec.restype = ctypes.c_int32
+    start = 0
+    for n, buf in cases:
+        tbuf = torch.as_tensor(buf)
+        for off in range(8):
+            x = tbuf[off: off + n]
+            arr = torch.empty(n, dtype=torch.int32)
+            a16 = torch.empty(n, dtype=torch.int16)
+            m = torch.empty(n, dtype=torch.int8)
+            over = host_lib.host_quantize_vec(
+                _p(x), ctypes.c_int64(n), ctypes.c_float(scale), _p(arr),
+                _p(a16), _p(m))
+            q, p16, pm, pover = quantize_kernels.quantize_compact(x, scale)
+            assert torch.equal(arr, q) and torch.equal(a16, p16)
+            assert torch.equal(m, pm) and bool(over) == bool(pover)
+            lo = start + off
+            for got, want in zip((q, p16, pm), ref):
+                np.testing.assert_array_equal(got.numpy(), want[lo: lo + n])
+            assert bool(pover) == bool(
+                (np.abs(ref[0][lo: lo + n].astype(np.int64)) > 32767).any())
+        start += buf.size
 
 
 @pytest.mark.parametrize("spread", [3.0, 900.0, 40000.0])
