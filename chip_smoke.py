@@ -130,6 +130,25 @@ Phases:
       every lane at 128x128 level 4: exit 0, every exact_* true, B1, B2,
       B4 and B5 launched, every lane's kernel rate (torch.profiler's
       kernel time) above its rate to the host; its JSON lines printed
+  23. the JAX package's documented switches, each route with the counts
+      set to 0 just before and read just after, its output equal to the
+      unset route's, and its host-clock median of 3: (a) on the A batch
+      of 16 through encode_device_batch, unset, ENC_BATCH=ilv, ILV_B=4,
+      ILV_B=5 (B4 1, 1, 4, 4 times) and ENC_BATCH=map (B1 16 times); the
+      pipelines under ILV_B=4 (B4, B5 4 times each); decode_device_batch
+      unset, DEC_BATCH=ilv, ILV_B=4 (B5 1, 1, 4 times) and DEC_BATCH=map
+      (B2 16 times); (b) on the B batch of 8 (odd LL): DEC_BATCH=ilv
+      raises MachineResourceLimit with nothing launched, map launches B3
+      8 times, ILV_B=4 batched B3 twice, unset once; (c) SPIHT_TPU_PALLAS
+      on the A batch's float32 encode_images (budget path off): B6 once
+      unset and at 1, never at 0; (d) the raw encode under
+      DEVICE_ENCODER=1 at A (B1 once; the sorted-space machine with
+      PALLAS_ENCODER=0) and at B (odd LL: B1, the default route); the raw
+      decode and decode_with_metadata under DEVICE_DECODER=1 at A (B2,
+      B2-log once), and the hybrid machine at 3x64x64 with
+      PALLAS_DECODER=0; (e) encode_images / decode_images of 2 images at
+      3x64x64 under NO_NATIVE=1 and 0 (the oracle, no native load);
+      (f) SPIHT_TPU_CACHE in a subprocess: the library built there
 """
 
 from __future__ import annotations
@@ -138,6 +157,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -3060,8 +3080,342 @@ def phase_surface(im_a, im_b, er_a, er_b):
                       "bench_all_keys": len(every)}))
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the JAX package's documented switches on the card
+# ---------------------------------------------------------------------------
+
+# every switch phase 23 sets; each route runs with all the others unset
+SWITCH_ENV = (
+    "SPIHT_TPU_PALLAS_ENC_BATCH", "SPIHT_TPU_PALLAS_DEC_BATCH",
+    "SPIHT_TPU_PALLAS_ILV_B", "SPIHT_TPU_DEVICE_ENCODER",
+    "SPIHT_TPU_DEVICE_DECODER", "SPIHT_TPU_PALLAS", "SPIHT_TPU_NO_NATIVE",
+    "SPIHT_TPU_CACHE", "SPIHT_TPU_PALLAS_ENCODER", "SPIHT_TPU_PALLAS_DECODER",
+    "SPIHT_TPU_PALLAS_ENC_MACHINE", "SPIHT_TPU_PALLAS_DEC_MACHINE",
+    "SPIHT_TPU_BUDGET_TRANSFER",
+)
+
+
+def switched(env):
+    """os.environ with every switch of SWITCH_ENV unset but ``env``, put
+    back on exit."""
+    patch = mock.patch.dict(os.environ)
+    patch.start()
+    for k in SWITCH_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    return patch
+
+
+def switch_route(rows, label, env, fn, want, reps=3):
+    """Phase 23: fn() under ``env``, the counts set to 0 just before its
+    first call and read just after, which must launch ``want`` (kernel ->
+    launches) and nothing else; then its host-clock median of ``reps``
+    more calls to a sync. Appends the route's row; returns the first
+    call's output."""
+    patch = switched(env)
+    try:
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        n = nonzero()
+        check(n == want, f"phase 23 {label}: launches {n}, want {want}")
+        ms = median_ms(fn, reps)
+    finally:
+        patch.stop()
+    rows.append({"route": label, "env": env, "launches": n,
+                 "ms_median_of_3": ms})
+    return out
+
+
+def switch_refused(rows, label, env, fn):
+    """Phase 23: fn() under ``env`` raises ``MachineResourceLimit`` with
+    no kernel launched."""
+    patch = switched(env)
+    try:
+        reset_counts()
+        try:
+            fn()
+        except encoder.MachineResourceLimit as e:
+            why = str(e)
+        else:
+            raise AssertionError(f"phase 23 {label}: no MachineResourceLimit")
+        check(not nonzero(), f"phase 23 {label}: launched {nonzero()}")
+    finally:
+        patch.stop()
+    rows.append({"route": label, "env": env, "launches": {},
+                 "refused": why})
+
+
+class Spy:
+    """Counts the calls of ``module.name`` while in a ``with``."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def spy(*a, **kw):
+            self.calls += 1
+            return real(*a, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def cache_subprocess(arr, ll, mb):
+    """Phase 23: the native scheduler loaded in a subprocess under
+    SPIHT_TPU_CACHE=<a new directory in the ignored build directory>:
+    (where its library is, whether it exists, the stream of ``arr``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "spiht_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cache-", dir=build)
+    try:
+        np.save(os.path.join(tmp, "arr.npy"), arr)
+        code = (
+            "import json, sys, numpy as np\n"
+            "from spiht_tpu_torch.native import runtime\n"
+            "nat = runtime.load()\n"
+            "so = runtime._so_path()\n"
+            "data, mn = nat.encode(np.load(sys.argv[1]), int(sys.argv[2]),"
+            " int(sys.argv[3]), int(sys.argv[4]))\n"
+            "print(json.dumps({'so': str(so), 'exists': so.exists(),"
+            " 'data': data.hex(), 'max_n': mn}))\n")
+        env = {**os.environ, "SPIHT_TPU_CACHE": tmp}
+        env.pop("SPIHT_TPU_NO_NATIVE", None)
+        proc = subprocess.run(
+            [sys.executable, "-c", code, os.path.join(tmp, "arr.npy"),
+             str(ll[0]), str(ll[1]), str(mb)],
+            capture_output=True, text=True, timeout=300, cwd=root, env=env)
+        sys.stderr.write(proc.stderr)
+        check(proc.returncode == 0, f"SPIHT_TPU_CACHE subprocess: exit "
+              f"{proc.returncode}")
+        out = json.loads(proc.stdout.splitlines()[-1])
+        listed = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return tmp, out, listed
+
+
+def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
+    """Phase 23: each documented switch of the JAX package on the card,
+    every route with the counts set to 0 just before it and read just
+    after, its output equal to the unset route's (streams byte for byte,
+    rec, traces and images exactly): the batch routes on the A batch of
+    16 (phase 8) and the B batch of 8 (phase 9), SPIHT_TPU_PALLAS on the
+    A batch's float32 host-scheduled encode, the raw API's device codec
+    at A and B (the hybrid machine at 3x64x64), SPIHT_TPU_NO_NATIVE on 2
+    images at 3x64x64, SPIHT_TPU_CACHE in a subprocess."""
+    from spiht_tpu_torch.codec import api as tapi
+    from spiht_tpu_torch.codec import device_decoder, device_encoder, oracle
+
+    t0 = time.perf_counter()
+    smi = card()
+    rows = []
+    c, h, w = im_a.shape
+    _, (_, eh, ew, *ll) = _geo(h, w, CONFIG_A, None)
+    geo_a = (c, eh, ew, *ll)
+    arrs_a = forward(torch.as_tensor(np.stack(ims_a), device=DEV), CONFIG_A,
+                     None)[0]
+    want_a = [(er.encoded_bytes, er.max_n) for er in ers_a]
+
+    # ---- ENC_BATCH / ILV_B: encode_device_batch on the A batch ----
+    def enc():
+        return device_encoder.encode_device_batch(arrs_a, *ll, mbs_a,
+                                                  device=DEV)
+
+    for label, env, want in (
+            ("enc unset", {}, {"spiht_encode_batch": 1}),
+            ("enc ilv", {"SPIHT_TPU_PALLAS_ENC_BATCH": "ilv"},
+             {"spiht_encode_batch": 1}),
+            ("enc ILV_B=4", {"SPIHT_TPU_PALLAS_ILV_B": "4"},
+             {"spiht_encode_batch": 4}),
+            ("enc ILV_B=5", {"SPIHT_TPU_PALLAS_ILV_B": "5"},
+             {"spiht_encode_batch": 4}),
+            ("enc map", {"SPIHT_TPU_PALLAS_ENC_BATCH": "map"},
+             {"spiht_encode": 16})):
+        got = switch_route(rows, label, env, enc, want)
+        check(got == want_a, f"phase 23 {label}: streams != phase 8's")
+    # the pipelines read ILV_B too
+    ers = switch_route(rows, "encode_images_device ILV_B=4",
+                       {"SPIHT_TPU_PALLAS_ILV_B": "4"},
+                       lambda: pt.encode_images_device(
+                           ims_a, CONFIG_A, None, mbs_a, device=DEV),
+                       {"spiht_encode_batch": 4})
+    check([(e.encoded_bytes, e.max_n) for e in ers] == want_a,
+          "phase 23: encode_images_device under ILV_B=4 != phase 8's")
+    imgs = {}
+    for label, env, n in (("decode_images_device unset", {}, 1),
+                          ("decode_images_device ILV_B=4",
+                           {"SPIHT_TPU_PALLAS_ILV_B": "4"}, 4)):
+        imgs[n] = switch_route(rows, label, env, lambda: pt.
+                               decode_images_device(ers_a, CONFIG_A,
+                                                    device=DEV),
+                               {"spiht_decode_lsp_batch": n})
+    check(all(torch.equal(x, y) for x, y in zip(imgs[1], imgs[4])),
+          "phase 23: decode_images_device under ILV_B=4 != unset")
+
+    # ---- DEC_BATCH / ILV_B: decode_device_batch, A batch and B batch ----
+    for tag, ers_x, geo, routes in (
+            ("A", ers_a, geo_a, (
+                ("unset", {}, {"spiht_decode_lsp_batch": 1}),
+                ("ilv", {"SPIHT_TPU_PALLAS_DEC_BATCH": "ilv"},
+                 {"spiht_decode_lsp_batch": 1}),
+                ("ILV_B=4", {"SPIHT_TPU_PALLAS_ILV_B": "4"},
+                 {"spiht_decode_lsp_batch": 4}),
+                ("map", {"SPIHT_TPU_PALLAS_DEC_BATCH": "map"},
+                 {"spiht_decode_lsp": 16}))),
+            ("B", ers_b, _geo(ers_b[0].h, ers_b[0].w, CONFIG_B, 3)[1],
+             (("unset", {}, {"spiht_decode_seq_batch": 1}),
+              ("ilv", {"SPIHT_TPU_PALLAS_DEC_BATCH": "ilv"}, None),
+              ("ILV_B=4", {"SPIHT_TPU_PALLAS_ILV_B": "4"},
+               {"spiht_decode_seq_batch": 2}),
+              ("map", {"SPIHT_TPU_PALLAS_DEC_BATCH": "map"},
+               {"spiht_decode_seq": 8})))):
+        datas = [er.encoded_bytes for er in ers_x]
+        mns = [er.max_n for er in ers_x]
+
+        def dec(datas=datas, mns=mns, geo=geo):
+            return device_decoder.decode_device_batch(datas, mns, *geo,
+                                                      device=DEV)
+
+        recs = None
+        for label, env, want in routes:
+            label = f"dec {tag} batch {label}"
+            if want is None:
+                switch_refused(rows, label, env, dec)
+                continue
+            rec = switch_route(rows, label, env, dec, want)
+            recs = rec if recs is None else recs
+            check(np.array_equal(rec, recs), f"phase 23 {label}: rec != "
+                  "the unset route's")
+
+    # ---- SPIHT_TPU_PALLAS: B6 on the host-scheduled float32 encode ----
+    def host_f32():
+        return [(e.encoded_bytes, e.max_n) for e in pt.encode_images(
+            ims_a, CONFIG_A, None, mbs_a, device=DEV, dtype=torch.float32)]
+
+    no_budget = {"SPIHT_TPU_BUDGET_TRANSFER": "0"}
+    streams = None
+    for label, env, want in (
+            ("encode_images f32 unset", {}, {"spiht_quantize_compact": 1}),
+            ("encode_images f32 PALLAS=0", {"SPIHT_TPU_PALLAS": "0"}, {}),
+            ("encode_images f32 PALLAS=1", {"SPIHT_TPU_PALLAS": "1"},
+             {"spiht_quantize_compact": 1})):
+        got = switch_route(rows, label, {**no_budget, **env}, host_f32, want)
+        streams = got if streams is None else streams
+        check(got == streams, f"phase 23 {label}: streams != unset")
+
+    # ---- DEVICE_ENCODER: the raw encode through encode_device ----
+    arr_a = forward(torch.as_tensor(im_a, device=DEV), CONFIG_A, None)[0]
+    arr_b, *llb = forward(torch.as_tensor(im_b, device=DEV), CONFIG_B, 3)
+    mb = h * w  # phases 3 and 4: 1.0 bpp
+    for label, env, arr, lls, want, er in (
+            ("encode DEVICE_ENCODER=1 A", {"SPIHT_TPU_DEVICE_ENCODER": "1"},
+             arr_a, ll, {"spiht_encode": 1}, er_a),
+            ("encode DEVICE_ENCODER=1 PALLAS_ENCODER=0 A",
+             {"SPIHT_TPU_DEVICE_ENCODER": "1",
+              "SPIHT_TPU_PALLAS_ENCODER": "0"}, arr_a, ll, {}, er_a),
+            ("encode DEVICE_ENCODER=1 B (odd LL: the default route)",
+             {"SPIHT_TPU_DEVICE_ENCODER": "1"}, arr_b, llb,
+             {"spiht_encode": 1}, er_b)):
+        with Spy(device_encoder, "encode_device") as spy:
+            got = switch_route(rows, label, env, lambda arr=arr, lls=lls: (
+                tapi.encode(arr, *lls, mb, device=DEV)), want)
+        rows[-1]["encode_device_calls"] = spy.calls
+        check(spy.calls == (0 if lls is llb else 4),
+              f"phase 23 {label}: encode_device called {spy.calls} times")
+        check(got == (er.encoded_bytes, er.max_n),
+              f"phase 23 {label}: stream != phases 3-4's")
+
+    # ---- DEVICE_DECODER: the raw decode through decode_device ----
+    data, mn = er_a.encoded_bytes, er_a.max_n
+    wire = slices_to_wire(_geo(h, w, CONFIG_A, None)[0])
+    rec = switch_route(rows, "decode unset", {},
+                       lambda: tapi.decode(data, mn, *geo_a, device=DEV),
+                       {"spiht_decode_lsp": 1})
+    got = switch_route(rows, "decode DEVICE_DECODER=1",
+                       {"SPIHT_TPU_DEVICE_DECODER": "1"},
+                       lambda: tapi.decode(data, mn, *geo_a, device=DEV),
+                       {"spiht_decode_lsp": 1})
+    check(np.array_equal(got, rec), "phase 23: DEVICE_DECODER rec != unset")
+    meta = switch_route(rows, "decode_with_metadata unset", {},
+                        lambda: tapi.decode_with_metadata(
+                            data, mn, *geo_a, *wire, device=DEV),
+                        {"spiht_decode_lsp_log": 1})
+    got = switch_route(rows, "decode_with_metadata DEVICE_DECODER=1",
+                       {"SPIHT_TPU_DEVICE_DECODER": "1"},
+                       lambda: tapi.decode_with_metadata(
+                           data, mn, *geo_a, *wire, device=DEV),
+                       {"spiht_decode_lsp_log": 1})
+    check(all(np.array_equal(x, y) for x, y in zip(got, meta)),
+          "phase 23: DEVICE_DECODER trace != unset")
+    small = image(301, (3, 64, 64))
+    er_s = pt.encode_image_device(small, CONFIG_A, None, 64 * 64, device=DEV)
+    _, geo_s = _geo(64, 64, CONFIG_A, None)
+    rec = decoder.decode(er_s.encoded_bytes, er_s.max_n, *geo_s,
+                         device=DEV).cpu().numpy()
+    got = switch_route(rows, "decode DEVICE_DECODER=1 PALLAS_DECODER=0 "
+                       "3x64x64", {"SPIHT_TPU_DEVICE_DECODER": "1",
+                                   "SPIHT_TPU_PALLAS_DECODER": "0"},
+                       lambda: tapi.decode(er_s.encoded_bytes, er_s.max_n,
+                                           *geo_s, device=DEV), {})
+    check(np.array_equal(got, rec), "phase 23: the hybrid machine's rec != "
+          "B2's")
+
+    # ---- NO_NATIVE: the host-scheduled codec in the oracle ----
+    ims_s = [image(310 + b, (3, 64, 64)) for b in range(2)]
+
+    def host_codec():
+        ers = pt.encode_images(ims_s, CONFIG_A, None, 64 * 64, device=DEV)
+        outs = pt.decode_images(ers, CONFIG_A, device=DEV)
+        return [(e.encoded_bytes, e.max_n) for e in ers], outs
+
+    ref_streams, ref_ims = switch_route(rows, "host codec 3x64x64 native",
+                                        {}, host_codec, {})
+    for value in ("1", "0"):
+        label = f"host codec 3x64x64 NO_NATIVE={value}"
+        with Spy(native, "load") as loads, \
+                Spy(oracle, "encode_bits") as enc_bits, \
+                Spy(oracle, "decode_bits") as dec_bits:
+            got, outs = switch_route(rows, label,
+                                     {"SPIHT_TPU_NO_NATIVE": value},
+                                     host_codec, {})
+        rows[-1]["oracle_calls"] = [enc_bits.calls, dec_bits.calls]
+        check(loads.calls == 0, f"phase 23 {label}: {loads.calls} native "
+              "loads")
+        check(enc_bits.calls == dec_bits.calls == 8,
+              f"phase 23 {label}: oracle calls {rows[-1]['oracle_calls']}")
+        check(got == ref_streams and all(
+            np.array_equal(x, y) for x, y in zip(outs, ref_ims)),
+              f"phase 23 {label}: streams or images != the native route's")
+
+    # ---- SPIHT_TPU_CACHE: where the native library is built ----
+    t1 = time.perf_counter()
+    arr_np = arr_a.cpu().numpy()
+    tmp, out, listed = cache_subprocess(arr_np, ll, mb)
+    so = native._so_path()
+    check(out["exists"] and os.path.dirname(out["so"]) == tmp
+          and os.path.basename(out["so"]) == so.name
+          and so.name in listed,
+          f"phase 23: SPIHT_TPU_CACHE library {out['so']} (in {listed})")
+    check((bytes.fromhex(out["data"]), out["max_n"])
+          == native.load().encode(arr_np, *ll, mb)
+          == (er_a.encoded_bytes, er_a.max_n),
+          "phase 23: the stream under SPIHT_TPU_CACHE != the native one")
+    rows.append({"route": "SPIHT_TPU_CACHE subprocess", "library":
+                 so.name, "in_cache_dir": True,
+                 "wall_s": time.perf_counter() - t1})
+    print(json.dumps({"phase": 23, "card": smi, "routes": rows,
+                      "phase_s": time.perf_counter() - t0}))
+
+
 def run_phases() -> list:
-    """Phases 2-22; returns the kernels' rows of the result line."""
+    """Phases 2-23; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -3123,7 +3477,7 @@ def run_phases() -> list:
     ers_a, nb_a, encb_a, decb_a = batch_main_path(
         "A batch", CONFIG_A, None, ims_a, mbs_a, "spiht_decode_lsp_batch")
     ims_b = [image(200 + b, (3, 512, 512)) for b in range(8)]
-    _, nb_b, _, decb_b = batch_main_path(
+    ers_b, nb_b, _, decb_b = batch_main_path(
         "B batch", CONFIG_B, 3, ims_b, [512 * 512] * 8,
         "spiht_decode_seq_batch")
     phase_throughput(ims_a, mbs_a, ers_a, encb_a, decb_a)
@@ -3161,6 +3515,9 @@ def run_phases() -> list:
 
     # ---- phase 22: refusals, the reference's names, the bench ----
     phase_surface(im_a, im_b, er_a, er_b)
+
+    # ---- phase 23: the JAX package's documented switches ----
+    phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b)
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),

@@ -20,6 +20,22 @@
   the device (kernel B6 in the float32 working dtype) or, under the
   'native' and 'numpy' backends, on the host.
 
+The JAX package's API switches, read where it reads them:
+
+* ``SPIHT_TPU_DEVICE_ENCODER=1``: the raw ``encode`` of an even-LL array
+  goes through ``device_encoder.encode_device`` (kernel B1, or the
+  sorted-space machine under ``SPIHT_TPU_PALLAS_ENCODER=0``); odd LL, and
+  a ``CapacityOverflow`` of that machine, take the default route (:58-73).
+* ``SPIHT_TPU_DEVICE_DECODER=1``: the raw ``decode`` goes through
+  ``device_decoder.decode_device`` (B2 or B3, or the hybrid machine under
+  ``SPIHT_TPU_PALLAS_DECODER=0``), a ``ValueError`` there taking the
+  default route (:86-96); ``decode_with_metadata`` through
+  ``decode_device_with_metadata`` (:117-127).
+* ``SPIHT_TPU_NO_NATIVE`` (any non-empty value): ``encode_images`` and
+  ``decode_images`` schedule the bits in the pure-Python oracle
+  (``oracle.py``, :489, :533-550) and skip the budget-narrowed path,
+  which needs the native scheduler (:392).
+
 Everything runs on the CUDA card unless the caller passes
 ``device="cpu"`` (the plain versions, as the tests use them); without a
 card every entry point raises, whatever the backend. There is no host
@@ -55,7 +71,10 @@ from ..torch_transform import (
     narrow,
 )
 from ..wavelets.geometry import get_slices_and_h_w, slices_to_wire
-from . import decoder, encoder, meta_expand
+from ..ops.bitpack import bits_to_bytes, bytes_to_bits
+from . import (
+    decoder, device_decoder, device_encoder, encoder, meta_expand, oracle,
+)
 from .decoder import words_batch, words_tensor
 from .encoder import batch_stream_bytes, check_stat, stream_bytes
 from .maxn import device_max_n
@@ -87,7 +106,20 @@ def encode(
     device=None, machine: Optional[str] = None,
 ) -> Tuple[bytes, int]:
     """SPIHT-encode a (C,H,W) int32 coefficient array -> (bytes, max_n),
-    on the device: kernel B1, or B7 for ``machine="seq"``."""
+    on the device: kernel B1, or B7 for ``machine="seq"``. With
+    ``SPIHT_TPU_DEVICE_ENCODER=1`` and no ``machine``, an even-LL array
+    goes through ``device_encoder.encode_device`` (module docstring)."""
+    if (
+        machine is None
+        and os.environ.get("SPIHT_TPU_DEVICE_ENCODER") == "1"
+        and ll_h % 2 == 0
+        and ll_w % 2 == 0
+    ):
+        try:
+            return device_encoder.encode_device(arr, ll_h, ll_w, max_bits,
+                                                device)
+        except device_encoder.CapacityOverflow:
+            pass
     return encoder.encode(arr, ll_h, ll_w, max_bits, device, machine)
 
 
@@ -96,7 +128,15 @@ def decode(
     device=None,
 ) -> np.ndarray:
     """Decode bytes -> (C,H,W) int32 coefficient array (prefix-tolerant),
-    on the device: kernel B2, or B3 for odd-LL geometries."""
+    on the device: kernel B2, or B3 for odd-LL geometries. With
+    ``SPIHT_TPU_DEVICE_DECODER=1`` it goes through
+    ``device_decoder.decode_device`` first (module docstring)."""
+    if os.environ.get("SPIHT_TPU_DEVICE_DECODER") == "1":
+        try:
+            return device_decoder.decode_device(data, n, c, h, w, ll_h, ll_w,
+                                                device)
+        except ValueError:
+            pass
     return decoder.decode(data, n, c, h, w, ll_h, ll_w, device).cpu().numpy()
 
 
@@ -115,7 +155,13 @@ def decode_with_metadata(
     """Decode bytes and emit the per-bit decoder-state trace array, on the
     device (kernel B2-log, or B3-log for odd-LL geometries, then the log's
     expansion): (rec (C,H,W) int32, trace (len(data)*8 + 1, 8) int32), for
-    every geometry the machines take (c*h*w < 2^29)."""
+    every geometry the machines take (c*h*w < 2^29). With
+    ``SPIHT_TPU_DEVICE_DECODER=1`` it runs
+    ``device_decoder.decode_device_with_metadata``."""
+    if os.environ.get("SPIHT_TPU_DEVICE_DECODER") == "1":
+        return device_decoder.decode_device_with_metadata(
+            data, n, c, h, w, ll_h, ll_w, top_slice, other_slices, device
+        )
     rec, meta = meta_expand.decode_with_metadata(
         data, n, c, h, w, ll_h, ll_w, top_slice, other_slices,
         resolve_device(device),
@@ -354,6 +400,10 @@ def encode_images(
     * 'numpy': each image's numpy transform, then one batch of the
       scheduler.
 
+    Under ``SPIHT_TPU_NO_NATIVE`` the oracle schedules the bits, image by
+    image; 'native' then transforms as 'numpy' does, and 'torch' skips the
+    budget-narrowed path.
+
     ``max_bits``: None, a scalar applied to all, or a per-image sequence.
     """
     images = [np.asarray(im) for im in images]
@@ -374,10 +424,10 @@ def encode_images(
         encoder.check_geometry(c, enc_h, enc_w, slices[0][1].stop,
                                slices[0][2].stop)
     dev = resolve_device(device)
-    nat = native.load()
+    nat = None if native.disabled() else native.load()
     backend = backend or transform.get_backend()
 
-    if backend == "native":
+    if backend == "native" and nat is not None:
         def work(i):
             arr, ll_h, ll_w = transform.forward_native(
                 images[i], spiht_settings, level
@@ -391,16 +441,17 @@ def encode_images(
 
     arrs = [None] * n
     lls = [None] * n
-    if backend == "numpy":
+    if backend != "torch":  # 'numpy', or 'native' with the scheduler off
+        fwd = (transform.forward_numpy if backend == "numpy"
+               else transform.forward_native)
         for i, im in enumerate(images):
-            arr, ll_h, ll_w = transform.forward_numpy(im, spiht_settings,
-                                                      level)
+            arr, ll_h, ll_w = fwd(im, spiht_settings, level)
             arrs[i], lls[i] = arr, (ll_h, ll_w)
     else:
         groups = {}
         for idx, im in enumerate(images):
             groups.setdefault(im.shape, []).append(idx)
-        if (all(m < 2**40 for m in mb)
+        if (nat is not None and all(m < 2**40 for m in mb)
                 and os.environ.get("SPIHT_TPU_BUDGET_TRANSFER") != "0"):
             done = _encode_images_budget(
                 images, groups, mb, spiht_settings, level, nat, dev, dtype
@@ -427,9 +478,15 @@ def encode_images(
                 arrs[i] = arr[bi]
                 lls[i] = (ll_h, ll_w)
 
-    encoded = nat.encode_batch(
-        arrs, [ll[0] for ll in lls], [ll[1] for ll in lls], mb, use_maps=True
-    )
+    if nat is None:
+        encoded = [oracle.encode_bits(arrs[i], *lls[i], mb[i])
+                   for i in range(n)]
+        encoded = [(bits_to_bytes(bits), mn) for bits, mn in encoded]
+    else:
+        encoded = nat.encode_batch(
+            arrs, [ll[0] for ll in lls], [ll[1] for ll in lls], mb,
+            use_maps=True,
+        )
     results = [None] * n
     for i, (data, max_n) in enumerate(encoded):
         c, h, w = images[i].shape
@@ -450,7 +507,9 @@ def decode_images(
     Under the 'native' backend each stream's decode and native inverse run
     fused in a thread pool; under 'torch' the inverse transforms run as
     one batch on the device per (shape, h, w, level) group; under 'numpy'
-    the numpy inverse runs image by image.
+    the numpy inverse runs image by image. Under ``SPIHT_TPU_NO_NATIVE``
+    the oracle decodes the streams, and 'native' inverts as 'numpy'
+    does.
     """
     n = len(encoding_results)
     geo = []
@@ -463,9 +522,9 @@ def decode_images(
         geo.append((enc_h, enc_w, slices[0][1].stop, slices[0][2].stop))
         encoder.check_geometry(er.c, *geo[-1])
     dev = resolve_device(device)
-    nat = native.load()
+    nat = None if native.disabled() else native.load()
     backend = transform.get_backend()
-    if backend == "native":
+    if backend == "native" and nat is not None:
         def work(i):
             er = encoding_results[i]
             rec = nat.decode(er.encoded_bytes, er.max_n, er.c, *geo[i])
@@ -475,15 +534,24 @@ def decode_images(
 
         with ThreadPoolExecutor() as pool:
             return list(pool.map(work, range(n)))
-    recs = nat.decode_batch(
-        [er.encoded_bytes for er in encoding_results],
-        [er.max_n for er in encoding_results],
-        [er.c for er in encoding_results],
-        *([g[k] for g in geo] for k in range(4)),
-    )
-    if backend == "numpy":
+    if nat is None:
+        recs = [
+            oracle.decode_bits(bytes_to_bits(er.encoded_bytes), er.max_n,
+                               er.c, *g)
+            for er, g in zip(encoding_results, geo)
+        ]
+    else:
+        recs = nat.decode_batch(
+            [er.encoded_bytes for er in encoding_results],
+            [er.max_n for er in encoding_results],
+            [er.c for er in encoding_results],
+            *([g[k] for g in geo] for k in range(4)),
+        )
+    if backend != "torch":  # 'numpy', or 'native' with the scheduler off
+        inv = (transform.inverse_numpy if backend == "numpy"
+               else transform.inverse_native)
         return [
-            transform.inverse_numpy(rec, er.h, er.w, er.level, spiht_settings)
+            inv(rec, er.h, er.w, er.level, spiht_settings)
             for rec, er in zip(recs, encoding_results)
         ]
     groups = {}

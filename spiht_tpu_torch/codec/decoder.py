@@ -34,6 +34,15 @@ over B2, B3 and B5, with the reference's signatures less the TPU-only
 taking only duplicate-free geometries, as the reference's interleaved
 machine does. For a ``machine`` of None the four read the reference's
 switch ``SPIHT_TPU_PALLAS_DEC_MACHINE`` (``seq``: B3 in every geometry).
+``pallas_decode_batch`` and ``pallas_decode_batch_fn`` read
+``SPIHT_TPU_PALLAS_DEC_BATCH`` (``pallas_decoder.py:2181-2189``, through
+``encoder.batch_mode``): ``ilv`` forces B5 and raises
+``MachineResourceLimit`` before any launch where B5 does not take the
+batch (duplicate parents, or a machine other than ``hybrid``); ``map``
+loops single launches of B2 and the scatter, or B3 at odd LL or for
+``machine="seq"``; ``auto`` or unset keeps B5 or batched B3. Every batch
+launch (``decode_coeffs_batch`` too) takes at most
+``encoder.ilv_chunk(B)`` streams (``SPIHT_TPU_PALLAS_ILV_B``).
 """
 
 from __future__ import annotations
@@ -47,8 +56,8 @@ import torch
 from ..device import resolve_device
 from .encoder import (
     MAX_CELLS, STAT_LEN, MachineResourceLimit, _Stop, _check_i32,
-    _env_machine, _fits_or_raise, check_geometry, check_stat, machine_caps,
-    machine_fits,
+    _env_machine, _fits_or_raise, batch_mode, check_geometry, check_stat,
+    ilv_chunk, machine_caps, machine_fits,
 )
 from .geom import (
     A_DESC, A_LIP, A_LIPSIGN, A_LSIG, A_OFF, A_OFFSIGN, A_REF, _F_AD, _F_DA,
@@ -603,7 +612,8 @@ def decode_coeffs_batch(
     machine=None,
 ) -> torch.Tensor:
     """Decode B streams of one geometry on their device -> rec (B, c, h, w)
-    in one launch, routed as ``decode_coeffs``: batched B3 for
+    in one launch (launches of ``ilv_chunk(B)`` streams), routed as
+    ``decode_coeffs``: batched B3 for
     duplicate-parent geometries or ``machine="seq"``, else B5 plus one
     scatter; raises on a machine error in any stream. words: int32
     (B, cap_words); nbits, max_ns: B host ints. ``out_dtype=torch.int16``
@@ -748,8 +758,9 @@ def _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev):
     """The one decode route. core(words, nbits, max_n) -> (rec int32
     (..., c*h*w), stat, kernel name), no host sync: one stream (1-D words,
     ints) through B2 + the scatter or B3, or a batch ((B, cap_words)
-    words, int32 (B,) tensors) through B5 + the scatter or batched B3.
-    The geometry and the machine name are refused before the device."""
+    words, int32 (B,) tensors) through B5 + the scatter or batched B3, in
+    launches of at most ``ilv_chunk(B)`` streams. The geometry and the
+    machine name are refused before the device."""
     if machine not in DEC_MACHINES:
         raise ValueError(
             f"machine must be one of {DEC_MACHINES}, got {machine!r}")
@@ -757,21 +768,45 @@ def _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev):
     tail = _machine_tail(c, h, w, ll_h, ll_w, cap_words, dev)
     seq = machine == "seq" or has_duplicate_parents(h, w, ll_h, ll_w)
 
+    def launch(words, nbits, max_n):
+        batch = words.dim() == 2
+        if seq:
+            run = decode_seq_batch if batch else decode_seq
+            return run(words, nbits, max_n, *tail)
+        run = decode_lsp_batch if batch else decode_lsp
+        lsp, lsp_val, stat = run(words, nbits, max_n, *tail)
+        return scatter_rec(lsp, lsp_val, stat, c * h * w), stat
+
     def core(words, nbits, max_n):
         batch = words.dim() == 2
         if words.shape[-1] != cap_words:
             raise ValueError(f"words must hold {cap_words} words a stream")
-        if seq:
-            run = decode_seq_batch if batch else decode_seq
-            rec, stat = run(words, nbits, max_n, *tail)
-        else:
-            run = decode_lsp_batch if batch else decode_lsp
-            lsp, lsp_val, stat = run(words, nbits, max_n, *tail)
-            rec = scatter_rec(lsp, lsp_val, stat, c * h * w)
         name = "spiht_decode_" + ("seq" if seq else "lsp")
-        return rec, stat, name + ("_batch" if batch else "")
+        if not batch:
+            return launch(words, nbits, max_n) + (name,)
+        B = words.shape[0]
+        k = ilv_chunk(B)
+        # an empty batch reaches the wrapper, which refuses it
+        outs = [launch(words[s:s + k], nbits[s:s + k], max_n[s:s + k])
+                for s in range(0, max(B, 1), k)]
+        rec, stat = (outs[0] if len(outs) == 1
+                     else tuple(torch.cat(x) for x in zip(*outs)))
+        return rec, stat, name + "_batch"
 
     return core
+
+
+def _dec_batch_loops(machine, B, c, h, w, ll_h, ll_w, cap_words) -> bool:
+    """Whether a batch is decoded by single launches (B2 and the scatter,
+    or B3) rather than B5 or batched B3: ``SPIHT_TPU_PALLAS_DEC_BATCH``
+    (``encoder.batch_mode``), B5 taking duplicate-free geometries under
+    the machines None and "hybrid", as the reference's ``use_ilv``."""
+    ilv_ok = machine in (None, "hybrid") and interleaved_fits(
+        B, c, h, w, ll_h, ll_w, cap_words)
+    mode = batch_mode("SPIHT_TPU_PALLAS_DEC_BATCH", ilv_ok,
+                      f"B={B} {c}x{h}x{w} LL {ll_h}x{ll_w} "
+                      f"machine={machine}")
+    return mode == "map"
 
 
 def _checked_out_dtype(out_dtype, max_ns) -> torch.dtype:
@@ -820,21 +855,30 @@ def pallas_decode_batch_fn(
     """fn(words int32 (B, cap_words), nbits (B,), max_ns (B,)) -> rec
     (B, c, h, w) on ``device`` (None: the card), in one launch: kernel B5
     and one rec scatter, or batched B3 at odd LL or for
-    ``machine="seq"``; each stream stops at its own nbits. Like
-    ``pallas_decode_fn``, it reports no machine error
-    (``decode_coeffs_batch`` and ``pallas_decode_batch`` do). A
-    ``machine`` of None reads ``SPIHT_TPU_PALLAS_DEC_MACHINE``."""
+    ``machine="seq"`` (launches of ``ilv_chunk(B)`` streams); each stream
+    stops at its own nbits. Like ``pallas_decode_fn``, it reports no
+    machine error (``decode_coeffs_batch`` and ``pallas_decode_batch``
+    do). A ``machine`` of None reads ``SPIHT_TPU_PALLAS_DEC_MACHINE``;
+    ``SPIHT_TPU_PALLAS_DEC_BATCH`` is read when fn is made (``map``: B2
+    or B3 stream by stream; ``ilv``: B5, or ``MachineResourceLimit``)."""
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, None)
     _checked_out_dtype(out_dtype, [])
+    machine = _dec_machine(machine)
+    loops = _dec_batch_loops(machine, 1, c, h, w, ll_h, ll_w, cap_words)
     dev = resolve_device(device)
-    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, _dec_machine(machine),
-                     dev)
+    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev)
 
     def fn(words, nbits, max_ns):
         words = _as_words(words, dev)
         B = words.shape[0]
         # host lists need no sync for the check
         od = _checked_out_dtype(out_dtype, max_ns)
+        if loops:
+            rec = torch.stack([
+                core(words[b], int(nb), int(mn))[0]
+                for b, (nb, mn) in enumerate(zip(nbits, max_ns))
+            ])
+            return rec.reshape(B, c, h, w).to(od)
         nb = torch.as_tensor(nbits).to(device=dev, dtype=torch.int32)
         mn = torch.as_tensor(max_ns).to(device=dev, dtype=torch.int32)
         rec, _, _ = core(words, nb.reshape(B), mn.reshape(B))
@@ -866,10 +910,25 @@ def pallas_decode_batch(
     """Decode B streams' bytes of one geometry on ``device`` (None: the
     card) -> (B, c, h, w) int32 numpy array: ``decode_batch``, one launch
     of kernel B5 (batched B3 at odd LL or for ``machine="seq"``; None
-    reads ``SPIHT_TPU_PALLAS_DEC_MACHINE``). ``max_ns`` is one int or one
-    per stream. The refusals are ``pallas_decode``'s."""
+    reads ``SPIHT_TPU_PALLAS_DEC_MACHINE``; launches of ``ilv_chunk(B)``
+    streams), or under ``SPIHT_TPU_PALLAS_DEC_BATCH=map`` B2 (B3) stream
+    by stream. ``max_ns`` is one int or one per stream. The refusals are
+    ``pallas_decode``'s, and ``MachineResourceLimit`` for
+    ``SPIHT_TPU_PALLAS_DEC_BATCH=ilv`` where B5 does not take the
+    batch."""
     datas = list(datas)
     cap_words = max([(len(d) * 8 + 31) // 32 for d in datas] + [1])
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, None)
-    return decode_batch(datas, max_ns, c, h, w, ll_h, ll_w, device,
-                        machine=_dec_machine(machine)).cpu().numpy()
+    machine = _dec_machine(machine)
+    if not _dec_batch_loops(machine, len(datas), c, h, w, ll_h, ll_w,
+                            cap_words):
+        return decode_batch(datas, max_ns, c, h, w, ll_h, ll_w, device,
+                            machine=machine).cpu().numpy()
+    words, nbits = words_batch(datas, resolve_device(device))
+    if np.isscalar(max_ns):
+        max_ns = [max_ns] * len(datas)
+    return np.stack([
+        decode_coeffs(wd, nb, int(mn), c, h, w, ll_h, ll_w,
+                      machine=machine).cpu().numpy()
+        for wd, nb, mn in zip(words, nbits, max_ns)
+    ])

@@ -44,13 +44,18 @@ the device: the sum of the kernel durations in torch.profiler's trace of
 3 calls after a warm call, over 3. Host gaps between launches, the
 copies and a host sync inside the function are not counted, so it is at
 most the host time (on the CPU, where there is no device, it is the
-host clock).
+host clock). CUPTI now and then delivers no kernel record for a whole
+trace: an empty trace is taken again, up to 3 traces, and after the third
+the time of the 3 calls comes from CUDA events around them (host gaps
+between launches included). ``kernel_clock_<lane>`` says which clock gave
+the lane's ``mpps_*_kernel``: ``profiler``, ``events`` or ``host``.
 
 Keys: the reference's, less ``*_modeled_host`` (a TPU host's modelled
 link, no measurement here) and the cache file's ``commit``, plus
 ``card`` and ``power_limit_w`` (``nvidia-smi``; null on the CPU),
 ``launches_<lane>`` (each lane's kernel launches, by the wrappers'
-counters, warm and kernel-timing calls included; empty on the CPU) and
+counters, warm and kernel-timing calls included; empty on the CPU),
+``kernel_clock_<lane>`` (above) and
 ``exact_pipeline_{bpp}bpp`` (the decode pipeline's image equal to the
 inverse of the native decode). Nothing is cached and no failure is
 swallowed: a lane that raises ends the run with the exception and no
@@ -68,6 +73,9 @@ import numpy as np
 import torch
 
 FULL = 2**31 - 2
+# torch.profiler traces a lane takes before its kernel time falls back to
+# CUDA events
+PROFILE_TRIES = 3
 
 
 def log(*a):
@@ -163,16 +171,28 @@ class _Bench:
             ts.append(time.perf_counter() - t1)
         return first, sorted(ts)[1], res
 
-    def device(self, fn, *args) -> float:
-        """The device's kernel time (s) of one call of ``fn`` after a warm
-        call: on the card, the sum of the kernels' durations in
-        torch.profiler's trace of 3 calls, over 3 (host gaps between
-        launches and copies are not counted); on the CPU, the median of 3
-        by the host clock."""
+    def device(self, fn, *args) -> tuple[float, str]:
+        """(the device's kernel time (s) of one call of ``fn`` after a warm
+        call, the clock that gave it): on the card, the sum of the
+        kernels' durations in torch.profiler's trace of 3 calls, over 3
+        (host gaps between launches and copies are not counted), or CUDA
+        events around the 3 calls if ``PROFILE_TRIES`` traces held no
+        kernel; on the CPU, the median of 3 by the host clock."""
         fn(*args)
         self.sync()
         if self.dev.type != "cuda":
-            return self.host(fn, *args)[1]
+            return self.host(fn, *args)[1], "host"
+        for n in range(PROFILE_TRIES):
+            s = self.profiled(fn, *args)
+            if s > 0:
+                return s, "profiler"
+            log(f"  torch.profiler recorded no kernel time (trace {n + 1} "
+                f"of {PROFILE_TRIES})")
+        return self.events(fn, *args), "events"
+
+    def profiled(self, fn, *args) -> float:
+        """torch.profiler's kernel time (s) of one of 3 calls; 0 if the
+        trace holds no kernel."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -184,9 +204,17 @@ class _Bench:
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA
                  and not e.key.startswith(("Memcpy", "Memset")))
-        if us <= 0:
-            raise RuntimeError("torch.profiler recorded no kernel time")
         return us / 3 / 1e6
+
+    def events(self, fn, *args) -> float:
+        """CUDA events' time (s) of one of 3 calls, host gaps included."""
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(3):
+            fn(*args)
+        e1.record()
+        self.sync()
+        return e0.elapsed_time(e1) / 3 / 1e3
 
     def lane(self, key, run):
         """Run ``run()`` and record the kernel launches it made."""
@@ -197,10 +225,12 @@ class _Bench:
             if f.launches != before[n]
         }
 
-    def rates(self, key, px, med, kernel_s):
+    def rates(self, key, px, med, timed):
+        kernel_s, clock = timed
         self.out[f"mpps_{key}_kernel"] = px / 1e6 / kernel_s
         self.out[f"mpps_{key}_materialized"] = px / 1e6 / med
-        log(f"  {key}: kernel {kernel_s * 1e3:.2f} ms = "
+        self.out[f"kernel_clock_{key}"] = clock
+        log(f"  {key}: kernel ({clock}) {kernel_s * 1e3:.2f} ms = "
             f"{px / 1e6 / kernel_s:.2f} MP/s; to the host "
             f"{med * 1e3:.2f} ms")
 

@@ -43,8 +43,10 @@ reference's bit-by-bit ladder.
 Routing (``decode_device``, ``decode_device_batch``,
 ``decode_device_with_metadata``): with ``SPIHT_TPU_PALLAS_DECODER=1``
 (``SPIHT_TPU_PALLAS_META=1`` for the trace, which otherwise follows the
-decoder's flag) the hand-written kernel runs: B2, or B3 at odd LL; B5 or
-batched B3; B2-log or B3-log through ``meta_expand``. On CPU tensors its
+decoder's flag) the hand-written kernel runs: B2, or B3 at odd LL; for a
+batch ``decoder.pallas_decode_batch``, as the reference routes it (B5 or
+batched B3, under the batch switches in chunks or stream by stream);
+B2-log or B3-log through ``meta_expand``. On CPU tensors its
 plain version runs. With the flag ``0`` this module's machine runs on the
 device asked for; unset, the kernel runs on the card and the machine on
 the CPU (the reference's CPU route). ``SPIHT_TPU_DISABLE_HBM_MACHINES``
@@ -53,14 +55,16 @@ c*h*w < 2^26 gate is not copied (the port's kernels take c*h*w < 2^29);
 the machines keep their own c*h*w < 2^24 bound. Nothing falls back: an
 error raises, and every entry first refuses, with ``ValueError``, what
 the native scheduler refuses (``encoder.check_geometry``).
-``codec/api.py``'s raw ``decode``/``decode_with_metadata`` and the
-pipelines of ``torch_transform.py`` stay on the kernels; the
+The pipelines of ``torch_transform.py`` stay on the kernels;
+``codec/api.py``'s raw ``decode``/``decode_with_metadata`` come here under
+``SPIHT_TPU_DEVICE_DECODER=1``, as the reference's do; the
 reference's ``machine = "xla"`` branch only catches a VMEM overflow,
 which the port cannot have, so it is not ported.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 from functools import lru_cache
 from typing import Optional, Tuple
@@ -178,9 +182,18 @@ class _Loop:
         if dev.type == "cuda" and self.chunks > 0:
             if self.graph is None:
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    for _ in range(K_STEPS):
-                        self.step()
+                # no cyclic collection while capturing: it can free an
+                # evicted machine's graph (a loop and its step closure form
+                # a cycle), and freeing a graph invalidates the capture
+                gc_on = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph):
+                        for _ in range(K_STEPS):
+                            self.step()
+                finally:
+                    if gc_on:
+                        gc.enable()
                 self.graph = graph
             self.graph.replay()
         else:
@@ -894,8 +907,9 @@ def decode_device_with_metadata(
 def decode_device_batch(datas, ns, c, h, w, ll_h, ll_w, device=None):
     """Decode a batch of streams of one geometry on ``device`` (None: the
     card) -> (B, C, H, W) int32, routed by ``SPIHT_TPU_PALLAS_DECODER``:
-    kernel B5 (batched B3 at odd LL), or the hybrid machine over B
-    streams in lockstep. ns: one max_n or one per stream."""
+    ``decoder.pallas_decode_batch`` (kernel B5, batched B3 at odd LL, or
+    what the batch and machine switches route to), or the hybrid machine
+    over B streams in lockstep. ns: one max_n or one per stream."""
     check_geometry(c, h, w, ll_h, ll_w)
     dev = resolve_device(device)
     datas = list(datas)
@@ -903,8 +917,8 @@ def decode_device_batch(datas, ns, c, h, w, ll_h, ll_w, device=None):
     if np.isscalar(ns):
         ns = [ns] * B
     if use_kernel("SPIHT_TPU_PALLAS_DECODER", dev):
-        return decoder.decode_batch(datas, ns, c, h, w, ll_h, ll_w,
-                                    dev).cpu().numpy()
+        return decoder.pallas_decode_batch(datas, ns, c, h, w, ll_h, ll_w,
+                                           device=dev)
     words, nbits = decoder.words_batch(datas, dev)
     machine = _hybrid(c, h, w, ll_h, ll_w, words.shape[1])
     rec = machine(words, torch.tensor(nbits, dtype=_I32).to(dev),

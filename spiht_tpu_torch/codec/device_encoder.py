@@ -30,16 +30,19 @@ tensors' device, the card or the CPU.
   whose loop has ended is left as it was (the select ``jax.vmap`` adds).
 
 Routing (``encode_device``, ``encode_device_batch``): with
-``SPIHT_TPU_PALLAS_ENCODER=1`` the hand-written kernel runs (B1, or B4
-for a batch; on CPU tensors its plain version), with ``=0`` this machine
-runs on the device asked for, and unset the kernel runs on the card and
-the machine on the CPU (the reference's CPU route). The reference's
+``SPIHT_TPU_PALLAS_ENCODER=1`` the hand-written kernel runs (B1, or for a
+batch ``encoder.pallas_encode_batch``, as the reference routes it: B4,
+under the batch switches B4 in chunks or B1 stream by stream; on CPU
+tensors the plain versions), with ``=0`` this machine runs on the device
+asked for, and unset the kernel runs on the card and the machine on the
+CPU (the reference's CPU route). The reference's
 c*h*w < 2^24 gate for the Pallas emitter is not copied: B1 takes
 c*h*w < 2^29. ``SPIHT_TPU_DISABLE_HBM_MACHINES`` means nothing here: the
 card has no VMEM/HBM split. Nothing falls back: a machine that
 overflows raises ``CapacityOverflow``, and the kernel raises on its own
-errors. ``codec/api.py``'s raw ``encode`` and the pipelines of
-``torch_transform.py`` stay on the kernels.
+errors. The pipelines of ``torch_transform.py`` stay on the kernels;
+``codec/api.py``'s raw ``encode`` comes here under
+``SPIHT_TPU_DEVICE_ENCODER=1``, as the reference's does.
 
 Even LL dims only (``_geom`` raises ``ValueError`` otherwise): with odd
 LL the parity child map is not injective, so the parent gathers do not
@@ -683,14 +686,16 @@ def encode_device_batch(
 ) -> list:
     """[(bytes, max_n)] of a (B, c, h, w) int32 batch (numpy or tensor) on
     ``device`` (None: the card), routed by ``SPIHT_TPU_PALLAS_ENCODER``:
-    kernel B4, or this machine over B streams in lockstep. max_bits: one
-    budget or one per stream."""
+    ``encoder.pallas_encode_batch`` (kernel B4, or what the batch and
+    machine switches route to), or this machine over B streams in
+    lockstep. max_bits: one budget or one per stream."""
     encoder.check_geometry(*np.shape(arrs)[1:], ll_h, ll_w)
     dev = resolve_device(device)
     arrs = encoder._as_coeffs(arrs, dev)
     B, c, h, w = arrs.shape
     if use_kernel("SPIHT_TPU_PALLAS_ENCODER", dev):
-        return encoder.encode_batch(arrs, ll_h, ll_w, max_bits, dev)
+        return encoder.pallas_encode_batch(arrs, ll_h, ll_w, max_bits,
+                                           device=dev)
     if np.isscalar(max_bits):
         mbs = [min(int(max_bits), 2**31 - 2)] * B
     else:

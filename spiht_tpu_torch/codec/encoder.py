@@ -41,6 +41,22 @@ refused for its state's size. Where the reference reads
 with ``MachineResourceLimit``, as the reference does, for an explicit
 machine too. A value the switch does not name runs B7, as the reference
 runs its sequential machine for any name it does not know.
+
+The reference's batch switches (``pallas_encoder.py:2185-2189``, :2216,
+:2296; ``pallas_decoder.py:2153-2157``, :2181-2189) are read here, in one
+place for both directions: ``batch_mode`` reads
+``SPIHT_TPU_PALLAS_ENC_BATCH`` for ``pallas_encode_batch`` and
+``pallas_encode_batch_fn`` (``ilv`` forces B4 and raises
+``MachineResourceLimit`` before any launch where B4 does not take the
+batch, as for ``machine="seq"``; ``map`` loops single launches of B1, or
+B7 for ``machine="seq"``; ``auto`` or unset keeps B4), and
+``SPIHT_TPU_PALLAS_DEC_BATCH`` for their decode counterparts
+(``decoder.py``). ``ilv_chunk`` reads ``SPIHT_TPU_PALLAS_ILV_B``, the
+most streams a launch of B4, B5 or batched B3 takes, wherever a batch is
+launched (the pipelines of ``torch_transform.py`` too, as the reference's
+read it): unset, or a value that does not parse, one launch takes the
+whole batch (the reference's defaults, 16 to encode and 8 to decode, are
+its VMEM budget's); set, ``max(int(value), 1)``.
 """
 
 from __future__ import annotations
@@ -309,6 +325,28 @@ def _encode_machine_plain(
     return words, stat
 
 
+def ilv_chunk(B: int) -> int:
+    """The most streams one launch of B4, B5 or batched B3 takes for a
+    batch of B: B, or ``SPIHT_TPU_PALLAS_ILV_B`` where it is set (module
+    docstring)."""
+    try:
+        k = max(int(os.environ.get("SPIHT_TPU_PALLAS_ILV_B", B)), 1)
+    except ValueError:
+        return B
+    return min(k, max(B, 1))
+
+
+def batch_mode(var: str, ilv_ok: bool, what: str) -> str:
+    """The batch switch ``var`` (``SPIHT_TPU_PALLAS_ENC_BATCH`` or
+    ``_DEC_BATCH``): "map", "ilv", or "auto" for any other value or none.
+    "ilv" raises ``MachineResourceLimit`` where the batched kernel does
+    not take the batch (``ilv_ok`` false), before any launch."""
+    mode = os.environ.get(var, "auto")
+    if mode == "ilv" and not ilv_ok:
+        raise MachineResourceLimit(f"ilv {what}")
+    return mode if mode in ("map", "ilv") else "auto"
+
+
 def _encode_machine_batch_plain(
     t1, t3s, child0, lip0, lis0, w, max_n, max_bits, caps, cap_words,
 ):
@@ -534,6 +572,24 @@ def encode_machine_batch(
 encode_machine_batch.launches = 0
 
 
+def _encode_batch_launches(t1, t3s, child0, lip0, lis0, w, max_n, max_bits,
+                           caps, cap_words):
+    """``encode_machine_batch`` in launches of at most ``ilv_chunk(B)``
+    streams, rows in order: the words and stat of one launch. (An empty
+    batch reaches the wrapper, which refuses it.)"""
+    B = t1.shape[0]
+    k = ilv_chunk(B)
+    outs = [
+        encode_machine_batch(t1[s:s + k], t3s[s:s + k], child0, lip0, lis0,
+                             w, max_n[s:s + k], max_bits[s:s + k], caps,
+                             cap_words)
+        for s in range(0, max(B, 1), k)
+    ]
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
 def _budget(max_bits, cap_words: int) -> Tuple[int, bool]:
     """(the budget clamped to an int32 bit count and to the word buffer,
     whether the buffer cut it: the stream is then invalid)."""
@@ -607,13 +663,14 @@ def encode_coeffs(
 
 def encode_coeffs_batch(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
     """Encode an int32 (B, c, h, w) batch on its device in one launch of
-    kernel B4, with one budget per stream (a list of B ints).
+    kernel B4 (launches of ``ilv_chunk(B)`` streams), with one budget per
+    stream (a list of B ints).
 
     Returns (words int32 (B, cap_words), stat (B, STAT_LEN), max_n (B,)),
     all on the batch's device; nothing is read back.
     """
     args = batch_machine_args(arrs, ll_h, ll_w, max_bits)
-    words, stat = encode_machine_batch(*args)
+    words, stat = _encode_batch_launches(*args)
     return words, stat, args[6]
 
 
@@ -666,6 +723,17 @@ def encode_batch(
     return list(zip(batch_stream_bytes(words, totals), max_ns.tolist()))
 
 
+def _enc_batch_loops(machine, B, c, h, w, ll_h, ll_w, cap_words) -> bool:
+    """Whether a batch is encoded by single launches (B1, or B7 for
+    ``machine="seq"``) rather than B4: ``SPIHT_TPU_PALLAS_ENC_BATCH``
+    (``batch_mode``), B4 taking every machine but "seq"."""
+    ilv_ok = machine != "seq" and interleaved_fits(B, c, h, w, ll_h, ll_w,
+                                                   cap_words)
+    mode = batch_mode("SPIHT_TPU_PALLAS_ENC_BATCH", ilv_ok,
+                      f"B={B} {c}x{h}x{w} machine={machine}")
+    return mode == "map" or machine == "seq"
+
+
 def _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine) -> None:
     """The reference's refusals, in its order of meaning: ``ValueError``
     for a geometry the native scheduler refuses, ``MachineResourceLimit``
@@ -714,11 +782,15 @@ def pallas_encode_batch_fn(
 ):
     """fn(arrs int32 (B, c, h, w), max_ns (B,), max_bits (B,)) -> (words
     int32 (B, cap_words), totals (B,), overflows (B,)) on ``device``
-    (None: the card), with no host sync: one launch of kernel B4, or B7
-    stream by stream for ``machine="seq"`` (None reads
-    ``SPIHT_TPU_PALLAS_ENC_MACHINE``)."""
+    (None: the card), with no host sync: one launch of kernel B4
+    (launches of ``ilv_chunk(B)`` streams), or B7 stream by stream for
+    ``machine="seq"`` (None reads ``SPIHT_TPU_PALLAS_ENC_MACHINE``).
+    ``SPIHT_TPU_PALLAS_ENC_BATCH`` is read when fn is made: ``map``
+    launches B1 (B7) stream by stream, ``ilv`` raises
+    ``MachineResourceLimit`` for ``machine="seq"``."""
     machine = _env_machine(machine)
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine)
+    loops = _enc_batch_loops(machine, 1, c, h, w, ll_h, ll_w, cap_words)
     dev = resolve_device(device)
     caps = machine_caps(c, h, w, ll_h, ll_w, cap_words)
     single = pallas_encode_fn(c, h, w, ll_h, ll_w, cap_words, machine, dev)
@@ -730,10 +802,10 @@ def pallas_encode_batch_fn(
             raise ValueError(f"arrs must be (B, {c}, {h}, {w}), B >= 1")
         mns = torch.as_tensor(max_ns).to(device=dev, dtype=torch.int32)
         mbs = [min(int(m), 2**31 - 2) for m in max_bits]
-        if machine == "seq":
+        if loops:
             outs = [single(arrs[b], mns[b], mbs[b]) for b in range(B)]
             return tuple(torch.stack(x) for x in zip(*outs))
-        words, stat = encode_machine_batch(
+        words, stat = _encode_batch_launches(
             *_lead_args(arrs, ll_h, ll_w), mns.reshape(B),
             torch.tensor(mbs, dtype=torch.int32).to(dev), caps, cap_words,
         )
@@ -777,18 +849,22 @@ def pallas_encode_batch(
     arrs, ll_h: int, ll_w: int, max_bits, machine=None, device=None,
 ) -> list:
     """[(bytes, max_n)] of a (B, c, h, w) int32 batch on ``device`` (None:
-    the card), in one launch of kernel B4 (B7 stream by stream for
-    ``machine="seq"``; None reads ``SPIHT_TPU_PALLAS_ENC_MACHINE``).
+    the card), in one launch of kernel B4 (launches of ``ilv_chunk(B)``
+    streams; B7 stream by stream for ``machine="seq"``; None reads
+    ``SPIHT_TPU_PALLAS_ENC_MACHINE``), or under
+    ``SPIHT_TPU_PALLAS_ENC_BATCH=map`` B1 (B7) stream by stream.
     ``max_bits`` is one budget or one per stream. The refusals are
-    ``pallas_encode``'s."""
+    ``pallas_encode``'s, and ``MachineResourceLimit`` for
+    ``SPIHT_TPU_PALLAS_ENC_BATCH=ilv`` with ``machine="seq"``."""
     B, c, h, w = np.shape(arrs)
     mbs = [max_bits] * B if np.isscalar(max_bits) else list(max_bits)
     cap_words = cap_words_for(
         c, h, w, max((min(int(m), 2**31 - 2) for m in mbs), default=0))
     machine = _env_machine(machine)
     _fits_or_raise(c, h, w, ll_h, ll_w, cap_words, machine)
+    loops = _enc_batch_loops(machine, B, c, h, w, ll_h, ll_w, cap_words)
     _compact_refused(machine, arrs, resolve_device(device))
-    if machine != "seq":
+    if not loops:
         return encode_batch(arrs, ll_h, ll_w, mbs, device)
     return [encode(a, ll_h, ll_w, mb, device, machine)
             for a, mb in zip(arrs, mbs)]

@@ -3,13 +3,20 @@
 Copy of ``spiht_tpu/native/runtime.py`` (its ``_Kernel`` class is kept
 identical, tests/test_torch_copies.py) with ``spiht_kernel.cpp`` and
 ``dwt_kernel.cpp`` copied beside it. Two changes: the library is compiled
-with the same g++ flags into ``spiht_tpu_torch/build/``, under a name that
-covers the sources and the flags, written to a temporary name and moved
-into place (concurrent processes never load a half-written file); and
-``load()`` raises when the build or the load fails, where the original
-returns None. All entry points release the GIL for the duration of the C
-call, so Python-level thread pools get real parallelism on top of the
-kernel's own batch threading.
+with the same g++ flags into ``spiht_tpu_torch/build/`` (or the directory
+``SPIHT_TPU_CACHE`` names, as in the original), under a name that covers
+the sources and the flags, written to a temporary name and moved into
+place (concurrent processes never load a half-written file); and
+``load()`` raises where the original returns None: when the build or the
+load fails, and when ``SPIHT_TPU_NO_NATIVE`` turns the scheduler off.
+That switch is the original's truthiness test (any non-empty value, "0"
+too), read at every call (``disabled()``), where the original reads it
+only until a first load succeeds; the callers that have the original's
+pure-Python route (``codec/api.py``'s host-scheduled batch codec, the
+oracle; ``transform.py``'s native transforms, the numpy ones) ask
+``disabled()`` first. All entry points release the GIL for the duration
+of the C call, so Python-level thread pools get real parallelism on top
+of the kernel's own batch threading.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ def _so_path() -> Path:
     h = hashlib.sha256(" ".join(_GXX_FLAGS).encode())
     for src in _SRCS:
         h.update(src.read_bytes())
-    return _BUILD / f"libspiht_kernel-{h.hexdigest()[:16]}.so"
+    cache = Path(os.environ.get("SPIHT_TPU_CACHE", _BUILD))
+    return cache / f"libspiht_kernel-{h.hexdigest()[:16]}.so"
 
 
 def _build(so_path: Path) -> None:
@@ -463,10 +471,20 @@ class _Kernel:
         return M, D, G
 
 
+def disabled() -> bool:
+    """Whether ``SPIHT_TPU_NO_NATIVE`` turns the native scheduler off."""
+    return bool(os.environ.get("SPIHT_TPU_NO_NATIVE"))
+
+
 def load() -> _Kernel:
     """Load (building if needed) the native kernel; raises if it cannot be
-    built or loaded."""
+    built or loaded, or if ``SPIHT_TPU_NO_NATIVE`` is set."""
     global _LIB
+    if disabled():
+        raise RuntimeError(
+            "SPIHT_TPU_NO_NATIVE is set: the native scheduler is off, and "
+            "this caller has no route without it"
+        )
     if _LIB is not None:
         return _LIB
     with _LOCK:

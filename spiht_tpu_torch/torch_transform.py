@@ -39,6 +39,7 @@ caveat: borderline truncations may flip.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -181,8 +182,12 @@ def forward_compact(
     overflow check are one pass of kernel B6 over the scaled float32
     coefficients, as the JAX package's TPU path runs them; otherwise they
     are torch ops on ``forward``'s int32 array (B6 quantizes in float32,
-    which could flip a borderline truncation of the float64 path)."""
-    if dtype == torch.float32:
+    which could flip a borderline truncation of the float64 path).
+    ``SPIHT_TPU_PALLAS`` routes as in the JAX package (``_use_pallas``
+    :88-101): set, "1" runs B6 (float32 only) and any other value the
+    torch ops; unset, B6 runs on float32."""
+    flag = os.environ.get("SPIHT_TPU_PALLAS")
+    if dtype == torch.float32 and (flag is None or flag == "1"):
         coeffs, ll_h, ll_w = _scaled_coeffs(image, settings, level, dtype)
         _, arr16, _, overflow = quantize_compact(
             coeffs.to(torch.float32), settings.quantization_scale

@@ -111,9 +111,11 @@ def forward_native(
 
     Same semantics as ``forward_numpy``; colour conversion stays in numpy.
     Periodization and level < 1, which the C++ kernel does not implement,
-    run ``forward_numpy``. precision: 'f64' (default, bit-compatible with
-    the numpy reference) or 'f32' (also via ``SPIHT_TPU_PRECISION``).
-    The native library is built at first use and raises if it cannot be.
+    run ``forward_numpy``, and so does everything under
+    ``SPIHT_TPU_NO_NATIVE``, as in the JAX package. precision: 'f64'
+    (default, bit-compatible with the numpy reference) or 'f32' (also via
+    ``SPIHT_TPU_PRECISION``). The native library is built at first use
+    and raises if it cannot be.
     """
     if precision is None:
         precision = os.environ.get("SPIHT_TPU_PRECISION", "f64")
@@ -124,7 +126,7 @@ def forward_native(
     h, w = image.shape[-2], image.shape[-1]
     wav = build_wavelet(settings.wavelet)
     lv = _levels(h, w, level, wav.dec_len)
-    if lv < 1 or settings.mode == "periodization":
+    if lv < 1 or settings.mode == "periodization" or runtime.disabled():
         return forward_numpy(image, settings, level)
     nat = runtime.load()
     if settings.color_model is not None:
@@ -164,7 +166,7 @@ def inverse_native(
     rec_arr = np.asarray(rec_arr)
     wav = build_wavelet(settings.wavelet)
     lv = _levels(h, w, level, wav.dec_len)
-    if lv < 1 or settings.mode == "periodization":
+    if lv < 1 or settings.mode == "periodization" or runtime.disabled():
         return inverse_numpy(rec_arr, h, w, level, settings, slices)
     nat = runtime.load()
     if slices is None:

@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's JAX-free modules equal the
 originals: their code (the colour models, the quantize step, the image
-utilities, the order prototype and the scaling-floor canary included), the
-manifest functions and ``as_numpy_image``, filter taps, subband
-geometry, queue bounds, the bit machines' geometry tables, the max_n
+utilities, the order prototype, the scaling-floor canary, the oracle
+codec and the bit packing included), the manifest functions and
+``as_numpy_image``, filter taps, subband geometry, queue bounds, the bit machines' geometry tables, the max_n
 threshold table, colour constants and the settings containers; the native
 scheduler's C++ sources, its ctypes bindings and its outputs; the metadata
 trace's rect and node tables; the planner's numpy functions."""
@@ -19,6 +19,7 @@ import torch
 from spiht_tpu.codec import device_decoder as jdd
 from spiht_tpu.codec import device_encoder as jde
 from spiht_tpu.codec import meta_expand as jme
+from spiht_tpu.codec import oracle as jor
 from spiht_tpu.codec import order_prototype as jop
 from spiht_tpu.codec import planning as jplan
 from spiht_tpu.codec import tree_bounds as jtb
@@ -27,6 +28,7 @@ from spiht_tpu import interop as jinterop
 from spiht_tpu.parallel import distributed as jdist
 from spiht_tpu.parallel import scaling_check as jsc
 from spiht_tpu.color import models as jcm
+from spiht_tpu.ops import bitpack as jbp
 from spiht_tpu.ops import quantize as jq
 from spiht_tpu import settings as jset
 from spiht_tpu import utils as jutils
@@ -39,6 +41,7 @@ from spiht_tpu_torch import settings as tset
 from spiht_tpu_torch.codec import geom as tgeom
 from spiht_tpu_torch.codec import maxn as tmaxn
 from spiht_tpu_torch.codec import meta_expand as tme
+from spiht_tpu_torch.codec import oracle as tor
 from spiht_tpu_torch.codec import order_prototype as top
 from spiht_tpu_torch.codec import planning as tplan
 from spiht_tpu_torch.codec import tree_bounds as ttb
@@ -47,6 +50,7 @@ from spiht_tpu_torch import interop as tinterop
 from spiht_tpu_torch.parallel import distributed as tdist
 from spiht_tpu_torch.parallel import scaling_check as tsc
 from spiht_tpu_torch.color import models as tcm
+from spiht_tpu_torch.ops import bitpack as tbp
 from spiht_tpu_torch.ops import quantize as tq
 from spiht_tpu_torch import utils as tutils
 from spiht_tpu_torch.wavelets import _coif_tables as tcoif
@@ -90,7 +94,7 @@ def _code(module) -> str:
 @pytest.mark.parametrize("pair", [
     (jf, tf), (jcoif, tcoif), (jref, tref), (jgeo, tgeo), (jtb, ttb),
     (jset, tset), (jcm, tcm), (jq, tq), (jutils, tutils), (jop, top),
-    (jsc, tsc),
+    (jsc, tsc), (jor, tor), (jbp, tbp),
 ], ids=lambda p: p[0].__name__)
 def test_copied_code_identical(pair):
     assert _code(pair[0]) == _code(pair[1])

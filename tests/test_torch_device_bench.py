@@ -56,11 +56,12 @@ def reference_keys(bpp, fast, batch, ebatch, ilv):
 
 
 def additions(bpp, fast, batch, ebatch, ilv):
-    """The port's own keys: the card, each lane's launches, and the
-    decode pipeline's exactness."""
+    """The port's own keys: the card, each lane's launches, the clock of
+    each kernel time, and the decode pipeline's exactness."""
     b = f"{bpp}bpp"
-    lanes = ["full", b, "dec_full", f"dec_{b}", f"enc_pipeline_{b}",
+    timed = ["dec_full", f"dec_{b}", f"enc_pipeline_{b}",
              f"dec_pipeline_{b}"]
+    lanes = ["full", b, *timed]
     if not fast:
         lanes += [f"{lane}_{tag}" for lane in ("enc_sorted", "dec_hybrid")
                   for tag in ("full", b)]
@@ -70,8 +71,10 @@ def additions(bpp, fast, batch, ebatch, ilv):
         lanes.append(f"enc_batch{ebatch}")
     if ilv:
         lanes += [f"enc_ilv{ilv}", f"dec_ilv{ilv}"]
+        timed += [f"enc_ilv{ilv}", f"dec_ilv{ilv}"]
     return ({"card", "power_limit_w", f"exact_pipeline_{b}"}
-            | {f"launches_{lane}" for lane in lanes})
+            | {f"launches_{lane}" for lane in lanes}
+            | {f"kernel_clock_{lane}" for lane in timed})
 
 
 def _run(argv, capsys, monkeypatch, tmp_path, ilv="2"):
@@ -98,8 +101,10 @@ def test_one_exact_line_with_the_documented_keys(argv, fast, capsys,
     assert exact and all(v is True for v in exact.values()), exact
     assert not any(k.endswith("_modeled_host") for k in out)
     assert out["backend"] == "cpu" and out["card"] is None
-    # the CPU runs the plain versions: no kernel launches
+    # the CPU runs the plain versions: no kernel launches, host clock
     assert all(out[k] == {} for k in out if k.startswith("launches_"))
+    assert all(out[k] == "host" for k in out
+               if k.startswith("kernel_clock_"))
     assert all(out[k] > 0 for k in out if k.startswith(("mpps_", "ms_")))
     # no cache file, in the working directory or beside the package
     assert os.listdir(tmp_path) == [] and sorted(os.listdir(ROOT)) == root
@@ -155,6 +160,34 @@ def test_a_failing_lane_ends_the_run(module, name, capsys, monkeypatch,
         _run(["16x16", "1", "1.0", "fast=1", "device=cpu"], capsys,
              monkeypatch, tmp_path, ilv="0")
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("empty,clock", [(0, "profiler"), (2, "profiler"),
+                                         (3, "events")])
+def test_an_empty_trace_is_taken_again_then_events(empty, clock,
+                                                  monkeypatch):
+    """A torch.profiler trace with no kernel in it is taken again; after
+    ``PROFILE_TRIES`` empty traces the time comes from CUDA events, and
+    the clock says so. The card's calls are stood in for."""
+    assert device_bench.PROFILE_TRIES == 3
+    bench = device_bench._Bench(torch.device("cpu"))
+    bench.dev = torch.device("cuda", 0)
+    traces = []
+
+    def profiled(fn, *args):
+        traces.append(fn(*args))
+        return 0.0 if len(traces) <= empty else 2e-3
+
+    monkeypatch.setattr(bench, "sync", lambda: None)
+    monkeypatch.setattr(bench, "profiled", profiled)
+    monkeypatch.setattr(bench, "events", lambda fn, *args: 5e-3)
+    got = bench.device(lambda x: x + 1, 1)
+    assert got == ((2e-3, "profiler") if clock == "profiler"
+                   else (5e-3, "events"))
+    assert traces == [2] * min(empty + 1, 3)
+    bench.rates("dec_full", 1e6, 1e-2, got)
+    assert bench.out["kernel_clock_dec_full"] == clock
+    assert bench.out["mpps_dec_full_kernel"] == 1 / got[0]
 
 
 def test_no_card_exits_2(capsys, monkeypatch, tmp_path):
