@@ -10,7 +10,9 @@ single-image and the batched on-device round trips) at full width in two
 configurations, checks the outputs, and prints timings. Every phase must
 pass; any failure exits nonzero. The last line of standard output is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
-before printing any result.
+before printing any result. ``python3 chip_smoke.py --ranks`` runs phase
+24 alone, after the build and its 8K reference (on a machine with two or
+more cards, its NCCL ranks too).
 
 Phases:
   1. card, versions, kernel build time
@@ -149,6 +151,18 @@ Phases:
       PALLAS_DECODER=0; (e) encode_images / decode_images of 2 images at
       3x64x64 under NO_NATIVE=1 and 0 (the oracle, no native load);
       (f) SPIHT_TPU_CACHE in a subprocess: the library built there
+  24. the mesh over the ranks of a process group: 4 processes of this
+      script (``--rank``) share cuda:0 over a gloo group; each builds
+      make_mesh((1, 4)) over the ranks and encodes phase 21's 8K image at
+      A's settings through encode_image_sharded (its colour model and its
+      shard's DWT on the card, halos and gathers over the group, B1 on
+      the replicated coefficients): every rank's stream equal to phase
+      21's (which equals the unsharded B1 stream and the native
+      scheduler's), B1 once a call on every rank, rank 0's stream decoded
+      here by B3 to phase 21's image; each rank's first-call and warm
+      wall ms, DWT ms, device peak, and the calls and bytes of its
+      collectives. With two or more cards, min(4, cards) ranks, one a
+      card, over NCCL with the same checks; with one, "not run: 1 card"
 """
 
 from __future__ import annotations
@@ -2578,6 +2592,9 @@ def phase_parallel(ims16, smi):
           "21b: decode_image_device != the inverse of the native decode")
     del want_img, rec_nat
     mse = float(((rec[:, :h, :w] - x) ** 2).mean())
+    # phase 24 holds the ranks' streams and rank 0's decode to these
+    ref8k = {"data": er.encoded_bytes, "max_n": er.max_n, "rec": rec,
+             "dec": dec, "sharded_ms": sharded_ms, "single_ms": single_ms}
     del rec
     out["8k_A"] = {
         "geometry": list(geo[:3]), "ll": list(geo[3:]), "odd_ll": odd,
@@ -2795,6 +2812,7 @@ def phase_parallel(ims16, smi):
     out["seconds"] = time.perf_counter() - t0
     out["seconds_by_part"] = secs
     print(json.dumps(out))
+    return ref8k
 
 
 def nonzero():
@@ -3414,6 +3432,292 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
                       "phase_s": time.perf_counter() - t0}))
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the mesh over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+RANKS = 4
+WARM = 3  # warm calls a rank times, of the encode and of the DWT
+
+
+class Tally:
+    """Counts, while in a ``with``, the calls of the four
+    ``torch.distributed`` functions parallel/ moves data with and the bytes
+    each call moves at this rank, as the collective defines them (not as
+    its transport does): a batch of sends and receives (ppermute) the
+    bytes of each; an all-gather sends its block and receives the others;
+    a broadcast sends or receives one block; an all-reduce sends its
+    value and receives the others. Under gloo every one of these bytes
+    also crosses between the card and the host."""
+
+    NAMES = ("batch_isend_irecv", "all_gather", "broadcast", "all_reduce")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.by = {n: {"calls": 0, "sent": 0, "received": 0}
+                   for n in self.NAMES}
+
+    def _add(self, name, sent, received):
+        row = self.by[name]
+        row["calls"] += 1
+        row["sent"] += sent
+        row["received"] += received
+
+    def __enter__(self):
+        dist = self.dist
+
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        def p2p(real):
+            def f(ops):
+                out = real(ops)
+                self._add("batch_isend_irecv",
+                          sum(nbytes(o.tensor) for o in ops
+                              if o.op is dist.isend),
+                          sum(nbytes(o.tensor) for o in ops
+                              if o.op is not dist.isend))
+                return out
+            return f
+
+        def gather(real):
+            def f(got, x, group=None, **kw):
+                self._add("all_gather", nbytes(x), nbytes(x) * (len(got) - 1))
+                return real(got, x, group=group, **kw)
+            return f
+
+        def bcast(real):
+            def f(t, src, group=None, **kw):
+                mine = src == dist.get_rank()
+                self._add("broadcast", nbytes(t) if mine else 0,
+                          0 if mine else nbytes(t))
+                return real(t, src, group=group, **kw)
+            return f
+
+        def reduce(real):
+            def f(t, op=dist.ReduceOp.SUM, group=None, **kw):
+                n = dist.get_world_size(group)
+                self._add("all_reduce", nbytes(t), nbytes(t) * (n - 1))
+                return real(t, op=op, group=group, **kw)
+            return f
+
+        wrap = {"batch_isend_irecv": p2p, "all_gather": gather,
+                "broadcast": bcast, "all_reduce": reduce}
+        self.patches = [mock.patch.object(dist, n, wrap[n](getattr(dist, n)))
+                        for n in self.NAMES]
+        for pt_ in self.patches:
+            pt_.start()
+        return self
+
+    def __exit__(self, *exc):
+        for pt_ in self.patches:
+            pt_.stop()
+
+
+def rank_main(coord, world, pid, backend, device, h, w, outdir) -> int:
+    """One rank of phase 24 (``chip_smoke.py --rank ...``): join the group
+    (gloo: several ranks may share a card; nccl through
+    ``parallel.initialize``), build ``make_mesh((1, world))`` over the
+    ranks, encode phase 21's seeded image at A's settings through
+    ``encode_image_sharded`` once cold (the host tables) and WARM times
+    warm, B1 counted a call, then one more warm call with its collectives
+    tallied, and time the sharded DWT WARM times; every call starts at a
+    barrier. Writes ``rank<pid>.bin`` (the stream) and ``rank<pid>.json``
+    to ``outdir``."""
+    import torch.distributed as dist
+
+    from spiht_tpu_torch.parallel import distributed
+
+    world, pid, h, w = int(world), int(pid), int(h), int(w)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        for name in _build.SIGNATURES:
+            _build.load(name)
+    if backend == "nccl":
+        parallel.initialize(coord, world, pid)
+        check(dist.get_backend() == "nccl", f"rank {pid}: not an nccl group")
+    else:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coord}", world_size=world, rank=pid,
+            timeout=distributed.TIMEOUT)
+    try:
+        mesh = parallel.make_mesh((1, world), devices=None if cuda else [dev])
+        check(mesh.rank == pid and mesh.output_device("tile") == dev,
+              f"rank {pid}: mesh position {mesh.position} on "
+              f"{mesh.output_device('tile')}")
+        im = image(21, (3, h, w))
+        budget = h * w
+
+        def call_ms(fn):
+            dist.barrier()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def encode():
+            reset_counts()
+            er = parallel.encode_image_sharded(im, CONFIG_A, mesh, None,
+                                               budget)
+            if cuda:
+                check(nonzero() == {"spiht_encode": 1},
+                      f"rank {pid}: launches {nonzero()}")
+            return er
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        er, first_ms = call_ms(encode)
+        warm = [call_ms(encode)[1] for _ in range(WARM)]
+        with Tally() as tally:
+            er2, tallied_ms = call_ms(encode)
+        check(er2.encoded_bytes == er.encoded_bytes,
+              f"rank {pid}: a warm stream differs from the first")
+        xc = torch_models.convert(torch.as_tensor(im, device=dev), "RGB",
+                                  CONFIG_A.color_model)
+        f_a = build_wavelet(CONFIG_A.wavelet).dec_len
+        lv = min(dwt_max_level(h, f_a), dwt_max_level(w, f_a))
+        dwt_ms = [call_ms(lambda: parallel.sharded_wavedec2_packed(
+            xc, CONFIG_A.wavelet, CONFIG_A.mode, lv, mesh))[1]
+            for _ in range(WARM)]
+        with open(os.path.join(outdir, f"rank{pid}.bin"), "wb") as f:
+            f.write(er.encoded_bytes)
+        with open(os.path.join(outdir, f"rank{pid}.json"), "w") as f:
+            json.dump({
+                "rank": pid, "device": str(dev), "backend": backend,
+                "max_n": er.max_n, "first_call_ms": first_ms,
+                "warm_ms": warm, "tallied_call_ms": tallied_ms,
+                "dwt_ms": dwt_ms, "collectives": tally.by,
+                "device_peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                    if cuda else None),
+            }, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(backend, devices, h, w, deadline_s=420):
+    """Run ``len(devices)`` ranks of this script (``--rank``), rank k on
+    ``devices[k]``; wait for all (every one killed by ``deadline_s``),
+    fail unless each exits 0, and return their JSON rows and streams."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    world = len(devices)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank",
+             f"127.0.0.1:{port}", str(world), str(pid), backend,
+             str(devices[pid]), str(h), str(w), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(world)]
+        t_end = time.monotonic() + deadline_s
+        try:
+            outs = [p.communicate(timeout=max(1.0, t_end - time.monotonic()))
+                    for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for pid, (p, (so, se)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"phase 24 rank {pid} ({backend}) "
+                  f"exited {p.returncode}:\n{so[-2000:]}\n{se[-4000:]}")
+        rows, streams = [], []
+        for pid in range(world):
+            with open(os.path.join(tmp, f"rank{pid}.json")) as f:
+                rows.append(json.load(f))
+            with open(os.path.join(tmp, f"rank{pid}.bin"), "rb") as f:
+                streams.append(f.read())
+    return rows, streams
+
+
+def ranks_reference():
+    """Phase 21 (b)'s reference for phase 24 run alone (``--ranks``): the
+    8K image at A's settings, 1.0 bpp, through encode_image_sharded on a
+    (1, 4) mesh of cuda:0, its stream held to encode_image_device's and
+    the native scheduler's, and its decode_image_device."""
+    h, w = SIDE_8K
+    im = image(21, (3, h, w))
+    mesh4 = card_mesh(4)
+    er = parallel.encode_image_sharded(im, CONFIG_A, mesh4, None, h * w)
+    _, sharded_ms = wall_ms(lambda: parallel.encode_image_sharded(
+        im, CONFIG_A, mesh4, None, h * w))
+    er_dev, single_ms = wall_ms(lambda: pt.encode_image_device(
+        im, CONFIG_A, None, h * w, device=DEV))
+    arr, ll_h, ll_w = forward(torch.as_tensor(im, device=DEV), CONFIG_A, None)
+    want = native.load().encode(arr.cpu().numpy(), ll_h, ll_w, h * w)
+    check((er.encoded_bytes, er.max_n) == want
+          and er_dev.encoded_bytes == er.encoded_bytes,
+          "phase 24: the 8K reference stream != encode_image_device's or "
+          "the native scheduler's")
+    odd = decoder.has_duplicate_parents(*arr.shape[1:], ll_h, ll_w)
+    del arr
+    rec = pt.decode_image_device(er, CONFIG_A, device=DEV)
+    return {"data": er.encoded_bytes, "max_n": er.max_n, "rec": rec,
+            "dec": "spiht_decode_seq" if odd else "spiht_decode_lsp",
+            "sharded_ms": sharded_ms, "single_ms": single_ms}
+
+
+def hold_ranks(label, rows, streams, ref):
+    """Every rank's stream and max_n equal to phase 21's."""
+    for pid, (row, data) in enumerate(zip(rows, streams)):
+        check(data == ref["data"] and row["max_n"] == ref["max_n"],
+              f"phase 24 {label}: rank {pid}'s stream != phase 21's")
+
+
+def phase_ranks(ref, smi, side=SIDE_8K):
+    """Phase 24: RANKS ranks on the one card over gloo, and over NCCL where
+    there are two or more cards (module docstring 24)."""
+    t0 = time.perf_counter()
+    h, w = side
+    torch.cuda.empty_cache()  # room for the ranks' own allocators
+    out = {"phase": "24 rank mesh", "card": smi, "image": [3, h, w],
+           "settings": "A, 1.0 bpp", "mesh": f"(1, {RANKS}) over ranks"}
+    rows, streams = spawn_ranks("gloo", [torch.device(DEV, 0)] * RANKS, h, w)
+    hold_ranks("gloo", rows, streams, ref)
+    reset_counts()
+    rec = pt.decode_image_device(
+        pt.EncodingResult(streams[0], h, w, 3, rows[0]["max_n"], None),
+        CONFIG_A, device=DEV)
+    launched(ref["dec"])
+    check(torch.equal(rec, ref["rec"]),
+          "phase 24: B3's decode of rank 0's stream != phase 21's image")
+    del rec
+    out["gloo_on_one_card"] = {
+        "ranks": rows, "bits": len(streams[0]) * 8,
+        "launches_a_rank_a_call": {"spiht_encode": 1},
+        "rank0_decode": {ref["dec"]: 1},
+        "warm_ms_median_a_rank": [statistics.median(r["warm_ms"])
+                                  for r in rows],
+        "dwt_ms_median_a_rank": [statistics.median(r["dwt_ms"])
+                                 for r in rows],
+        "phase21_encode_image_sharded_ms": ref["sharded_ms"],
+        "phase21_encode_image_device_ms": ref["single_ms"],
+        "equal": "every rank's stream to phase 21's (= the unsharded B1 "
+                 "stream = the native scheduler's); rank 0's stream "
+                 "decoded by B3 to phase 21's image",
+    }
+    n = torch.cuda.device_count()
+    if n >= 2:
+        k = min(RANKS, n)
+        rows, streams = spawn_ranks(
+            "nccl", [torch.device(DEV, i) for i in range(k)], h, w)
+        hold_ranks("nccl", rows, streams, ref)
+        out["nccl"] = {"ranks": rows, "cards": k}
+    else:
+        out["nccl"] = "not run: 1 card"
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out))
+
+
 def run_phases() -> list:
     """Phases 2-23; returns the kernels' rows of the result line."""
     phase_small()
@@ -3511,13 +3815,17 @@ def run_phases() -> list:
     phase_fallback(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a)
 
     # ---- phase 21: parallel/ and the examples ----
-    phase_parallel(ims_a, card())
+    ref8k = phase_parallel(ims_a, card())
 
     # ---- phase 22: refusals, the reference's names, the bench ----
     phase_surface(im_a, im_b, er_a, er_b)
 
     # ---- phase 23: the JAX package's documented switches ----
     phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b)
+
+    # ---- phase 24: the mesh over the ranks of a process group ----
+    phase_ranks(ref8k, card())
+    del ref8k
 
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),
@@ -3553,7 +3861,7 @@ def run_phases() -> list:
     return rows
 
 
-def main() -> int:
+def main(ranks_only=False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3588,8 +3896,21 @@ def main() -> int:
                 or "Compiling entry" in line):
             print("  " + line.strip())
 
-    rows = run_phases()
+    if ranks_only:
+        phase_ranks(ranks_reference(), smi)
+    else:
+        print_kernels(run_phases())
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def print_kernels(rows) -> None:
+    """The result's kernel lines: why library_ms is null, and the rows."""
     print(json.dumps({"library_ms": None,
                       "why": "no PyTorch call computes a SPIHT bit machine "
                              "(B1-B5, B2-log, B3-log, B7), no single PyTorch "
@@ -3602,13 +3923,9 @@ def main() -> int:
                              "chain of K dependent windows, each seven "
                              "thresholded squarings, not one product"}))
     print(json.dumps({"kernels": rows}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(*sys.argv[2:]))
+    sys.exit(main(ranks_only=sys.argv[1:] == ["--ranks"]))

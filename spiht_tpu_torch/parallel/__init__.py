@@ -7,12 +7,16 @@ meshes, spatial sharding, consistency checks, multi-process glue, health.
                      the collectives (ppermute, all_gather, pmax, psum)
   * codec.py       — the sharded single-image encode (kernel B1)
   * consistency.py — replication checks, checkify's float checks
-  * distributed.py — process group, host batch slices, manifests
+  * distributed.py — process group (a mesh over its ranks), host batch
+                     slices, manifests
   * health.py      — device probes, failover, the robust batch encode
   * scaling_check.py — the scaling-floor canary (a copy)
 
 Single controller, as JAX's ``shard_map``: one process drives every
 device of a mesh, and a device may repeat (four shards on one card).
+After ``initialize()`` with two or more processes, ``make_mesh`` spans
+the ranks of the process group instead, and the sharded functions run
+SPMD across the processes, each returning the replicated outputs.
 """
 
 from .mesh import (

@@ -5,8 +5,11 @@ Composes the pieces: the colour conversion and the quantization are
 elementwise; the DWT runs with W sharded and halo exchange
 (parallel/spatial.py); the SPIHT encode consumes the gathered coefficient
 array on the axis's first device through the port's ``codec.api.encode``
-(kernel B1 on the card). The emitted stream is identical to the
-single-device path (``encode_image`` under the 'torch' backend, and the
+(kernel B1 on the card). On a mesh over the ranks of a process group
+every rank converts the colours and transforms its shards on its own
+device, gets the replicated coefficient array and runs B1 on it, so
+every rank returns the same result, as every JAX process does. The
+emitted stream is identical to the single-device path (``encode_image`` under the 'torch' backend, and the
 JAX package's ``encode_image`` under 'jax' with x64) at the float64
 working dtype.
 
@@ -37,7 +40,7 @@ def _sharded_forward(image: torch.Tensor, settings: SpihtSettings,
                      level: int, mesh: Mesh, axis_name: str) -> torch.Tensor:
     """Colour model -> sharded packed DWT -> per-channel scales ->
     ``* quantization_scale`` -> truncating int32 cast, in float64; the
-    int32 array on the axis's first device."""
+    int32 array on the axis's first device (over ranks, on each rank's)."""
     if settings.color_model is not None:
         image = torch_models.convert(image, "RGB", settings.color_model)
     arr, _, _ = sharded_wavedec2_packed(
@@ -67,7 +70,8 @@ def encode_image_sharded(
     same). The colour conversion runs on the axis's first device before
     the split: it is per pixel, so a shard's values are those of a
     per-shard conversion. The working dtype is float64, which gives the
-    host float64 path's streams.
+    host float64 path's streams. On a mesh over ranks every rank passes
+    the same image, and its own device does the work above.
     """
     if not isinstance(image, torch.Tensor):
         image = torch.as_tensor(np.ascontiguousarray(image))
@@ -81,7 +85,7 @@ def encode_image_sharded(
     slices, _, _ = get_slices_and_h_w(h, w, settings, level)
     ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
 
-    dev = mesh.axis_devices(axis_name)[0]
+    dev = mesh.output_device(axis_name)
     arr = _sharded_forward(image.to(dev, torch.float64), settings, lv, mesh,
                            axis_name)
     if max_bits is None:

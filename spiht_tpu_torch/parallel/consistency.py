@@ -43,20 +43,25 @@ def replication_discrepancy(
 
     ``x`` is the value's per-device copies, one a shard of
     ``mesh[axis_name]``, or a plain tensor, which is first copied to every
-    shard (the JAX version's replicated in-spec). The copies are gathered
-    and compared with the first. Returns a float32 scalar on the axis's
-    first device (0.0 iff bit-identically replicated, for floats without
-    NaNs).
+    shard (the JAX version's replicated in-spec). On a mesh over ranks a
+    plain tensor is this rank's copy, and a list holds this rank's copy at
+    its index on the axis. The copies are gathered and compared with the
+    first. Returns a float32 scalar on the axis's first device (over
+    ranks, on every rank's; 0.0 iff bit-identically replicated, for floats
+    without NaNs).
     """
     devs = mesh.axis_devices(axis_name)
+    line = mesh.line(axis_name)
     if isinstance(x, torch.Tensor):
-        copies = [x.to(d, copy=True) for d in devs]
+        copies = [x.to(d, copy=True) if line is None or s == line.me
+                  else None for s, d in enumerate(devs)]
     else:
         copies = list(x)
         if len(copies) != len(devs):
             raise ValueError(f"{len(copies)} copies for the {len(devs)} "
                              f"shards of axis {axis_name!r}")
-    g = torch.stack(all_gather(copies, devs[0]))  # (n, ...)
+    g = torch.stack(all_gather(copies, mesh.output_device(axis_name),
+                               line))  # (n, ...)
     return torch.abs(g - g[0]).to(torch.float32).max()
 
 

@@ -16,12 +16,19 @@
    (tests/test_torch_copies.py): the two packages read each other's
    manifests.
 
-The mesh of ``parallel.mesh`` is single-controller (one process drives
-every device of it); the process group is for what spans processes.
+After `initialize()` with two or more processes, ``parallel.make_mesh``
+spans the ranks of the group (mesh position k is rank k's device), and
+the sharded DWT, plane statistics and ``encode_image_sharded`` run SPMD
+across the processes, each returning the replicated outputs, as
+``spiht_tpu.parallel`` does after ``jax.distributed.initialize``. Every
+process calls the same functions with the same arguments. A collective
+that waits past `TIMEOUT` (a rank that died, or one that issues other
+collectives) raises instead of hanging the others.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 from typing import Dict, Iterable, Optional, Sequence
 
@@ -37,6 +44,9 @@ __all__ = [
     "load_manifest",
 ]
 
+# how long a collective of the group waits for the other ranks
+TIMEOUT = datetime.timedelta(seconds=300)
+
 
 def initialize(
     coordinator_address: Optional[str] = None,
@@ -49,7 +59,8 @@ def initialize(
     coordinator configured). ``coordinator_address`` is ``host:port`` of
     rank 0; ``num_processes`` and ``process_id`` are the world size and
     this process's rank. Several processes need the coordinator's address:
-    unlike JAX, nothing here reads it from a cluster's environment.
+    unlike JAX, nothing here reads it from a cluster's environment. The
+    group's collectives time out after `TIMEOUT`.
     """
     import torch.distributed as dist
 
@@ -63,6 +74,7 @@ def initialize(
     dist.init_process_group(
         "nccl" if cuda else "gloo",
         init_method=f"tcp://{coordinator_address}",
+        timeout=TIMEOUT,
         world_size=-1 if num_processes is None else num_processes,
         rank=-1 if process_id is None else process_id,
     )
