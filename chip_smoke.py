@@ -163,6 +163,24 @@ Phases:
       wall ms, DWT ms, device peak, and the calls and bytes of its
       collectives. With two or more cards, min(4, cards) ranks, one a
       card, over NCCL with the same checks; with one, "not run: 1 card"
+  25. the single-image round trip as one program a key (run before 24,
+      which needs the card's memory): at A and B, encode_image_device's
+      and decode_image_device's first call (warm-up, capture, replay) and
+      a replay equal to phases 3-4's streams and to the eager body's
+      images; B1 and B2 (A) or B3 (B) counted twice by their wrappers on
+      a key's first call (the warm-up's launch and the capture's) and not
+      at all on a replay, which the program counts; in a profiled round
+      trip of replays, B1 and the decoder once each in the profiler's
+      kernel rows; one
+      encode key through budgets of 1.0 bpp, 0.25 bpp, 1 bit and the full
+      stream, each equal to the eager body's; one decode key through a
+      longer stream, then a shorter one, the first image unchanged; a
+      replay of each direction under torch.cuda.set_sync_debug_mode
+      ("error") up to the stat read; phase 5's quarter stream equal to the
+      eager body's and phase 5's; eager and program medians of 5 and one
+      profiled round trip each; the 8K geometry of phase 21 through both
+      programs, equal to phase 21's stream and image; each program's
+      bucket, pool bytes, static bytes and first-run seconds
 """
 
 from __future__ import annotations
@@ -197,6 +215,7 @@ from spiht_tpu_torch.tools import (
     card, spike_hbm_table, spike_pallas_block, spike_pallas_ilp,
     spike_pallas_machine, spike_pallas_seq, spike_token_matmul,
 )
+from spiht_tpu_torch import torch_transform
 from spiht_tpu_torch.torch_transform import _scaled_coeffs, forward, inverse
 from spiht_tpu_torch.utils import imload, imsave
 from spiht_tpu_torch.wavelets import dwt
@@ -520,8 +539,12 @@ def phase_small():
 
 def main_path(label, settings, level, im, max_bits, expect_dec):
     """Phases 3/4: encode_image_device + decode_image_device on the card
-    with the launch counts set to 0 just before and read just after."""
+    with the launch counts set to 0 just before and read just after: the
+    first call of each key (no program cached), whose warm-up launches B1
+    and the decoder and whose capture records the launch its replay runs
+    (two launches each)."""
     dev = DEV
+    torch_transform.clear_programs()
     reset_counts()
     er = pt.encode_image_device(im, settings, level, max_bits, device=dev)
     out = pt.decode_image_device(er, settings, device=dev)
@@ -556,7 +579,9 @@ def main_path(label, settings, level, im, max_bits, expect_dec):
     print(json.dumps({
         "phase": label, "geometry": [c, enc_h, enc_w], "ll": [ll_h, ll_w],
         "bytes": len(er.encoded_bytes), "max_n": er.max_n,
-        "launches": n, "coeffs_differing_card_vs_cpu": n_diff,
+        "launches": n, "program_replays": [
+            p.replays for p in torch_transform.programs()],
+        "coeffs_differing_card_vs_cpu": n_diff,
         "stream_equals_cpu_port": er_cpu.encoded_bytes == er.encoded_bytes,
         "image_max_abs_diff_card_vs_cpu_decode": img_err,
         "psnr_db": psnr,
@@ -614,10 +639,23 @@ def bound_ms(name, stats):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the wrappers whose kernels read their per-call scalars from device
+# memory (argument positions): timed with the scalars there, as a
+# program's replay launches them, so no fill kernel of the wrapper's is in
+# the kernel's time (B7 takes its budget by value; the log variants size
+# their log from nbits on the host and keep their ints)
+SCALAR_ARGS = {encoder.encode_machine: (6, 7, 8),
+               encoder.encode_machine_seq: (6,),
+               decoder.decode_lsp: (1, 2), decoder.decode_seq: (1, 2)}
+
+
 def time_kernel(wrapper, args, min_ms=50.0, max_reps=200):
     """ms per launch by CUDA events over at least 5 launches after a
     warm-up, more for a short kernel (enough for ~``min_ms`` in all, at
     most ``max_reps``)."""
+    pos = SCALAR_ARGS.get(wrapper, ())
+    args = tuple(encoder.device_scalar("scalar", a, args[0].device)
+                 if i in pos else a for i, a in enumerate(args))
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     wrapper(*args)
@@ -656,14 +694,17 @@ def profile_round_trip(label, round_trip):
     ]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(json.dumps({
+    row = {
         "profile": f"{label} round trip (encode + decode) under "
                    "torch.profiler, whose overhead inflates wall_ms",
         "wall_ms": wall,
         "device_busy_ms": busy if rows else "not measured",
         "device_idle_share": 1 - busy / wall if rows else "not measured",
         "top_device_ms": [[k, ms, n] for k, ms, n in rows[:8]],
-    }))
+    }
+    print(json.dumps(row))
+    row["rows"] = rows  # every device row: (name, ms, count)
+    return row
 
 
 def median_ms(fn, reps=5):
@@ -1514,7 +1555,7 @@ def phase_large():
         reset_counts()
         er, enc_gb = peak_gb(lambda: pt.encode_image_device(
             im, settings, level, budget, device=DEV))
-        launched("spiht_encode")
+        program_launched("spiht_encode")
         arr, _, _ = forward(torch.as_tensor(im, device=DEV), settings, level)
         want = nat.encode(arr.cpu().numpy(), *geo[3:], budget)
         check((er.encoded_bytes, er.max_n) == want,
@@ -2577,7 +2618,7 @@ def phase_parallel(ims16, smi):
     reset_counts()
     rec, dec_ms = wall_ms(lambda: pt.decode_image_device(er, CONFIG_A,
                                                          device=DEV))
-    launched(dec)
+    program_launched(dec)
     # the decode held against the native scheduler's: its coefficients one
     # for one (a second call of the decode kernel, outside the count), and
     # the image against the same inverse of the native coefficients
@@ -3687,7 +3728,7 @@ def phase_ranks(ref, smi, side=SIDE_8K):
     rec = pt.decode_image_device(
         pt.EncodingResult(streams[0], h, w, 3, rows[0]["max_n"], None),
         CONFIG_A, device=DEV)
-    launched(ref["dec"])
+    program_launched(ref["dec"])
     check(torch.equal(rec, ref["rec"]),
           "phase 24: B3's decode of rank 0's stream != phase 21's image")
     del rec
@@ -3714,6 +3755,223 @@ def phase_ranks(ref, smi, side=SIDE_8K):
         out["nccl"] = {"ranks": rows, "cards": k}
     else:
         out["nccl"] = "not run: 1 card"
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the single-image round trip as one program a key
+# ---------------------------------------------------------------------------
+
+
+def program_rows(progs) -> list:
+    """Each program's key fields, bucket, bytes, replays and first-run
+    seconds."""
+    return [{
+        "key": [str(k) for k in p.key[2:]], "bucket_words": p.bucket,
+        "pool_bytes": p.pool_bytes, "static_bytes": p.static_bytes,
+        "pinned_host_bytes": p.host_bytes, "replays": p.replays,
+        "warmup_and_capture_s": p.capture_s,
+    } for p in progs]
+
+
+def program_launched(name):
+    """Check that the program call just made (``encode_image_device`` or
+    ``decode_image_device``) launched ``name`` as a program launches it,
+    and no other kernel: its wrapper counts the warm-up's launch and the
+    one the capture records on a key's first call, and nothing on a later
+    call, which the program counts as a replay; the counts are set to 0
+    again. Returns the program."""
+    prog = torch_transform.programs()[-1]
+    n = counts()
+    want = {k: 0 for k in n}
+    want[name] = 2 if prog.replays == 1 else 0
+    check(prog.replays >= 1 and n == want,
+          f"launches {n}, want {want} ({prog.replays} replays)")
+    reset_counts()
+    return prog
+
+
+# the kernels of a program's replay as torch.profiler names them
+PROFILED = {"spiht_encode": "spiht_encode_kernel(",
+            "spiht_decode_lsp": "spiht_decode_kernel<false, false>",
+            "spiht_decode_seq": "spiht_decode_kernel<true, false>"}
+
+
+def replayed_kernels(label, round_trip, progs, tries=3):
+    """One profiled round trip of warm programs (``progs``, each replayed
+    once in it, no wrapper launching anything): the machine kernels in
+    its device rows, by the names in ``PROFILED``; a trace with no
+    device row at all (CUPTI delivered none) is taken again, up to
+    ``tries`` times. Returns (the profile's row, kernel -> launches)."""
+    for _ in range(tries):
+        before = [p.replays for p in progs]
+        reset_counts()
+        prof = profile_round_trip(label, round_trip)
+        check(not nonzero() and [p.replays for p in progs]
+              == [r + 1 for r in before],
+              f"{label}: launches {nonzero()}, not one replay a program")
+        if prof["rows"]:
+            break
+    ran = {k: sum(n for row, _, n in prof["rows"] if stem in row)
+           for k, stem in PROFILED.items()}
+    return prof, {k: n for k, n in ran.items() if n}
+
+
+def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
+    """Phase 25 (module docstring): programs against the eager body and
+    against phases 3-5 and 21, bit for bit; their launches and replays; a
+    replay with no sync before the stat read; eager and program timings,
+    first calls and pools. Gated on equalities and counts only."""
+    t0 = time.perf_counter()
+    tt = torch_transform
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    out = {"phase": "25 the round trip as one program", "card": smi,
+           "program_limit": tt.PROGRAM_LIMIT,
+           "program_memory_share": tt.PROGRAM_MEMORY_SHARE}
+    cases = (("A", im_a, er_a, CONFIG_A, None, "spiht_decode_lsp"),
+             ("B", im_b, er_b, CONFIG_B, 3, "spiht_decode_seq"))
+    for label, im, er, s, level, dec in cases:
+        c, h, w = im.shape
+        mb = h * w  # phases 3-4's budget: 1.0 bpp
+        x = torch.as_tensor(im, device=DEV)
+        body_enc = tt.encode_pipeline_eager(s, level)
+        body_dec = tt.decode_pipeline_eager(s, h, w, level, c)
+
+        def eager_encode(budget):
+            words, stat, mn = body_enc(x, budget)
+            total = encoder.check_stat(stat, "spiht_encode")[0]
+            return encoder.stream_bytes(words, total), int(mn)
+
+        def eager_decode(data):
+            words, nbits = decoder.words_tensor(data, DEV)
+            return body_dec(words, nbits, er.max_n)
+
+        def enc():
+            return pt.encode_image_device(im, s, level, mb, device=DEV)
+
+        def dec_img(e=er):
+            return pt.decode_image_device(e, s, device=DEV)
+
+        row = {}
+        # the keys of phases 3-4: the first call (warm-up, capture, replay:
+        # two launches of B1 or the decoder) and a replay (none)
+        for what in ("first", "replay"):
+            reset_counts()
+            got, row[f"encode_{what}_ms"] = timed(enc)
+            eprog = program_launched("spiht_encode")
+            check((got.encoded_bytes, got.max_n) ==
+                  (er.encoded_bytes, er.max_n),
+                  f"25 {label} encode {what}: != phase 3-4's stream")
+            img, row[f"decode_{what}_ms"] = timed(dec_img)
+            torch.cuda.synchronize()
+            dprog = program_launched(dec)
+            if what == "first":
+                first_img = img
+        check(eprog.replays == dprog.replays == 2,
+              f"25 {label}: replays {eprog.replays}, {dprog.replays}")
+        check(eager_encode(mb) == (er.encoded_bytes, er.max_n),
+              f"25 {label}: the eager body's stream != phase 3-4's")
+        want = eager_decode(er.encoded_bytes)
+        check(torch.equal(first_img, want) and torch.equal(img, want),
+              f"25 {label}: the program's image != the eager body's")
+        # the replays ran B1 and the decoder: the profiler's kernel rows
+        prof, ran = replayed_kernels(f"25 {label} program",
+                                     lambda: (enc(), dec_img()),
+                                     [eprog, dprog])
+        check(ran == {"spiht_encode": 1, dec: 1},
+              f"25 {label}: the replays' kernels {ran}")
+        row["replay_kernels_profiled"] = ran
+        # one encode key, every budget: the full stream's program
+        prog = tt.encode_program(s, im.shape, level, torch.float64,
+                                 torch.float64, DEV, FULL)
+        budgets = {"1.0 bpp": mb, "0.25 bpp": mb // 4, "1 bit": 1,
+                   "full": FULL}
+        streams = {}
+        for name, budget in budgets.items():
+            data, _, mn = prog(im, budget)
+            check((data, mn) == eager_encode(budget),
+                  f"25 {label} {name} through one key != the eager body")
+            streams[name] = data
+        check(streams["1.0 bpp"] == er.encoded_bytes
+              and len(set(streams.values())) == len(streams),
+              f"25 {label}: one key's streams")
+        # one decode key: a longer stream, then a shorter one (stale tail);
+        # the image returned first stays as it was
+        data = er.encoded_bytes
+        short = data[: len(data) * 3 // 4]
+        dprog = tt.decode_program(s, h, w, level, c, torch.float64, False,
+                                  DEV, len(data) * 8)
+        long_img = dprog(data, len(data) * 8, er.max_n)
+        kept = long_img.clone()
+        short_img = dprog(short, len(short) * 8, er.max_n)
+        check(torch.equal(long_img, want)
+              and torch.equal(short_img, eager_decode(short))
+              and torch.equal(long_img, kept),
+              f"25 {label}: longer then shorter stream through one key")
+        # a replay with no sync before the stat read
+        eprog = tt.encode_program(s, im.shape, level, torch.float64,
+                                  torch.float64, DEV, mb)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eprog.start(im, mb)
+            dprog.start(data, len(data) * 8, er.max_n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(eprog.finish()[0] == er.encoded_bytes
+              and torch.equal(dprog.finish(), want),
+              f"25 {label}: the replays without a sync")
+        # timings: median of 5, eager body vs program
+        row["encode_eager_ms"] = median_ms(lambda: eager_encode(mb))
+        row["encode_program_ms"] = median_ms(enc)
+        row["decode_eager_ms"] = median_ms(
+            lambda: eager_decode(er.encoded_bytes))
+        row["decode_program_ms"] = median_ms(dec_img)
+        eager = profile_round_trip(f"25 {label} eager", lambda: (
+            eager_encode(mb), eager_decode(er.encoded_bytes)))
+        for route, p in (("eager", eager), ("program", prof)):
+            row[f"profile_{route}"] = {k: p[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share")}
+        out[label] = row
+    # phase 5's quarter stream through its own key
+    c, h, w = im_a.shape
+    quarter = er_a.encoded_bytes[: len(er_a.encoded_bytes) // 4]
+    er_q = pt.EncodingResult(quarter, h, w, c, er_a.max_n, None)
+    words, nbits = decoder.words_tensor(quarter, DEV)
+    want_q = tt.decode_pipeline_eager(CONFIG_A, h, w, None, c)(
+        words, nbits, er_a.max_n)
+    for _ in range(2):
+        reset_counts()
+        img = pt.decode_image_device(er_q, CONFIG_A, device=DEV)
+        torch.cuda.synchronize()
+        program_launched("spiht_decode_lsp")
+        check(torch.equal(img, want_q) and torch.equal(img, prev_q),
+              "25 the quarter stream != the eager body's or phase 5's")
+    out["programs_A_B"] = program_rows(tt.programs())
+    # the 8K geometry of phase 21: its programs' pools
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    h, w = SIDE_8K
+    im8 = image(21, (3, h, w))
+    reset_counts()
+    er8, ms = timed(lambda: pt.encode_image_device(im8, CONFIG_A, None,
+                                                   h * w, device=DEV))
+    program_launched("spiht_encode")
+    check((er8.encoded_bytes, er8.max_n) == (ref8k["data"], ref8k["max_n"]),
+          "25 8K: the program's stream != phase 21's")
+    rec8, dms = timed(lambda: pt.decode_image_device(er8, CONFIG_A,
+                                                     device=DEV))
+    torch.cuda.synchronize()
+    program_launched(ref8k["dec"])
+    check(torch.equal(rec8, ref8k["rec"]),
+          "25 8K: the program's image != phase 21's")
+    del rec8, im8
+    out["8k"] = {"encode_first_ms": ms, "decode_first_ms": dms,
+                 "programs": program_rows(tt.programs())}
+    tt.clear_programs()
+    torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out))
 
@@ -3822,6 +4080,9 @@ def run_phases() -> list:
 
     # ---- phase 23: the JAX package's documented switches ----
     phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b)
+
+    # ---- phase 25: the round trip as one program a key ----
+    phase_program(im_a, im_b, er_a, er_b, prev, ref8k, card())
 
     # ---- phase 24: the mesh over the ranks of a process group ----
     phase_ranks(ref8k, card())

@@ -35,7 +35,7 @@ import torch
 import chip_smoke as cs
 import spiht_tpu_torch as pt
 from spiht_tpu_torch import _build
-from spiht_tpu_torch.codec import decoder, meta_expand
+from spiht_tpu_torch.codec import decoder, encoder, meta_expand
 from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
 
 ROOT = Path(__file__).resolve().parent
@@ -143,9 +143,11 @@ def launch(lib, seq, args):
     lis = torch.empty(lis_cap, dtype=torch.int32, device=dev)
     lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
     stat = torch.empty(6, dtype=torch.int32, device=dev)
-    head = [words.data_ptr(), nbits, max_n, geo.data_ptr(), lip0.data_ptr(),
-            lip0.numel(), lis0.data_ptr(), lis0.numel(), w, lip.data_ptr(),
-            lip_cap, lis.data_ptr(), lis_cap, lsp.data_ptr()]
+    nb = encoder.device_scalar("nbits", nbits, dev)
+    mn = encoder.device_scalar("max_n", max_n, dev)
+    head = [words.data_ptr(), nb.data_ptr(), mn.data_ptr(), geo.data_ptr(),
+            lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
+            lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap, lsp.data_ptr()]
     stream = torch.cuda.current_stream().cuda_stream
     if seq:
         rec = torch.empty(geo.numel(), dtype=torch.int32, device=dev)

@@ -210,11 +210,17 @@ def launch(lib, batch, args, seq=False):
             t1.shape[1], w, max_n.data_ptr(), max_bits.data_ptr(), *tail)
     else:
         t1, t3s, child0, lip0, lis0, w, max_n, mb, capped = args[:9]
+        if seq:  # B7 takes the budget and its flag by value
+            budget = (int(mb), int(capped))
+        else:  # B1 reads them from device memory: alive until the launch
+            held = (encoder.device_scalar("max_bits", mb, dev),
+                    encoder.device_scalar("capped", capped, dev))
+            budget = tuple(t.data_ptr() for t in held)
         run = lib.spiht_encode_seq_launch if seq else lib.spiht_encode_launch
         rc = run(
             t1.data_ptr(), t3s.data_ptr(), child0.data_ptr(),
             lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
-            max_n.data_ptr(), mb, int(capped), *tail)
+            max_n.data_ptr(), *budget, *tail)
     if rc:
         raise RuntimeError(f"launch failed: CUDA error {rc}")
     return (words, stat) if batch else (words[0], stat[0])

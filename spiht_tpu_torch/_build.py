@@ -34,10 +34,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int32
 _I64 = ctypes.c_int64
 # argtypes of each C entry point: every pointer and the stream are c_void_p
+# (tests/test_torch_signatures.py holds them to the sources' declarations)
 SIGNATURES = {
     "spiht_encode": {
         "spiht_encode_launch": [
-            _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
+            _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P,
             _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
         ],
         "spiht_encode_seq_launch": [
@@ -51,19 +52,19 @@ SIGNATURES = {
     },
     "spiht_decode": {
         "spiht_decode_lsp_launch": [
-            _P, _I, _I, _P, _P, _I, _P, _I, _I,
+            _P, _P, _P, _P, _P, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _P, _I, _P, _P,
         ],
         "spiht_decode_lsp_log_launch": [
-            _P, _I, _I, _P, _P, _I, _P, _I, _I,
+            _P, _P, _P, _P, _P, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
         ],
         "spiht_decode_seq_launch": [
-            _P, _I, _I, _P, _P, _I, _P, _I, _I,
+            _P, _P, _P, _P, _P, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P,
         ],
         "spiht_decode_seq_log_launch": [
-            _P, _I, _I, _P, _P, _I, _P, _I, _I,
+            _P, _P, _P, _P, _P, _I, _P, _I, _I,
             _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
         ],
         "spiht_decode_batch_launch": [

@@ -61,9 +61,9 @@ from ..device import resolve_device
 from ..settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
 from ..torch_transform import (
     decode_pipeline_batch_fn,
-    decode_pipeline_fn,
+    decode_program,
     encode_pipeline_batch_fn,
-    encode_pipeline_fn,
+    encode_program,
     forward,
     forward_compact,
     forward_plan,
@@ -75,8 +75,8 @@ from ..ops.bitpack import bits_to_bytes, bytes_to_bits
 from . import (
     decoder, device_decoder, device_encoder, encoder, meta_expand, oracle,
 )
-from .decoder import words_batch, words_tensor
-from .encoder import batch_stream_bytes, check_stat, stream_bytes
+from .decoder import words_batch
+from .encoder import batch_stream_bytes, check_stat
 from .maxn import device_max_n
 from .planning import cut_plane_np, plan_supported
 
@@ -566,14 +566,6 @@ def decode_images(
     return images
 
 
-def _as_image(image, device: torch.device) -> torch.Tensor:
-    if not isinstance(image, torch.Tensor):
-        image = torch.as_tensor(np.ascontiguousarray(image))
-    if image.dim() != 3:
-        raise ValueError("image ndim must be 3: c,h,w")
-    return image.to(device)
-
-
 def encode_image_device(
     image,
     spiht_settings: SpihtSettings = SpihtSettings(),
@@ -583,18 +575,22 @@ def encode_image_device(
     dtype: torch.dtype = torch.float64,
 ) -> EncodingResult:
     """Encode a (C, H, W) image (numpy or tensor) on the device: colour ->
-    DWT -> quantize -> max_n -> SPIHT bit emission (kernel B1). Only the
+    DWT -> quantize -> max_n -> SPIHT bit emission (kernel B1), as one
+    cached program a key (``torch_transform.encode_program``: on the card
+    a CUDA graph, as the JAX package runs one XLA program). Only the
     finished stream comes back to the host."""
     dev = resolve_device(device)
-    img = _as_image(image, dev)
-    c, h, w = img.shape
-    fn = encode_pipeline_fn(spiht_settings, level, dtype)
-    # machine_args clamps the budget to what an int32 bit count holds
-    words, stat, max_n = fn(img, _MAX_BITS if max_bits is None else max_bits)
-    total = check_stat(stat, "spiht_encode")[0]
-    return EncodingResult(
-        stream_bytes(words, total), h, w, c, int(max_n), level
-    )
+    if not isinstance(image, torch.Tensor):
+        image = torch.from_numpy(np.ascontiguousarray(image))
+    if image.dim() != 3:
+        raise ValueError("image ndim must be 3: c,h,w")
+    c, h, w = image.shape
+    # the program clamps the budget to what an int32 bit count holds
+    mb = _MAX_BITS if max_bits is None else max_bits
+    prog = encode_program(spiht_settings, image.shape, level, dtype,
+                          image.dtype, dev, mb)
+    data, _, max_n = prog(image, mb)
+    return EncodingResult(data, h, w, c, max_n, level)
 
 
 def decode_image_device(
@@ -606,16 +602,17 @@ def decode_image_device(
 ) -> torch.Tensor:
     """Decode an EncodingResult on the device: bit parse (kernel B2 and the
     rec scatter, or B3 for odd-LL geometries) -> dequantize -> inverse DWT
-    -> inverse colour. Returns the image as a tensor on the device."""
+    -> inverse colour, as one cached program a key
+    (``torch_transform.decode_program``). Returns the image as a fresh
+    tensor on the device."""
     if encoding_result._encoding_version != ENCODER_DECODER_VERSION:
         raise ValueError(encoding_result._encoding_version)
     dev = resolve_device(device)
     h, w, c = encoding_result.h, encoding_result.w, encoding_result.c
-    words, nbits = words_tensor(encoding_result.encoded_bytes, dev)
-    fn = decode_pipeline_fn(
-        spiht_settings, h, w, encoding_result.level, c, dtype, as_uint8
-    )
-    return fn(words, nbits, int(encoding_result.max_n))
+    data = encoding_result.encoded_bytes
+    prog = decode_program(spiht_settings, h, w, encoding_result.level, c,
+                          dtype, as_uint8, dev, len(data) * 8)
+    return prog(data, len(data) * 8, int(encoding_result.max_n))
 
 
 def _budgets(max_bits, n: int) -> list:

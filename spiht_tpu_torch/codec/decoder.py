@@ -57,7 +57,7 @@ from ..device import resolve_device
 from .encoder import (
     MAX_CELLS, STAT_LEN, MachineResourceLimit, _Stop, _check_i32,
     _env_machine, _fits_or_raise, batch_mode, check_geometry, check_stat,
-    ilv_chunk, machine_caps, machine_fits,
+    device_scalar, ilv_chunk, machine_caps, machine_fits,
 )
 from .geom import (
     A_DESC, A_LIP, A_LIPSIGN, A_LSIG, A_OFF, A_OFFSIGN, A_REF, _F_AD, _F_DA,
@@ -126,6 +126,7 @@ def _decode_machine_plain(
     filter as the kernel's do (bits 29-30 of a LIP or LSP entry, 30-31 of
     a LIS entry); B2-log's filter field is 0."""
     filt = seq and log
+    nbits, max_n = int(nbits), int(max_n)  # ints or 0-d tensors
     raw = words.numpy().view(np.uint8)
     bits = np.unpackbits(raw, bitorder="little")[:nbits].tolist()
     geo = memoryview(geo.numpy())  # int reads without a list of N ints
@@ -262,7 +263,10 @@ def _check_inputs(words, nbits, geo, lip0, lis0, caps):
     for name, x in (("words", words), ("geo", geo), ("lip0", lip0),
                     ("lis0", lis0)):
         _check_i32(name, x, dev)
-    if not 0 <= nbits <= words.numel() * 32:
+    # a tensor nbits is the caller's to hold to the words: reading it here
+    # would sync
+    if (not isinstance(nbits, torch.Tensor)
+            and not 0 <= nbits <= words.numel() * 32):
         raise ValueError("nbits must lie in [0, 32 * len(words)]")
     if geo.numel() >= MAX_CELLS:
         raise ValueError("geometry beyond the machines' packing (2^29 cells)")
@@ -275,8 +279,14 @@ def _check_inputs(words, nbits, geo, lip0, lis0, caps):
 
 
 def _check_log(max_n):
-    if not 0 <= max_n <= 30:
+    if not 0 <= int(max_n) <= 30:
         raise ValueError("the event log's plane field takes max_n <= 30")
+
+
+def _scalars(nbits, max_n, dev):
+    """nbits and max_n as the kernels read them, from device memory."""
+    return (device_scalar("nbits", nbits, dev),
+            device_scalar("max_n", max_n, dev))
 
 
 def _decode_lsp(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
@@ -298,14 +308,15 @@ def _decode_lsp(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
     lsp = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
     lsp_val = torch.empty(max(lsp_cap, 1), dtype=torch.int32, device=dev)
     stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
+    nb, mn = _scalars(nbits, max_n, dev)
     args = [
-        words.data_ptr(), nbits, int(max_n), geo.data_ptr(),
+        words.data_ptr(), nb.data_ptr(), mn.data_ptr(), geo.data_ptr(),
         lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
         lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
         lsp.data_ptr(), lsp_val.data_ptr(), lsp_cap, stat.data_ptr(),
     ]
-    if log:
-        events = torch.zeros(nbits + 1, dtype=torch.int64, device=dev)
+    if log:  # the log's length is read on the host
+        events = torch.zeros(int(nbits) + 1, dtype=torch.int64, device=dev)
         args.append(events.data_ptr())
     launch = (lib.spiht_decode_lsp_log_launch if log
               else lib.spiht_decode_lsp_launch)
@@ -329,7 +340,10 @@ def decode_lsp(
 ):
     """Kernel B2 (or, for CPU tensors, its plain version).
 
-    words: int32 stream words (LSB-first bits); geo: int32[N]
+    words: int32 stream words (LSB-first bits); nbits, max_n: ints or 0-d
+    int32 tensors on the words' device, which the kernel reads from device
+    memory, so a CUDA graph can replay the launch with new values (a
+    tensor nbits is not checked against the words); geo: int32[N]
     ``child0<<2 | hc<<1 | hg``; lip0/lis0: initial entries; caps: (lip,
     lis, lsp) capacities. Returns (lsp nodes int32[cap], lsp values int32
     [cap] as sgn<<31 | magnitude, stat int32[STAT_LEN]); stat[0] counts
@@ -390,15 +404,16 @@ def _decode_seq(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
     # per-node refinement claims (plane tag << 32 | LSP index)
     last = torch.empty(n_rec, dtype=torch.int64, device=dev)
     stat = torch.empty(STAT_LEN, dtype=torch.int32, device=dev)
+    nb, mn = _scalars(nbits, max_n, dev)
     args = [
-        words.data_ptr(), nbits, int(max_n), geo.data_ptr(),
+        words.data_ptr(), nb.data_ptr(), mn.data_ptr(), geo.data_ptr(),
         lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(), w,
         lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
         lsp.data_ptr(), lsp_cap, rec.data_ptr(), last.data_ptr(), n_rec,
         stat.data_ptr(),
     ]
-    if log:
-        events = torch.zeros(nbits + 1, dtype=torch.int64, device=dev)
+    if log:  # the log's length is read on the host
+        events = torch.zeros(int(nbits) + 1, dtype=torch.int64, device=dev)
         args.append(events.data_ptr())
     launch = (lib.spiht_decode_seq_log_launch if log
               else lib.spiht_decode_seq_launch)

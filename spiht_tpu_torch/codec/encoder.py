@@ -90,6 +90,7 @@ __all__ = [
     "encode_machine_batch",
     "machine_args",
     "batch_machine_args",
+    "device_scalar",
     "encode_coeffs",
     "encode_coeffs_batch",
     "encode",
@@ -130,15 +131,20 @@ class _Stop(Exception):
     """The plain machines' way out: budget spent or stream exhausted."""
 
 
-def check_stat(stat: torch.Tensor, what: str) -> list:
-    """stat as a host list, a list of rows for a (B, STAT_LEN) batch;
-    raises on a machine error in any stream (syncs the device):
-    ``EncCapacityOverflow`` for error 1, else ``RuntimeError``."""
-    s = stat.tolist()
-    rows = s if stat.dim() == 2 else [s]
+def check_stat(stat, what: str) -> list:
+    """stat (a tensor, or a list already read) as a host list, a list of
+    rows for a (B, STAT_LEN) batch; raises on a machine error in any
+    stream (syncs the device): ``EncCapacityOverflow`` for error 1, else
+    ``RuntimeError``."""
+    if isinstance(stat, torch.Tensor):
+        s, batch = stat.tolist(), stat.dim() == 2
+    else:
+        s = list(stat)
+        batch = bool(s) and isinstance(s[0], list)
+    rows = s if batch else [s]
     for b, row in enumerate(rows):
         if row[1] != 0:
-            at = f" stream {b}" if stat.dim() == 2 else ""
+            at = f" stream {b}" if batch else ""
             err = EncCapacityOverflow if row[1] == 1 else RuntimeError
             raise err(
                 f"{what}{at}: {_ERRORS.get(row[1], row[1])} (stat {row})"
@@ -229,11 +235,12 @@ def _encode_machine_plain(
     t1, t3s, child0, lip0, lis0, w, max_n, max_bits, capped,
     lip_cap, lis_cap, lsp_cap, cap_words,
 ):
-    """The plain version of kernel B1 on CPU tensors (lists inside)."""
+    """The plain version of kernel B1 on CPU tensors (lists inside); the
+    scalars max_n, max_bits and capped are ints or 0-d tensors."""
     t1 = t1.tolist()
     t3s = t3s.tolist()
     child0 = child0.tolist()
-    max_n = int(max_n)
+    max_n, max_bits, capped = int(max_n), int(max_bits), bool(int(capped))
     lip = lip0.tolist()
     lis = lis0.tolist()
     lsp = []
@@ -374,6 +381,19 @@ def _check_i32(name: str, x: torch.Tensor, device: torch.device, ndim=1):
         raise ValueError(f"{name} must be contiguous")
 
 
+def device_scalar(name: str, v, dev: torch.device) -> torch.Tensor:
+    """A per-call scalar of a kernel as the kernel reads it, from device
+    memory: a 0-d (or one-element) int32 tensor on ``dev`` as it is, or an
+    int written there by a fill kernel (no copy from the host, no
+    sync)."""
+    if isinstance(v, torch.Tensor):
+        if v.numel() != 1:
+            raise ValueError(f"{name}: want one element, got {v.numel()}")
+        _check_i32(name, v.reshape(1), dev)
+        return v
+    return torch.full((), int(v), dtype=torch.int32, device=dev)
+
+
 def scratch_queues(caps: Tuple[int, int, int], B: int = 1, device="cpu"):
     """The machines' scratch queues (lip, lis, lsp) for B streams at the
     capacities ``caps``: int32 (B, k * cap). B1 and B4 keep t3s words in
@@ -399,7 +419,10 @@ def _encode_machine(
         raise ValueError("t1, t3s and child0 must have one entry per cell")
     if N >= MAX_CELLS:
         raise ValueError("geometry beyond the machines' packing (2^29 cells)")
-    if not 0 <= max_bits <= cap_words * 32:
+    # a tensor budget is the caller's to hold to the buffer (``_budget``):
+    # reading it here would sync
+    if (not isinstance(max_bits, torch.Tensor)
+            and not 0 <= max_bits <= cap_words * 32):
         raise ValueError("max_bits must lie in [0, cap_words*32]")
     lip_cap, lis_cap, lsp_cap = caps
     if lip0.numel() > lip_cap or lis0.numel() > lis_cap:
@@ -411,9 +434,13 @@ def _encode_machine(
         )
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if not isinstance(max_n, torch.Tensor):
-        max_n = torch.tensor(int(max_n), dtype=torch.int32, device=dev)
-    _check_i32("max_n", max_n.reshape(1), dev)
+    max_n = device_scalar("max_n", max_n, dev)
+    if seq:  # B7 takes the budget and its flag by value
+        budget = (int(max_bits), int(bool(int(capped))))
+    else:  # held until the launch
+        held = (device_scalar("max_bits", max_bits, dev),
+                device_scalar("capped", capped, dev))
+        budget = tuple(t.data_ptr() for t in held)
     from .. import _build
 
     lib = _build.load("spiht_encode")
@@ -425,7 +452,7 @@ def _encode_machine(
     rc = launch(
         t1.data_ptr(), t3s.data_ptr(), child0.data_ptr(),
         lip0.data_ptr(), lip0.numel(), lis0.data_ptr(), lis0.numel(),
-        w, max_n.data_ptr(), max_bits, int(bool(capped)),
+        w, max_n.data_ptr(), *budget,
         lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
         lsp.data_ptr(), lsp_cap, words.data_ptr(), cap_words,
         stat.data_ptr(), stream,
@@ -453,9 +480,12 @@ def encode_machine(
     """Kernel B1 (or, for CPU tensors, its plain version).
 
     t1/t3s/child0: int32[N]; lip0: int32 initial LIP nodes; lis0: int32
-    initial LIS entries (node << 1 | 1); w: row length; max_n: int32 0-d
-    tensor (or int, CPU only); max_bits: budget, already <= cap_words*32;
-    capped: whether the caller's budget was clamped to the buffer; caps:
+    initial LIS entries (node << 1 | 1); w: row length; max_n: the start
+    plane; max_bits: budget, already <= cap_words*32; capped: whether the
+    caller's budget was clamped to the buffer. Each of the three is an int
+    (a bool for capped) or a 0-d int32 tensor on the tables' device, which
+    the kernel reads from device memory, so a CUDA graph can replay the
+    launch with new values (a tensor budget is not checked here); caps:
     (lip, lis, lsp) queue capacities. Returns (words int32[cap_words],
     stat int32[STAT_LEN]), stat = [bits, error, lip, lis, lsp, 0].
     """
@@ -481,7 +511,9 @@ def encode_machine_seq(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B7, the sequential machine (or, for CPU tensors, its plain
     version, which is B1's): one entry per iteration in one thread. The
-    same arguments and results as ``encode_machine``, the same bytes."""
+    same arguments and results as ``encode_machine``, the same bytes; B7
+    takes max_bits and capped by value (a 0-d tensor is read on the
+    host), max_n from device memory."""
     return _encode_machine(True, t1, t3s, child0, lip0, lis0, w, max_n,
                            max_bits, capped, caps, cap_words)
 
@@ -607,18 +639,34 @@ def _lead_args(arr: torch.Tensor, ll_h: int, ll_w: int) -> tuple:
     return (t1, t3s, tabs["child0"], tabs["lip0"], tabs["lis0"], w)
 
 
-def machine_args(arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int):
+def machine_args(
+    arr: torch.Tensor, ll_h: int, ll_w: int, max_bits, cap_words=None,
+):
     """``encode_machine``'s arguments for an int32 (c, h, w) array on its
-    device: the tables, max_n, the budget clamped to a buffer sized from
-    it, and the narrowed queue capacities."""
+    device: the tables, max_n, the budget clamped to the word buffer, and
+    the queue capacities narrowed to it.
+
+    ``max_bits`` is an int, clamped here (``_budget``), or the pair
+    (budget, capped) that ``_budget`` gives, as 0-d int32 tensors on the
+    array's device (a program's scalars, which the kernel reads from
+    device memory). ``cap_words`` is the buffer, sized from an int budget
+    where None (``cap_words_for``). A larger buffer, as a program's bucket
+    is, gives every budget the same (budget, capped) pair and so the same
+    stream, with wider queues."""
     if arr.dtype != torch.int32 or arr.dim() != 3:
         raise ValueError("arr must be an int32 (c, h, w) tensor")
     c, h, w = arr.shape
     check_geometry(c, h, w, ll_h, ll_w)
     arr = arr.contiguous()
-    cap_words = cap_words_for(c, h, w, min(int(max_bits), 2**31 - 2))
-    return (_lead_args(arr, ll_h, ll_w) + (device_max_n(arr),)
-            + _budget(max_bits, cap_words)
+    if isinstance(max_bits, tuple):
+        if cap_words is None:
+            raise ValueError("a (budget, capped) pair needs its cap_words")
+        budget = max_bits
+    else:
+        if cap_words is None:
+            cap_words = cap_words_for(c, h, w, min(int(max_bits), 2**31 - 2))
+        budget = _budget(max_bits, cap_words)
+    return (_lead_args(arr, ll_h, ll_w) + (device_max_n(arr),) + budget
             + (machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words))
 
 
@@ -644,18 +692,19 @@ def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
 
 
 def encode_coeffs(
-    arr: torch.Tensor, ll_h: int, ll_w: int, max_bits: int = 2**31 - 2,
-    machine=None,
+    arr: torch.Tensor, ll_h: int, ll_w: int, max_bits=2**31 - 2,
+    machine=None, cap_words=None,
 ):
     """Encode an int32 (c, h, w) coefficient array on its device, with B1
     or, for ``machine="seq"``, B7 (routed as ``pallas_encode_fn``).
+    ``max_bits`` and ``cap_words`` as ``machine_args`` takes them.
 
     Returns (words int32[cap_words], stat, max_n 0-d int32), all on the
     array's device; nothing is read back, so no host sync happens here.
     """
     if machine not in MACHINES:
         raise ValueError(f"machine must be one of {MACHINES}, got {machine!r}")
-    args = machine_args(arr, ll_h, ll_w, max_bits)
+    args = machine_args(arr, ll_h, ll_w, max_bits, cap_words)
     run = encode_machine_seq if machine == "seq" else encode_machine
     words, stat = run(*args)
     return words, stat, args[6]

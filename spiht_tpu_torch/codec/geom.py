@@ -14,6 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import keep
 from .tree_bounds import queue_bounds
 
 __all__ = ["dec_geom", "words_of", "machine_tables", "rect_table"]
@@ -111,12 +112,18 @@ def words_of(data: bytes, cap_words: int) -> np.ndarray:
     return raw.view(np.uint32)
 
 
-@lru_cache(maxsize=16)
 def machine_tables(c, h, w, ll_h, ll_w, device: torch.device) -> dict:
     """The bit machines' geometry-only tables on ``device``, int32:
     ``child0``; ``hc_flags`` = hc<<16 | hg<<17 (the encoder's t1 bits);
     ``geo`` = child0<<2 | hc<<1 | hg (the decoders' word); and the initial
-    LIP (nodes) and LIS (node << 1 | type A) entries."""
+    LIP (nodes) and LIS (node << 1 | type A) entries. Cached for 16
+    geometries; every open ``device.holding()`` keeps what it returns, as
+    a program's CUDA graph reads the tables after the cache lets go."""
+    return keep(_machine_tables(c, h, w, ll_h, ll_w, device))
+
+
+@lru_cache(maxsize=16)
+def _machine_tables(c, h, w, ll_h, ll_w, device: torch.device) -> dict:
     g = dec_geom(c, h, w, ll_h, ll_w)
     hc = g["has_child"].astype(np.int64)
     hg = g["hg"].astype(np.int64)

@@ -13,25 +13,32 @@ rounds, each a 2x2 max-pool plus the LL parity gather.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..device import constant
+
 __all__ = ["significance_maps", "tree_height", "max_n_from_maps"]
 
 
-@lru_cache(maxsize=None)
-def _ll_child_index(ll_h: int, ll_w: int):
-    """Child-block origins (oi, oj) and the no-child mask of LL roots."""
+@constant
+def _ll_child_index(ll_h: int, ll_w: int, device):
+    """Child-block origins (oi, oj) and the no-child mask of LL roots, on
+    ``device``."""
     i = np.arange(ll_h)[:, None]
     j = np.arange(ll_w)[None, :]
     oi = (i % 2) * ll_h + (i // 2) * 2
     oj = (j % 2) * ll_w + (j // 2) * 2
     oi, oj = np.broadcast_arrays(oi, oj)
     nochild = (i % 2 == 0) & (j % 2 == 0)
-    return oi.copy(), oj.copy(), np.broadcast_to(nochild, (ll_h, ll_w)).copy()
+    return (
+        torch.as_tensor(oi.copy(), dtype=torch.long, device=device),
+        torch.as_tensor(oj.copy(), dtype=torch.long, device=device),
+        torch.as_tensor(np.broadcast_to(nochild, (ll_h, ll_w)).copy(),
+                        device=device),
+    )
 
 
 def tree_height(h: int, w: int, ll_h: int, ll_w: int) -> int:
@@ -51,15 +58,12 @@ def _child_max(X: torch.Tensor, ll_h: int, ll_w: int) -> torch.Tensor:
             tuple(X.shape[:-2]) + (hh, 2, ww, 2)
         )
         out[..., :hh, :ww] = blk.amax(dim=(-3, -1))
-    oi, oj, nochild = _ll_child_index(ll_h, ll_w)
-    dev = X.device
-    oi = torch.as_tensor(oi, dtype=torch.long, device=dev)
-    oj = torch.as_tensor(oj, dtype=torch.long, device=dev)
+    oi, oj, nochild = _ll_child_index(ll_h, ll_w, X.device)
     g = torch.maximum(
         torch.maximum(X[..., oi, oj], X[..., oi, oj + 1]),
         torch.maximum(X[..., oi + 1, oj], X[..., oi + 1, oj + 1]),
     )
-    g = g.masked_fill(torch.as_tensor(nochild, device=dev), -1)
+    g = g.masked_fill(nochild, -1)
     out[..., :ll_h, :ll_w] = g
     return out
 

@@ -17,6 +17,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import constant
+
 __all__ = ["max_n_thresholds", "device_max_n"]
 
 
@@ -40,6 +42,12 @@ def max_n_thresholds() -> tuple:
     return tuple(th)
 
 
+@constant
+def _thresholds_on(device) -> torch.Tensor:
+    """``max_n_thresholds`` as int32 on ``device``, copied there once."""
+    return torch.tensor(max_n_thresholds(), dtype=torch.int32, device=device)
+
+
 def device_max_n(arr: torch.Tensor) -> torch.Tensor:
     """max_n of an int32 coefficient array (..., c, h, w), one per array
     over its last three dims (a 0-d tensor for one (c, h, w) array, (B,)
@@ -49,7 +57,8 @@ def device_max_n(arr: torch.Tensor) -> torch.Tensor:
     bits = m.to(torch.float32).view(torch.int32)
     e = ((bits >> 23) & 0xFF) - 127
     m23 = bits & 0x7FFFFF
-    th = torch.tensor(max_n_thresholds(), dtype=torch.int32, device=arr.device)
-    n = e + (m23 >= th[e.clamp(0, 31).long()]).to(torch.int32)
+    th = _thresholds_on(arr.device)
+    # take, not th[...]: a 0-d index tensor would be read on the host
+    n = e + (m23 >= torch.take(th, e.clamp(0, 31).long())).to(torch.int32)
     zero = torch.zeros((), dtype=torch.int32, device=arr.device)
     return torch.where(m <= 0, zero, n.clamp(0, 255)).to(torch.int32)

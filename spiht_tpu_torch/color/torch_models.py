@@ -29,6 +29,7 @@ import functools
 
 import torch
 
+from ..device import constant
 from . import models as _nm
 
 __all__ = ["convert", "SUPPORTED_MODELS", "REFERENCE_MODELS"]
@@ -74,9 +75,15 @@ def _dot(x: torch.Tensor, v) -> torch.Tensor:
             + x[..., 2] * float(v[2]))
 
 
+@constant
+def _const_vec(values: tuple, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _vec(v, x: torch.Tensor) -> torch.Tensor:
-    """A constant vector in ``x``'s dtype and device (elementwise use)."""
-    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    """A constant vector in ``x``'s dtype and device (elementwise use),
+    copied to the device once (``device.constant``)."""
+    return _const_vec(tuple(float(e) for e in v), x.dtype, x.device)
 
 
 def _signed_pow(x: torch.Tensor, p: float) -> torch.Tensor:

@@ -852,11 +852,20 @@ SPIHT_HD void decode_stream(const DecBatch& g, int32_t b, DecShared& sh,
 
 #include <cuda_runtime.h>
 
+// The per-call scalars (the stream's length in bits and max_n) come from
+// device memory, read once at the start into the DecArgs fields the machine
+// takes by value, as the batched kernels read theirs: a replayed CUDA graph
+// can take new values where a by-value argument is frozen at capture. The
+// caller holds nbits to the word buffer.
 template <bool SEQ, bool LOG>
 __global__ void __launch_bounds__(SPIHT_THREADS)
-spiht_decode_kernel(DecArgs a, const int32_t* __restrict__ lip0,
+spiht_decode_kernel(DecArgs a, const int32_t* __restrict__ nbits,
+                    const int32_t* __restrict__ max_n,
+                    const int32_t* __restrict__ lip0,
                     const int32_t* __restrict__ lis0, int32_t n_rec) {
   __shared__ DecShared sh;
+  a.nbits = *nbits;
+  a.max_n = *max_n;
   dec_prologue<SEQ>(a, lip0, lis0, n_rec, threadIdx.x, blockDim.x);
   __syncthreads();
   decode_machine<SEQ, LOG>(a, sh, threadIdx.x, blockDim.x);
@@ -870,57 +879,65 @@ spiht_decode_batch_kernel(DecBatch g) {
 }
 
 extern "C" int spiht_decode_lsp_launch(
-    const uint32_t* words, int32_t nbits, int32_t max_n, const int32_t* geo,
+    const uint32_t* words, const int32_t* nbits, const int32_t* max_n,
+    const int32_t* geo,
     const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
     int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
     int32_t* lsp, int32_t* lsp_val, int32_t lsp_cap, int32_t* stat,
     void* stream) {
-  DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
+  DecArgs a{words, 0, 0, geo, n_lip0, n_lis0, w, lip, lip_cap,
             lis, lis_cap, lsp, lsp_cap, lsp_val, nullptr, nullptr, stat,
             nullptr};
   spiht_decode_kernel<false, false>
-      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, 0);
+      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, nbits, max_n, lip0,
+                                                      lis0, 0);
   return (int)cudaGetLastError();
 }
 
 // B2 with the event log: `log` holds nbits + 1 zeroed words.
 extern "C" int spiht_decode_lsp_log_launch(
-    const uint32_t* words, int32_t nbits, int32_t max_n, const int32_t* geo,
+    const uint32_t* words, const int32_t* nbits, const int32_t* max_n,
+    const int32_t* geo,
     const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
     int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
     int32_t* lsp, int32_t* lsp_val, int32_t lsp_cap, int32_t* stat,
     uint64_t* log, void* stream) {
-  DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
+  DecArgs a{words, 0, 0, geo, n_lip0, n_lis0, w, lip, lip_cap,
             lis, lis_cap, lsp, lsp_cap, lsp_val, nullptr, nullptr, stat, log};
   spiht_decode_kernel<false, true>
-      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, 0);
+      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, nbits, max_n, lip0,
+                                                      lis0, 0);
   return (int)cudaGetLastError();
 }
 
 extern "C" int spiht_decode_seq_launch(
-    const uint32_t* words, int32_t nbits, int32_t max_n, const int32_t* geo,
+    const uint32_t* words, const int32_t* nbits, const int32_t* max_n,
+    const int32_t* geo,
     const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
     int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
     int32_t* lsp, int32_t lsp_cap, int32_t* rec, uint64_t* last,
     int32_t n_rec, int32_t* stat, void* stream) {
-  DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
+  DecArgs a{words, 0, 0, geo, n_lip0, n_lis0, w, lip, lip_cap,
             lis, lis_cap, lsp, lsp_cap, nullptr, rec, last, stat, nullptr};
   spiht_decode_kernel<true, false>
-      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, n_rec);
+      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, nbits, max_n, lip0,
+                                                      lis0, n_rec);
   return (int)cudaGetLastError();
 }
 
 // B3 with the event log (B3-log): `log` holds nbits + 1 zeroed words.
 extern "C" int spiht_decode_seq_log_launch(
-    const uint32_t* words, int32_t nbits, int32_t max_n, const int32_t* geo,
+    const uint32_t* words, const int32_t* nbits, const int32_t* max_n,
+    const int32_t* geo,
     const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
     int32_t w, int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
     int32_t* lsp, int32_t lsp_cap, int32_t* rec, uint64_t* last,
     int32_t n_rec, int32_t* stat, uint64_t* log, void* stream) {
-  DecArgs a{words, nbits, max_n, geo, n_lip0, n_lis0, w, lip, lip_cap,
+  DecArgs a{words, 0, 0, geo, n_lip0, n_lis0, w, lip, lip_cap,
             lis, lis_cap, lsp, lsp_cap, nullptr, rec, last, stat, log};
   spiht_decode_kernel<true, true>
-      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, lip0, lis0, n_rec);
+      <<<1, SPIHT_THREADS, 0, (cudaStream_t)stream>>>(a, nbits, max_n, lip0,
+                                                      lis0, n_rec);
   return (int)cudaGetLastError();
 }
 

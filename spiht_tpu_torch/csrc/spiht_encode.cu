@@ -1060,12 +1060,21 @@ SPIHT_HD void encode_stream(const EncBatch& g, int32_t b,
 
 #include <cuda_runtime.h>
 
+// B1 reads its per-call scalars (max_n, the budget and its capped flag) from
+// device memory, once at its start, into the EncArgs fields the machine
+// takes by value: max_n is computed on the device (no host sync), and a
+// replayed CUDA graph takes new values where a by-value argument is frozen
+// at capture.
 __global__ void __launch_bounds__(ENC_B1_THREADS)
 spiht_encode_kernel(EncArgs a, const int32_t* __restrict__ max_n,
+                    const int32_t* __restrict__ max_bits,
+                    const int32_t* __restrict__ capped,
                     const int32_t* __restrict__ lip0,
                     const int32_t* __restrict__ lis0, int32_t cap_words) {
   __shared__ EncShared<ENC_B1_THREADS * ENC_B1_PER_THREAD> sh;
-  a.max_n = *max_n;  // computed on the device: read here, no host sync
+  a.max_n = *max_n;
+  a.max_bits = *max_bits;  // already clamped to the word buffer
+  a.capped = *capped;
   encode_block<ENC_B1_THREADS, ENC_B1_PER_THREAD>(a, lip0, lis0, cap_words,
                                                   sh, threadIdx.x);
 }
@@ -1245,14 +1254,14 @@ spiht_encode_batch_kernel(EncBatch g) {
 extern "C" int spiht_encode_launch(
     const int32_t* t1, const int32_t* t3s, const int32_t* child0,
     const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
-    int32_t w, const int32_t* max_n, int32_t max_bits, int32_t capped,
-    int32_t* lip, int32_t lip_cap, int32_t* lis, int32_t lis_cap,
-    int32_t* lsp, int32_t lsp_cap, uint32_t* words, int32_t cap_words,
-    int32_t* stat, void* stream) {
-  EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, 0, max_bits, capped,
+    int32_t w, const int32_t* max_n, const int32_t* max_bits,
+    const int32_t* capped, int32_t* lip, int32_t lip_cap, int32_t* lis,
+    int32_t lis_cap, int32_t* lsp, int32_t lsp_cap, uint32_t* words,
+    int32_t cap_words, int32_t* stat, void* stream) {
+  EncArgs a{t1, t3s, child0, n_lip0, n_lis0, w, 0, 0, 0,
             lip, lip_cap, lis, lis_cap, lsp, lsp_cap, words, stat};
   spiht_encode_kernel<<<1, ENC_B1_THREADS, 0, (cudaStream_t)stream>>>(
-      a, max_n, lip0, lis0, cap_words);
+      a, max_n, max_bits, capped, lip0, lis0, cap_words);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 stream's bit count and the final preview crossing the host boundary.
 
 This is the serving shape the fused pipelines exist for
-(``torch_transform.encode_pipeline_fn`` / ``decode_pipeline_fn``): a
+(``torch_transform.encode_pipeline_fn`` / ``decode_pipeline_fn``, each
+one cached program a key: a CUDA graph on the card): a
 model producing images on the card hands them to the encoder (kernel B1)
 without a host round-trip, and a consumer model reads decoded images
 (kernel B2, or B3 at odd LL) straight from device memory. Reference flow
@@ -65,8 +66,8 @@ def main(argv=None) -> dict:
     total = check_stat(stat, "spiht_encode")[0]
     print(f"encoded {c}x{h}x{w} -> {total} bits "
           f"({total/(h*w):.3f} bpp) in {t_enc*1e3:.0f} ms "
-          f"[device={dev}; the first call includes the kernels' first "
-          f"launch]")
+          f"[device={dev}; the first call includes the program's warm-up "
+          f"and capture]")
 
     # ---- decode: stream words on the device -> image there ----
     dfn = torch_transform.decode_pipeline_fn(

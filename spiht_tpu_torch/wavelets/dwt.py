@@ -4,8 +4,9 @@ Same transform semantics as the JAX module (and, through it, the float64
 numpy reference ``ref_dwt``), written as the same static gathers and
 shifted multiply-accumulates:
 
-* Boundary extension is an ``index_select`` with numpy index maps built
-  from the shapes alone.
+* Boundary extension is an ``index_select`` with index maps built in
+  numpy from the shapes alone, kept on the device by
+  ``device.constant`` (one copy a shape, not one a call).
 * Each filter pass is F shifted multiply-accumulates (`_shift_mac`), in
   the JAX module's tap order: one multiply and one add per tap, never a
   convolution, a matrix product or a fused multiply-add. So float64 runs
@@ -23,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import constant
 from .filters import Wavelet, build_wavelet, dwt_coeff_len, dwt_max_level
 
 __all__ = [
@@ -58,10 +60,48 @@ def _refl_idx(i: np.ndarray, n: int) -> np.ndarray:
     return np.where(i < n, i, period - i)
 
 
-def _take(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-    return torch.index_select(
-        x, -1, torch.as_tensor(idx, dtype=torch.long, device=x.device)
-    )
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.index_select(x, -1, idx)
+
+
+@constant
+def _ext_index(mode: str, n: int, pad: int, device) -> torch.Tensor:
+    """The gather of ``extend``'s index modes over n samples, ``pad`` on
+    each end ("antisymmetric" gathers as "symmetric"), int64 on
+    ``device``."""
+    i = np.arange(-pad, n + pad)
+    if mode == "constant":
+        idx = np.clip(i, 0, n - 1)
+    elif mode in ("symmetric", "antisymmetric"):
+        idx = _sym_idx(i, n)
+    elif mode == "reflect":
+        idx = _refl_idx(i, n)
+    else:  # periodic, periodization
+        idx = i % n
+    return torch.as_tensor(idx, dtype=torch.long, device=device)
+
+
+@constant
+def _ext_sign(n: int, pad: int, dtype, device) -> torch.Tensor:
+    """The antisymmetric extension's signs."""
+    i = np.arange(-pad, n + pad)
+    sign = np.where(np.mod(i, 2 * n) < n, 1.0, -1.0)
+    return torch.as_tensor(sign, dtype=dtype, device=device)
+
+
+@constant
+def _ramp(pad: int, left: bool, dtype, device) -> torch.Tensor:
+    """The smooth extension's slopes 1..pad (reversed on the left)."""
+    k = np.arange(1, pad + 1)
+    return torch.as_tensor(k[::-1].copy() if left else k, dtype=dtype,
+                           device=device)
+
+
+@constant
+def _antireflect_index(n: int, pad: int, left: bool, device) -> torch.Tensor:
+    """The reflected samples the antireflect extension subtracts."""
+    i = np.arange(pad, 0, -1) if left else np.arange(n - 2, n - 2 - pad, -1)
+    return torch.as_tensor(_refl_idx(i, n), dtype=torch.long, device=device)
 
 
 def extend(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
@@ -69,37 +109,28 @@ def extend(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
     if pad == 0:
         return x
     n = x.shape[-1]
-    i = np.arange(-pad, n + pad)
+    dev = x.device
     if mode == "zero":
         z = x.new_zeros(x.shape[:-1] + (pad,))
         return torch.cat([z, x, z], dim=-1)
-    if mode == "constant":
-        return _take(x, np.clip(i, 0, n - 1))
-    if mode == "symmetric":
-        return _take(x, _sym_idx(i, n))
-    if mode == "reflect":
-        return _take(x, _refl_idx(i, n))
-    if mode in ("periodic", "periodization"):
-        return _take(x, i % n)
+    if mode in ("constant", "symmetric", "reflect", "periodic",
+                "periodization"):
+        return _take(x, _ext_index(mode, n, pad, dev))
     if mode == "antisymmetric":
-        sign = np.where(np.mod(i, 2 * n) < n, 1.0, -1.0)
-        return _take(x, _sym_idx(i, n)) * torch.as_tensor(
-            sign, dtype=x.dtype, device=x.device
-        )
+        return _take(x, _ext_index(mode, n, pad, dev)) * _ext_sign(
+            n, pad, x.dtype, dev)
     if mode == "smooth":
         if n == 1:
             return x.repeat_interleave(2 * pad + 1, dim=-1)
-        k = np.arange(1, pad + 1)
-        kl = torch.as_tensor(k[::-1].copy(), dtype=x.dtype, device=x.device)
-        kr = torch.as_tensor(k, dtype=x.dtype, device=x.device)
+        kl = _ramp(pad, True, x.dtype, dev)
+        kr = _ramp(pad, False, x.dtype, dev)
         left = x[..., :1] + (x[..., :1] - x[..., 1:2]) * kl
         right = x[..., -1:] + (x[..., -1:] - x[..., -2:-1]) * kr
         return torch.cat([left, x, right], dim=-1)
     if mode == "antireflect":
-        left = 2 * x[..., :1] - _take(x, _refl_idx(np.arange(pad, 0, -1), n))
+        left = 2 * x[..., :1] - _take(x, _antireflect_index(n, pad, True, dev))
         right = 2 * x[..., -1:] - _take(
-            x, _refl_idx(np.arange(n - 2, n - 2 - pad, -1), n)
-        )
+            x, _antireflect_index(n, pad, False, dev))
         return torch.cat([left, x, right], dim=-1)
     raise ValueError(f"unsupported mode {mode!r}")
 
@@ -156,7 +187,7 @@ def idwt1d(
     n = ref.shape[-1]
     if mode == "periodization":
         p = F
-        idx = np.arange(-p, n + p) % n
+        idx = _ext_index("periodic", n, p, ref.device)
 
         def _pad(c):
             if c is None:
