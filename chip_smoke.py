@@ -25,8 +25,10 @@ Phases:
   7. batched kernels (B4, B5, batched B3) vs plain versions and vs the
      single-stream kernels at small shapes
   8. configuration A batched: 16 images, budgets of 1, 1/2, 1/4 bpp and
-     one bit short of 1 bpp
-  9. configuration B batched (odd LL): 8 images at 1.0 bpp
+     one bit short of 1 bpp, through the batch programs' first call (B4
+     and B5 counted twice: the warm-up's launch and the capture's)
+  9. configuration B batched (odd LL): 8 images at 1.0 bpp (B4 and
+     batched B3, twice each)
   10. throughput at configuration A, batches of 16 and 128 images
   11. kernels B2-log and B3-log (the metadata trace's event logs), B6
       (fused quantize) and B7 (sequential encoder) vs their plain versions
@@ -66,9 +68,13 @@ Phases:
       held against the native scheduler (streams, rec and traces); kernel
       ms and peak memory; B7 at 3x2048^2 (its ring wraps thousands of
       times) equal to B1 and the plain version; then an A batch of 800
-      streams (more than one
-      wave of B4 or B5 blocks) through B4 and B5, stream by stream equal
-      to B1 and B2
+      streams (more than one wave of B4 or B5 blocks) through
+      encode_images_device and decode_images_device, stream by stream
+      equal to B1 and B2: equal parts of at most batch_bound images
+      through one program a direction (B4 and B5 twice, on its first
+      call); a second call and a round trip's second call at the bound
+      capture nothing; one B4 and one B5 launch of all 800 streams,
+      outside the programs, equal to B1's streams and B2's rec
   17. the dependent-chain spikes (spiht_tpu_torch/tools): their entry
       points at small K, then each spike kernel vs its plain version
   18. the machine and block spikes (spiht_tpu_torch/tools): the entry
@@ -137,7 +143,9 @@ Phases:
       unset route's, and its host-clock median of 3: (a) on the A batch
       of 16 through encode_device_batch, unset, ENC_BATCH=ilv, ILV_B=4,
       ILV_B=5 (B4 1, 1, 4, 4 times) and ENC_BATCH=map (B1 16 times); the
-      pipelines under ILV_B=4 (B4, B5 4 times each); decode_device_batch
+      pipelines' batch programs, each from its key's first call, under
+      ILV_B=4 (B4, B5 8 times each: 4 chunks, warm-up and capture) and B5
+      unset (twice); decode_device_batch
       unset, DEC_BATCH=ilv, ILV_B=4 (B5 1, 1, 4 times) and DEC_BATCH=map
       (B2 16 times); (b) on the B batch of 8 (odd LL): DEC_BATCH=ilv
       raises MachineResourceLimit with nothing launched, map launches B3
@@ -181,6 +189,28 @@ Phases:
       profiled round trip each; the 8K geometry of phase 21 through both
       programs, equal to phase 21's stream and image; each program's
       bucket, pool bytes, static bytes and first-run seconds
+  26. the batch codec as one program a key (run before 24): the A batch
+      at B = 16 and 128 (phase 8's images and budgets, tiled) and the B
+      batch at B = 8, through encode_images_device and
+      decode_images_device: a key's first call (B4 and B5 or batched B3
+      twice each) and a replay (none), streams equal to phases 8-10's and
+      to the eager bodies' (encode_pipeline_batch_eager,
+      decode_pipeline_batch_eager), images equal to the eager body's; in
+      a profiled round trip of replays, B4 and the batch decoder once
+      each; a replay of each direction under
+      torch.cuda.set_sync_debug_mode("error") up to the stat read; eager
+      and program medians of 5, first calls, pools (the two programs'
+      bytes an image cell at most BATCH_BYTES_PER_CELL, which sizes
+      batch_bound), the host's copies
+      into the pinned buffer against its upload and the eager path's
+      pageable copies; the map route at A16 (SPIHT_TPU_PALLAS_ILV_B=1: B1
+      and B2 16 times each in a capture, so 32 on a key's first call, 0
+      on a replay), streams and images equal; then the quantizer's
+      overflow on the card (an
+      image scaled by 1e9: coefficients equal to the CPU's, -2^31 where
+      numpy's cast gives it; B1 and B4 streams equal to the CPU port's,
+      max_n 31) and an int32 array holding -2^31 through B1 and B4, equal
+      to the native scheduler's stream
 """
 
 from __future__ import annotations
@@ -756,17 +786,21 @@ def phase_batch_small():
 
 def batch_main_path(label, settings, level, ims, mbs, expect_dec):
     """Phases 8/9: encode_images_device + decode_images_device on the card,
-    the launch counts set to 0 just before and read just after, then every
-    stream held against the plain versions on the card's coefficients and
-    against the single-image entry points."""
+    the launch counts set to 0 just before and read just after: the first
+    call of each batch program's key (none cached), whose warm-up launches
+    B4 and the batch decoder and whose capture records the launch its
+    replay runs (two launches each). Then every stream held against the
+    plain versions on the card's coefficients and against the
+    single-image entry points."""
     dev = DEV
+    torch_transform.clear_programs()
     reset_counts()
     ers = pt.encode_images_device(ims, settings, level, mbs, device=dev)
     outs = pt.decode_images_device(ers, settings, device=dev)
     torch.cuda.synchronize()
     n = counts()
     want = {k: 0 for k in n}
-    want.update({"spiht_encode_batch": 1, expect_dec: 1})
+    want.update({"spiht_encode_batch": 2, expect_dec: 2})
     check(n == want, f"{label}: launches {n}, want {want}")
     B = len(ims)
     c, h, w = ims[0].shape
@@ -867,6 +901,9 @@ def phase_throughput(ims16, mbs16, ers16, enc16, dec16):
             pt.decode_images_device(pt.encode_images_device(
                 ims, CONFIG_A, None, mbs, device=DEV), CONFIG_A,
                 device=DEV)))
+    # the batch programs of 128 images hold ~18 GB: free it for phase 16
+    torch_transform.clear_programs()
+    torch.cuda.empty_cache()
 
 
 def cmp_decode_log(data, max_n, c, h, w, ll_h, ll_w, stats=None):
@@ -1615,8 +1652,13 @@ def phase_wave(ims16):
     """Phase 16, batch: WAVE A streams (phase 8's 16 images, each stream
     its own budget) through encode_images_device (B4) and
     decode_images_device (B5), the counts set to 0 just before and read
-    just after; stream by stream equal to B1 and, as rec, to B2. Prints B4
-    and B5 alone at this batch and the device memory peak."""
+    just after; stream by stream equal to B1 and, as rec, to B2. These run
+    as equal parts of at most batch_bound images through one program a
+    direction: a second call replays them with no capture, and so does a
+    round trip's second call at the bound. One B4 launch and one B5
+    launch of all WAVE streams, outside the programs, equal B1's streams
+    and B2's rec. Prints B4 and B5 alone at this batch and the device
+    memory peak."""
     c, h, w = ims16[0].shape
     slices, enc_h, enc_w = get_slices_and_h_w(h, w, CONFIG_A, None)
     ll = (slices[0][1].stop, slices[0][2].stop)
@@ -1627,17 +1669,53 @@ def phase_wave(ims16):
         ers = pt.encode_images_device(ims, CONFIG_A, None, mbs, device=DEV)
         return ers, pt.decode_images_device(ers, CONFIG_A, device=DEV)
 
+    torch_transform.clear_programs()
+    torch.cuda.empty_cache()
     reset_counts()
     t0 = time.perf_counter()
-    (ers, outs), gb = peak_gb(round_trip)
+    with Captures() as caps:
+        (ers, outs), gb = peak_gb(round_trip)
     wall = (time.perf_counter() - t0) * 1e3
     n = counts()
+    # equal parts of at most batch_bound images through one program a
+    # direction: its first call launches B4 or B5 twice (warm-up and
+    # capture), its replays not at all
     want = {k: 0 for k in n}
-    want.update({"spiht_encode_batch": 1, "spiht_decode_lsp_batch": 1})
-    check(n == want, f"wave batch: launches {n}, want {want}")
+    want.update({"spiht_encode_batch": 2, "spiht_decode_lsp_batch": 2})
+    wave_progs = [(p.key[0], p.key[2], p.replays)
+                  for p in torch_transform.programs()]
+    check(n == want and caps.kinds == ["encode_batch", "decode_batch"],
+          f"wave batch: launches {n}, want {want}; captures {caps.kinds}")
     check(len(outs) == WAVE and all(bool(torch.isfinite(o).all())
                                     for o in outs), "wave batch images")
-    del outs
+    # a second call of the split batch: replays of the same two programs
+    reset_counts()
+    with Captures() as again:
+        ers2, outs2 = round_trip()
+    n2 = nonzero()
+    check(not again.kinds and not n2 and [e.encoded_bytes for e in ers2]
+          == [e.encoded_bytes for e in ers]
+          and all(torch.equal(a, b) for a, b in zip(outs, outs2)),
+          f"wave batch, second call: captures {again.kinds}, launches {n2}, "
+          "or results")
+    del outs, outs2, ers2
+    # a round trip at the bound, twice: both programs stay cached together
+    bound = torch_transform.batch_bound((c, h, w), torch.device(DEV))
+    at_bound = []
+    for _ in range(2):
+        with Captures() as caps_b:
+            eb = pt.encode_images_device(ims[:bound], CONFIG_A, None,
+                                         mbs[:bound], device=DEV)
+            ob = pt.decode_images_device(eb, CONFIG_A, device=DEV)
+        at_bound.append((caps_b.kinds, [e.encoded_bytes for e in eb], ob))
+    (k1, d1, o1), (k2, d2, o2) = at_bound
+    check(k1 == ["encode_batch", "decode_batch"] and not k2
+          and d1 == d2 == [e.encoded_bytes for e in ers[:bound]]
+          and all(torch.equal(a, b) for a, b in zip(o1, o2)),
+          f"round trip at the bound {bound}: captures {k1}, then {k2}, or "
+          "results")
+    del at_bound, o1, o2, ob
+    reset_counts()
     arrs16, _, _ = forward(torch.as_tensor(np.stack(ims16), device=DEV),
                            CONFIG_A, None)
     datas = [er.encoded_bytes for er in ers]
@@ -1651,8 +1729,16 @@ def phase_wave(ims16):
               == (datas[b], mns[b]), f"wave stream {b}: B4 != B1")
         one = decoder.decode(datas[b], mns[b], *geo, device=DEV)
         check(torch.equal(one, rec_b[b]), f"wave stream {b}: B5 != B2")
+    # one B4 launch of all WAVE streams, past one wave, against B1's
     eargs = encoder.batch_machine_args(
         arrs16.repeat(WAVE // 16, 1, 1, 1), *ll, mbs)
+    kw, ks = encoder.encode_machine_batch(*eargs)
+    totals = [r[0] for r in encoder.check_stat(ks, "spiht_encode_batch")]
+    check(encoder.batch_stream_bytes(kw, totals) == datas
+          and eargs[6].tolist() == mns,
+          f"wave: one B4 launch of {WAVE} streams != B1's")
+    del kw, ks
+    reset_counts()
     words, nbits = decoder.words_batch(datas, DEV)
     dargs = decoder.batch_machine_args(words, nbits, mns, *geo)
     print(json.dumps({
@@ -1660,6 +1746,11 @@ def phase_wave(ims16):
         "streams_per_wave": {"B4": 660, "B5": 792}, "bytes_min_max": [
             min(map(len, datas)), max(map(len, datas))],
         "launches": n, "round_trip_ms_host_clock": wall,
+        "programs_captured": caps.kinds, "batch_bound": bound,
+        "programs_batch_replays": wave_progs,
+        "second_call_captures": again.kinds,
+        "round_trip_at_bound_captures": [k1, k2],
+        "b4_one_launch_of_wave_equal_b1": True,
         "device_peak_gib": gb,
         "kernel_ms": {
             "spiht_encode_batch": time_kernel(encoder.encode_machine_batch,
@@ -1671,6 +1762,7 @@ def phase_wave(ims16):
     }))
     reset_counts()
     del arrs16, rec_b, eargs, dargs, words
+    torch_transform.clear_programs()
     torch.cuda.empty_cache()
 
 
@@ -2133,7 +2225,11 @@ def phase_cli(im_a, ims_a, streams_a, smi):
                                          "--backend", "device"))
         torch.cuda.synchronize()
         nb = launches_since(before)
-        check(nb["spiht_encode_batch"] == 1 and nb["spiht_encode"] == 0,
+        # a batch program: B4 twice on its key's first call, else replayed
+        first = [p for p in torch_transform.programs()
+                 if p.key[0] == "encode_batch"][-1].replays == 1
+        check(nb["spiht_encode_batch"] == (2 if first else 0)
+              and nb["spiht_encode"] == 0,
               f"cli batch --backend device launches {nb}")
         for b, e in enumerate(ers):
             one = pt.encode_image_device(ims_a[b], CONFIG_A, level, mb,
@@ -3299,22 +3395,26 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
              {"spiht_encode": 16})):
         got = switch_route(rows, label, env, enc, want)
         check(got == want_a, f"phase 23 {label}: streams != phase 8's")
-    # the pipelines read ILV_B too
+    # the pipelines read ILV_B too: the chunk is in the batch program's
+    # key, and a key's first call launches each chunk twice (warm-up and
+    # capture); the median's calls replay it
+    torch_transform.clear_programs()
     ers = switch_route(rows, "encode_images_device ILV_B=4",
                        {"SPIHT_TPU_PALLAS_ILV_B": "4"},
                        lambda: pt.encode_images_device(
                            ims_a, CONFIG_A, None, mbs_a, device=DEV),
-                       {"spiht_encode_batch": 4})
+                       {"spiht_encode_batch": 8})
     check([(e.encoded_bytes, e.max_n) for e in ers] == want_a,
           "phase 23: encode_images_device under ILV_B=4 != phase 8's")
     imgs = {}
     for label, env, n in (("decode_images_device unset", {}, 1),
                           ("decode_images_device ILV_B=4",
                            {"SPIHT_TPU_PALLAS_ILV_B": "4"}, 4)):
+        torch_transform.clear_programs()
         imgs[n] = switch_route(rows, label, env, lambda: pt.
                                decode_images_device(ers_a, CONFIG_A,
                                                     device=DEV),
-                               {"spiht_decode_lsp_batch": n})
+                               {"spiht_decode_lsp_batch": 2 * n})
     check(all(torch.equal(x, y) for x, y in zip(imgs[1], imgs[4])),
           "phase 23: decode_images_device under ILV_B=4 != unset")
 
@@ -3798,12 +3898,12 @@ PROFILED = {"spiht_encode": "spiht_encode_kernel(",
             "spiht_decode_seq": "spiht_decode_kernel<true, false>"}
 
 
-def replayed_kernels(label, round_trip, progs, tries=3):
+def replayed_kernels(label, round_trip, progs, tries=3, names=PROFILED):
     """One profiled round trip of warm programs (``progs``, each replayed
     once in it, no wrapper launching anything): the machine kernels in
-    its device rows, by the names in ``PROFILED``; a trace with no
-    device row at all (CUPTI delivered none) is taken again, up to
-    ``tries`` times. Returns (the profile's row, kernel -> launches)."""
+    its device rows, by the names in ``names``; a trace with no device
+    row at all (CUPTI delivered none) is taken again, up to ``tries``
+    times. Returns (the profile's row, kernel -> launches)."""
     for _ in range(tries):
         before = [p.replays for p in progs]
         reset_counts()
@@ -3814,8 +3914,231 @@ def replayed_kernels(label, round_trip, progs, tries=3):
         if prof["rows"]:
             break
     ran = {k: sum(n for row, _, n in prof["rows"] if stem in row)
-           for k, stem in PROFILED.items()}
+           for k, stem in names.items()}
     return prof, {k: n for k, n in ran.items() if n}
+
+
+class Captures:
+    """The kinds (``key[0]``) of the programs captured while in a
+    ``with``, in order (``kinds``)."""
+
+    def __enter__(self):
+        self.kinds = []
+        real = self.real = torch_transform._Program._capture
+
+        def capture(prog):
+            self.kinds.append(prog.key[0])
+            return real(prog)
+
+        torch_transform._Program._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        torch_transform._Program._capture = self.real
+
+
+# the batch kernels of a batch program's replay as torch.profiler names them
+PROFILED_BATCH = {
+    "spiht_encode_batch": "spiht_encode_batch_kernel",
+    "spiht_decode_lsp_batch": "spiht_decode_batch_kernel<false>",
+    "spiht_decode_seq_batch": "spiht_decode_batch_kernel<true>",
+}
+
+
+def phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, smi):
+    """Phase 26 (module docstring): the batch programs against the eager
+    bodies and phases 8-10 bit for bit; their launches and replays; a
+    replay with no sync before the stat read; eager and program timings,
+    first calls, pools and the staging; the quantizer's overflow on the
+    card. Gated on equalities and counts only."""
+    from spiht_tpu_torch.codec import api as tapi
+
+    t0 = time.perf_counter()
+    tt = torch_transform
+    out = {"phase": "26 the batch codec as one program a key", "card": smi,
+           "batch_bytes_per_cell": tt.BATCH_BYTES_PER_CELL,
+           "batch_bound_3x512x512": tt.batch_bound(
+               (3, 512, 512), torch.device(DEV))}
+    cases = (
+        ("A16", CONFIG_A, None, ims_a, mbs_a, ers_a, "spiht_decode_lsp_batch"),
+        ("A128", CONFIG_A, None, ims_a * 8, mbs_a * 8, ers_a * 8,
+         "spiht_decode_lsp_batch"),
+        ("B8", CONFIG_B, 3, ims_b, [512 * 512] * len(ims_b), ers_b,
+         "spiht_decode_seq_batch"),
+    )
+    for label, s, level, ims, mbs, ers, dec in cases:
+        tt.clear_programs()
+        torch.cuda.empty_cache()
+        B = len(ims)
+        c, h, w = ims[0].shape
+        check(tt.batch_bound((c, h, w), torch.device(DEV)) >= B,
+              f"26 {label}: the batch does not fit one program")
+        want = [(e.encoded_bytes, e.max_n) for e in ers]
+        datas = [d for d, _ in want]
+        nbits = [len(d) * 8 for d in datas]
+        mns = [m for _, m in want]
+        body_enc = tt.encode_pipeline_batch_eager(s, level)
+        body_dec = tt.decode_pipeline_batch_eager(s, h, w, level, c)
+
+        def eager_encode():  # with the eager path's pageable upload
+            words, stat, mn = body_enc(tapi._device_batch(ims, DEV), mbs)
+            totals = [r[0] for r in encoder.check_stat(stat, "eager B4")]
+            return list(zip(encoder.batch_stream_bytes(words, totals),
+                            mn.tolist()))
+
+        def eager_decode():
+            words, nb = decoder.words_batch(datas, DEV)
+            return body_dec(words, nb, mns)
+
+        def enc():
+            return pt.encode_images_device(ims, s, level, mbs, device=DEV)
+
+        def dec_imgs():
+            return pt.decode_images_device(ers, s, device=DEV)
+
+        row = {"batch": B}
+        for what in ("first", "replay"):
+            reset_counts()
+            got, row[f"encode_{what}_ms"] = timed(enc)
+            n = nonzero()
+            check(n == ({"spiht_encode_batch": 2} if what == "first" else {})
+                  and [(e.encoded_bytes, e.max_n) for e in got] == want,
+                  f"26 {label} encode {what}: launches {n} or streams")
+            reset_counts()
+            imgs, row[f"decode_{what}_ms"] = timed(dec_imgs)
+            torch.cuda.synchronize()
+            n = nonzero()
+            check(n == ({dec: 2} if what == "first" else {}),
+                  f"26 {label} decode {what}: launches {n}")
+            if what == "first":
+                first = imgs
+        eprog, dprog = tt.programs()
+        check(eprog.key[0] == "encode_batch" and dprog.key[0] ==
+              "decode_batch" and eprog.replays == dprog.replays == 2,
+              f"26 {label}: programs {[p.key[0] for p in tt.programs()]}, "
+              f"replays {eprog.replays}, {dprog.replays}")
+        check(eager_encode() == want,
+              f"26 {label}: the eager body's streams != phases 8-10's")
+        eager_imgs = eager_decode()
+        check(all(torch.equal(a, eager_imgs[b]) and torch.equal(
+            imgs[b], eager_imgs[b]) for b, a in enumerate(first)),
+            f"26 {label}: the programs' images != the eager body's")
+        # the replays ran B4 and the batch decoder once each
+        prof, ran = replayed_kernels(
+            f"26 {label} program", lambda: (enc(), dec_imgs()),
+            [eprog, dprog], names=PROFILED_BATCH)
+        check(ran == {"spiht_encode_batch": 1, dec: 1},
+              f"26 {label}: the replays' kernels {ran}")
+        row["replay_kernels_profiled"] = ran
+        # a replay with no sync before the stat read
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eprog.start(ims, mbs)
+            dprog.start(datas, nbits, mns)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(eprog.finish() == want
+              and torch.equal(dprog.finish(), eager_imgs),
+              f"26 {label}: the replays without a sync")
+        # timings: median of 5, eager body vs program
+        row["encode_eager_ms"] = median_ms(eager_encode)
+        row["encode_program_ms"] = median_ms(enc)
+        row["decode_eager_ms"] = median_ms(eager_decode)
+        row["decode_program_ms"] = median_ms(dec_imgs)
+        # the staging: the host's copies into the pinned buffer (the last
+        # call's), its upload, and the eager path's pageable copies
+        pin, static = eprog._pinned["images"], eprog.statics["images"]
+        row["stage_host_copy_ms"] = eprog.stage_s * 1e3
+        row["upload_pinned_ms"] = median_ms(
+            lambda: static.copy_(pin, non_blocking=True))
+        row["upload_pageable_ms"] = median_ms(
+            lambda: tapi._device_batch(ims, DEV))
+        eager = profile_round_trip(f"26 {label} eager", lambda: (
+            eager_encode(), eager_decode()))
+        for route, p in (("eager", eager), ("program", prof)):
+            row[f"profile_{route}"] = {k: p[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share")}
+        row["programs"] = program_rows([eprog, dprog])
+        # what batch_bound assumes of a round trip's two programs
+        per_cell = ((eprog.device_bytes + dprog.device_bytes)
+                    / (B * c * h * w))
+        row["round_trip_bytes_per_cell"] = per_cell
+        check(per_cell <= tt.BATCH_BYTES_PER_CELL,
+              f"26 {label}: the programs hold {per_cell} bytes an image "
+              f"cell, over {tt.BATCH_BYTES_PER_CELL}")
+        out[label] = row
+        if label == "A16":
+            imgs_a16 = eager_imgs
+        del first, imgs, eager_imgs
+    # the map route (SPIHT_TPU_PALLAS_ILV_B=1: a launch would take one
+    # stream): B1, and B2 and its scatter, a stream each inside the
+    # capture, each reading its scalars from a row of the static buffers
+    want = [(e.encoded_bytes, e.max_n) for e in ers_a]
+    patch = switched({"SPIHT_TPU_PALLAS_ILV_B": "1"})
+    try:
+        tt.clear_programs()
+        row = {}
+        for what, n_want in (("first", 2 * len(ims_a)), ("replay", 0)):
+            reset_counts()
+            (got, imgs), row[f"round_trip_{what}_ms"] = timed(lambda: (
+                pt.encode_images_device(ims_a, CONFIG_A, None, mbs_a,
+                                        device=DEV),
+                pt.decode_images_device(ers_a, CONFIG_A, device=DEV)))
+            torch.cuda.synchronize()
+            n = nonzero()
+            check(n == ({"spiht_encode": n_want, "spiht_decode_lsp": n_want}
+                        if n_want else {})
+                  and [(e.encoded_bytes, e.max_n) for e in got] == want
+                  and all(torch.equal(a, b) for a, b in zip(imgs, imgs_a16)),
+                  f"26 map route {what}: launches {n}, or streams or images")
+        row["routes"] = [list(p.key[10:12]) for p in tt.programs()]
+        out["A16_map_route"] = row
+    finally:
+        patch.stop()
+    del imgs_a16, imgs
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    out["overflow"] = overflow_on_card()
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out))
+
+
+def overflow_on_card():
+    """Phase 26, the quantizer's overflow on the card: an image scaled by
+    1e9 quantizes to -2^31 where numpy's cast does (the CPU's arrays), and
+    its streams (B1 through encode_image_device, B4 through
+    encode_images_device) equal the CPU port's, max_n 31, and the plain
+    version's on the card's coefficients; an int32 array holding one
+    -2^31 through B1 and B4 equals the native scheduler's stream."""
+    s = pt.SpihtSettings()
+    im = np.random.default_rng(0).random((3, 64, 80)) * 1e9
+    arr, ll_h, ll_w = forward(torch.as_tensor(im, device=DEV), s, None)
+    arr_cpu, _, _ = forward(torch.as_tensor(im), s, None)
+    check(torch.equal(arr.cpu(), arr_cpu),
+          "26 overflow: the card's coefficients != the CPU's")
+    er = pt.encode_image_device(im, s, None, device=DEV)
+    er_cpu = pt.encode_image_device(im, s, None, device="cpu")
+    check((er.encoded_bytes, er.max_n) == (er_cpu.encoded_bytes,
+                                           er_cpu.max_n) and er.max_n == 31,
+          f"26 overflow: stream or max_n {er.max_n} != the CPU port's")
+    check(cmp_encode(arr, ll_h, ll_w, FULL) == (er.encoded_bytes, er.max_n),
+          "26 overflow: B1 != the plain version")
+    ers = pt.encode_images_device([im, im], s, None, device=DEV)
+    check(all((e.encoded_bytes, e.max_n) == (er.encoded_bytes, er.max_n)
+              for e in ers), "26 overflow: B4 != B1")
+    one = np.random.default_rng(0).integers(-1000, 1000, (3, 32, 32),
+                                            dtype=np.int32)
+    one[0, 5, 7] = -(2**31)
+    want = native.load().encode(one, 4, 4, FULL)
+    x = torch.as_tensor(one, device=DEV)
+    check(want[1] == 31 and cmp_encode(x, 4, 4, FULL) == want
+          and cmp_encode_batch(torch.stack([x, x]), 4, 4, [FULL, FULL])
+          == [want, want], "26 -2^31 array: B1 or B4 != the native stream")
+    return {"image_min_int32_coeffs": int((arr_cpu == -(2**31)).sum()),
+            "image_bytes": len(er.encoded_bytes), "image_max_n": er.max_n,
+            "array_bytes": len(want[0]), "array_max_n": want[1],
+            "equal": True}
 
 
 def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
@@ -3977,7 +4300,7 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
 
 
 def run_phases() -> list:
-    """Phases 2-23; returns the kernels' rows of the result line."""
+    """Phases 2-26; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -4083,6 +4406,9 @@ def run_phases() -> list:
 
     # ---- phase 25: the round trip as one program a key ----
     phase_program(im_a, im_b, er_a, er_b, prev, ref8k, card())
+
+    # ---- phase 26: the batch codec as one program a key ----
+    phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, card())
 
     # ---- phase 24: the mesh over the ranks of a process group ----
     phase_ranks(ref8k, card())

@@ -1,9 +1,10 @@
-"""Single-image round-trip wall time, or the machine kernels' times, of two
-trees, in alternating processes on one CUDA card.
+"""Single-image round-trip wall time, the batch codec's, or the machine
+kernels' times, of two trees, in alternating processes on one CUDA card.
 
 Run from the repository root on a machine with a card:
 
-    python3 roundtrip_pairs.py --tree DIR --tree DIR [--rounds N] [--kernels]
+    python3 roundtrip_pairs.py --tree DIR --tree DIR [--rounds N]
+        [--kernels | --batch]
 
 Each tree is a checkout of the repository (e.g. a commit unpacked with
 ``git archive`` into the ignored ``out/``; ``.`` for this one). Each round
@@ -22,8 +23,13 @@ time_kernel times it, and the kernel alone, cold and warm ([median, min,
 max]), by chip_smoke.py's ``quantize_cold_warm`` (its launch on outputs
 allocated once, 21 times after a 128 MB write that flushes the L2 and 21
 times back to back; a copy of it for a tree whose chip_smoke.py lacks
-it). It prints one JSON line a process, then one a tree with every
-process's numbers.
+it). With ``--batch`` it times the batch codec instead:
+``encode_images_device`` and ``decode_images_device`` of chip_smoke.py's
+A batch (phase 8's 16 images and budgets) at B = 16 and, tiled, 128, and
+of the B batch (phase 9's 8 images at 1 bpp), host clock to a sync,
+median of 5, after one untimed round trip (a tree whose batch codec runs
+as programs captures them there). It prints one JSON line a process,
+then one a tree with every process's numbers.
 """
 
 from __future__ import annotations
@@ -49,6 +55,29 @@ for label, seed, settings, level in (("A", 1, cs.CONFIG_A, None),
         im, settings, level, 512 * 512, device=cs.DEV))
     out[label + "_decode_ms"] = cs.median_ms(
         lambda: pt.decode_image_device(er, settings, device=cs.DEV))
+print(json.dumps(out))
+"""
+
+
+BATCH_CHILD = """
+import json
+import chip_smoke as cs
+import spiht_tpu_torch as pt
+
+out = {}
+ims_a = [cs.image(100 + b, (3, 512, 512)) for b in range(16)]
+mbs_a = [cs.BUDGETS_A[b % 4] for b in range(16)]
+ims_b = [cs.image(200 + b, (3, 512, 512)) for b in range(8)]
+for label, settings, level, ims, mbs in (
+        ("A16", cs.CONFIG_A, None, ims_a, mbs_a),
+        ("A128", cs.CONFIG_A, None, ims_a * 8, mbs_a * 8),
+        ("B8", cs.CONFIG_B, 3, ims_b, [512 * 512] * 8)):
+    ers = pt.encode_images_device(ims, settings, level, mbs, device=cs.DEV)
+    pt.decode_images_device(ers, settings, device=cs.DEV)
+    out[label + "_encode_ms"] = cs.median_ms(lambda: pt.encode_images_device(
+        ims, settings, level, mbs, device=cs.DEV))
+    out[label + "_decode_ms"] = cs.median_ms(
+        lambda: pt.decode_images_device(ers, settings, device=cs.DEV))
 print(json.dumps(out))
 """
 
@@ -177,11 +206,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", action="append", type=Path, required=True)
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--kernels", action="store_true",
-                    help="time the machine kernels instead of phase 6")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--kernels", action="store_true",
+                      help="time the machine kernels instead of phase 6")
+    what.add_argument("--batch", action="store_true",
+                      help="time the batch codec instead of phase 6")
     a = ap.parse_args()
     if len(a.tree) != 2:
         ap.error("give two trees")
+    child = KERNEL_CHILD if a.kernels else BATCH_CHILD if a.batch else CHILD
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -189,7 +222,7 @@ def main() -> int:
     runs = {first: [], second: []}
     for rnd in range(a.rounds):
         for tree in (first, second, second, first):
-            got = run(tree, KERNEL_CHILD if a.kernels else CHILD)
+            got = run(tree, child)
             runs[tree].append(got)
             print(json.dumps({"round": rnd, "tree": str(tree), **got}),
                   flush=True)

@@ -60,9 +60,9 @@ from ..native import runtime as native
 from ..device import resolve_device
 from ..settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
 from ..torch_transform import (
-    decode_pipeline_batch_fn,
+    decode_batch,
     decode_program,
-    encode_pipeline_batch_fn,
+    encode_batch,
     encode_program,
     forward,
     forward_compact,
@@ -75,8 +75,6 @@ from ..ops.bitpack import bits_to_bytes, bytes_to_bits
 from . import (
     decoder, device_decoder, device_encoder, encoder, meta_expand, oracle,
 )
-from .decoder import words_batch
-from .encoder import batch_stream_bytes, check_stat
 from .maxn import device_max_n
 from .planning import cut_plane_np, plan_supported
 
@@ -106,7 +104,8 @@ def encode(
     device=None, machine: Optional[str] = None,
 ) -> Tuple[bytes, int]:
     """SPIHT-encode a (C,H,W) int32 coefficient array -> (bytes, max_n),
-    on the device: kernel B1, or B7 for ``machine="seq"``. With
+    on the device: kernel B1, or B7 for ``machine="seq"``. A budget of 0
+    or below is no budget, as in the native scheduler. With
     ``SPIHT_TPU_DEVICE_ENCODER=1`` and no ``machine``, an even-LL array
     goes through ``device_encoder.encode_device`` (module docstring)."""
     if (
@@ -120,6 +119,10 @@ def encode(
                                                 device)
         except device_encoder.CapacityOverflow:
             pass
+    if int(max_bits) <= 0:
+        # the native scheduler tests the budget only after a bit is
+        # written (spiht_kernel.cpp:287, :449): 0 and below never cut
+        max_bits = _MAX_BITS_DEFAULT
     return encoder.encode(arr, ll_h, ll_w, max_bits, device, machine)
 
 
@@ -637,12 +640,16 @@ def encode_images_device(
 ) -> list:
     """Encode a list of (C, H, W) images (numpy or tensors) on the device.
 
-    A batch of one shape is one pipeline: the batched transform and
-    per-image max_n, then kernel B4 encodes every stream in one launch.
-    ``max_bits`` is None (full streams), one budget, or one per image.
-    Images of mixed shapes go one by one through ``encode_image_device``.
-    Every stream is encoded on the card (odd LL and max_n > 15 included)
-    and equals the JAX API's; results come back in input order.
+    A batch of one shape is one pipeline, run as cached programs a key
+    (``torch_transform.encode_batch``: on the card CUDA graphs, as the JAX
+    package runs one jitted program; at most ``batch_bound`` images a
+    program): the batched transform and per-image max_n, then kernel B4
+    encodes every stream in one launch. ``max_bits`` is None (full
+    streams), one budget, or one per image; a negative budget is 0, as in
+    the JAX package. Images of mixed shapes go one by one through
+    ``encode_image_device``. Every stream is encoded on the card (odd LL
+    and max_n > 15 included) and equals the JAX API's; results come back
+    in input order.
     """
     ims = [
         im if isinstance(im, torch.Tensor)
@@ -661,13 +668,10 @@ def encode_images_device(
             for im, mb in zip(ims, mbs)
         ]
     c, h, w = ims[0].shape
-    batch = _device_batch(ims, dev)
-    fn = encode_pipeline_batch_fn(spiht_settings, level, dtype)
-    words, stat, max_ns = fn(batch, mbs)
-    totals = [row[0] for row in check_stat(stat, "spiht_encode_batch")]
     return [
         EncodingResult(data, h, w, c, int(mn), level)
-        for data, mn in zip(batch_stream_bytes(words, totals), max_ns.tolist())
+        for data, mn in encode_batch(spiht_settings, ims, mbs, level, dtype,
+                                     dev)
     ]
 
 
@@ -681,10 +685,12 @@ def decode_images_device(
     """Decode a list of EncodingResults on the device; returns a list of
     image tensors on the device, in input order.
 
-    Streams of one (h, w, c, level) are one pipeline: kernel B5 and one rec
-    scatter (batched B3 for odd-LL geometries) decode every stream in one
-    launch, each on its own length, then the batched inverse transform.
-    Mixed geometries go one by one through ``decode_image_device``.
+    Streams of one (h, w, c, level) are one pipeline, run as cached
+    programs a key (``torch_transform.decode_batch``): kernel B5 and one
+    rec scatter (batched B3 for odd-LL geometries) decode every stream in
+    one launch, each on its own length, then the batched inverse
+    transform. Mixed geometries go one by one through
+    ``decode_image_device``.
     """
     ers = list(encoding_results)
     if not ers:
@@ -699,9 +705,9 @@ def decode_images_device(
             raise ValueError(er._encoding_version)
     dev = resolve_device(device)
     er0 = ers[0]
-    words, nbits = words_batch([er.encoded_bytes for er in ers], dev)
-    fn = decode_pipeline_batch_fn(
-        spiht_settings, er0.h, er0.w, er0.level, er0.c, dtype, as_uint8
-    )
-    images = fn(words, nbits, [int(er.max_n) for er in ers])
+    images = decode_batch(
+        spiht_settings, er0.h, er0.w, er0.level, er0.c,
+        [er.encoded_bytes for er in ers],
+        [len(er.encoded_bytes) * 8 for er in ers],
+        [int(er.max_n) for er in ers], dtype, as_uint8, dev)
     return list(images.unbind(0))

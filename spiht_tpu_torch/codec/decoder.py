@@ -634,27 +634,55 @@ def decode_coeffs_batch(
     (B, cap_words); nbits, max_ns: B host ints. ``out_dtype=torch.int16``
     needs every max_n <= 13."""
     od = _checked_out_dtype(out_dtype, max_ns)
-    core = _dec_core(c, h, w, ll_h, ll_w, words.shape[-1], machine,
-                     words.device)
-    nb, mn = _batch_scalars(words, nbits, max_ns)
-    rec, stat, name = core(words, nb, mn)
+    rec, stat, name = decode_batch_body(c, h, w, ll_h, ll_w, words.shape[-1],
+                                        words.device, machine)(
+        words, batch_scalars(words, nbits, max_ns))
     check_stat(stat, name)
     return rec.reshape(-1, c, h, w).to(od)
 
 
-def _batch_scalars(words: torch.Tensor, nbits, max_ns):
-    """B host ints each of nbits and max_n, checked against (B, cap_words)
-    words, as two int32 (B,) tensors on the words' device (one copy)."""
-    if words.dim() != 2:
-        raise ValueError("words must be (B, cap_words)")
-    B, cap_words = words.shape
+def decode_batch_body(c, h, w, ll_h, ll_w, cap_words, dev, machine=None,
+                      route="ilv", chunk=None):
+    """The batch decode with no host read: body(words int32 (B,
+    cap_words), scalars int32 (2, B): nbits and max_n) -> (rec int32 (B,
+    c*h*w), stat (B, STAT_LEN), kernel name), all on ``dev``. Route "ilv":
+    B5 and one scatter or batched B3 (``decode_coeffs``' routing) in
+    launches of ``chunk`` streams (None: ``ilv_chunk(B)``); route "map":
+    B2 and its scatter, or B3, a stream each (the JAX package's
+    ``lax.map``), each launch reading row b of the scalars. The caller
+    checks the stat (``check_stat``) after it, as ``decode_coeffs_batch``
+    does; a program does after its replay."""
+    core = _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev, chunk)
+
+    def body(words, scalars):
+        if route != "map":
+            return core(words, scalars[0], scalars[1])
+        outs = [core(words[b], scalars[0, b], scalars[1, b])
+                for b in range(words.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]), outs[0][2] + "_batch")
+
+    return body
+
+
+def batch_scalar_rows(nbits, max_ns, B: int, cap_words: int) -> np.ndarray:
+    """B host ints each of nbits and max_n, checked against B streams of
+    cap_words words, as an int32 (2, B) array."""
     nbits, max_ns = [int(v) for v in nbits], [int(v) for v in max_ns]
     if len(nbits) != B or len(max_ns) != B:
         raise ValueError(f"need {B} nbits and max_n values")
     if not all(0 <= nb <= cap_words * 32 for nb in nbits):
         raise ValueError("nbits must lie in [0, 32 * cap_words]")
-    sc = torch.tensor([nbits, max_ns], dtype=torch.int32).to(words.device)
-    return sc[0], sc[1]
+    return np.array([nbits, max_ns], dtype=np.int32).reshape(2, B)
+
+
+def batch_scalars(words: torch.Tensor, nbits, max_ns) -> torch.Tensor:
+    """``batch_scalar_rows`` for (B, cap_words) words, as an int32 (2, B)
+    tensor on the words' device (one copy)."""
+    if words.dim() != 2:
+        raise ValueError("words must be (B, cap_words)")
+    rows = batch_scalar_rows(nbits, max_ns, *words.shape)
+    return torch.from_numpy(rows).to(words.device)
 
 
 def _machine_tail(c, h, w, ll_h, ll_w, cap_words, dev):
@@ -674,7 +702,7 @@ def batch_machine_args(
     two as int32 (B,) tensors (one copy), the geometry tables, and queue
     capacities narrowed to the row length."""
     check_geometry(c, h, w, ll_h, ll_w)
-    nb, mn = _batch_scalars(words, nbits, max_ns)
+    nb, mn = batch_scalars(words, nbits, max_ns)
     return (words, nb, mn) + _machine_tail(c, h, w, ll_h, ll_w,
                                            words.shape[1], words.device)
 
@@ -769,13 +797,14 @@ def _as_words(words, dev: torch.device) -> torch.Tensor:
     return words.to(dev).contiguous()
 
 
-def _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev):
+def _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev, chunk=None):
     """The one decode route. core(words, nbits, max_n) -> (rec int32
     (..., c*h*w), stat, kernel name), no host sync: one stream (1-D words,
-    ints) through B2 + the scatter or B3, or a batch ((B, cap_words)
-    words, int32 (B,) tensors) through B5 + the scatter or batched B3, in
-    launches of at most ``ilv_chunk(B)`` streams. The geometry and the
-    machine name are refused before the device."""
+    ints or 0-d int32 tensors) through B2 + the scatter or B3, or a batch
+    ((B, cap_words) words, int32 (B,) tensors) through B5 + the scatter or
+    batched B3, in launches of at most ``chunk`` streams (None:
+    ``ilv_chunk(B)``). The geometry and the machine name are refused
+    before the device."""
     if machine not in DEC_MACHINES:
         raise ValueError(
             f"machine must be one of {DEC_MACHINES}, got {machine!r}")
@@ -800,7 +829,7 @@ def _dec_core(c, h, w, ll_h, ll_w, cap_words, machine, dev):
         if not batch:
             return launch(words, nbits, max_n) + (name,)
         B = words.shape[0]
-        k = ilv_chunk(B)
+        k = ilv_chunk(B) if chunk is None else chunk
         # an empty batch reaches the wrapper, which refuses it
         outs = [launch(words[s:s + k], nbits[s:s + k], max_n[s:s + k])
                 for s in range(0, max(B, 1), k)]

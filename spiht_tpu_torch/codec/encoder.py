@@ -210,9 +210,11 @@ def encode_tables(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(t1, t3s) of an int32 (..., c, h, w) array, int32 on its device and
     flat per array: (N,) for one (c, h, w) array, (B, N) for a batch.
-    t1 = (M+1) | (D+1)<<5 | (G+1)<<10 | sgn<<15 | hc<<16 | hg<<17 and
-    t3s = sgn<<31 | |x| (the Pallas machine's standard layout); the
-    geometry bits hc, hg are shared by every array of a batch."""
+    t1 = (M+1) | (D+1)<<6 | (G+1)<<12 | sgn<<18 | hc<<19 | hg<<20 and
+    t3s = sgn<<31 | |x|; the geometry bits hc, hg are shared by every
+    array of a batch. |x| is the native scheduler's uint32 magnitude: a
+    coefficient of -2^31 has M = 31 (six bits a field) and t3s 0, sign 0
+    and low bits 0, a word no other coefficient gives (0 has sign 1)."""
     c, h, w = arr.shape[-3:]
     lead = tuple(arr.shape[:-3])
     m, d, g = significance_maps(arr, ll_h, ll_w)
@@ -222,12 +224,15 @@ def encode_tables(
     hc_flags = machine_tables(c, h, w, ll_h, ll_w, arr.device)["hc_flags"]
     t1 = (
         (m.reshape(lead + (-1,)).to(torch.int32) + 1)
-        | ((d.reshape(lead + (-1,)).to(torch.int32) + 1) << 5)
-        | ((g.reshape(lead + (-1,)).to(torch.int32) + 1) << 10)
-        | (sgn << 15)
+        | ((d.reshape(lead + (-1,)).to(torch.int32) + 1) << 6)
+        | ((g.reshape(lead + (-1,)).to(torch.int32) + 1) << 12)
+        | (sgn << 18)
         | hc_flags
     )
-    t3s = torch.where(sgn.bool(), absx | -(2**31), absx).to(torch.int32)
+    # abs leaves -2^31 as itself: its low bits are 0, and sign 0 makes the
+    # word 0
+    t3s = torch.where(sgn.bool(), absx | -(2**31),
+                      absx & 0x7FFFFFFF).to(torch.int32)
     return t1, t3s
 
 
@@ -258,7 +263,7 @@ def _encode_machine_plain(
             lsp_snap = len(lsp)
             keep = []
             for node in lip:
-                sig = (t1[node] & 31) - 1 >= n
+                sig = (t1[node] & 63) - 1 >= n
                 put(sig)
                 if sig:
                     put((t3s[node] >> 31) & 1)
@@ -278,7 +283,7 @@ def _encode_machine_plain(
                 node = e >> 1
                 t = t1[node]
                 if e & 1:
-                    dsig = ((t >> 5) & 31) - 1 >= n
+                    dsig = ((t >> 6) & 63) - 1 >= n
                     put(dsig)
                     if not dsig:
                         keep.append(e)
@@ -286,7 +291,7 @@ def _encode_machine_plain(
                     c0 = child0[node]
                     for o in off:
                         ch = c0 + o
-                        sig = (t1[ch] & 31) - 1 >= n
+                        sig = (t1[ch] & 63) - 1 >= n
                         put(sig)
                         if sig:
                             put((t3s[ch] >> 31) & 1)
@@ -299,13 +304,13 @@ def _encode_machine_plain(
                                 err = 2
                                 raise _Stop
                             lip.append(ch)
-                    if (t >> 17) & 1:
+                    if (t >> 20) & 1:
                         if len(lis) >= lis_cap:
                             err = 3
                             raise _Stop
                         lis.append(node << 1)
                 else:
-                    lsig = ((t >> 10) & 31) - 1 >= n
+                    lsig = ((t >> 12) & 63) - 1 >= n
                     put(lsig)
                     if not lsig:
                         keep.append(e)
@@ -605,12 +610,25 @@ encode_machine_batch.launches = 0
 
 
 def _encode_batch_launches(t1, t3s, child0, lip0, lis0, w, max_n, max_bits,
-                           caps, cap_words):
-    """``encode_machine_batch`` in launches of at most ``ilv_chunk(B)``
-    streams, rows in order: the words and stat of one launch. (An empty
-    batch reaches the wrapper, which refuses it.)"""
+                           caps, cap_words, route="ilv", chunk=None):
+    """The B streams' (words (B, cap_words), stat (B, STAT_LEN)), rows in
+    order. Route "ilv": ``encode_machine_batch`` in launches of at most
+    ``chunk`` streams (None: ``ilv_chunk(B)``). Route "map": B1 a stream,
+    each launch reading its max_n, budget and capped flag from row b of
+    device tensors (the budgets clamped to the buffer on the device), so
+    a CUDA graph can replay it. (An empty batch reaches the wrapper, which
+    refuses it.)"""
     B = t1.shape[0]
-    k = ilv_chunk(B)
+    if route == "map":
+        cap_bits = cap_words * 32
+        budget = torch.clamp(max_bits, max=cap_bits)
+        capped = (max_bits > cap_bits).to(torch.int32)
+        outs = [encode_machine(t1[b], t3s[b], child0, lip0, lis0, w,
+                               max_n[b], budget[b], capped[b], caps,
+                               cap_words)
+                for b in range(B)]
+        return tuple(torch.stack(x) for x in zip(*outs))
+    k = ilv_chunk(B) if chunk is None else chunk
     outs = [
         encode_machine_batch(t1[s:s + k], t3s[s:s + k], child0, lip0, lis0,
                              w, max_n[s:s + k], max_bits[s:s + k], caps,
@@ -670,24 +688,45 @@ def machine_args(
             + (machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words))
 
 
-def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
+def batch_budgets(max_bits, B: int) -> list:
+    """B budgets (host ints) as the batch machines take them: each clamped
+    to what an int32 bit count holds, a negative one to 0 (an empty
+    stream, as the JAX package's device machines read it)."""
+    mbs = [max(min(int(m), 2**31 - 2), 0) for m in max_bits]
+    if len(mbs) != B:
+        raise ValueError(f"need {B} budgets, got {list(max_bits)}")
+    return mbs
+
+
+def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits,
+                       cap_words=None):
     """``encode_machine_batch``'s arguments for an int32 (B, c, h, w) batch
     on its device and B budgets: the tables, the per-stream max_n, the
     budgets as an int32 tensor, the queue capacities, and one word buffer
-    size for every stream, sized from the largest budget (as
-    ``pallas_encode_batch`` sizes it)."""
+    size for every stream.
+
+    ``max_bits`` is B host ints (``batch_budgets``), the buffer then sized
+    from the largest (as ``pallas_encode_batch`` sizes it) where
+    ``cap_words`` is None; or an int32 (B,) tensor on the batch's device
+    already so clamped, with its ``cap_words`` (a program's static
+    budgets, which the kernels read from device memory). A larger buffer,
+    as a program's bucket is, gives every budget the same stream."""
     if arrs.dtype != torch.int32 or arrs.dim() != 4:
         raise ValueError("arrs must be an int32 (B, c, h, w) tensor")
     B, c, h, w = arrs.shape
     check_geometry(c, h, w, ll_h, ll_w)
-    mbs = [min(int(m), 2**31 - 2) for m in max_bits]
-    if len(mbs) != B or min(mbs, default=0) < 0:
-        raise ValueError(f"need {B} budgets >= 0, got {list(max_bits)}")
     arrs = arrs.contiguous()
-    cap_words = cap_words_for(c, h, w, max(mbs, default=0))
+    if isinstance(max_bits, torch.Tensor):
+        if cap_words is None:
+            raise ValueError("a budget tensor needs its cap_words")
+        budgets = max_bits
+    else:
+        mbs = batch_budgets(max_bits, B)
+        if cap_words is None:
+            cap_words = cap_words_for(c, h, w, max(mbs, default=0))
+        budgets = torch.tensor(mbs, dtype=torch.int32).to(arrs.device)
     return _lead_args(arrs, ll_h, ll_w) + (
-        device_max_n(arrs),
-        torch.tensor(mbs, dtype=torch.int32).to(arrs.device),
+        device_max_n(arrs), budgets,
         machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
 
 
@@ -710,16 +749,19 @@ def encode_coeffs(
     return words, stat, args[6]
 
 
-def encode_coeffs_batch(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits):
+def encode_coeffs_batch(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits,
+                        cap_words=None, route="ilv", chunk=None):
     """Encode an int32 (B, c, h, w) batch on its device in one launch of
-    kernel B4 (launches of ``ilv_chunk(B)`` streams), with one budget per
-    stream (a list of B ints).
+    kernel B4 (launches of ``chunk`` streams, None: ``ilv_chunk(B)``), or
+    for ``route="map"`` in single launches of B1, with one budget per
+    stream: a list of B ints, or a device tensor with its ``cap_words``
+    (``batch_machine_args``).
 
     Returns (words int32 (B, cap_words), stat (B, STAT_LEN), max_n (B,)),
     all on the batch's device; nothing is read back.
     """
-    args = batch_machine_args(arrs, ll_h, ll_w, max_bits)
-    words, stat = _encode_batch_launches(*args)
+    args = batch_machine_args(arrs, ll_h, ll_w, max_bits, cap_words)
+    words, stat = _encode_batch_launches(*args, route, chunk)
     return words, stat, args[6]
 
 

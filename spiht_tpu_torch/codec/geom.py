@@ -114,7 +114,7 @@ def words_of(data: bytes, cap_words: int) -> np.ndarray:
 
 def machine_tables(c, h, w, ll_h, ll_w, device: torch.device) -> dict:
     """The bit machines' geometry-only tables on ``device``, int32:
-    ``child0``; ``hc_flags`` = hc<<16 | hg<<17 (the encoder's t1 bits);
+    ``child0``; ``hc_flags`` = hc<<19 | hg<<20 (the encoder's t1 bits);
     ``geo`` = child0<<2 | hc<<1 | hg (the decoders' word); and the initial
     LIP (nodes) and LIS (node << 1 | type A) entries. Cached for 16
     geometries; every open ``device.holding()`` keeps what it returns, as
@@ -130,7 +130,7 @@ def _machine_tables(c, h, w, ll_h, ll_w, device: torch.device) -> dict:
     child0 = g["child0"].astype(np.int64)
     tabs = dict(
         child0=child0,
-        hc_flags=(hc << 16) | (hg << 17),
+        hc_flags=(hc << 19) | (hg << 20),
         geo=(child0 << 2) | (hc << 1) | hg,
         lip0=g["lip_init"],
         lis0=(g["lis_init"].astype(np.int64) << 1) | 1,

@@ -2,6 +2,7 @@
 ``spiht_tpu/codec/maps.py:45-117``.
 
   M[k,i,j] = floor(log2 |x|)   (-1 for 0)          element level
+                                 |x| as uint32: 31 for -2^31
   D[k,i,j] = max over all strict descendants of M   set level
   G[k,i,j] = max over children of D                 L-set level
 
@@ -75,7 +76,9 @@ def significance_maps(
     (..., H, W)."""
     h, w = arr.shape[-2], arr.shape[-1]
     absx = torch.abs(arr)
-    m = torch.full(arr.shape, -1, dtype=torch.int8, device=arr.device)
+    # the magnitude as uint32, as the native scheduler takes it: abs leaves
+    # -2^31 negative, and its M is 31
+    m = (absx < 0).to(torch.int8) * 32 - 1
     for k in range(31):
         m += (absx >= (1 << k)).to(torch.int8)
     d = torch.full_like(m, -1)

@@ -7,7 +7,9 @@ The reference computes ``(max as f32).log2() as u8``. Here the abs max is
 cast to float32 (round to nearest, as the host cast does), its exponent is
 read from the bits, and its mantissa is compared with a per-exponent
 threshold where float32 ``log2`` truncation jumps to e+1: integer
-operations only, no ``log2`` on the device.
+operations only, no ``log2`` on the device. The magnitude is the native
+scheduler's uint32 one (``spiht_tpu/native/spiht_kernel.cpp:164-177``): a
+coefficient of -2^31 gives max_n 31.
 """
 
 from __future__ import annotations
@@ -53,7 +55,11 @@ def device_max_n(arr: torch.Tensor) -> torch.Tensor:
     over its last three dims (a 0-d tensor for one (c, h, w) array, (B,)
     for a batch), int32 on the array's device, bit-exact with
     ``oracle.compute_max_n``. No host sync."""
-    m = torch.abs(arr).amax(dim=(-3, -2, -1)).to(torch.int32)
+    absx = torch.abs(arr)
+    m = absx.amax(dim=(-3, -2, -1)).to(torch.int32)
+    # abs leaves -2^31 negative; as uint32 (the native scheduler's
+    # magnitude) it is 2^31, whose max_n is 31
+    top = absx.amin(dim=(-3, -2, -1)) < 0
     bits = m.to(torch.float32).view(torch.int32)
     e = ((bits >> 23) & 0xFF) - 127
     m23 = bits & 0x7FFFFF
@@ -61,4 +67,5 @@ def device_max_n(arr: torch.Tensor) -> torch.Tensor:
     # take, not th[...]: a 0-d index tensor would be read on the host
     n = e + (m23 >= torch.take(th, e.clamp(0, 31).long())).to(torch.int32)
     zero = torch.zeros((), dtype=torch.int32, device=arr.device)
-    return torch.where(m <= 0, zero, n.clamp(0, 255)).to(torch.int32)
+    n = torch.where(m <= 0, zero, n.clamp(0, 255))
+    return torch.where(top, torch.full_like(n, 31), n).to(torch.int32)

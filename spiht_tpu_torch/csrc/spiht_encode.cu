@@ -14,8 +14,12 @@
 //
 // Tables (codec/encoder.py encode_tables; B7 and the plain version read the
 // same ones):
-//   t1[N]     = (M+1) | (D+1)<<5 | (G+1)<<10 | sgn<<15 | hc<<16 | hg<<17
+//   t1[N]     = (M+1) | (D+1)<<6 | (G+1)<<12 | sgn<<18 | hc<<19 | hg<<20
 //   t3s[N]    = sgn<<31 | |x|          (sgn = x >= 0)
+// |x| is the native scheduler's uint32 magnitude: a coefficient of -2^31
+// has M = 31 (so six bits a field) and the t3s word 0, sign 0 and low bits
+// 0, which no other coefficient gives (0 has sign 1): its bit 31 of
+// magnitude is read from that word (sig_at).
 //   child0[N] = flat index of the first child (children at +0, +1, +w, +w+1)
 // B1's queues carry payloads, as the TPU kernel's did (the plain version and
 // B7 keep lists of node indices instead):
@@ -93,9 +97,11 @@ struct EncArgs {
   int32_t* __restrict__ stat;
 };
 
-SPIHT_HD int32_t level_m(int32_t t) { return (t & 31) - 1; }
-SPIHT_HD int32_t level_d(int32_t t) { return ((t >> 5) & 31) - 1; }
-SPIHT_HD int32_t level_g(int32_t t) { return ((t >> 10) & 31) - 1; }
+SPIHT_HD int32_t level_m(int32_t t) { return (t & 63) - 1; }
+SPIHT_HD int32_t level_d(int32_t t) { return ((t >> 6) & 63) - 1; }
+SPIHT_HD int32_t level_g(int32_t t) { return ((t >> 12) & 63) - 1; }
+// t1's has-grandchildren bit
+SPIHT_HD uint32_t has_gc(int32_t t) { return (t >> 20) & 1; }
 
 SPIHT_HD void write_stat(const EncArgs& a, int32_t bits, int32_t err,
                          int32_t lip_n, int32_t lis_n, int32_t lsp_n) {
@@ -115,9 +121,14 @@ struct alignas(8) LisEntry {
   int32_t t;  // t1 of the node
 };
 
-// A t3s payload's significance at plane n (n <= 30): M >= n.
+// The t3s word of a 0 coefficient, never significant: a LIP chunk's
+// entries past the queue's end read as it.
+#define T3S_ZERO ((int32_t)0x80000000u)
+
+// A t3s payload's significance at plane n: M >= n, on the uint32
+// magnitude (the word 0 is -2^31's, magnitude 2^31).
 SPIHT_HD uint32_t sig_at(int32_t x, int n) {
-  return ((x & 0x7FFFFFFF) >> n) != 0;
+  return (((uint32_t)x & 0x7FFFFFFFu) | (uint32_t)(x == 0) << 31) >> n != 0;
 }
 
 // Counts of an entry, or of a run of entries, packed into one word so that
@@ -277,7 +288,7 @@ SPIHT_HD bool enc_lis_seq(const EncArgs& a, LisEntry le, const int32_t* kid,
         a.lip[q.lip_n++] = kid[i];
       }
     }
-    if ((le.t >> 17) & 1) {  // has grandchildren: re-append as type B
+    if (has_gc(le.t)) {  // has grandchildren: re-append as type B
       if (q.lis_n >= a.lis_cap) { q.err = SPIHT_ERR_LIS_CAP; return false; }
       lis[q.lis_n++] = LisEntry{le.e & ~1, le.t};
     }
@@ -330,7 +341,7 @@ SPIHT_HD uint64_t lis_entry(LisEntry le, const int32_t* kid, int n,
       ++nsig;
     }
   }
-  return enc_counts(nb, nsig, 4 - nsig, (le.t >> 17) & 1, 0);
+  return enc_counts(nb, nsig, 4 - nsig, has_gc(le.t), 0);
 }
 
 // ---- chunk ends ----
@@ -397,7 +408,8 @@ SPIHT_HD void encode_machine(const EncArgs& a, EncShared<NT * E>& sh,
     // end; appends, at the tails) never lie in the next chunk's range.
     s.keep = 0;
     int32_t xn[E];
-    for (int j = 0; j < E; ++j) xn[j] = k0 + j < lip_len ? a.lip[k0 + j] : 0;
+    for (int j = 0; j < E; ++j)
+      xn[j] = k0 + j < lip_len ? a.lip[k0 + j] : T3S_ZERO;
     for (int32_t r0 = 0; r0 < lip_len; r0 += CH) {
       const int32_t m = min32(CH, lip_len - r0);
       int32_t x[E];
@@ -406,7 +418,7 @@ SPIHT_HD void encode_machine(const EncArgs& a, EncShared<NT * E>& sh,
         x[j] = xn[j];
         nsig += sig_at(x[j], n);
         const int32_t k = r0 + CH + k0 + j;
-        xn[j] = k < lip_len ? a.lip[k] : 0;
+        xn[j] = k < lip_len ? a.lip[k] : T3S_ZERO;
       }
       uint32_t tsig;
       uint32_t sg = block_scan<NT>(sh.wsum, nsig, tid, tsig);
@@ -760,7 +772,7 @@ SPIHT_HD bool seq_lis_exact(const EncArgs& a, const SeqSlot& sl, int n,
         a.lip[s.lip_n++] = ch;
       }
     }
-    if ((t >> 17) & 1) {  // has grandchildren: re-append as type B
+    if (has_gc(t)) {  // has grandchildren: re-append as type B
       if (s.lis_n >= a.lis_cap) { s.err = SPIHT_ERR_LIS_CAP; return false; }
       a.lis[s.lis_n++] = e & ~1;
     }
@@ -854,7 +866,7 @@ SPIHT_HD void seq_run(const EncArgs& a, Feed& f, const SeqPass& p, int32_t r,
       const uint32_t ta = e & 1;
       const uint32_t fires = (ta ? level_d(t) : level_g(t)) >= n;
       const uint32_t fa = fires & ta, fb = fires & (ta ^ 1);
-      const uint32_t hg = fa & (t >> 17) & 1;  // re-append as type B
+      const uint32_t hg = fa & has_gc(t);  // re-append as type B
       a.lis[kp] = e;  // real where it does not fire: retained
       kp += 1 - fires;
       // a type-A fire: each child's bit and, if significant, its sign, and

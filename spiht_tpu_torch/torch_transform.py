@@ -2,7 +2,7 @@
 
 * ``forward`` (``_forward_jit`` :66-85): colour model -> packed multilevel
   DWT -> per-channel scales -> ``* quantization_scale`` -> truncating int32
-  cast.
+  cast (-2^31 out of range, as numpy's cast of the host path gives it).
 * ``inverse`` (``_inverse_jit`` :149-193): ``/ per-channel scales``,
   ``/ quantization_scale``, ``waverec2``, inverse colour, optional uint8.
   No crop to (h, w): like the reference, the output can exceed the
@@ -15,7 +15,14 @@
   are ``encode_pipeline_eager`` / ``decode_pipeline_eager``.
 * ``encode_pipeline_batch_fn`` / ``decode_pipeline_batch_fn`` (:535-662,
   :393-500): the same over a (B, C, H, W) batch of one shape, through the
-  batched kernels (B4; B5 or batched B3), one launch per direction.
+  batched kernels (B4; B5 or batched B3), one launch per direction, as
+  cached programs a key (``encode_batch_program`` /
+  ``decode_batch_program``, at most ``batch_bound`` images each). Where a
+  launch would take fewer than two streams (``ilv_chunk(B)`` of 1), they
+  launch B1, and B2 or B3, a stream each, as the JAX package runs its
+  ``lax.map`` of the single-stream machine there (``batch_route``). Their
+  op-by-op bodies are ``encode_pipeline_batch_eager`` /
+  ``decode_pipeline_batch_eager``.
 
 * ``forward_compact`` (``_forward_compact_jit`` :103-146): the forward
   transform to int16 coefficients and an overflow flag, for the
@@ -42,6 +49,7 @@ caveat: borderline truncations may flip.
 
 from __future__ import annotations
 
+import functools
 import gc
 import os
 import threading
@@ -54,9 +62,10 @@ import torch
 
 from .device import constant, holding, resolve_device
 from .codec import decoder as _decoder, encoder as _encoder
-from .codec.decoder import decode_coeffs, decode_coeffs_batch
+from .codec.decoder import decode_coeffs
 from .codec.encoder import (
-    check_stat, encode_coeffs, encode_coeffs_batch, stream_bytes,
+    batch_stream_bytes, check_stat, encode_coeffs, encode_coeffs_batch,
+    stream_bytes,
 )
 from .codec.maps import significance_maps
 from .codec.planning import bits_per_plane_from_maps
@@ -85,6 +94,16 @@ __all__ = [
     "clear_programs",
     "encode_pipeline_batch_fn",
     "decode_pipeline_batch_fn",
+    "encode_pipeline_batch_eager",
+    "decode_pipeline_batch_eager",
+    "encode_batch_program",
+    "decode_batch_program",
+    "EncodeBatchProgram",
+    "DecodeBatchProgram",
+    "encode_batch",
+    "decode_batch",
+    "batch_bound",
+    "batch_route",
     "analysis_fn",
     "synthesis_fn",
     "default_dtype",
@@ -138,9 +157,15 @@ def forward(
     """(..., C, H, W) image(s) -> (int32 packed coefficients (..., C,
     enc_h, enc_w), ll_h, ll_w), on the images' device."""
     arr, ll_h, ll_w = _scaled_coeffs(image, settings, level, dtype)
-    # truncate toward zero, as the reference's integer cast
-    arr = (arr * float(settings.quantization_scale)).to(torch.int32)
-    return arr, ll_h, ll_w
+    return _quantize(arr * float(settings.quantization_scale)), ll_h, ll_w
+
+
+def _quantize(x: torch.Tensor) -> torch.Tensor:
+    """Truncate toward zero to int32, as the reference's integer cast;
+    a value out of int32's range (or NaN) gives -2^31, as numpy's cast of
+    the host path does, on every device (CUDA's cast saturates)."""
+    inside = (x > -2.0**31 - 1) & (x < 2.0**31)
+    return torch.where(inside, x.to(torch.int32), -(2**31))
 
 
 def forward_with_maps(
@@ -492,6 +517,52 @@ class _Program:
         pin.copy_(host)
         self._upload(static, pin)
 
+    def _put_words(self, streams, nwords) -> None:
+        """Copy n streams into the first n rows of the static word buffer
+        (a single stream's buffer is one row), each row zeroed past the
+        stream's first ``nwords[b]`` words, so that what the buffer held
+        before cannot change a result; rows past n repeat row n - 1
+        (``_pad_rows``). ``streams``: an (n, width) int32 tensor on the
+        card (a row's first min(width, bucket) words), or n host streams
+        (bytes, or int32 words in a tensor or array), staged in one pinned
+        buffer and uploaded in one copy."""
+        static = self.statics["words"]
+        static = static.view(-1, static.shape[-1])
+        n = len(nwords)
+        if isinstance(streams, torch.Tensor) and streams.device.type != "cpu":
+            k = min(streams.shape[-1], static.shape[1])
+            static[:n, :k].copy_(streams.reshape(n, -1)[:, :k])
+            static[:n, k:].zero_()
+        else:
+            cuda = self.dev.type == "cuda"
+            buf = self._pin("words", static) if cuda else static
+            view = buf.numpy().view(np.uint8)
+            for b in range(n):
+                raw = _stream_raw(streams[b])[: nwords[b] * 4]
+                view[b, : raw.size] = raw
+                view[b, raw.size:] = 0
+            if cuda:
+                self._upload(static[:n], buf[:n])
+        _pad_rows(static, n)
+
+
+def _pad_rows(static: torch.Tensor, n: int) -> None:
+    """Rows n and on of a static batch buffer repeat row n - 1: a batch's
+    last, shorter part runs in its key's program on valid inputs, whose
+    results are dropped."""
+    if n < static.shape[0]:
+        static[n:].copy_(static[n - 1].expand_as(static[n:]))
+
+
+def _stream_raw(stream) -> np.ndarray:
+    """A stream's bytes as uint8: from bytes, or from int32 (or uint32)
+    words in a host tensor or array."""
+    if isinstance(stream, (bytes, bytearray, memoryview)):
+        return np.frombuffer(stream, np.uint8)
+    if isinstance(stream, torch.Tensor):
+        stream = stream.contiguous().numpy()
+    return np.ascontiguousarray(stream).reshape(-1).view(np.uint8)
+
 
 class EncodeProgram(_Program):
     """The encode pipeline of one key (``encode_program``), the
@@ -530,9 +601,11 @@ class EncodeProgram(_Program):
         })
 
     def start(self, image, max_bits) -> None:
-        mb = min(int(max_bits), 2**31 - 2)
-        words = _encoder.cap_words_for(*self.cells, max(mb, 0))
-        if mb < 0 or words > self.bucket:
+        # a negative budget is 0, as the JAX package's device machines read
+        # it: an empty stream
+        mb = max(min(int(max_bits), 2**31 - 2), 0)
+        words = _encoder.cap_words_for(*self.cells, mb)
+        if words > self.bucket:
             raise ValueError(f"max_bits {max_bits} does not fit the "
                              f"program's {self.bucket} words")
         budget, capped = _encoder._budget(mb, self.bucket)
@@ -610,27 +683,12 @@ class DecodeProgram(_Program):
         if nbits < 0 or n > self.bucket:
             raise ValueError(f"nbits {nbits} does not fit the program's "
                              f"{self.bucket} words")
-        static = self.statics["words"]
         self._begin()
         if isinstance(words, torch.Tensor) and words.device.type != "cpu":
-            static[:n].copy_(words.reshape(-1)[:n])
+            words = words.reshape(1, -1)[:, :n]
         else:
-            if isinstance(words, (bytes, bytearray, memoryview)):
-                raw = np.frombuffer(words, np.uint8)
-            elif isinstance(words, torch.Tensor):
-                raw = words.reshape(-1).contiguous().numpy().view(np.uint8)
-            else:
-                raw = np.ascontiguousarray(words).reshape(-1).view(np.uint8)
-            raw = raw[: n * 4]
-            cuda = self.dev.type == "cuda"
-            buf = self._pin("words", static) if cuda else static
-            view = buf.numpy().view(np.uint8)
-            view[: raw.size] = raw
-            view[raw.size: n * 4] = 0
-            if cuda:
-                self._upload(static[:n], buf[:n])
-        if n < self.bucket:
-            static[n:].zero_()
+            words = [words]
+        self._put_words(words, [n])
         self._put("scalars", np.array([nbits, int(max_n)], np.int32))
         self.run()
 
@@ -824,19 +882,442 @@ def decode_pipeline_fn(
     return fn
 
 
-def encode_pipeline_batch_fn(
+def encode_pipeline_batch_eager(
     settings: SpihtSettings,
     level: Optional[int] = None,
     dtype: torch.dtype = torch.float64,
 ):
-    """fn(images (B,C,H,W) tensor, max_bits: B ints) -> (words (B,
-    cap_words), stat (B, STAT_LEN), max_n (B,)), all on the images'
-    device: the batched transform -> per-image max_n -> maps -> kernel B4.
-    Nothing is read back to the host."""
+    """The batch encode pipeline's eager body: fn(images (B,C,H,W) tensor,
+    max_bits: B ints) -> (words (B, cap_words), stat (B, STAT_LEN), max_n
+    (B,)), all on the images' device: the batched transform -> per-image
+    max_n -> maps -> kernel B4 (launches of ``ilv_chunk(B)`` streams), op
+    by op, the word buffer sized from the largest budget. Nothing is read
+    back. ``encode_pipeline_batch_fn`` runs the same body as programs."""
 
     def fn(images: torch.Tensor, max_bits):
         arr, ll_h, ll_w = forward(images, settings, level, dtype)
-        return encode_coeffs_batch(arr, ll_h, ll_w, max_bits)
+        return encode_coeffs_batch(arr, ll_h, ll_w, max_bits, None,
+                                   *batch_route(images.shape[0]))
+
+    return fn
+
+
+def decode_pipeline_batch_eager(
+    settings: SpihtSettings,
+    h: int,
+    w: int,
+    level: Optional[int],
+    c: int,
+    dtype: torch.dtype = torch.float64,
+    as_uint8: bool = False,
+):
+    """The batch decode pipeline's eager body: fn(words int32 (B,
+    cap_words), nbits: B ints, max_n: B ints) -> images (B, ...) on the
+    words' device: kernel B5 (+ one rec scatter) or batched B3 ->
+    dequantize -> ``waverec2`` -> inverse colour, op by op; raises on a
+    machine error (a sync in the middle). ``decode_pipeline_batch_fn``
+    runs the same body as programs."""
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+
+    def fn(words: torch.Tensor, nbits, max_ns):
+        body = _decoder.decode_batch_body(
+            c, enc_h, enc_w, ll_h, ll_w, words.shape[-1], words.device, None,
+            *batch_route(words.shape[0]))
+        rec, stat, name = body(words, _decoder.batch_scalars(words, nbits,
+                                                             max_ns))
+        check_stat(stat, name)
+        return inverse(rec.reshape(-1, c, enc_h, enc_w), h, w, level,
+                       settings, dtype, as_uint8)
+
+    return fn
+
+
+def batch_route(B: int):
+    """(route, chunk) of a batch pipeline of B streams: B4, and B5 or
+    batched B3, in launches of ``ilv_chunk(B)`` streams ("ilv"); where
+    that is fewer than two, single launches of B1, and B2 or B3 ("map",
+    chunk None), as the JAX package's pipelines run a ``lax.map`` of the
+    single-stream machine where a chunk holds fewer than two streams
+    (``jax_transform.py:437``, :587)."""
+    chunk = _encoder.ilv_chunk(B)
+    return ("ilv", chunk) if chunk >= 2 else ("map", None)
+
+
+# ---------------------------------------------------------------------------
+# The batch programs: a batch of one shape, one CUDA graph a key
+# ---------------------------------------------------------------------------
+
+# the device bytes an image cell (of a c*h*w input) that a round trip's
+# two batch programs, encode and decode at one batch size, hold together
+# in their pools and static buffers: on an H100 (PERF.md §6, phase 26)
+# 87 + 96 = 183 at 16 and 128 3x512x512 images (A), 62 + 84 = 146 at
+# 8 (B); the rest is room for larger word buckets
+BATCH_BYTES_PER_CELL = 200
+
+
+def batch_bound(shape, dev: torch.device) -> Optional[int]:
+    """The most images of a (C, H, W) ``shape`` that one batch program
+    takes on ``dev``: the programs' memory share over an image's bytes
+    in a round trip's encode and decode programs (``BATCH_BYTES_PER_CELL``
+    a cell), at least 1, so that both programs of a round trip at the
+    bound stay cached together; None (no bound) off the card."""
+    limit = _memory_limit(dev)
+    if limit is None:
+        return None
+    c, h, w = (int(v) for v in shape)
+    return max(1, int(limit // (BATCH_BYTES_PER_CELL * c * h * w)))
+
+
+def _batch_parts(n: int, shape, dev: torch.device):
+    """(m, the (start, stop) ranges) of ``n`` images of a (C, H, W)
+    ``shape`` on ``dev``: the fewest equal parts of at most ``batch_bound``
+    images, m images each but the last, which may be shorter and is
+    padded in the program of m (``_pad_rows``), so that one batch runs
+    through one key a direction."""
+    bound = batch_bound(shape, dev)
+    m = n if bound is None else -(-n // -(-n // bound))
+    return m, [(s, min(s + m, n)) for s in range(0, n, m)]
+
+
+class EncodeBatchProgram(_Program):
+    """The batch encode pipeline of one key (``encode_batch_program``), the
+    counterpart of the JAX package's ``_encode_pipeline_batch_jit``.
+
+    ``start(images, max_bits)`` copies n <= B images into the static (B,
+    C, H, W) input (from the host through one pinned buffer, an image on
+    the card device to device), writes their budgets
+    (``encoder.batch_budgets``) into a static (B,) device tensor, which
+    B4 (or each B1 launch of the ``map`` route) reads, and runs the
+    program, with no sync; rows past n repeat the last image and budget.
+    Then either ``on_device()`` returns fresh copies of the n streams'
+    (words, stat, max_n) as the eager body returns them, or ``finish()``
+    reads their stat rows and max_n (one read), raises as ``check_stat``
+    does, and reads the streams. A call holds ``lock`` from ``start`` to
+    its read."""
+
+    def __init__(self, key, settings, level, dtype, shape, in_dtype, dev,
+                 bucket, route, chunk):
+        B, c, h, w = shape
+        slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+        _encoder.check_geometry(c, enc_h, enc_w, slices[0][1].stop,
+                                slices[0][2].stop)
+        self.shape, self.cells, self.bucket = shape, (c, enc_h, enc_w), bucket
+        self._words, self._n = bucket, B
+        self.stage_s = 0.0  # the last call's host copies into pinned memory
+
+        def body(images, budgets):
+            arr, ll_h, ll_w = forward(images, settings, level, dtype)
+            words, stat, max_n = encode_coeffs_batch(
+                arr, ll_h, ll_w, budgets, bucket, route, chunk)
+            return words, torch.cat((stat, max_n[:, None]), 1)
+
+        super().__init__(key, dev, body, {
+            "images": torch.empty(shape, dtype=in_dtype, device=dev),
+            "budgets": torch.zeros(B, dtype=torch.int32, device=dev),
+        })
+
+    def start(self, images, max_bits) -> None:
+        n, B = len(images), self.shape[0]
+        if not 1 <= n <= B:
+            raise ValueError(f"want 1 to {B} images, got {n}")
+        mbs = _encoder.batch_budgets(max_bits, n)
+        words = _encoder.cap_words_for(*self.cells, max(mbs))
+        if words > self.bucket:
+            raise ValueError(f"max_bits {max(mbs)} does not fit the "
+                             f"program's {self.bucket} words")
+        self._begin()
+        self._put_rows(images)
+        self._put("budgets", np.array(mbs + mbs[-1:] * (B - n), np.int32))
+        self.run()
+        self._words, self._n = words, n
+
+    def _put_rows(self, images) -> None:
+        """Copy n images (an (n, C, H, W) tensor or array, or a list of n
+        tensors or arrays) into the first n rows of the static input: an
+        image on the card device to device, a host image into its row of
+        one pinned buffer and up from there, so that its upload runs while
+        the host copies the next; rows past n repeat row n - 1."""
+        static, n = self.statics["images"], len(images)
+        t0 = time.perf_counter()
+        if isinstance(images, torch.Tensor) and images.device.type != "cpu":
+            static[:n].copy_(images)
+        else:
+            cuda = self.dev.type == "cuda"
+            buf = self._pin("images", static) if cuda else static
+            for b, row in enumerate(images):
+                if isinstance(row, torch.Tensor) and row.device.type != "cpu":
+                    static[b].copy_(row)
+                    continue
+                buf[b].copy_(row if isinstance(row, torch.Tensor)
+                             else torch.from_numpy(np.ascontiguousarray(row)))
+                if cuda:
+                    self._upload(static[b], buf[b])
+        self.stage_s = time.perf_counter() - t0
+        _pad_rows(static, n)
+
+    def on_device(self):
+        """(words int32 (n, cap_words_for(largest budget)), stat (n,
+        STAT_LEN), max_n (n,)) of the last start's n streams, fresh
+        tensors on the program's device, equal to the eager body's."""
+        words, head = self.outputs
+        n = self._n
+        out = (words[:n, : self._words].clone(),
+               head[:n, : _encoder.STAT_LEN].clone(),
+               head[:n, _encoder.STAT_LEN].clone())
+        self._end()
+        return out
+
+    def finish(self) -> list:
+        """[(stream bytes, max_n)] of the last start's n streams, read
+        back to the host."""
+        words, head = self.outputs
+        rows = head[: self._n].tolist()
+        stat = check_stat([r[: _encoder.STAT_LEN] for r in rows],
+                          "spiht_encode_batch")
+        data = batch_stream_bytes(words[: self._n], [r[0] for r in stat])
+        return list(zip(data, [r[_encoder.STAT_LEN] for r in rows]))
+
+    def device_call(self, images, max_bits):
+        with self.lock:
+            self.start(images, max_bits)
+            return self.on_device()
+
+    def __call__(self, images, max_bits) -> list:
+        with self.lock:
+            self.start(images, max_bits)
+            return self.finish()
+
+
+class DecodeBatchProgram(_Program):
+    """The batch decode pipeline of one key (``decode_batch_program``):
+    B streams -> B images, the counterpart of the JAX package's
+    ``_decode_pipeline_batch_jit``.
+
+    ``start(streams, nbits, max_ns)`` copies n <= B streams (bytes, or
+    int32 word rows on the host or the card) into the static (B, bucket)
+    word buffer (``_put_words``: each row zeroed past its stream, rows
+    past n repeating the last), writes nbits and max_n into a static (2,
+    B) device tensor, which B5 or batched B3 (or each single launch of the
+    ``map`` route) reads, and runs the program, with no sync. ``finish()``
+    reads the n stat rows (the one sync), raises as ``check_stat`` does,
+    and returns a fresh (n, ...) tensor of images."""
+
+    def __init__(self, key, settings, h, w, level, c, dtype, as_uint8, dev,
+                 B, bucket, route, chunk):
+        slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+        ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+        dec = _decoder.decode_batch_body(c, enc_h, enc_w, ll_h, ll_w, bucket,
+                                         dev, None, route, chunk)
+        seq = _decoder.has_duplicate_parents(enc_h, enc_w, ll_h, ll_w)
+        self.kernel = "spiht_decode_" + ("seq" if seq else "lsp") + "_batch"
+        self.B, self.bucket, self._n = B, bucket, B
+
+        def body(words, scalars):
+            rec, stat, _ = dec(words, scalars)
+            return inverse(rec.reshape(B, c, enc_h, enc_w), h, w, level,
+                           settings, dtype, as_uint8), stat
+
+        super().__init__(key, dev, body, {
+            "words": torch.zeros(B, bucket, dtype=torch.int32, device=dev),
+            "scalars": torch.zeros(2, B, dtype=torch.int32, device=dev),
+        })
+
+    def start(self, streams, nbits, max_ns) -> None:
+        nbits, max_ns = [int(v) for v in nbits], [int(v) for v in max_ns]
+        n, pad = len(nbits), self.B - len(nbits)
+        if not 1 <= n <= self.B:
+            raise ValueError(f"want 1 to {self.B} streams, got {n}")
+        rows = _decoder.batch_scalar_rows(nbits + nbits[-1:] * pad,
+                                          max_ns + max_ns[-1:] * pad,
+                                          self.B, self.bucket)
+        self._begin()
+        self._put_words(streams, [(nb + 31) // 32 for nb in nbits])
+        self._put("scalars", rows)
+        self.run()
+        self._n = n
+
+    def finish(self) -> torch.Tensor:
+        images, stat = self.outputs
+        check_stat(stat[: self._n], self.kernel)
+        images = images[: self._n].clone()
+        self._end()
+        return images
+
+    def __call__(self, streams, nbits, max_ns) -> torch.Tensor:
+        with self.lock:
+            self.start(streams, nbits, max_ns)
+            return self.finish()
+
+
+def encode_batch_program(
+    settings: SpihtSettings,
+    shape,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+    in_dtype: torch.dtype = torch.float64,
+    device=None,
+    max_bits: int = 2**31 - 2,
+) -> EncodeBatchProgram:
+    """The cached encode program of a (B, C, H, W) batch of ``in_dtype``.
+    Its key: the single-image key (``encode_program``'s) with the batch
+    size B, the route (``batch_route``, read here: B4 in launches of
+    ``ilv_chunk(B)`` streams, or B1 a stream) and the word-buffer bucket
+    of the largest budget ``max_bits``."""
+    dev = resolve_device(device)
+    B, c, h, w = (int(v) for v in shape)
+    route, chunk = batch_route(B)
+    _, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    mb = max(min(int(max_bits), 2**31 - 2), 0)
+    full = _encoder.cap_words_for(c, enc_h, enc_w, 2**31 - 2)
+    bucket = min(_pow2(_encoder.cap_words_for(c, enc_h, enc_w, mb)), full)
+    skey = _settings_key(settings)
+    key = ("encode_batch", skey, B, c, h, w, level, dtype, in_dtype, dev,
+           route, chunk, bucket)
+    return _program(key, dev, lambda: EncodeBatchProgram(
+        key, _settings_of(skey), level, dtype, (B, c, h, w), in_dtype, dev,
+        bucket, route, chunk))
+
+
+def decode_batch_program(
+    settings: SpihtSettings,
+    h: int,
+    w: int,
+    level: Optional[int],
+    c: int,
+    B: int,
+    dtype: torch.dtype = torch.float64,
+    as_uint8: bool = False,
+    device=None,
+    nbits: int = 0,
+) -> DecodeBatchProgram:
+    """The cached decode program of B streams of an (h, w, c) image. Its
+    key: the single-image key (``decode_program``'s) with B, the route
+    (``batch_route``, read here: B5 and one scatter, or batched B3 at odd
+    LL, in launches of ``ilv_chunk(B)`` streams, or B2 and its scatter, or
+    B3, a stream) and the word-buffer bucket of the longest stream's
+    ``nbits``."""
+    dev = resolve_device(device)
+    B = int(B)
+    route, chunk = batch_route(B)
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    seq = _decoder.has_duplicate_parents(enc_h, enc_w, slices[0][1].stop,
+                                         slices[0][2].stop)
+    bucket = _pow2(max((int(nbits) + 31) // 32, 1))
+    skey = _settings_key(settings)
+    key = ("decode_batch", skey, B, c, h, w, level, dtype, dev,
+           "b3" if seq else "b5", route, chunk, bucket, bool(as_uint8))
+    return _program(key, dev, lambda: DecodeBatchProgram(
+        key, _settings_of(skey), h, w, level, c, dtype, as_uint8, dev, B,
+        bucket, route, chunk))
+
+
+def _rows_of(images):
+    """Same-shape images as a (B, C, H, W) tensor (as it is), or a list of
+    (C, H, W) tensors where they lie (numpy ones wrapped, no copy), with
+    their shape and common dtype."""
+    if isinstance(images, torch.Tensor) and images.dim() == 4:
+        return images, tuple(images.shape[1:]), images.dtype
+    rows = [_image_of(im) for im in images]
+    if not rows:
+        raise ValueError("an empty batch")
+    shape = tuple(rows[0].shape)
+    if any(tuple(r.shape) != shape for r in rows):
+        raise ValueError("the images of a batch must share one shape")
+    return rows, shape, functools.reduce(torch.promote_types,
+                                         (r.dtype for r in rows))
+
+
+def _encode_parts(settings, images, max_bits, level, dtype, dev):
+    """(the program, [(images, budgets)] of its parts) of a same-shape
+    batch: one key, the parts of ``_batch_parts``, the bucket of the
+    largest budget."""
+    rows, shape, in_dtype = _rows_of(images)
+    mbs = _encoder.batch_budgets(max_bits, len(rows))
+    m, parts = _batch_parts(len(rows), shape, dev)
+    prog = encode_batch_program(settings, (m,) + shape, level, dtype,
+                                in_dtype, dev, max(mbs))
+    return prog, [(rows[s:e], mbs[s:e]) for s, e in parts]
+
+
+def encode_batch(
+    settings: SpihtSettings,
+    images,
+    max_bits,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+) -> list:
+    """[(stream bytes, max_n)] of same-shape images (a (B, C, H, W) tensor,
+    or a list of (C, H, W) numpy arrays or tensors), in input order,
+    through one ``encode_batch_program``, replayed for each of the equal
+    parts of at most ``batch_bound`` images (``_batch_parts``).
+    ``max_bits``: B ints."""
+    prog, parts = _encode_parts(settings, images, max_bits, level, dtype,
+                                resolve_device(device))
+    return [r for part in parts for r in prog(*part)]
+
+
+def decode_batch(
+    settings: SpihtSettings,
+    h: int,
+    w: int,
+    level: Optional[int],
+    c: int,
+    streams,
+    nbits,
+    max_ns,
+    dtype: torch.dtype = torch.float64,
+    as_uint8: bool = False,
+    device=None,
+) -> torch.Tensor:
+    """Images (B, ...) of B streams of one (h, w, c) image, a fresh tensor
+    on ``device``, in input order, through one ``decode_batch_program``
+    (the bucket of the longest stream), replayed for each of the equal
+    parts of at most ``batch_bound`` images (``_batch_parts``).
+    ``streams``: B byte strings, or int32 word rows (a (B, n) tensor or
+    array) holding each stream's ``nbits``."""
+    dev = resolve_device(device)
+    nbits = [int(v) for v in nbits]
+    max_ns = [int(v) for v in max_ns]
+    m, parts = _batch_parts(len(nbits), (c, h, w), dev)
+    prog = decode_batch_program(settings, h, w, level, c, m, dtype, as_uint8,
+                                dev, max(nbits))
+    outs = [prog(streams[s:e], nbits[s:e], max_ns[s:e]) for s, e in parts]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def encode_pipeline_batch_fn(
+    settings: SpihtSettings,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+):
+    """fn(images (B,C,H,W) tensor or numpy, max_bits: B ints) -> (words
+    (B, cap_words), stat (B, STAT_LEN), max_n (B,)), all on ``device``
+    (None: the images', the card for numpy), as the eager body returns
+    them: the batched transform -> per-image max_n -> maps -> kernel B4
+    (or B1 a stream, ``batch_route``), as one cached program a key
+    (``encode_batch_program``), replayed for each part, as
+    ``encode_batch`` splits a batch. Nothing is read back to the host."""
+
+    def fn(images, max_bits):
+        if not isinstance(images, torch.Tensor):
+            images = torch.from_numpy(np.ascontiguousarray(images))
+        if images.dim() != 4:
+            raise ValueError("images ndim must be 4: b,c,h,w")
+        prog, parts = _encode_parts(settings, images, max_bits, level, dtype,
+                                    _device_of(images, device))
+        width = _encoder.cap_words_for(*prog.cells,
+                                       max(max(mbs) for _, mbs in parts))
+        outs = []
+        for part in parts:
+            words, stat, max_n = prog.device_call(*part)
+            outs.append((torch.nn.functional.pad(
+                words, (0, width - words.shape[1])), stat, max_n))
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat(x) for x in zip(*outs))
 
     return fn
 
@@ -849,16 +1330,17 @@ def decode_pipeline_batch_fn(
     c: int,
     dtype: torch.dtype = torch.float64,
     as_uint8: bool = False,
+    device=None,
 ):
-    """fn(words int32 (B, cap_words), nbits: B ints, max_n: B ints) ->
-    images (B, ...) on the words' device: kernel B5 (+ one rec scatter) or
-    batched B3 -> dequantize -> ``waverec2`` -> inverse colour."""
-    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
-    ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+    """fn(words int32 (B, cap_words) tensor or numpy, nbits: B ints,
+    max_n: B ints) -> images (B, ...) on ``device`` (None: the words', the
+    card for numpy), a fresh tensor: kernel B5 (+ one rec scatter) or
+    batched B3 (or single launches, ``batch_route``) -> dequantize ->
+    ``waverec2`` -> inverse colour, as cached programs a key
+    (``decode_batch_program``); raises on a machine error."""
 
-    def fn(words: torch.Tensor, nbits, max_ns):
-        rec = decode_coeffs_batch(words, nbits, max_ns, c, enc_h, enc_w,
-                                  ll_h, ll_w)
-        return inverse(rec, h, w, level, settings, dtype, as_uint8)
+    def fn(words, nbits, max_ns):
+        return decode_batch(settings, h, w, level, c, words, nbits, max_ns,
+                            dtype, as_uint8, _device_of(words, device))
 
     return fn

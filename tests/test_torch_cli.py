@@ -21,6 +21,8 @@ import spiht_tpu_torch as pt
 from spiht_tpu_torch import cli, metrics
 from spiht_tpu_torch import transform as ttr
 
+from helpers.reference_native import load as reference_native
+
 torch.set_num_threads(1)
 
 CPU = ["--device", "cpu"]
@@ -28,7 +30,10 @@ CPU = ["--device", "cpu"]
 
 @pytest.fixture(autouse=True)
 def _keep_backends(monkeypatch):
-    """The CLI sets the transform backend module-wide: put both back."""
+    """The CLI sets the transform backend module-wide: put both back. The
+    reference's native kernel is loaded, so that its 'native' backend
+    does not fall back to numpy (``helpers/reference_native.py``)."""
+    reference_native()
     monkeypatch.setattr(ttr, "_BACKEND", ttr._BACKEND)
     monkeypatch.setattr(jtr, "_BACKEND", jtr._BACKEND)
 

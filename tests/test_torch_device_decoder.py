@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from spiht_tpu.codec import device_decoder as jdd
-from spiht_tpu.native import runtime
 
 from spiht_tpu_torch.codec import device_decoder as tdd
+
+from helpers.reference_native import load as reference_native
 
 torch.set_num_threads(1)
 
@@ -31,7 +32,7 @@ GEOMS = [
 
 
 def _encode(arr, ll, max_bits=10**9):
-    return runtime.load().encode(arr, *ll, max_bits)
+    return reference_native().encode(arr, *ll, max_bits)
 
 
 def _cw(data) -> int:

@@ -18,6 +18,8 @@ from spiht_tpu.codec import order_prototype as jop
 from spiht_tpu_torch.codec import device_encoder as tde
 from spiht_tpu_torch.codec import order_prototype as top
 
+from helpers.reference_native import load as reference_native
+
 torch.set_num_threads(1)
 
 # tests/test_device_encoder.py's four geometries and budgets
@@ -249,6 +251,7 @@ def test_no_card_raises(monkeypatch):
 
 
 def test_order_prototype_copy_predicts_as_original():
+    reference_native()  # the original needs the reference's native kernel
     rng = np.random.default_rng(14)
     arr = (rng.standard_normal((2, 24, 32)) * 300).astype(np.int32)
     from spiht_tpu.codec.oracle import compute_max_n

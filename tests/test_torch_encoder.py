@@ -86,8 +86,8 @@ def test_encode_tables_layout():
     flat = arr.reshape(-1)
     assert torch.equal(t3s & 0x7FFFFFFF, flat.abs())
     assert torch.equal((t3s < 0), flat >= 0)
-    assert torch.equal(((t1 >> 15) & 1).bool(), flat >= 0)
-    m = (t1 & 31) - 1
+    assert torch.equal(((t1 >> 18) & 1).bool(), flat >= 0)
+    m = (t1 & 63) - 1
     want_m = torch.where(
         flat == 0, -1, torch.floor(torch.log2(flat.abs().double())).long()
     )

@@ -17,7 +17,16 @@ import spiht_tpu_torch as pt
 from spiht_tpu_torch import transform as ttr
 from spiht_tpu_torch.codec import api
 
+from helpers.reference_native import load as reference_native
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _reference_kernel():
+    """The reference's native kernel is loaded: its 'native' backend must
+    not fall back to numpy (``helpers/reference_native.py``)."""
+    reference_native()
 
 SETTINGS = {
     "rgb": dict(),
