@@ -211,6 +211,28 @@ Phases:
       numpy's cast gives it; B1 and B4 streams equal to the CPU port's,
       max_n 31) and an int32 array holding -2^31 through B1 and B4, equal
       to the native scheduler's stream
+  27. the trace, the host-scheduled codec's device steps and the
+      standalone transforms as programs a key (run before 24): (a) the
+      trace at A (B2-log) and B (B3-log) through decode_with_metadata: a
+      key's first call (the log kernel twice: warm-up and capture) and a
+      replay (none), rec and trace equal to the eager body's
+      (meta_expand.decode_with_metadata_eager) and the native scheduler's
+      (phase 12's); on a byte prefix the bucket-sized log's rows past
+      nbits are 0 and the rows up to it equal the eager kernel's log;
+      eager, program, log-only program and expansion-only program medians
+      of 5, first calls, pools, the odd-LL replay's passes and its eager
+      ms, and the program and eager ms at 2^17 bits and at 32 bits more
+      (a bucket of twice the rows); (b) the host-scheduled codec at A16
+      in float32 (B6) through
+      encode_images (standard path: B6 twice on a first call, none on a
+      replay; the budget path) and decode_images: streams equal to phase
+      13's and to the parent's op-by-op steps (eager_host_codec), images
+      equal to the eager inverse's, images/s eager and program, first
+      calls and pools; (c) analysis_fn (with the maps) and synthesis_fn
+      at A equal to the eager forward, maps and inverse, ms eager and
+      program; (d) a replay of the trace, compact, forward and inverse
+      programs under torch.cuda.set_sync_debug_mode("error") up to the
+      reads
 """
 
 from __future__ import annotations
@@ -235,6 +257,7 @@ import spiht_tpu_torch as pt
 from spiht_tpu_torch import _build, cli, metrics, parallel
 from spiht_tpu_torch import transform as host_transform
 from spiht_tpu_torch.codec import decoder, encoder, meta_expand
+from spiht_tpu_torch.codec.maps import significance_maps
 from spiht_tpu_torch.codec.planning import plan_image
 from spiht_tpu_torch.color import torch_models
 from spiht_tpu_torch.native import runtime as native
@@ -1112,19 +1135,23 @@ def phase_new_kernels_small():
 
 def trace_at(label, er, settings, level, kernel):
     """The metadata trace of ``er`` through the API on the card, the counts
-    set to 0 just before and read just after (one launch of ``kernel``);
+    set to 0 just before and read just after (a trace program's first
+    call: two launches of ``kernel``);
     equal to the plain version's trace and to the native scheduler's, its
     rec to the on-device decode's. Returns (log kernel stats, launches)."""
     slices, enc_h, enc_w = get_slices_and_h_w(er.h, er.w, settings, level)
     geo = (er.c, enc_h, enc_w, slices[0][1].stop, slices[0][2].stop)
     wire = slices_to_wire(slices)
     data, mn = er.encoded_bytes, er.max_n
+    # the trace runs as a program a key: its first call launches the log
+    # kernel twice (the warm-up's launch and the capture's)
+    torch_transform.clear_programs()
     reset_counts()
     rec, meta = pt.decode_with_metadata(data, mn, *geo, *wire, device=DEV)
     torch.cuda.synchronize()
     n = counts()
     want = {k: 0 for k in n}
-    want[kernel] = 1
+    want[kernel] = 2
     check(n == want, f"trace at {label}: launches {n}, want {want}")
     check(meta.shape == (len(data) * 8 + 1, 8), f"trace shape {meta.shape}")
     (prec, pmeta), plain_trace_ms = timed(
@@ -1168,10 +1195,8 @@ def phase_metadata(im_a, im_b, er_a, er_b):
     reset_counts()
     img, meta = pt.decode_image(er_b, CONFIG_B, return_metadata=True,
                                 device=DEV)
-    n = counts()
-    want = {k: 0 for k in n}
-    want["spiht_decode_seq_log"] = 1
-    check(n == want, f"decode_image with the trace at B: launches {n}")
+    torch.cuda.synchronize()
+    program_launch("spiht_decode_seq_log", "trace")  # trace_at B's key
     check(np.array_equal(meta, meta_b), "decode_image's trace at B")
     plain_img = pt.decode_image(er_b, CONFIG_B, device=DEV)
     check(np.array_equal(img, plain_img) and np.isfinite(img).all(),
@@ -1287,12 +1312,15 @@ def phase_host_batch(ims, mbs):
 
     f32 = torch.float32
     B = len(ims)
+    # the compact transform runs as a program a key: its first call
+    # launches B6 twice (the warm-up's launch and the capture's)
+    torch_transform.clear_programs()
     reset_counts()
     ers = pt.encode_images(ims, CONFIG_A, None, None, device=DEV, dtype=f32)
     torch.cuda.synchronize()
     n6 = counts()
     want = {k: 0 for k in n6}
-    want["spiht_quantize_compact"] = 1
+    want["spiht_quantize_compact"] = 2
     check(n6 == want, f"encode_images B6 path: launches {n6}, want {want}")
     dev_ers = pt.encode_images_device(ims, CONFIG_A, None, None, device=DEV,
                                       dtype=f32)
@@ -1376,7 +1404,7 @@ def phase_host_batch(ims, mbs):
         "streams_equal_encode_images_device": True,
         "images_equal_decode_images_device": True,
     }))
-    return q_stats, n6["spiht_quantize_compact"]
+    return q_stats, n6["spiht_quantize_compact"], ers, ers_b
 
 
 def sweep_cuts(nbytes, n=64):
@@ -1570,6 +1598,22 @@ def launched(name):
     reset_counts()
 
 
+def program_launch(name, kind):
+    """Check that the path just driven launched ``name`` as the program of
+    ``kind`` (``key[0]``) it last used launches it, and no other kernel:
+    twice on that key's first call (the warm-up's launch and the
+    capture's), not at all on a replay; the counts are set to 0 again.
+    Returns the program."""
+    prog = [p for p in torch_transform.programs() if p.key[0] == kind][-1]
+    n = counts()
+    want = {k: 0 for k in n}
+    want[name] = 2 if prog.replays == 1 else 0
+    check(prog.replays >= 1 and n == want,
+          f"launches {n}, want {want} ({prog.replays} replays of {kind})")
+    reset_counts()
+    return prog
+
+
 def phase_large():
     """Phase 16: the large geometries (``LARGE``) at 1.0 bpp, each through
     encode_image_device (B1), then at the full stream and at a byte prefix
@@ -1610,7 +1654,7 @@ def phase_large():
             (trec, meta), gb[f"trace_{what}"] = peak_gb(
                 lambda: meta_expand.decode_with_metadata(
                     d, mn, *geo, *wire, DEV))
-            launched(log)
+            program_launch(log, "trace")
             nrec, nmeta = nat.decode_with_metadata(d, mn, *geo, *wire)
             check(np.array_equal(trec.cpu().numpy(), nrec)
                   and np.array_equal(meta.cpu().numpy(), nmeta),
@@ -2144,12 +2188,14 @@ def phase_backends(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, smi):
     # B6: the float32 host-scheduled path with a new colour model
     host_transform._BACKEND = "torch"
     ok = dataclasses.replace(CONFIG_A, color_model="oklab")
+    torch_transform.clear_programs()
     before = counts()
     ers6 = pt.encode_images(ims_a, ok, None, None, device=DEV,
                             dtype=torch.float32)
     torch.cuda.synchronize()
     n6 = launches_since(before)
-    check(n6["spiht_quantize_compact"] == 1,
+    # a compact program's first call: the warm-up's launch and the capture's
+    check(n6["spiht_quantize_compact"] == 2,
           f"Oklab B6 path launches: {n6}")
     dev6 = pt.encode_images_device(ims_a, ok, None, None, device=DEV,
                                    dtype=torch.float32)
@@ -3148,7 +3194,7 @@ def hold_names(label, im, er, settings, level):
     wire = slices_to_wire(slices)
     got = meta_expand.pallas_decode_with_metadata(
         er.encoded_bytes, er.max_n, *g, *wire, device=DEV)
-    launched(dec + "_log")
+    program_launch(dec + "_log", "trace")
     trec, tmeta = meta_expand.decode_with_metadata(
         er.encoded_bytes, er.max_n, *g, *wire, DEV)
     reset_counts()
@@ -3460,11 +3506,15 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
 
     no_budget = {"SPIHT_TPU_BUDGET_TRANSFER": "0"}
     streams = None
+    # the compact transform runs as a program a key, whose route is read
+    # when the key is made: each route's first call is a key's first call
+    # (B6 twice: the warm-up's launch and the capture's)
     for label, env, want in (
-            ("encode_images f32 unset", {}, {"spiht_quantize_compact": 1}),
+            ("encode_images f32 unset", {}, {"spiht_quantize_compact": 2}),
             ("encode_images f32 PALLAS=0", {"SPIHT_TPU_PALLAS": "0"}, {}),
             ("encode_images f32 PALLAS=1", {"SPIHT_TPU_PALLAS": "1"},
-             {"spiht_quantize_compact": 1})):
+             {"spiht_quantize_compact": 2})):
+        torch_transform.clear_programs()
         got = switch_route(rows, label, {**no_budget, **env}, host_f32, want)
         streams = got if streams is None else streams
         check(got == streams, f"phase 23 {label}: streams != unset")
@@ -3502,15 +3552,18 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
                        lambda: tapi.decode(data, mn, *geo_a, device=DEV),
                        {"spiht_decode_lsp": 1})
     check(np.array_equal(got, rec), "phase 23: DEVICE_DECODER rec != unset")
+    torch_transform.clear_programs()  # the trace program's first call
     meta = switch_route(rows, "decode_with_metadata unset", {},
                         lambda: tapi.decode_with_metadata(
                             data, mn, *geo_a, *wire, device=DEV),
-                        {"spiht_decode_lsp_log": 1})
+                        {"spiht_decode_lsp_log": 2})
+    # decode_device_with_metadata's kernel route runs the same program
+    torch_transform.clear_programs()
     got = switch_route(rows, "decode_with_metadata DEVICE_DECODER=1",
                        {"SPIHT_TPU_DEVICE_DECODER": "1"},
                        lambda: tapi.decode_with_metadata(
                            data, mn, *geo_a, *wire, device=DEV),
-                       {"spiht_decode_lsp_log": 1})
+                       {"spiht_decode_lsp_log": 2})
     check(all(np.array_equal(x, y) for x, y in zip(got, meta)),
           "phase 23: DEVICE_DECODER trace != unset")
     small = image(301, (3, 64, 64))
@@ -3868,7 +3921,9 @@ def program_rows(progs) -> list:
     """Each program's key fields, bucket, bytes, replays and first-run
     seconds."""
     return [{
-        "key": [str(k) for k in p.key[2:]], "bucket_words": p.bucket,
+        # a trace key's rect table as the word "rects"
+        "key": [str(k) if len(str(k)) < 80 else "rects" for k in p.key[2:]],
+        "bucket_words": getattr(p, "bucket", None),
         "pool_bytes": p.pool_bytes, "static_bytes": p.static_bytes,
         "pinned_host_bytes": p.host_bytes, "replays": p.replays,
         "warmup_and_capture_s": p.capture_s,
@@ -4299,8 +4354,341 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
     print(json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the trace, the host-scheduled steps and the transforms as
+# programs a key
+# ---------------------------------------------------------------------------
+
+
+def synced(fn):
+    """fn, then a sync: a timing of work that stays on the card."""
+    def run():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    return run
+
+
+def eager_host_codec(ims, settings, level, dtype):
+    """The host-scheduled codec's device steps op by op, as the tree
+    before the programs ran them (one pageable upload of the batch, the
+    eager bodies forward_compact, forward_plan with device_max_n, narrow
+    and inverse), around the native scheduler: (encode(mbs or None) ->
+    [(bytes, max_n)], decode(ers) -> [image])."""
+    from spiht_tpu_torch.codec import api as tapi
+    from spiht_tpu_torch.codec.maxn import device_max_n
+    from spiht_tpu_torch.codec.planning import cut_plane_np
+
+    nat = native.load()
+    c, h, w = ims[0].shape
+    ll_h, ll_w = _ll(h, w, settings, level)
+    n = len(ims)
+    n_ee = ((ll_h + 1) // 2) * ((ll_w + 1) // 2)
+    n_init = c * ll_h * ll_w + c * (ll_h * ll_w - n_ee)
+
+    def encode(mbs):
+        batch = tapi._device_batch(ims, DEV)
+        if mbs is None:
+            arr16, ovf, _, _ = torch_transform.forward_compact(
+                batch, settings, level, dtype)
+            check(not bool(ovf), "27: the batch passes int16")
+            arrs = list(arr16.cpu().numpy().astype(np.int32))
+            return nat.encode_batch(arrs, [ll_h] * n, [ll_w] * n,
+                                    [tapi._MAX_BITS_DEFAULT] * n,
+                                    use_maps=True)
+        arr, mx, cnt, mnd, _, _ = torch_transform.forward_plan(
+            batch, settings, level, dtype)
+        mns = device_max_n(arr).cpu().numpy()
+        mx, mnd = mx.cpu().numpy(), mnd.cpu().numpy()
+        cnt = cnt.cpu().numpy().astype(np.int64)
+        shifts = np.zeros(n, np.int32)
+        for b in range(n):
+            ci = cnt[b].copy()
+            ci[mnd[b] + 1: mns[b] + 1] = n_init
+            shifts[b] = max(cut_plane_np(ci, int(mns[b]), int(mbs[b]))[0], 0)
+        wmax = int(np.max(mx >> shifts))
+        check(wmax <= 32767, "27: the narrowed batch passes int16")
+        od = torch.int8 if wmax <= 127 else torch.int16
+        hi = torch_transform.narrow(arr, torch.as_tensor(shifts, device=DEV),
+                                    od).cpu().numpy()
+        mag = np.abs(hi.astype(np.int32)) << shifts[:, None, None, None]
+        return nat.encode_batch(list(np.where(hi >= 0, mag, -mag).astype(
+            np.int32)), [ll_h] * n, [ll_w] * n, list(mbs), use_maps=True,
+            forced_max_ns=mns.astype(np.int32))
+
+    def decode(ers):
+        _, eh, ew = get_slices_and_h_w(h, w, settings, level)
+        recs = nat.decode_batch([e.encoded_bytes for e in ers],
+                                [e.max_n for e in ers], [c] * len(ers),
+                                [eh] * len(ers), [ew] * len(ers),
+                                [ll_h] * len(ers), [ll_w] * len(ers))
+        return list(inverse(tapi._device_batch(recs, DEV), h, w, level,
+                            settings).cpu().numpy())
+
+    return encode, decode
+
+
+def trace_programs(label, er, settings, level, kernel, nat):
+    """Phase 27 (a) at one configuration: the trace program's first call
+    and a replay through decode_with_metadata, against the eager body and
+    the native scheduler; the bucket-sized log past nbits on a byte
+    prefix; timings and the programs' rows."""
+    c, h, w = er.c, er.h, er.w
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    geo = (c, enc_h, enc_w, slices[0][1].stop, slices[0][2].stop)
+    wire = slices_to_wire(slices)
+    data, mn = er.encoded_bytes, er.max_n
+    nbits = len(data) * 8
+    tt = torch_transform
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    row = {"bits": nbits}
+    want = nat.decode_with_metadata(data, mn, *geo, *wire)
+    erec, emeta = meta_expand.decode_with_metadata_eager(data, mn, *geo,
+                                                         *wire, DEV)
+    check(np.array_equal(erec.cpu().numpy(), want[0])
+          and np.array_equal(emeta.cpu().numpy(), want[1]),
+          f"27 {label}: the eager trace != the native scheduler's")
+    del erec, emeta
+    for what in ("first", "replay"):
+        reset_counts()
+        (rec, meta), row[f"trace_{what}_ms"] = timed(synced(
+            lambda: meta_expand.decode_with_metadata(data, mn, *geo, *wire,
+                                                     DEV)))
+        prog = program_launch(kernel, "trace")
+        check(np.array_equal(rec.cpu().numpy(), want[0])
+              and np.array_equal(meta.cpu().numpy(), want[1]),
+              f"27 {label} {what}: the program's trace != the eager body's")
+        row[f"launches_{what}"] = 2 if what == "first" else 0
+    got = pt.decode_with_metadata(data, mn, *geo, *wire, device=DEV)
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
+          f"27 {label}: the API's trace (numpy) != the native scheduler's")
+    program_launch(kernel, "trace")
+    # a byte prefix: the bucket's log is 0 past nbits, and up to it the
+    # eager kernel's log
+    cut = data[: len(data) * 3 // 4]
+    cbits = len(cut) * 8
+    lprog = tt.trace_program(*geo, None, None, cbits, DEV, "log")
+    with lprog.lock:
+        lprog.start([cut], cbits, mn)
+        log = lprog.outputs[2]
+        tail_zero = not bool(log[cbits + 1:].any())
+        words, nb = decoder.words_tensor(cut, DEV)
+        elog = (decoder.decode_seq_log if "seq" in kernel
+                else decoder.decode_lsp_log)(
+            *decoder.machine_args(words, nb, mn, *geo))[-1]
+        same = torch.equal(log[: cbits + 1], elog)
+        lprog.finish()
+    check(tail_zero and same and lprog.rows > cbits + 1,
+          f"27 {label}: the bucket's log past nbits ({tail_zero}) or up to "
+          f"it ({same})")
+    reset_counts()
+    row["prefix"] = {"bits": cbits, "log_rows": lprog.rows,
+                     "rows_past_nbits_zero": True}
+    # timings: eager body, program, its log-only form (the decode and the
+    # log) and its expansion-only form, median of 5 to a sync
+    crec, clog, cwords, _ = meta_expand.decode_event_log(data, mn, *geo, DEV)
+    row["trace_eager_ms"] = median_ms(synced(
+        lambda: meta_expand.decode_with_metadata_eager(data, mn, *geo,
+                                                       *wire, DEV)))
+    row["trace_program_ms"] = median_ms(synced(
+        lambda: meta_expand.decode_with_metadata(data, mn, *geo, *wire,
+                                                 DEV)))
+    row["log_program_ms"] = median_ms(synced(
+        lambda: meta_expand.decode_event_log(data, mn, *geo, DEV)))
+    row["expand_program_ms"] = median_ms(synced(
+        lambda: meta_expand.expand_event_log(clog, cwords, nbits, *geo,
+                                             *wire)))
+    row["expansion_share_program_ms"] = (row["trace_program_ms"]
+                                         - row["log_program_ms"])
+    row["decode_rec_eager_ms"] = median_ms(synced(
+        lambda: decoder.decode(data, mn, *geo, device=DEV)))
+    # what the bucket costs: 2^17 bits fill their bucket's log, 32 bits
+    # more take the next bucket, with twice the rows
+    for tag, cut in (("2^17 bits", data[: 1 << 14]),
+                     ("2^17 + 32 bits", data[: (1 << 14) + 4])):
+        row[f"bucket {tag}"] = {
+            "rows": tt.trace_program(*geo, *wire, len(cut) * 8, DEV).rows,
+            "program_ms": median_ms(synced(
+                lambda: meta_expand.decode_with_metadata(cut, mn, *geo,
+                                                         *wire, DEV))),
+            "eager_ms": median_ms(synced(
+                lambda: meta_expand.decode_with_metadata_eager(
+                    cut, mn, *geo, *wire, DEV)))}
+    if decoder.has_duplicate_parents(*geo[1:]):
+        row["replay_passes"] = meta_expand.replay_passes(*geo[1:])
+        # the in-order replay alone, eagerly, on this stream's sorted events
+        lg = clog.to(torch.int64)
+        t = torch.arange(lg.numel(), device=DEV)
+        key = torch.where(lg != 0, lg & 0xFFFFFFFF, encoder.MAX_CELLS)
+        order = torch.sort((key << 32) | t).indices
+        ks = key[order]
+        start = torch.ones_like(ks, dtype=torch.bool)
+        start[1:] = ks[1:] != ks[:-1]
+        sidx = torch.cummax(torch.where(start, t, 0), 0).values
+        act, nv = (lg >> 32) & 7, ((lg >> 35) & 31) - 1
+        live = (lg != 0) & (t < nbits)
+        wi = cwords.to(torch.int64) & 0xFFFFFFFF
+        bit = (wi[(t >> 5).clamp(max=cwords.numel() - 1)] >> (t & 31)) & 1
+        args = (sidx, (live & ((act == 1) | (act == 4)))[order],
+                (live & (act == 6))[order], bit[order], nv[order],
+                row["replay_passes"])
+        row["replay_eager_ms"] = median_ms(synced(
+            lambda: meta_expand._replay_in_order(*args)))
+        del lg, t, key, order, ks, start, sidx, args
+    row["programs"] = program_rows(tt.programs())
+    del crec, clog, cwords
+    return row
+
+
+def phase_host_programs(im_a, im_b, er_a, er_b, ims_a, mbs_a, host_ers,
+                        host_ers_b, smi):
+    """Phase 27 (module docstring): the trace, the host-scheduled codec's
+    device steps and the standalone transforms as programs, against their
+    eager bodies and phases 12-13 bit for bit; their launches on a first
+    call and a replay; replays with no sync before their reads; eager and
+    program timings, first calls and pools. Gated on equalities and
+    counts only."""
+    t0 = time.perf_counter()
+    tt = torch_transform
+    nat = native.load()
+    f32 = torch.float32
+    out = {"phase": "27 the trace, the host-scheduled steps and the "
+           "transforms as programs", "card": smi}
+    # ---- (a) the trace ----
+    out["trace_A"] = trace_programs("A", er_a, CONFIG_A, None,
+                                    "spiht_decode_lsp_log", nat)
+    out["trace_B"] = trace_programs("B", er_b, CONFIG_B, 3,
+                                    "spiht_decode_seq_log", nat)
+    # ---- (b) the host-scheduled codec at A16, float32 ----
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    want = [(e.encoded_bytes, e.max_n) for e in host_ers]
+    want_b = [(e.encoded_bytes, e.max_n) for e in host_ers_b]
+    eager_enc, eager_dec = eager_host_codec(ims_a, CONFIG_A, None, f32)
+    check(eager_enc(None) == want and eager_enc(mbs_a) == want_b,
+          "27: the eager host steps' streams != phase 13's")
+    no_budget = switched({"SPIHT_TPU_BUDGET_TRANSFER": "0"})
+    row = {"batch": len(ims_a)}
+    try:
+        for what in ("first", "replay"):
+            reset_counts()
+            got, row[f"encode_standard_{what}_ms"] = timed(
+                lambda: pt.encode_images(ims_a, CONFIG_A, None, None,
+                                         device=DEV, dtype=f32))
+            program_launch("spiht_quantize_compact", "forward_compact")
+            check([(e.encoded_bytes, e.max_n) for e in got] == want,
+                  f"27 encode_images {what}: streams != phase 13's")
+        row["encode_standard_program_ms"] = median_ms(
+            lambda: pt.encode_images(ims_a, CONFIG_A, None, None,
+                                     device=DEV, dtype=f32))
+    finally:
+        no_budget.stop()
+    row["encode_standard_eager_ms"] = median_ms(lambda: eager_enc(None))
+    for what in ("first", "replay"):
+        reset_counts()
+        got, row[f"encode_budget_{what}_ms"] = timed(
+            lambda: pt.encode_images(ims_a, CONFIG_A, None, mbs_a,
+                                     device=DEV, dtype=f32))
+        check(not nonzero()
+              and [(e.encoded_bytes, e.max_n) for e in got] == want_b,
+              f"27 budget path {what}: launches {nonzero()} or streams")
+    row["encode_budget_program_ms"] = median_ms(
+        lambda: pt.encode_images(ims_a, CONFIG_A, None, mbs_a, device=DEV,
+                                 dtype=f32))
+    row["encode_budget_eager_ms"] = median_ms(lambda: eager_enc(mbs_a))
+    ref = eager_dec(host_ers_b)
+    for what in ("first", "replay"):
+        imgs, row[f"decode_{what}_ms"] = timed(
+            lambda: pt.decode_images(host_ers_b, CONFIG_A, device=DEV))
+        check(all(np.array_equal(a, b) for a, b in zip(imgs, ref)),
+              f"27 decode_images {what}: images != the eager inverse's")
+    row["decode_program_ms"] = median_ms(
+        lambda: pt.decode_images(host_ers_b, CONFIG_A, device=DEV))
+    row["decode_eager_ms"] = median_ms(lambda: eager_dec(host_ers_b))
+    for k in [k for k in row if k.endswith("_ms") and "first" not in k
+              and "replay" not in k]:
+        row[k.replace("_ms", "_images_per_s")] = len(ims_a) / row[k] * 1e3
+    row["programs"] = program_rows(tt.programs())
+    out["host_A16_f32"] = row
+    # ---- (c) analysis_fn / synthesis_fn at A ----
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    c, h, w = im_a.shape
+    x = torch.as_tensor(im_a, device=DEV)
+    ana = tt.analysis_fn(CONFIG_A, None)
+    syn = tt.synthesis_fn(CONFIG_A, h, w, None)
+    arr_e, ll_h, ll_w = tt.forward(x, CONFIG_A, None)
+    maps_e = significance_maps(arr_e, ll_h, ll_w)
+    img_e = inverse(arr_e, h, w, None, CONFIG_A)
+    row = {}
+    for what in ("first", "replay"):
+        reset_counts()
+        got, row[f"analysis_{what}_ms"] = timed(synced(lambda: ana(x)))
+        img, row[f"synthesis_{what}_ms"] = timed(synced(
+            lambda: syn(got[0])))
+        check(not nonzero() and all(torch.equal(a, b) for a, b in
+                                    zip(got, (arr_e,) + maps_e))
+              and torch.equal(img, img_e),
+              f"27 analysis_fn / synthesis_fn {what}: launches "
+              f"{nonzero()} or != the eager forward, maps, inverse")
+    row["analysis_eager_ms"] = median_ms(synced(lambda: (
+        lambda a: significance_maps(a[0], a[1], a[2]))(
+            tt.forward(x, CONFIG_A, None))))
+    row["analysis_program_ms"] = median_ms(synced(lambda: ana(x)))
+    row["synthesis_eager_ms"] = median_ms(synced(
+        lambda: inverse(arr_e, h, w, None, CONFIG_A)))
+    row["synthesis_program_ms"] = median_ms(synced(lambda: syn(arr_e)))
+    row["programs"] = program_rows(tt.programs())
+    out["transforms_A"] = row
+    # ---- (d) replays with no sync before their reads ----
+    slices, eh, ew = get_slices_and_h_w(h, w, CONFIG_A, None)
+    geo = (c, eh, ew, slices[0][1].stop, slices[0][2].stop)
+    wire = slices_to_wire(slices)
+    data, mn = er_a.encoded_bytes, er_a.max_n
+    tprog = tt.trace_program(*geo, *wire, len(data) * 8, DEV)
+    with tprog.lock:
+        tprog.start([data], len(data) * 8, mn)
+        tprog.finish()
+    cprog = tt.compact_program(CONFIG_A, (len(ims_a),) + ims_a[0].shape,
+                               None, f32, torch.float64, DEV)
+    fprog = tt.forward_program(CONFIG_A, x.shape, None, torch.float64, True,
+                               x.dtype, DEV)
+    iprog = tt.inverse_program(CONFIG_A, arr_e.shape, h, w, None,
+                               torch.float64, False, arr_e.dtype, DEV)
+    with cprog.lock:
+        cprog.start(ims_a)
+        cprog.host()
+    torch.cuda.synchronize()
+    with tprog.lock, cprog.lock, fprog.lock, iprog.lock:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tprog.start([data], len(data) * 8, mn)
+            cprog.start(ims_a)
+            fprog.start(x)
+            iprog.start(arr_e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rec, meta = tprog.finish()
+        a16 = cprog.host()[0]
+        fa = fprog.fresh()
+        fi = iprog.fresh()[0]
+    want_t = nat.decode_with_metadata(data, mn, *geo, *wire)
+    check(np.array_equal(rec.cpu().numpy(), want_t[0])
+          and np.array_equal(meta.cpu().numpy(), want_t[1])
+          and torch.equal(fa[0], arr_e) and torch.equal(fi, img_e)
+          and a16.shape[0] == len(ims_a),
+          "27: the replays without a sync")
+    out["replays_without_sync"] = ["trace", "forward_compact", "forward",
+                                   "inverse"]
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out))
+
+
 def run_phases() -> list:
-    """Phases 2-26; returns the kernels' rows of the result line."""
+    """Phases 2-27; returns the kernels' rows of the result line."""
     phase_small()
 
     # golden digests through the card (the repo's own locked streams)
@@ -4371,7 +4759,7 @@ def run_phases() -> list:
     phase_new_kernels_small()
     log_a, n_log, log_b, n_log_b, seq_a, n_seq = phase_metadata(
         im_a, im_b, er_a, er_b)
-    q_a, n_q = phase_host_batch(ims_a, mbs_a)
+    q_a, n_q, host_ers, host_ers_b = phase_host_batch(ims_a, mbs_a)
 
     # ---- phase 14: the decoders' step edges on the card ----
     phase_prefix_sweep(er_a, er_b)
@@ -4409,6 +4797,10 @@ def run_phases() -> list:
 
     # ---- phase 26: the batch codec as one program a key ----
     phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, card())
+
+    # ---- phase 27: the trace, the host-scheduled steps, the transforms ----
+    phase_host_programs(im_a, im_b, er_a, er_b, ims_a, mbs_a, host_ers,
+                        host_ers_b, card())
 
     # ---- phase 24: the mesh over the ranks of a process group ----
     phase_ranks(ref8k, card())

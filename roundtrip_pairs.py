@@ -4,7 +4,7 @@ kernels' times, of two trees, in alternating processes on one CUDA card.
 Run from the repository root on a machine with a card:
 
     python3 roundtrip_pairs.py --tree DIR --tree DIR [--rounds N]
-        [--kernels | --batch]
+        [--kernels | --batch | --trace | --host]
 
 Each tree is a checkout of the repository (e.g. a commit unpacked with
 ``git archive`` into the ignored ``out/``; ``.`` for this one). Each round
@@ -28,8 +28,13 @@ it). With ``--batch`` it times the batch codec instead:
 A batch (phase 8's 16 images and budgets) at B = 16 and, tiled, 128, and
 of the B batch (phase 9's 8 images at 1 bpp), host clock to a sync,
 median of 5, after one untimed round trip (a tree whose batch codec runs
-as programs captures them there). It prints one JSON line a process,
-then one a tree with every process's numbers.
+as programs captures them there). With ``--trace`` it times
+``decode_with_metadata`` at A (B2-log) and B (B3-log), 1 bpp, and with
+``--host`` the host-scheduled codec of the A batch of 16 in float32:
+``encode_images`` without a budget (B6) and at phase 8's budgets (the
+budget path), and ``decode_images``; each median of 5 after one untimed
+call. It prints one JSON line a process, then one a tree with every
+process's numbers.
 """
 
 from __future__ import annotations
@@ -78,6 +83,51 @@ for label, settings, level, ims, mbs in (
         ims, settings, level, mbs, device=cs.DEV))
     out[label + "_decode_ms"] = cs.median_ms(
         lambda: pt.decode_images_device(ers, settings, device=cs.DEV))
+print(json.dumps(out))
+"""
+
+
+TRACE_CHILD = """
+import json
+import chip_smoke as cs
+import spiht_tpu_torch as pt
+from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w, slices_to_wire
+
+out = {}
+for label, seed, settings, level in (("A", 1, cs.CONFIG_A, None),
+                                     ("B", 2, cs.CONFIG_B, 3)):
+    im = cs.image(seed, (3, 512, 512))
+    er = pt.encode_image_device(im, settings, level, 512 * 512, device=cs.DEV)
+    slices, eh, ew = get_slices_and_h_w(512, 512, settings, level)
+    geo = (3, eh, ew, slices[0][1].stop, slices[0][2].stop)
+    args = (er.encoded_bytes, er.max_n, *geo, *slices_to_wire(slices))
+    pt.decode_with_metadata(*args, device=cs.DEV)
+    out[label + "_trace_ms"] = cs.median_ms(
+        lambda: pt.decode_with_metadata(*args, device=cs.DEV))
+print(json.dumps(out))
+"""
+
+
+HOST_CHILD = """
+import json
+import os
+import torch
+import chip_smoke as cs
+import spiht_tpu_torch as pt
+
+out = {}
+ims = [cs.image(100 + b, (3, 512, 512)) for b in range(16)]
+mbs = [cs.BUDGETS_A[b % 4] for b in range(16)]
+f32 = torch.float32
+for label, budgets in (("standard", None), ("budget", mbs)):
+    ers = pt.encode_images(ims, cs.CONFIG_A, None, budgets, device=cs.DEV,
+                           dtype=f32)
+    out["A16_f32_encode_" + label + "_ms"] = cs.median_ms(
+        lambda: pt.encode_images(ims, cs.CONFIG_A, None, budgets,
+                                 device=cs.DEV, dtype=f32))
+pt.decode_images(ers, cs.CONFIG_A, device=cs.DEV)
+out["A16_decode_ms"] = cs.median_ms(
+    lambda: pt.decode_images(ers, cs.CONFIG_A, device=cs.DEV))
 print(json.dumps(out))
 """
 
@@ -211,10 +261,16 @@ def main() -> int:
                       help="time the machine kernels instead of phase 6")
     what.add_argument("--batch", action="store_true",
                       help="time the batch codec instead of phase 6")
+    what.add_argument("--trace", action="store_true",
+                      help="time the metadata trace instead of phase 6")
+    what.add_argument("--host", action="store_true",
+                      help="time the host-scheduled batch codec instead")
     a = ap.parse_args()
     if len(a.tree) != 2:
         ap.error("give two trees")
-    child = KERNEL_CHILD if a.kernels else BATCH_CHILD if a.batch else CHILD
+    child = (KERNEL_CHILD if a.kernels else BATCH_CHILD if a.batch
+             else TRACE_CHILD if a.trace else HOST_CHILD if a.host
+             else CHILD)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

@@ -60,22 +60,24 @@ from ..native import runtime as native
 from ..device import resolve_device
 from ..settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
 from ..torch_transform import (
+    PLAN_HEAD,
+    _batch_parts,
+    _rows_of,
+    compact_program,
     decode_batch,
     decode_program,
     encode_batch,
     encode_program,
-    forward,
-    forward_compact,
-    forward_plan,
-    inverse,
-    narrow,
+    forward_program,
+    inverse_program,
+    narrow_program,
+    plan_program,
 )
 from ..wavelets.geometry import get_slices_and_h_w, slices_to_wire
 from ..ops.bitpack import bits_to_bytes, bytes_to_bits
 from . import (
     decoder, device_decoder, device_encoder, encoder, meta_expand, oracle,
 )
-from .maxn import device_max_n
 from .planning import cut_plane_np, plan_supported
 
 __all__ = [
@@ -157,19 +159,18 @@ def decode_with_metadata(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Decode bytes and emit the per-bit decoder-state trace array, on the
     device (kernel B2-log, or B3-log for odd-LL geometries, then the log's
-    expansion): (rec (C,H,W) int32, trace (len(data)*8 + 1, 8) int32), for
-    every geometry the machines take (c*h*w < 2^29). With
+    expansion, as one cached program a key: ``torch_transform.
+    trace_program``): (rec (C,H,W) int32, trace (len(data)*8 + 1, 8)
+    int32), for every geometry the machines take (c*h*w < 2^29). With
     ``SPIHT_TPU_DEVICE_DECODER=1`` it runs
     ``device_decoder.decode_device_with_metadata``."""
     if os.environ.get("SPIHT_TPU_DEVICE_DECODER") == "1":
         return device_decoder.decode_device_with_metadata(
             data, n, c, h, w, ll_h, ll_w, top_slice, other_slices, device
         )
-    rec, meta = meta_expand.decode_with_metadata(
+    return meta_expand.pallas_decode_with_metadata(
         data, n, c, h, w, ll_h, ll_w, top_slice, other_slices,
-        resolve_device(device),
-    )
-    return rec.cpu().numpy(), meta.cpu().numpy()
+        resolve_device(device))
 
 
 def _validate_image(image) -> None:
@@ -290,9 +291,9 @@ def decode_image(
 
 def _device_batch(ims, dev: torch.device) -> torch.Tensor:
     """One (B, C, H, W) tensor on ``dev`` of same-shape images (numpy or
-    tensors), each copied straight in: no host-side stack of the batch
-    (at 128 images of 3x512x512 that copy alone costs more than the
-    transform on the card)."""
+    tensors), each copied straight in from pageable memory: no host-side
+    stack of the batch. The eager upload that the programs' pinned
+    staging replaced; ``chip_smoke.py`` times the eager paths with it."""
     ims = [
         im if isinstance(im, torch.Tensor)
         else torch.as_tensor(np.ascontiguousarray(im))
@@ -320,8 +321,12 @@ def _encode_images_budget(images, groups, mb, settings, level, nat, dev,
     which the host shifts back and hands to the native scheduler with
     max_n forced to the full array's. Bits below the cut plane are never
     emitted within the budget, so the streams are the standard path's.
-    Returns None, and the standard path runs, for an odd-LL geometry or
-    where the narrowed magnitudes pass int16."""
+    Each group runs as equal parts (``_batch_parts``) through one plan
+    program and one narrow program, the images staged through the plan
+    program's pinned rows, the narrowing's input copied on the device
+    from the plan's output, both under the plan program's lock. Returns
+    None, and the standard path runs, for an odd-LL geometry or where the
+    narrowed magnitudes pass int16."""
     results = [None] * len(images)
     for shape, idxs in groups.items():
         ll_h, ll_w = _ll(shape, settings, level)
@@ -332,42 +337,52 @@ def _encode_images_budget(images, groups, mb, settings, level, nat, dev,
         # per initial LIP/LIS entity
         n_ee = ((ll_h + 1) // 2) * ((ll_w + 1) // 2)
         n_init = c * ll_h * ll_w + c * (ll_h * ll_w - n_ee)
-        batch = _device_batch([images[i] for i in idxs], dev)
-        arr_dev, mx, counts, max_n_dev, _, _ = forward_plan(
-            batch, settings, level, dtype
-        )
-        # the stream's max_n: the reference's f32 rule on each max |x|
-        max_ns = device_max_n(arr_dev).cpu().numpy()
-        mx = mx.cpu().numpy()
-        counts = counts.cpu().numpy().astype(np.int64)
-        max_n_dev = max_n_dev.cpu().numpy()
-
-        shifts = np.zeros(len(idxs), dtype=np.int32)
-        for bi, i in enumerate(idxs):
-            max_n = int(max_ns[bi])
-            ci = counts[bi].copy()
-            ci[max_n_dev[bi] + 1 : max_n + 1] = n_init
-            plane, _ = cut_plane_np(ci, max_n, int(mb[i]))
-            shifts[bi] = max(plane, 0)
-        wmax = int(np.max(mx >> shifts)) if len(idxs) else 0
-        if wmax <= 127:
-            out_dtype = torch.int8
-        elif wmax <= 32767:
-            out_dtype = torch.int16
-        else:
-            return None  # narrowing doesn't pay; standard path
-        hi = narrow(arr_dev, torch.as_tensor(shifts, device=dev), out_dtype)
-        hi = hi.cpu().numpy()
-        mag = np.abs(hi.astype(np.int32)) << shifts[:, None, None, None]
-        arr = np.where(hi >= 0, mag, -mag).astype(np.int32)
+        rows, _, in_dtype = _rows_of([images[i] for i in idxs])
+        m, parts = _batch_parts(len(rows), shape, dev)
+        plan = plan_program(settings, (m,) + shape, level, dtype, in_dtype,
+                            dev)
+        arrs, max_ns = [], []
+        for s, e in parts:
+            k = e - s
+            with plan.lock:
+                plan.start(rows[s:e])
+                arr_dev, head = plan.outputs
+                head = head[:k].cpu().numpy()  # the one read of the plan
+                mx, max_n_dev = head[:, 0], head[:, 1]
+                mns = head[:, 2].astype(np.int32)
+                counts = head[:, PLAN_HEAD:]
+                shifts = np.zeros(m, dtype=np.int32)
+                for bi in range(k):
+                    i = idxs[len(arrs) + bi]
+                    max_n = int(mns[bi])
+                    ci = counts[bi].copy()
+                    ci[max_n_dev[bi] + 1 : max_n + 1] = n_init
+                    plane, _ = cut_plane_np(ci, max_n, int(mb[i]))
+                    shifts[bi] = max(plane, 0)
+                wmax = int(np.max(mx >> shifts[:k]))
+                if wmax <= 127:
+                    out_dtype = torch.int8
+                elif wmax <= 32767:
+                    out_dtype = torch.int16
+                else:
+                    plan._end()
+                    return None  # narrowing doesn't pay; standard path
+                nar = narrow_program(tuple(arr_dev.shape), out_dtype, dev)
+                with nar.lock:
+                    nar.start(arr_dev, shifts=shifts)
+                    (hi,) = nar.host(k)
+                plan._end()
+            mag = np.abs(hi.astype(np.int32)) << shifts[:k, None, None, None]
+            arrs.extend(np.where(hi >= 0, mag, -mag).astype(np.int32))
+            max_ns.extend(mns)
 
         encoded = nat.encode_batch(
-            list(arr),
+            arrs,
             [ll_h] * len(idxs),
             [ll_w] * len(idxs),
             [mb[i] for i in idxs],
             use_maps=True,
-            forced_max_ns=max_ns.astype(np.int32),
+            forced_max_ns=np.asarray(max_ns, np.int32),
         )
         for bi, i in enumerate(idxs):
             ci_, h, w = images[i].shape
@@ -375,6 +390,36 @@ def _encode_images_budget(images, groups, mb, settings, level, nat, dev,
                 encoded[bi][0], h, w, ci_, int(encoded[bi][1]), level
             )
     return results
+
+
+def _compact_group(rows, shape, settings, level, dtype, dev) -> list:
+    """The int32 coefficient arrays (numpy) of one shape's images: the
+    int16-compacted transform (kernel B6 in the float32 working dtype) in
+    equal parts (``_batch_parts``) through one ``compact_program``, the
+    images staged through its pinned rows; a part whose coefficients pass
+    int16 runs again through the ``forward_program`` of its shape (the
+    full int32 transform)."""
+    rows, _, in_dtype = _rows_of(rows)
+    m, parts = _batch_parts(len(rows), shape, dev)
+    prog = compact_program(settings, (m,) + shape, level, dtype, in_dtype,
+                           dev)
+    arrs = []
+    for part in (rows[s:e] for s, e in parts):
+        k = len(part)
+        with prog.lock:
+            prog.start(part)
+            overflow = bool(prog.outputs[1])
+            if not overflow:
+                arrs.extend(prog.host(k)[0].astype(np.int32))
+                continue
+            prog._end()
+        # rare: coefficients exceed int16; the full int32 transform
+        fwd = forward_program(settings, (m,) + shape, level, dtype, False,
+                              in_dtype, dev)
+        with fwd.lock:
+            fwd.start(part)
+            arrs.extend(fwd.host(k)[0])
+    return arrs
 
 
 def encode_images(
@@ -461,25 +506,12 @@ def encode_images(
             )
             if done is not None:
                 return done
-        # int16-compacted transform: every group is dispatched before any
-        # is read back
-        launched = []
+        ll = {shape: _ll(shape, spiht_settings, level) for shape in groups}
         for shape, idxs in groups.items():
-            batch = _device_batch([images[i] for i in idxs], dev)
-            arr16, overflow, ll_h, ll_w = forward_compact(
-                batch, spiht_settings, level, dtype
-            )
-            launched.append((idxs, ll_h, ll_w, batch, arr16, overflow))
-        for idxs, ll_h, ll_w, batch, arr16, overflow in launched:
-            if bool(overflow):
-                # rare: coefficients exceed int16; the full int32 transform
-                arr = forward(batch, spiht_settings, level, dtype)[0]
-                arr = arr.cpu().numpy()
-            else:
-                arr = arr16.cpu().numpy().astype(np.int32)
-            for bi, i in enumerate(idxs):
-                arrs[i] = arr[bi]
-                lls[i] = (ll_h, ll_w)
+            arrs_g = _compact_group([images[i] for i in idxs], shape,
+                                    spiht_settings, level, dtype, dev)
+            for i, arr in zip(idxs, arrs_g):
+                arrs[i], lls[i] = arr, ll[shape]
 
     if nat is None:
         encoded = [oracle.encode_bits(arrs[i], *lls[i], mb[i])
@@ -561,9 +593,18 @@ def decode_images(
     for i, er in enumerate(encoding_results):
         groups.setdefault((recs[i].shape, er.h, er.w, er.level), []).append(i)
     images = [None] * n
-    for (_, h, w, level), idxs in groups.items():
-        batch = _device_batch([recs[i] for i in idxs], dev)
-        out = inverse(batch, h, w, level, spiht_settings, dtype).cpu().numpy()
+    for (shape, h, w, level), idxs in groups.items():
+        # the recs staged through the inverse program's pinned rows, in
+        # equal parts through one key
+        rows, _, in_dtype = _rows_of([recs[i] for i in idxs])
+        m, parts = _batch_parts(len(rows), (shape[0], h, w), dev)
+        prog = inverse_program(spiht_settings, (m,) + tuple(shape), h, w,
+                               level, dtype, False, in_dtype, dev)
+        out = []
+        for s, e in parts:
+            with prog.lock:
+                prog.start(rows[s:e])
+                out.extend(prog.host(e - s)[0])
         for bi, i in enumerate(idxs):
             images[i] = out[bi]
     return images

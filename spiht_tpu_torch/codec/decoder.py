@@ -48,7 +48,7 @@ launch (``decode_coeffs_batch`` too) takes at most
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,14 +115,15 @@ def _child_filt(f, node, c0, w):
 
 def _decode_machine_plain(
     words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap, lsp_cap,
-    seq, n_rec, log=False,
+    seq, n_rec, log=False, log_len=None,
 ):
     """The plain version of kernels B2 (seq=False), B2-log (log=True), B3
     (seq=True) and B3-log (both) on CPU tensors (Python ints inside). With
-    ``log`` it also returns the event log: nbits + 1 int64 words, word t
-    the event of the bit attempted at offset t (``node | action << 32 |
-    (n+1) << 35 | filter << 40``; the row at nbits is the first read that
-    found the stream empty). B3-log's queue entries carry their instance's
+    ``log`` it also returns the event log: ``log_len`` (None: nbits + 1)
+    int64 words, word t the event of the bit attempted at offset t
+    (``node | action << 32 | (n+1) << 35 | filter << 40``; the row at
+    nbits is the first read that found the stream empty, rows past it 0).
+    B3-log's queue entries carry their instance's
     filter as the kernel's do (bits 29-30 of a LIP or LSP entry, 30-31 of
     a LIS entry); B2-log's filter field is 0."""
     filt = seq and log
@@ -135,7 +136,11 @@ def _decode_machine_plain(
     lsp, lsp_val = [], []
     rec_np = np.zeros(n_rec if seq else 0, np.int32)
     rec = memoryview(rec_np)
-    events = [0] * (nbits + 1) if log else None
+    if log:
+        log_len = nbits + 1 if log_len is None else int(log_len)
+        if log_len < nbits + 1:
+            raise ValueError(f"log_len {log_len} < nbits + 1 = {nbits + 1}")
+    events = [0] * log_len if log else None
     off = (0, 1, w, w + 1)
     err = 0
     cur = 0
@@ -278,9 +283,19 @@ def _check_inputs(words, nbits, geo, lip0, lis0, caps):
     return dev
 
 
-def _check_log(max_n):
-    if not 0 <= int(max_n) <= 30:
+def _check_log(max_n, nbits, log_len):
+    """The log's limits: max_n <= 30 (the 5-bit plane field) and a log of
+    at least nbits + 1 words, checked on the host where they are ints (a
+    tensor max_n or nbits beside a ``log_len`` is the caller's to check,
+    as a program does in ``start``: reading it here would sync). Returns
+    the log's length: ``log_len``, or nbits + 1, read on the host."""
+    if not isinstance(max_n, torch.Tensor) and not 0 <= int(max_n) <= 30:
         raise ValueError("the event log's plane field takes max_n <= 30")
+    if log_len is None:
+        return int(nbits) + 1
+    if not isinstance(nbits, torch.Tensor) and log_len < int(nbits) + 1:
+        raise ValueError(f"log_len {log_len} < nbits + 1")
+    return int(log_len)
 
 
 def _scalars(nbits, max_n, dev):
@@ -289,16 +304,17 @@ def _scalars(nbits, max_n, dev):
             device_scalar("max_n", max_n, dev))
 
 
-def _decode_lsp(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
+def _decode_lsp(log, words, nbits, max_n, geo, lip0, lis0, w, caps,
+                log_len=None):
     """B2 (log=False) or B2-log (log=True); see ``decode_lsp``."""
     dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
     if log:
-        _check_log(max_n)
+        log_len = _check_log(max_n, nbits, log_len)
     lip_cap, lis_cap, lsp_cap = caps
     if dev.type == "cpu":
         return _decode_machine_plain(
             words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap,
-            lsp_cap, False, 0, log=log,
+            lsp_cap, False, 0, log=log, log_len=log_len,
         )
     from .. import _build
 
@@ -315,8 +331,8 @@ def _decode_lsp(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
         lip.data_ptr(), lip_cap, lis.data_ptr(), lis_cap,
         lsp.data_ptr(), lsp_val.data_ptr(), lsp_cap, stat.data_ptr(),
     ]
-    if log:  # the log's length is read on the host
-        events = torch.zeros(int(nbits) + 1, dtype=torch.int64, device=dev)
+    if log:  # the kernel writes rows 0..nbits; the rest stay 0
+        events = torch.zeros(log_len, dtype=torch.int64, device=dev)
         args.append(events.data_ptr())
     launch = (lib.spiht_decode_lsp_log_launch if log
               else lib.spiht_decode_lsp_launch)
@@ -364,35 +380,41 @@ def decode_lsp_log(
     lis0: torch.Tensor,
     w: int,
     caps: Tuple[int, int, int],
+    log_len: Optional[int] = None,
 ):
     """Kernel B2-log (or, for CPU tensors, its plain version): B2 that also
     writes the metadata trace's compact event log.
 
-    The same inputs as ``decode_lsp``; returns (lsp nodes, lsp values,
-    stat, log int64[nbits + 1]): log[t] is the event of the bit attempted
-    at stream offset t, ``node | action << 32 | (n+1) << 35`` (0 where no
-    bit was attempted; the filter field, bits 40-41, is 0), the row at
-    nbits the read that found the stream empty. The geometry takes what
-    the machines take, c*h*w < 2^29; the 5-bit plane field bounds max_n
-    to <= 30.
+    The same inputs as ``decode_lsp``, and the log's length ``log_len``
+    (None: nbits + 1, read on the host; a program passes its bucket's 32
+    * words + 1, which needs no read);
+    returns (lsp nodes, lsp values, stat, log int64[log_len]): log[t] is
+    the event of the bit attempted at stream offset t, ``node | action <<
+    32 | (n+1) << 35`` (0 where no bit was attempted; the filter field,
+    bits 40-41, is 0), the row at nbits the read that found the stream
+    empty, the rows past it 0. The geometry takes what the machines take,
+    c*h*w < 2^29; the 5-bit plane field bounds max_n to <= 30 (checked
+    here for an int).
     """
-    return _decode_lsp(True, words, nbits, max_n, geo, lip0, lis0, w, caps)
+    return _decode_lsp(True, words, nbits, max_n, geo, lip0, lis0, w, caps,
+                       log_len)
 
 
 decode_lsp_log.launches = 0
 
 
-def _decode_seq(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
+def _decode_seq(log, words, nbits, max_n, geo, lip0, lis0, w, caps,
+                log_len=None):
     """B3 (log=False) or B3-log (log=True); see ``decode_seq``."""
     dev = _check_inputs(words, nbits, geo, lip0, lis0, caps)
     if log:
-        _check_log(max_n)
+        log_len = _check_log(max_n, nbits, log_len)
     lip_cap, lis_cap, lsp_cap = caps
     n_rec = geo.numel()
     if dev.type == "cpu":
         return _decode_machine_plain(
             words, nbits, max_n, geo, lip0, lis0, w, lip_cap, lis_cap,
-            lsp_cap, True, n_rec, log=log,
+            lsp_cap, True, n_rec, log=log, log_len=log_len,
         )
     from .. import _build
 
@@ -412,8 +434,8 @@ def _decode_seq(log, words, nbits, max_n, geo, lip0, lis0, w, caps):
         lsp.data_ptr(), lsp_cap, rec.data_ptr(), last.data_ptr(), n_rec,
         stat.data_ptr(),
     ]
-    if log:  # the log's length is read on the host
-        events = torch.zeros(int(nbits) + 1, dtype=torch.int64, device=dev)
+    if log:  # the kernel writes rows 0..nbits; the rest stay 0
+        events = torch.zeros(log_len, dtype=torch.int64, device=dev)
         args.append(events.data_ptr())
     launch = (lib.spiht_decode_seq_log_launch if log
               else lib.spiht_decode_seq_launch)
@@ -452,17 +474,19 @@ def decode_seq_log(
     lis0: torch.Tensor,
     w: int,
     caps: Tuple[int, int, int],
+    log_len: Optional[int] = None,
 ):
     """Kernel B3-log (or, for CPU tensors, its plain version): B3 that also
     writes the metadata trace's event log, for odd-LL geometries.
 
-    The same inputs as ``decode_lsp``; returns (rec int32[N], stat, log
-    int64[nbits + 1]), the log as ``decode_lsp_log``'s with the filter of
+    The same inputs as ``decode_lsp_log``; returns (rec int32[N], stat,
+    log int64[log_len]), the log as ``decode_lsp_log``'s with the filter of
     each event's instance in bits 40-41: a node with several LL parents is
     reached through each of them, and each instance and its subtree carry
     the filter that parent gives. max_n <= 30.
     """
-    return _decode_seq(True, words, nbits, max_n, geo, lip0, lis0, w, caps)
+    return _decode_seq(True, words, nbits, max_n, geo, lip0, lis0, w, caps,
+                       log_len)
 
 
 decode_seq_log.launches = 0

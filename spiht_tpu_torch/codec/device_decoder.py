@@ -895,8 +895,7 @@ def decode_device_with_metadata(
             data, int(n), c, h, w, ll_h, ll_w, top_slice, other_slices, dev)
         return rec.cpu().numpy(), meta.cpu().numpy()
     level = len(other_slices)
-    rect = tuple(map(tuple, rect_table(
-        level, ll_h, ll_w, (top_slice, other_slices)).reshape(-1, 4)))
+    rect = meta_expand.rect_key(level, ll_h, ll_w, top_slice, other_slices)
     words, nbits = decoder.words_tensor(data, dev)
     fn = decode_device_fn(c, h, w, ll_h, ll_w, words.numel(), level=level,
                           rect_tab=rect, meta_rows=nbits + 1)

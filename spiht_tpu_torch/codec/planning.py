@@ -21,6 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import keep
 from .maps import significance_maps, tree_height
 from .maxn import device_max_n
 
@@ -133,7 +134,9 @@ def bits_per_plane_from_maps(
     if not plan_supported(ll_h, ll_w):
         raise ValueError("planner requires even ll dims")
     dev = m.device
-    in_ll, initial_set, par_i, par_j, has_parent, hg_raw = (
+    # kept by an open device.holding(): a program's graph reads them after
+    # the cache may have let them go
+    in_ll, initial_set, par_i, par_j, has_parent, hg_raw = keep(
         _geometry_tensors(h, w, ll_h, ll_w, dev)
     )
     m32, d32, g32 = (x.to(torch.int64) for x in (m, d, g))

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["quantize_compact", "quantize_compact_m"]
@@ -44,9 +45,10 @@ def quantize_compact(
         raise ValueError(f"x must be float32, got {x.dtype}")
     x = x.contiguous()
     dev = x.device
-    scale32 = torch.tensor(float(scale), dtype=torch.float32)
+    scale32 = float(np.float32(scale))  # on the host: no tensor read
     if dev.type == "cpu":
-        return _quantize_compact_plain(x, scale32)
+        return _quantize_compact_plain(
+            x, torch.tensor(scale32, dtype=torch.float32))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .. import _build
@@ -57,7 +59,7 @@ def quantize_compact(
     m = torch.empty(x.shape, dtype=torch.int8, device=dev)
     ofl = torch.zeros((), dtype=torch.int32, device=dev)
     rc = lib.spiht_quantize_compact_launch(
-        x.data_ptr(), x.numel(), float(scale32), arr.data_ptr(),
+        x.data_ptr(), x.numel(), scale32, arr.data_ptr(),
         a16.data_ptr(), m.data_ptr(), ofl.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

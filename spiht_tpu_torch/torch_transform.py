@@ -31,12 +31,21 @@
 * ``forward_plan`` and ``narrow`` (``_forward_plan_jit`` :701-733,
   ``_narrow_jit`` :736-746): the two device phases of the budget-narrowed
   batch encode.
+* ``trace_program`` (``codec/meta_expand.py`` ``_expand_fn`` :111, and
+  the ``with_log`` machine it follows): the metadata trace, kernel
+  B2-log or B3-log and the log's expansion, as a cached program a key.
+* ``compact_program``, ``plan_program`` + ``narrow_program``,
+  ``forward_program`` and ``inverse_program``: ``forward_compact``,
+  ``forward_plan`` / ``narrow``, ``forward`` and ``inverse`` as cached
+  programs a key (``TransformProgram``), which the host-scheduled batch
+  codec and the factories below run; the functions above stay the eager
+  bodies they capture.
 
 * ``analysis_fn``, ``synthesis_fn``, ``forward_with_maps`` and
   ``default_dtype`` (:196, :214, :681, :48): the JAX package's factories
-  and host step, over ``forward`` and ``inverse``. ``default_dtype`` is
-  float64, the port's working default on every device (the JAX package
-  picks float32 without x64).
+  and host step, through ``forward_program`` and ``inverse_program``.
+  ``default_dtype`` is float64, the port's working default on every
+  device (the JAX package picks float32 without x64).
 
 ``forward`` and ``inverse`` take leading batch dims: every step is
 elementwise or works along H and W, so no value depends on the batch and
@@ -62,12 +71,14 @@ import torch
 
 from .device import constant, holding, resolve_device
 from .codec import decoder as _decoder, encoder as _encoder
+from .codec import meta_expand as _meta
 from .codec.decoder import decode_coeffs
 from .codec.encoder import (
     batch_stream_bytes, check_stat, encode_coeffs, encode_coeffs_batch,
     stream_bytes,
 )
 from .codec.maps import significance_maps
+from .codec.maxn import device_max_n
 from .codec.planning import bits_per_plane_from_maps
 from .ops.quantize_kernels import quantize_compact
 from .color import torch_models
@@ -79,6 +90,7 @@ __all__ = [
     "forward",
     "forward_with_maps",
     "forward_compact",
+    "compact_route",
     "forward_plan",
     "narrow",
     "inverse",
@@ -90,6 +102,8 @@ __all__ = [
     "decode_program",
     "EncodeProgram",
     "DecodeProgram",
+    "trace_program",
+    "TraceProgram",
     "programs",
     "clear_programs",
     "encode_pipeline_batch_fn",
@@ -104,6 +118,12 @@ __all__ = [
     "decode_batch",
     "batch_bound",
     "batch_route",
+    "TransformProgram",
+    "forward_program",
+    "inverse_program",
+    "compact_program",
+    "plan_program",
+    "narrow_program",
     "analysis_fn",
     "synthesis_fn",
     "default_dtype",
@@ -174,9 +194,14 @@ def forward_with_maps(
     level: Optional[int] = None,
 ):
     """``forward`` in ``default_dtype`` plus the significance maps: (arr
-    int32, (M, D, G) int8, ll_h, ll_w), tensors on the image's device."""
-    arr, ll_h, ll_w = forward(image, settings, level, default_dtype())
-    return arr, significance_maps(arr, ll_h, ll_w), ll_h, ll_w
+    int32, (M, D, G) int8, ll_h, ll_w), fresh tensors on the image's
+    device, through the cached forward program of the image's shape
+    (``forward_program``, with the maps; the JAX package's
+    ``_forward_jit``)."""
+    prog = forward_program(settings, image.shape, level, default_dtype(),
+                           True, image.dtype, image.device)
+    arr, m, d, g = prog(image)
+    return arr, (m, d, g), prog.ll[0], prog.ll[1]
 
 
 def analysis_fn(
@@ -187,15 +212,17 @@ def analysis_fn(
 ):
     """fn(image(s) (..., C, H, W) tensor) -> arr int32, or (arr, M, D, G)
     with ``with_maps``: colour, DWT, scales and quantization
-    (``forward``), then the maps, on the image's device. ``dtype``: None
-    (``default_dtype``) or a name such as "float32"."""
+    (``forward``), then the maps, on the image's device, as the cached
+    program of the image's shape (``forward_program``: a CUDA graph on
+    the card, as the JAX factory returns a jitted function); fresh
+    tensors. ``dtype``: None (``default_dtype``) or a name such as
+    "float32"."""
     dt = _as_dtype(dtype)
 
     def fn(image: torch.Tensor):
-        arr, ll_h, ll_w = forward(image, settings, level, dt)
-        if with_maps:
-            return (arr,) + significance_maps(arr, ll_h, ll_w)
-        return arr
+        out = forward_program(settings, image.shape, level, dt, with_maps,
+                              image.dtype, image.device)(image)
+        return out if with_maps else out[0]
 
     return fn
 
@@ -209,14 +236,27 @@ def synthesis_fn(
     as_uint8: bool = False,
 ):
     """fn(rec_arr int32 (..., C, enc_h, enc_w) tensor) -> image(s) on the
-    array's device: ``inverse`` in ``dtype`` (as ``analysis_fn`` takes
-    it)."""
+    array's device, a fresh tensor: ``inverse`` in ``dtype`` (as
+    ``analysis_fn`` takes it), as the cached program of the array's shape
+    (``inverse_program``)."""
     dt = _as_dtype(dtype)
 
     def fn(rec_arr: torch.Tensor):
-        return inverse(rec_arr, h, w, level, settings, dt, as_uint8)
+        return inverse_program(settings, rec_arr.shape, h, w, level, dt,
+                               as_uint8, rec_arr.dtype, rec_arr.device)(
+            rec_arr)[0]
 
     return fn
+
+
+def compact_route(dtype: torch.dtype) -> str:
+    """``forward_compact``'s route for a working dtype: "b6" (kernel B6)
+    where it is float32 and ``SPIHT_TPU_PALLAS`` is unset or "1", else
+    "torch" (the JAX package's ``_use_pallas`` :88-101, read where a
+    program's key is made, as it is read at trace time)."""
+    flag = os.environ.get("SPIHT_TPU_PALLAS")
+    return ("b6" if dtype == torch.float32 and (flag is None or flag == "1")
+            else "torch")
 
 
 def forward_compact(
@@ -224,6 +264,7 @@ def forward_compact(
     settings: SpihtSettings,
     level: Optional[int] = None,
     dtype: torch.dtype = torch.float64,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
     """(..., C, H, W) image(s) -> (int16 coefficients clipped to +-32767,
     overflow 0-d bool: whether any |coefficient| > 32767, ll_h, ll_w), on
@@ -234,11 +275,11 @@ def forward_compact(
     coefficients, as the JAX package's TPU path runs them; otherwise they
     are torch ops on ``forward``'s int32 array (B6 quantizes in float32,
     which could flip a borderline truncation of the float64 path).
-    ``SPIHT_TPU_PALLAS`` routes as in the JAX package (``_use_pallas``
-    :88-101): set, "1" runs B6 (float32 only) and any other value the
-    torch ops; unset, B6 runs on float32."""
-    flag = os.environ.get("SPIHT_TPU_PALLAS")
-    if dtype == torch.float32 and (flag is None or flag == "1"):
+    ``route`` (None: ``compact_route(dtype)``, which reads
+    ``SPIHT_TPU_PALLAS`` as the JAX package does: set, "1" runs B6
+    (float32 only) and any other value the torch ops; unset, B6 runs on
+    float32)."""
+    if (route or compact_route(dtype)) == "b6":
         coeffs, ll_h, ll_w = _scaled_coeffs(image, settings, level, dtype)
         _, arr16, _, overflow = quantize_compact(
             coeffs.to(torch.float32), settings.quantization_scale
@@ -419,6 +460,7 @@ class _Program:
                                 for t in statics.values())
         self.host_bytes = 0  # pinned staging
         self.capture_s = None  # the first run's warm-up and capture
+        self.stage_s = 0.0  # the last call's host copies into pinned memory
         self._pinned = {}
         self._staged = None  # the last upload from the pinned buffers
         self._done = None  # the last call's reads of the outputs
@@ -516,6 +558,31 @@ class _Program:
         pin = self._pin(name, static)
         pin.copy_(host)
         self._upload(static, pin)
+
+    def _put_rows(self, images, name: str = "images") -> None:
+        """Copy n images (an (n, ...) tensor or array, or a list of n
+        tensors or arrays) into the first n rows of the static input
+        ``name``: an image on the card device to device, a host image into
+        its row of one pinned buffer and up from there, so that its upload
+        runs while the host copies the next; rows past n repeat row n - 1.
+        """
+        static, n = self.statics[name], len(images)
+        t0 = time.perf_counter()
+        if isinstance(images, torch.Tensor) and images.device.type != "cpu":
+            static[:n].copy_(images)
+        else:
+            cuda = self.dev.type == "cuda"
+            buf = self._pin(name, static) if cuda else static
+            for b, row in enumerate(images):
+                if isinstance(row, torch.Tensor) and row.device.type != "cpu":
+                    static[b].copy_(row)
+                    continue
+                buf[b].copy_(row if isinstance(row, torch.Tensor)
+                             else torch.from_numpy(np.ascontiguousarray(row)))
+                if cuda:
+                    self._upload(static[b], buf[b])
+        self.stage_s = time.perf_counter() - t0
+        _pad_rows(static, n)
 
     def _put_words(self, streams, nwords) -> None:
         """Copy n streams into the first n rows of the static word buffer
@@ -705,6 +772,111 @@ class DecodeProgram(_Program):
             return self.finish()
 
 
+class TraceProgram(_Program):
+    """The metadata trace of one key (``trace_program``), the counterpart
+    of the JAX package's ``_expand_fn`` with the ``_hybrid_fn(...,
+    with_log=True)`` it follows.
+
+    ``start(words, nbits, max_n, log=None)`` copies the stream into the
+    static word buffer of ``bucket`` words (``_put_words``; words past it
+    zeroed) and nbits and max_n into a static device pair, checks max_n
+    <= 30 on the host, and runs the program, with no sync: kernel B2-log
+    and the rec scatter, or B3-log at odd LL, each writing a log of the
+    bucket's ``rows`` = 32 * bucket + 1 words (rows past nbits stay 0),
+    then, for the forms "trace" and "expand", the log's expansion over
+    those rows (``meta_expand.trace_body``). The form "expand" takes a
+    caller's ``log`` instead of decoding (copied into a static buffer of
+    ``rows`` words where it lies, zeroed past nbits + 1). ``finish(host)``
+    reads the stat row (the one sync), raises as ``check_stat`` does, and
+    returns the outputs cut to nbits + 1 rows: fresh tensors on the
+    program's device, or, with ``host``, numpy arrays read straight from
+    the graph's outputs. A call holds ``lock`` from ``start`` to
+    ``finish``; ``__call__`` does."""
+
+    def __init__(self, key, geo, top_slice, other_slices, dev, bucket,
+                 form):
+        c, h, w, ll_h, ll_w = geo
+        self.bucket, self.form, self.rows = bucket, form, 32 * bucket + 1
+        self.kernel = "spiht_decode_" + (
+            "seq_log" if _decoder.has_duplicate_parents(h, w, ll_h, ll_w)
+            else "lsp_log")
+        self._nbits = 0
+        body = _meta.trace_body(c, h, w, ll_h, ll_w, top_slice,
+                                other_slices, bucket, self.rows, dev, form)
+        # the geometry, node and rect tables, the program's own: a cache
+        # that lets them go frees nothing the graph reads
+        self.tables = body.tables
+        statics = {
+            "words": torch.zeros(bucket, dtype=torch.int32, device=dev),
+            "scalars": torch.zeros(2, dtype=torch.int32, device=dev),
+        }
+        if form == "expand":
+            statics["log"] = torch.zeros(self.rows, dtype=torch.int64,
+                                         device=dev)
+        super().__init__(key, dev, body, statics)
+
+    def start(self, words, nbits, max_n=0, log=None) -> None:
+        nbits, max_n = int(nbits), int(max_n)
+        n = max((nbits + 31) // 32, 1)
+        if nbits < 0 or n > self.bucket:
+            raise ValueError(f"nbits {nbits} does not fit the program's "
+                             f"{self.bucket} words")
+        if not 0 <= max_n <= 30:
+            raise ValueError("the event log's plane field takes max_n <= 30")
+        self._begin()
+        if isinstance(words, torch.Tensor) and words.device.type != "cpu":
+            words = words.reshape(1, -1)[:, :n]
+        elif isinstance(words, (torch.Tensor, np.ndarray)):
+            words = [words]
+        self._put_words(words, [n])
+        if self.form == "expand":
+            self._put_log(log, nbits + 1)
+        self._put("scalars", np.array([nbits, max_n], np.int32))
+        self.run()
+        self._nbits = nbits
+
+    def _put_log(self, log, k: int) -> None:
+        """The caller's log's first k words into the static log, zeroed
+        past them: on the device where the log lies there, else through
+        the pinned buffer."""
+        static = self.statics["log"]
+        if log.numel() < k:
+            raise ValueError(f"the log holds {log.numel()} words, want {k}")
+        if log.device.type != "cpu":
+            static[:k].copy_(log.reshape(-1)[:k])
+            static[k:].zero_()
+            return
+        host = np.zeros(self.rows, np.int64)
+        host[:k] = log.reshape(-1)[:k].numpy()
+        self._put("log", host)
+
+    def __call__(self, words, nbits, max_n=0, log=None, host=False):
+        with self.lock:
+            self.start(words, nbits, max_n, log)
+            return self.finish(host)
+
+    def finish(self, host: bool = False):
+        """(rec (c, h, w), log (nbits + 1,), words) for the form "log";
+        (rec, trace (nbits + 1, 8)) for "trace"; (trace,) for
+        "expand"."""
+        rows = self._nbits + 1
+        if self.form == "expand":
+            out = (self.outputs[0][:rows],)
+        else:
+            rec, stat, x = self.outputs
+            check_stat(stat, self.kernel)
+            out = (rec, x[:rows])
+            if self.form == "log":
+                n = max((self._nbits + 31) // 32, 1)
+                out += (self.statics["words"][:n],)
+        if host:
+            out = tuple(t.cpu().numpy() for t in out)
+        else:
+            out = tuple(t.clone() for t in out)
+        self._end()
+        return out
+
+
 def _held_bytes(dev: torch.device) -> int:
     return sum(p.device_bytes for p in _PROGRAMS.values() if p.dev == dev)
 
@@ -815,6 +987,42 @@ def decode_program(
     return _program(key, dev, lambda: DecodeProgram(
         key, _settings_of(skey), h, w, level, c, dtype, as_uint8, dev,
         bucket))
+
+
+def trace_program(
+    c: int,
+    h: int,
+    w: int,
+    ll_h: int,
+    ll_w: int,
+    top_slice,
+    other_slices,
+    nbits: int,
+    device=None,
+    form: str = "trace",
+) -> TraceProgram:
+    """The cached trace program of a (c, h, w) geometry with an LL of
+    (ll_h, ll_w). Its key: the geometry and level, the rect table of the
+    slices (``meta_expand.rect_key``, as ``_expand_fn``'s; none for the
+    form "log"), the route (B2-log, or B3-log at odd LL), the word-buffer
+    bucket (the least power of two of the words ``nbits`` needs, as
+    ``decode_program``'s), the device and the form: "log" (the decode and
+    its raw log, as ``decode_event_log`` wants them), "trace" (the log
+    expanded) or "expand" (a caller's log expanded)."""
+    if form not in ("log", "trace", "expand"):
+        raise ValueError(f"form must be log, trace or expand, got {form!r}")
+    _encoder.check_geometry(c, h, w, ll_h, ll_w)
+    dev = resolve_device(device)
+    level = None if other_slices is None else len(other_slices)
+    rkey = (None if form == "log" else
+            _meta.rect_key(level, ll_h, ll_w, top_slice, other_slices))
+    seq = _decoder.has_duplicate_parents(h, w, ll_h, ll_w)
+    bucket = _pow2(max((int(nbits) + 31) // 32, 1))
+    key = ("trace", c, h, w, ll_h, ll_w, level, rkey,
+           "b3log" if seq else "b2log", bucket, dev, form)
+    return _program(key, dev, lambda: TraceProgram(
+        key, (c, h, w, ll_h, ll_w), top_slice, other_slices, dev, bucket,
+        form))
 
 
 def _image_of(image) -> torch.Tensor:
@@ -1004,7 +1212,6 @@ class EncodeBatchProgram(_Program):
                                 slices[0][2].stop)
         self.shape, self.cells, self.bucket = shape, (c, enc_h, enc_w), bucket
         self._words, self._n = bucket, B
-        self.stage_s = 0.0  # the last call's host copies into pinned memory
 
         def body(images, budgets):
             arr, ll_h, ll_w = forward(images, settings, level, dtype)
@@ -1031,30 +1238,6 @@ class EncodeBatchProgram(_Program):
         self._put("budgets", np.array(mbs + mbs[-1:] * (B - n), np.int32))
         self.run()
         self._words, self._n = words, n
-
-    def _put_rows(self, images) -> None:
-        """Copy n images (an (n, C, H, W) tensor or array, or a list of n
-        tensors or arrays) into the first n rows of the static input: an
-        image on the card device to device, a host image into its row of
-        one pinned buffer and up from there, so that its upload runs while
-        the host copies the next; rows past n repeat row n - 1."""
-        static, n = self.statics["images"], len(images)
-        t0 = time.perf_counter()
-        if isinstance(images, torch.Tensor) and images.device.type != "cpu":
-            static[:n].copy_(images)
-        else:
-            cuda = self.dev.type == "cuda"
-            buf = self._pin("images", static) if cuda else static
-            for b, row in enumerate(images):
-                if isinstance(row, torch.Tensor) and row.device.type != "cpu":
-                    static[b].copy_(row)
-                    continue
-                buf[b].copy_(row if isinstance(row, torch.Tensor)
-                             else torch.from_numpy(np.ascontiguousarray(row)))
-                if cuda:
-                    self._upload(static[b], buf[b])
-        self.stage_s = time.perf_counter() - t0
-        _pad_rows(static, n)
 
     def on_device(self):
         """(words int32 (n, cap_words_for(largest budget)), stat (n,
@@ -1344,3 +1527,223 @@ def decode_pipeline_batch_fn(
                             dtype, as_uint8, _device_of(words, device))
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# The host-facing transforms: one CUDA graph a key
+# ---------------------------------------------------------------------------
+
+
+class TransformProgram(_Program):
+    """One transform at one key, the counterpart of one of the JAX
+    package's jitted transforms: ``forward_program`` (``_forward_jit``),
+    ``inverse_program`` (``_inverse_jit``), ``compact_program``
+    (``_forward_compact_jit``), ``plan_program`` (``_forward_plan_jit``)
+    and ``narrow_program`` (``_narrow_jit``).
+
+    ``start(x, **named)`` copies ``x`` into the static input "x": a
+    tensor or array of its whole shape where it lies (from the host
+    through a pinned buffer), or a list of n rows of a batch
+    (``_put_rows``: rows past n repeat the last); and each named value
+    into its static buffer (``_put``). Then it runs the program, with no
+    sync. ``outputs`` holds the body's tuple until the next run;
+    ``fresh()`` returns clones of it and ``host(n)`` numpy copies of the
+    first n rows of each, read straight from the graph's outputs. A call
+    holds ``lock`` from ``start`` to its read; ``__call__`` does."""
+
+    def __init__(self, key, dev, body, shape, in_dtype, ll=None,
+                 extra=None):
+        self.shape, self.ll = tuple(shape), ll
+        statics = {"x": torch.empty(shape, dtype=in_dtype, device=dev)}
+        statics.update(extra or {})
+        super().__init__(key, dev, body, statics)
+
+    def start(self, x, **named) -> None:
+        self._begin()
+        if isinstance(x, (list, tuple)):
+            self._put_rows(x, "x")
+        else:
+            self._put("x", x)
+        for name, value in named.items():
+            self._put(name, value)
+        self.run()
+
+    def fresh(self) -> tuple:
+        out = tuple(t.clone() for t in self.outputs)
+        self._end()
+        return out
+
+    def host(self, n: Optional[int] = None) -> tuple:
+        out = tuple((t[:n] if t.dim() and n is not None else t).cpu().numpy()
+                    for t in self.outputs)
+        self._end()
+        return out
+
+    def __call__(self, x, **named) -> tuple:
+        with self.lock:
+            self.start(x, **named)
+            return self.fresh()
+
+
+def _ll_of(h, w, settings, level):
+    slices, _, _ = get_slices_and_h_w(h, w, settings, level)
+    return slices[0][1].stop, slices[0][2].stop
+
+
+def forward_program(
+    settings: SpihtSettings,
+    shape,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+    with_maps: bool = False,
+    in_dtype: torch.dtype = torch.float64,
+    device=None,
+) -> TransformProgram:
+    """The cached forward program of (..., C, H, W) images of
+    ``in_dtype``: body ``forward`` (and the significance maps with
+    ``with_maps``) -> (arr,) or (arr, M, D, G). Its key: the settings,
+    the whole shape, level, the working dtype, ``with_maps``, the input
+    dtype and the device."""
+    dev = resolve_device(device)
+    shape = tuple(int(v) for v in shape)
+    skey = _settings_key(settings)
+    key = ("forward", skey, shape, level, dtype, bool(with_maps), in_dtype,
+           dev)
+
+    def make():
+        s = _settings_of(skey)
+
+        def body(x):
+            arr, ll_h, ll_w = forward(x, s, level, dtype)
+            if with_maps:
+                return (arr,) + significance_maps(arr, ll_h, ll_w)
+            return (arr,)
+
+        return TransformProgram(key, dev, body, shape, in_dtype,
+                                _ll_of(shape[-2], shape[-1], s, level))
+
+    return _program(key, dev, make)
+
+
+def inverse_program(
+    settings: SpihtSettings,
+    shape,
+    h: int,
+    w: int,
+    level: Optional[int],
+    dtype: torch.dtype = torch.float64,
+    as_uint8: bool = False,
+    in_dtype: torch.dtype = torch.int32,
+    device=None,
+) -> TransformProgram:
+    """The cached inverse program of (..., C, enc_h, enc_w) coefficients
+    of ``in_dtype`` of (h, w) images: body ``inverse`` -> (image,). Its
+    key: the settings, the whole shape, h, w, level, dtype, ``as_uint8``,
+    the input dtype and the device."""
+    dev = resolve_device(device)
+    shape = tuple(int(v) for v in shape)
+    skey = _settings_key(settings)
+    key = ("inverse", skey, shape, int(h), int(w), level, dtype,
+           bool(as_uint8), in_dtype, dev)
+
+    def make():
+        s = _settings_of(skey)
+
+        def body(x):
+            return (inverse(x, h, w, level, s, dtype, as_uint8),)
+
+        return TransformProgram(key, dev, body, shape, in_dtype)
+
+    return _program(key, dev, make)
+
+
+def compact_program(
+    settings: SpihtSettings,
+    shape,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+    in_dtype: torch.dtype = torch.float64,
+    device=None,
+) -> TransformProgram:
+    """The cached ``forward_compact`` program of (B, C, H, W) images:
+    body -> (int16 coefficients, overflow). Its key: the settings, the
+    shape, level, the working and input dtypes, the route
+    (``compact_route``: kernel B6, or the torch ops) and the device."""
+    dev = resolve_device(device)
+    shape = tuple(int(v) for v in shape)
+    skey = _settings_key(settings)
+    route = compact_route(dtype)
+    key = ("forward_compact", skey, shape, level, dtype, in_dtype, route,
+           dev)
+
+    def make():
+        s = _settings_of(skey)
+
+        def body(x):
+            return forward_compact(x, s, level, dtype, route)[:2]
+
+        return TransformProgram(key, dev, body, shape, in_dtype,
+                                _ll_of(shape[-2], shape[-1], s, level))
+
+    return _program(key, dev, make)
+
+
+# the columns of the plan program's head row a stream: max |x|, the exact
+# max(M), the stream's max_n, then the bits of each plane
+PLAN_HEAD = 3
+
+
+def plan_program(
+    settings: SpihtSettings,
+    shape,
+    level: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+    in_dtype: torch.dtype = torch.float64,
+    device=None,
+) -> TransformProgram:
+    """The cached ``forward_plan`` program of (B, C, H, W) images (even LL
+    only): body -> (arr int32 (B, C, enc_h, enc_w), head int64 (B,
+    PLAN_HEAD + 32)): a row an image of max |x|, the exact max(M), the
+    stream's max_n (``device_max_n``, the reference's float32 rule on the
+    uint32 magnitude) and the 32 per-plane bit counts, one read. Its key:
+    the settings, the shape, level, the working and input dtypes and the
+    device."""
+    dev = resolve_device(device)
+    shape = tuple(int(v) for v in shape)
+    skey = _settings_key(settings)
+    key = ("forward_plan", skey, shape, level, dtype, in_dtype, dev)
+
+    def make():
+        s = _settings_of(skey)
+
+        def body(x):
+            arr, mx, counts, max_n_dev, _, _ = forward_plan(x, s, level,
+                                                            dtype)
+            head = torch.stack([mx.long(), max_n_dev.long(),
+                                device_max_n(arr).long()], 1)
+            return arr, torch.cat((head, counts), 1)
+
+        return TransformProgram(key, dev, body, shape, in_dtype,
+                                _ll_of(shape[-2], shape[-1], s, level))
+
+    return _program(key, dev, make)
+
+
+def narrow_program(shape, out_dtype: torch.dtype,
+                   device=None) -> TransformProgram:
+    """The cached ``narrow`` program of (B, C, H, W) int32 coefficients
+    to ``out_dtype`` (int8 or int16), its per-image shifts in a static
+    (B,) device buffer ("shifts"). Its key: the shape, the out dtype and
+    the device."""
+    dev = resolve_device(device)
+    shape = tuple(int(v) for v in shape)
+    key = ("narrow", shape, out_dtype, dev)
+
+    def make():
+        def body(x, shifts):
+            return (narrow(x, shifts, out_dtype),)
+
+        return TransformProgram(key, dev, body, shape, torch.int32, extra={
+            "shifts": torch.zeros(shape[0], dtype=torch.int32, device=dev)})
+
+    return _program(key, dev, make)

@@ -209,7 +209,9 @@ def forward(
     """(C,H,W) image -> (int32 packed coefficients, ll_h, ll_w) under the
     backend: a numpy array on the host for 'numpy' and 'native', an int32
     tensor on ``device`` (the card unless ``device="cpu"``) for 'torch',
-    in the working ``dtype``."""
+    in the working ``dtype``: a fresh tensor from the cached forward
+    program of the image's shape (``torch_transform.forward_program``),
+    the image staged into it where it lies."""
     backend = get_backend()
     if backend == "native":
         return forward_native(image, settings, level)
@@ -219,9 +221,10 @@ def forward(
 
     img = torch.as_tensor(np.ascontiguousarray(image)) if not isinstance(
         image, torch.Tensor) else image
-    return torch_transform.forward(
-        img.to(resolve_device(device)), settings, level, dtype
-    )
+    prog = torch_transform.forward_program(
+        settings, img.shape, level, dtype, False, img.dtype,
+        resolve_device(device))
+    return prog(img)[0], prog.ll[0], prog.ll[1]
 
 
 def inverse(
@@ -236,7 +239,9 @@ def inverse(
 ):
     """Packed int32 coefficients -> (C,H,W) image under the backend: a
     numpy array for 'numpy' and 'native', a tensor on ``device`` for
-    'torch' (leading batch dims allowed there)."""
+    'torch' (leading batch dims allowed there): a fresh tensor from the
+    cached inverse program of the array's shape
+    (``torch_transform.inverse_program``)."""
     backend = get_backend()
     if backend == "native":
         return inverse_native(rec_arr, h, w, level, settings, slices)
@@ -246,6 +251,6 @@ def inverse(
 
     rec = rec_arr if isinstance(rec_arr, torch.Tensor) else torch.as_tensor(
         np.ascontiguousarray(rec_arr))
-    return torch_transform.inverse(
-        rec.to(resolve_device(device)), h, w, level, settings, dtype
-    )
+    return torch_transform.inverse_program(
+        settings, rec.shape, h, w, level, dtype, False, rec.dtype,
+        resolve_device(device))(rec)[0]
