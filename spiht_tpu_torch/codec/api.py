@@ -55,7 +55,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .. import transform
+from .. import metrics, transform
 from ..native import runtime as native
 from ..device import resolve_device
 from ..settings import ENCODER_DECODER_VERSION, EncodingResult, SpihtSettings
@@ -622,19 +622,21 @@ def encode_image_device(
     DWT -> quantize -> max_n -> SPIHT bit emission (kernel B1), as one
     cached program a key (``torch_transform.encode_program``: on the card
     a CUDA graph, as the JAX package runs one XLA program). Only the
-    finished stream comes back to the host."""
-    dev = resolve_device(device)
-    if not isinstance(image, torch.Tensor):
-        image = torch.from_numpy(np.ascontiguousarray(image))
-    if image.dim() != 3:
-        raise ValueError("image ndim must be 3: c,h,w")
-    c, h, w = image.shape
-    # the program clamps the budget to what an int32 bit count holds
-    mb = _MAX_BITS if max_bits is None else max_bits
-    prog = encode_program(spiht_settings, image.shape, level, dtype,
-                          image.dtype, dev, mb)
-    data, _, max_n = prog(image, mb)
-    return EncodingResult(data, h, w, c, max_n, level)
+    finished stream comes back to the host. The call is the span
+    ``spiht/api/encode_image_device`` (``metrics.span``)."""
+    with metrics.span("spiht/api/encode_image_device", images=1):
+        dev = resolve_device(device)
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.ascontiguousarray(image))
+        if image.dim() != 3:
+            raise ValueError("image ndim must be 3: c,h,w")
+        c, h, w = image.shape
+        # the program clamps the budget to what an int32 bit count holds
+        mb = _MAX_BITS if max_bits is None else max_bits
+        prog = encode_program(spiht_settings, image.shape, level, dtype,
+                              image.dtype, dev, mb)
+        data, _, max_n = prog(image, mb)
+        return EncodingResult(data, h, w, c, max_n, level)
 
 
 def decode_image_device(
@@ -648,15 +650,17 @@ def decode_image_device(
     rec scatter, or B3 for odd-LL geometries) -> dequantize -> inverse DWT
     -> inverse colour, as one cached program a key
     (``torch_transform.decode_program``). Returns the image as a fresh
-    tensor on the device."""
-    if encoding_result._encoding_version != ENCODER_DECODER_VERSION:
-        raise ValueError(encoding_result._encoding_version)
-    dev = resolve_device(device)
-    h, w, c = encoding_result.h, encoding_result.w, encoding_result.c
-    data = encoding_result.encoded_bytes
-    prog = decode_program(spiht_settings, h, w, encoding_result.level, c,
-                          dtype, as_uint8, dev, len(data) * 8)
-    return prog(data, len(data) * 8, int(encoding_result.max_n))
+    tensor on the device. The call is the span
+    ``spiht/api/decode_image_device``."""
+    with metrics.span("spiht/api/decode_image_device", images=1):
+        if encoding_result._encoding_version != ENCODER_DECODER_VERSION:
+            raise ValueError(encoding_result._encoding_version)
+        dev = resolve_device(device)
+        h, w, c = encoding_result.h, encoding_result.w, encoding_result.c
+        data = encoding_result.encoded_bytes
+        prog = decode_program(spiht_settings, h, w, encoding_result.level, c,
+                              dtype, as_uint8, dev, len(data) * 8)
+        return prog(data, len(data) * 8, int(encoding_result.max_n))
 
 
 def _budgets(max_bits, n: int) -> list:
@@ -690,30 +694,33 @@ def encode_images_device(
     the JAX package. Images of mixed shapes go one by one through
     ``encode_image_device``. Every stream is encoded on the card (odd LL
     and max_n > 15 included) and equals the JAX API's; results come back
-    in input order.
+    in input order. The call is the span ``spiht/api/encode_images_device``
+    (count ``images``).
     """
-    ims = [
-        im if isinstance(im, torch.Tensor)
-        else torch.as_tensor(np.ascontiguousarray(im))
-        for im in images
-    ]
-    if not ims:
-        return []
-    mbs = _budgets(max_bits, len(ims))
-    dev = resolve_device(device)
-    if any(im.dim() != 3 for im in ims):
-        raise ValueError("image ndim must be 3: c,h,w")
-    if len({tuple(im.shape) for im in ims}) != 1:
-        return [
-            encode_image_device(im, spiht_settings, level, mb, dev, dtype)
-            for im, mb in zip(ims, mbs)
+    images = list(images)
+    with metrics.span("spiht/api/encode_images_device", images=len(images)):
+        ims = [
+            im if isinstance(im, torch.Tensor)
+            else torch.as_tensor(np.ascontiguousarray(im))
+            for im in images
         ]
-    c, h, w = ims[0].shape
-    return [
-        EncodingResult(data, h, w, c, int(mn), level)
-        for data, mn in encode_batch(spiht_settings, ims, mbs, level, dtype,
-                                     dev)
-    ]
+        if not ims:
+            return []
+        mbs = _budgets(max_bits, len(ims))
+        dev = resolve_device(device)
+        if any(im.dim() != 3 for im in ims):
+            raise ValueError("image ndim must be 3: c,h,w")
+        if len({tuple(im.shape) for im in ims}) != 1:
+            return [
+                encode_image_device(im, spiht_settings, level, mb, dev, dtype)
+                for im, mb in zip(ims, mbs)
+            ]
+        c, h, w = ims[0].shape
+        return [
+            EncodingResult(data, h, w, c, int(mn), level)
+            for data, mn in encode_batch(spiht_settings, ims, mbs, level,
+                                         dtype, dev)
+        ]
 
 
 def decode_images_device(
@@ -731,24 +738,27 @@ def decode_images_device(
     rec scatter (batched B3 for odd-LL geometries) decode every stream in
     one launch, each on its own length, then the batched inverse
     transform. Mixed geometries go one by one through
-    ``decode_image_device``.
+    ``decode_image_device``. The call is the span
+    ``spiht/api/decode_images_device`` (count ``images``).
     """
     ers = list(encoding_results)
-    if not ers:
-        return []
-    if len({(er.h, er.w, er.c, er.level) for er in ers}) != 1:
-        return [
-            decode_image_device(er, spiht_settings, as_uint8, device, dtype)
-            for er in ers
-        ]
-    for er in ers:
-        if er._encoding_version != ENCODER_DECODER_VERSION:
-            raise ValueError(er._encoding_version)
-    dev = resolve_device(device)
-    er0 = ers[0]
-    images = decode_batch(
-        spiht_settings, er0.h, er0.w, er0.level, er0.c,
-        [er.encoded_bytes for er in ers],
-        [len(er.encoded_bytes) * 8 for er in ers],
-        [int(er.max_n) for er in ers], dtype, as_uint8, dev)
-    return list(images.unbind(0))
+    with metrics.span("spiht/api/decode_images_device", images=len(ers)):
+        if not ers:
+            return []
+        if len({(er.h, er.w, er.c, er.level) for er in ers}) != 1:
+            return [
+                decode_image_device(er, spiht_settings, as_uint8, device,
+                                    dtype)
+                for er in ers
+            ]
+        for er in ers:
+            if er._encoding_version != ENCODER_DECODER_VERSION:
+                raise ValueError(er._encoding_version)
+        dev = resolve_device(device)
+        er0 = ers[0]
+        images = decode_batch(
+            spiht_settings, er0.h, er0.w, er0.level, er0.c,
+            [er.encoded_bytes for er in ers],
+            [len(er.encoded_bytes) * 8 for er in ers],
+            [int(er.max_n) for er in ers], dtype, as_uint8, dev)
+        return list(images.unbind(0))

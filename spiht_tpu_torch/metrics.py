@@ -1,58 +1,148 @@
-"""Observability: per-stage timers and per-image codec metrics, the port of
-``spiht_tpu/metrics.py``.
+"""Observability: spans at the port's layer boundaries and per-image
+codec metrics, the port of ``spiht_tpu/metrics.py``.
 
-Stage timers on the host clock, per-image encode statistics (bpp, PSNR,
-MP/s, bits-per-plane histogram) and an optional ``torch.profiler`` trace
-scope, the counterpart of the JAX package's ``jax.profiler`` hook.
+Spans (``span``, ``open_span`` / ``close_span``, ``spans``,
+``clear_spans``) mark where a call of the on-device API spends its host
+time: the API call itself and, inside it, each program's phases (stage,
+capture, replay, wait, read). They record only while a ``torch.profiler``
+session records (``metrics.trace``, or any other), and then each also
+opens a ``torch.profiler.record_function`` of its name, so the exported
+Chrome trace holds them on the device trace's clock, nested as in the
+log. With no profiler on, a span is a check of the profiler's flag and
+a shared null context: no clock read, no ``record_function``, no record.
+
+Per-image encode statistics (bpp, PSNR, MP/s, bits-per-plane histogram)
+and ``trace(dirname)``, a ``torch.profiler`` trace scope, the counterpart
+of the JAX package's ``jax.profiler`` hook.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import math
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["StageTimer", "EncodeStats", "encode_stats", "psnr",
+__all__ = ["span", "open_span", "close_span", "spans", "clear_spans",
+           "Span", "SPAN_LIMIT", "EncodeStats", "encode_stats", "psnr",
            "bits_per_plane", "trace"]
 
+# the spans the log keeps, the oldest dropped first: a traced round of
+# the benchmark's cells records under 20 spans a call
+SPAN_LIMIT = 1 << 16
 
-class StageTimer:
-    """Accumulating named-stage wall-clock timer (host clock: a stage that
-    launches device work should end in a sync to be counted whole).
 
-    with timer.stage("dwt"): ...
-    timer.report() -> {"dwt": seconds, ...}
-    """
+@dataclass(frozen=True)
+class Span:
+    """One closed span: its name (``spiht/api/<function>`` or
+    ``spiht/<program kind>/<phase>``), start and end on
+    ``time.perf_counter_ns``, its id, its parent's id (None at the top),
+    the id of the top-level span it ran under (``request``: its own id at
+    the top), and its counts."""
 
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    request: int
+    counts: dict
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
 
-    def report(self) -> Dict[str, float]:
-        return dict(self.totals)
+class _Open:
+    __slots__ = ("name", "id", "parent", "request", "start_ns", "scope")
 
-    def pretty(self) -> str:
-        total = sum(self.totals.values()) or 1.0
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        return "\n".join(
-            f"  {k:<12} {v*1e3:9.2f} ms  {100*v/total:5.1f}%  (x{self.counts[k]})"
-            for k, v in rows
-        )
+
+_SPANS: collections.deque = collections.deque(maxlen=SPAN_LIMIT)
+_IDS = itertools.count(1)
+_LOCAL = threading.local()  # each thread's stack of open spans
+
+
+def open_span(name: str) -> Optional[_Open]:
+    """Open the span ``name`` under this thread's innermost open span;
+    None (and nothing done) unless a profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    s = _Open()
+    s.name, s.id = name, next(_IDS)
+    if stack:
+        s.parent, s.request = stack[-1].id, stack[-1].request
+    else:
+        s.parent, s.request = None, s.id
+    # the trace stamps a span early in its enter and late in its exit:
+    # the log reads the clock just before the one and just after the other
+    s.scope = torch.profiler.record_function(name)
+    s.start_ns = time.perf_counter_ns()
+    s.scope.__enter__()
+    stack.append(s)
+    return s
+
+
+def close_span(s: Optional[_Open], **counts) -> Optional[int]:
+    """Close ``s`` (None: nothing to do) with its counts, and return its
+    end (``perf_counter_ns``); spans opened under it and still open (a
+    call that raised) close with it."""
+    if s is None:
+        return None
+    stack = getattr(_LOCAL, "stack", ())
+    if s not in stack:  # closed already, with a span it ran under
+        return None
+    while True:
+        top = stack.pop()
+        top.scope.__exit__(None, None, None)
+        end = time.perf_counter_ns()
+        _SPANS.append(Span(top.name, top.start_ns, end, top.id, top.parent,
+                           top.request, counts if top is s else {}))
+        if top is s:
+            return end
+
+
+class _Scope:
+    __slots__ = ("name", "counts", "open")
+
+    def __init__(self, name, counts):
+        self.name, self.counts = name, counts
+
+    def __enter__(self):
+        self.open = open_span(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        close_span(self.open, **self.counts)
+        return False
+
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str, **counts):
+    """A context manager that records the span ``name`` with ``counts``
+    while a profiler records; otherwise a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Scope(name, counts)
+
+
+def spans() -> list:
+    """The recorded spans (``Span``), in the order they closed."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    """Empty the log."""
+    _SPANS.clear()
 
 
 def psnr(reference: np.ndarray, reconstruction: np.ndarray, peak: float = 1.0) -> float:
@@ -130,14 +220,14 @@ def encode_stats(
 @contextlib.contextmanager
 def trace(dirname: Optional[str]):
     """``torch.profiler`` scope writing a Chrome trace (``trace.json``)
-    into ``dirname``, the CPU and, where there is one, the CUDA card;
-    no-op when dirname is None or empty."""
+    into ``dirname``, the CPU and, where there is one, the CUDA card, with
+    the port's spans in it (they record while it is on); no-op when
+    dirname is None or empty."""
     if not dirname:
         yield
         return
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -69,6 +69,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import metrics
 from .device import constant, holding, resolve_device
 from .codec import decoder as _decoder, encoder as _encoder
 from .codec import meta_expand as _meta
@@ -446,7 +447,20 @@ class _Program:
     reads its outputs) holds ``lock``: calls from several threads take
     their turns, and a call waits, on the device, for the last call's
     reads of the outputs (``_done``) before it overwrites the buffers.
+
+    A call's phases are spans (``metrics.span``, named
+    ``spiht/<key[0]>/<phase>``; recorded while a profiler records):
+    ``stage`` from ``_begin`` through the last ``_put*`` before ``run``
+    (count ``bytes``: the host bytes copied), ``capture`` (a new key's
+    warm-up and capture), ``replay`` (the graph's replay enqueued, or the
+    eager body off the card), and, where ``finish`` reads the outputs
+    back, ``wait`` (its one sync) and ``read`` (from the sync until it
+    returns; count ``bytes``: the stream bytes, or the image bytes,
+    returned). ``stage_s`` is the last call's stage in seconds, measured
+    whether or not spans record.
     """
+
+    PHASES = ("stage", "capture", "replay", "wait", "read")
 
     def __init__(self, key, dev, body, statics):
         self.key, self.dev, self.body, self.statics = key, dev, body, statics
@@ -460,7 +474,11 @@ class _Program:
                                 for t in statics.values())
         self.host_bytes = 0  # pinned staging
         self.capture_s = None  # the first run's warm-up and capture
-        self.stage_s = 0.0  # the last call's host copies into pinned memory
+        self.stage_s = 0.0  # the last call's stage: _begin to its run
+        self._names = {p: f"spiht/{key[0]}/{p}" for p in self.PHASES}
+        self._stage = None  # the open stage span
+        self._stage_ns = 0  # the stage's start
+        self._stage_bytes = 0
         self._pinned = {}
         self._staged = None  # the last upload from the pinned buffers
         self._done = None  # the last call's reads of the outputs
@@ -470,13 +488,23 @@ class _Program:
         return self.pool_bytes + self.static_bytes
 
     def run(self):
+        if self._stage is None:
+            end = time.perf_counter_ns()
+        else:
+            end = (metrics.close_span(self._stage, bytes=self._stage_bytes)
+                   or time.perf_counter_ns())
+            self._stage = None
+        self.stage_s = (end - self._stage_ns) / 1e9
         if self.dev.type != "cuda":
-            self.outputs = self.body(**self.statics)
+            with metrics.span(self._names["replay"]):
+                self.outputs = self.body(**self.statics)
             return self.outputs
         with torch.cuda.device(self.dev):
             if self.graph is None:
-                self._capture()
-            self.graph.replay()
+                with metrics.span(self._names["capture"]):
+                    self._capture()
+            with metrics.span(self._names["replay"]):
+                self.graph.replay()
         self.replays += 1
         return self.outputs
 
@@ -511,13 +539,25 @@ class _Program:
             _evict(self.dev, keep=self)
 
     def _begin(self) -> None:
-        """Wait for the last call's copies from the pinned buffers (their
-        event, on the host), so that the host may write them again, and,
-        on the device, for its reads of the outputs."""
+        """Open the call's stage; wait for the last call's copies from the
+        pinned buffers (their event, on the host), so that the host may
+        write them again, and, on the device, for its reads of the
+        outputs."""
+        if self._stage is not None:  # left open by a start that raised
+            metrics.close_span(self._stage)
+        self._stage = metrics.open_span(self._names["stage"])
+        self._stage_ns = (time.perf_counter_ns() if self._stage is None
+                          else self._stage.start_ns)
+        self._stage_bytes = 0
         if self._staged is not None:
             self._staged.synchronize()
         if self._done is not None:
             torch.cuda.current_stream(self.dev).wait_event(self._done)
+
+    def _wait(self, read, *args):
+        """``read(*args)``, the call's one sync, in its ``wait`` span."""
+        with metrics.span(self._names["wait"]):
+            return read(*args)
 
     def _end(self) -> None:
         """Record the end of this call's reads of the outputs."""
@@ -552,6 +592,7 @@ class _Program:
             return
         host = (value if isinstance(value, torch.Tensor)
                 else torch.from_numpy(np.ascontiguousarray(value)))
+        self._stage_bytes += host.numel() * host.element_size()
         if self.dev.type != "cuda":
             static.copy_(host)
             return
@@ -567,7 +608,6 @@ class _Program:
         runs while the host copies the next; rows past n repeat row n - 1.
         """
         static, n = self.statics[name], len(images)
-        t0 = time.perf_counter()
         if isinstance(images, torch.Tensor) and images.device.type != "cpu":
             static[:n].copy_(images)
         else:
@@ -577,11 +617,12 @@ class _Program:
                 if isinstance(row, torch.Tensor) and row.device.type != "cpu":
                     static[b].copy_(row)
                     continue
-                buf[b].copy_(row if isinstance(row, torch.Tensor)
-                             else torch.from_numpy(np.ascontiguousarray(row)))
+                row = (row if isinstance(row, torch.Tensor)
+                       else torch.from_numpy(np.ascontiguousarray(row)))
+                buf[b].copy_(row)
+                self._stage_bytes += row.numel() * row.element_size()
                 if cuda:
                     self._upload(static[b], buf[b])
-        self.stage_s = time.perf_counter() - t0
         _pad_rows(static, n)
 
     def _put_words(self, streams, nwords) -> None:
@@ -608,6 +649,7 @@ class _Program:
                 raw = _stream_raw(streams[b])[: nwords[b] * 4]
                 view[b, : raw.size] = raw
                 view[b, raw.size:] = 0
+                self._stage_bytes += raw.size
             if cuda:
                 self._upload(static[:n], buf[:n])
         _pad_rows(static, n)
@@ -695,9 +737,13 @@ class EncodeProgram(_Program):
     def finish(self):
         """(stream bytes, total bits, max_n), read back to the host."""
         words, head = self.outputs
-        head = head.tolist()
+        head = self._wait(head.tolist)
+        read = metrics.open_span(self._names["read"])
         stat = check_stat(head[: _encoder.STAT_LEN], "spiht_encode")
-        return stream_bytes(words, stat[0]), stat[0], head[_encoder.STAT_LEN]
+        data = stream_bytes(words, stat[0])
+        if read is not None:
+            metrics.close_span(read, bytes=len(data))
+        return data, stat[0], head[_encoder.STAT_LEN]
 
     def device_call(self, image, max_bits):
         with self.lock:
@@ -761,9 +807,12 @@ class DecodeProgram(_Program):
 
     def finish(self) -> torch.Tensor:
         image, stat = self.outputs
-        check_stat(stat, self.kernel)
+        self._wait(check_stat, stat, self.kernel)
+        read = metrics.open_span(self._names["read"])
         image = image.clone()
         self._end()
+        if read is not None:
+            metrics.close_span(read, bytes=image.numel() * image.element_size())
         return image
 
     def __call__(self, words, nbits, max_n) -> torch.Tensor:
@@ -1255,11 +1304,15 @@ class EncodeBatchProgram(_Program):
         """[(stream bytes, max_n)] of the last start's n streams, read
         back to the host."""
         words, head = self.outputs
-        rows = head[: self._n].tolist()
+        rows = self._wait(head[: self._n].tolist)
+        read = metrics.open_span(self._names["read"])
         stat = check_stat([r[: _encoder.STAT_LEN] for r in rows],
                           "spiht_encode_batch")
         data = batch_stream_bytes(words[: self._n], [r[0] for r in stat])
-        return list(zip(data, [r[_encoder.STAT_LEN] for r in rows]))
+        out = list(zip(data, [r[_encoder.STAT_LEN] for r in rows]))
+        if read is not None:
+            metrics.close_span(read, bytes=sum(len(d) for d in data))
+        return out
 
     def device_call(self, images, max_bits):
         with self.lock:
@@ -1322,9 +1375,13 @@ class DecodeBatchProgram(_Program):
 
     def finish(self) -> torch.Tensor:
         images, stat = self.outputs
-        check_stat(stat[: self._n], self.kernel)
+        self._wait(check_stat, stat[: self._n], self.kernel)
+        read = metrics.open_span(self._names["read"])
         images = images[: self._n].clone()
         self._end()
+        if read is not None:
+            metrics.close_span(read,
+                               bytes=images.numel() * images.element_size())
         return images
 
     def __call__(self, streams, nbits, max_ns) -> torch.Tensor:

@@ -211,19 +211,27 @@ def test_metrics_equal_the_reference():
     assert a == b
 
 
-def test_stage_timer_and_trace(tmp_path):
-    timer = metrics.StageTimer()
-    for _ in range(2):
-        with timer.stage("dwt"):
-            pass
-    assert timer.counts == {"dwt": 2} and "dwt" in timer.pretty()
-    assert set(timer.report()) == {"dwt"}
-    with metrics.trace(None):
-        x = torch.ones(3) + 1
-    with metrics.trace(""):
-        pass
-    assert not any(tmp_path.iterdir())
-    with metrics.trace(str(tmp_path / "t")):
-        x = x * 2
-    trace = json.loads((tmp_path / "t" / "trace.json").read_text())
-    assert trace["traceEvents"]
+@pytest.mark.parametrize("dirname", [None, "", "t"])
+def test_stage_timer_and_trace(dirname, tmp_path):
+    """``metrics.trace`` writes a Chrome trace where it is given a
+    directory, and the port's spans record inside it, in the log and in
+    the trace; with no directory it is a no-op and nothing records."""
+    metrics.clear_spans()
+    path = str(tmp_path / dirname) if dirname else dirname
+    with metrics.trace(path):
+        with metrics.span("spiht/api/call", images=2):
+            with metrics.span("spiht/encode/stage", bytes=8):
+                x = torch.ones(3) + 1
+    log = metrics.spans()
+    if not dirname:
+        assert log == [] and not any(tmp_path.iterdir())
+        return
+    stage, call = log
+    assert (stage.name, stage.parent, stage.counts) == (
+        "spiht/encode/stage", call.id, {"bytes": 8})
+    assert (call.parent, call.request, call.counts) == (
+        None, call.id, {"images": 2})
+    assert x.tolist() == [2.0] * 3
+    trace = json.loads((tmp_path / dirname / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"spiht/api/call", "spiht/encode/stage"} <= names
