@@ -203,7 +203,14 @@ Phases:
       bytes an image cell at most BATCH_BYTES_PER_CELL, which sizes
       batch_bound), the host's copies
       into the pinned buffer against its upload and the eager path's
-      pageable copies; the map route at A16 (SPIHT_TPU_PALLAS_ILV_B=1: B1
+      pageable copies; the host rows in fronts of rows_a_front rows
+      (every front's rows but the last's overlapped, a front graph
+      replayed a front, one back graph a call) and the same images on
+      the card in one graph (no row overlapped), streams equal; a
+      Kodak-size batch of 24 768x512 float32 images at 1 bpp (budgets 0,
+      -3 and 39,320 among them), fronts of 4, byte for byte the eager
+      body's, host rows and card rows; the map route at A16
+      (SPIHT_TPU_PALLAS_ILV_B=1: B1
       and B2 16 times each in a capture, so 32 on a key's first call, 0
       on a replay), streams and images equal; then the quantizer's
       overflow on the card (an
@@ -4122,10 +4129,15 @@ def phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, smi):
         check(per_cell <= tt.BATCH_BYTES_PER_CELL,
               f"26 {label}: the programs hold {per_cell} bytes an image "
               f"cell, over {tt.BATCH_BYTES_PER_CELL}")
+        # the fronts: every call above staged host rows, a front's rows at
+        # a time; the same images on the card run as one graph
+        row["fronts"] = check_fronts(f"26 {label}", eprog, ims, s, level,
+                                     mbs, want)
         out[label] = row
         if label == "A16":
             imgs_a16 = eager_imgs
         del first, imgs, eager_imgs
+    out["K24"] = phase_kodak_batch()
     # the map route (SPIHT_TPU_PALLAS_ILV_B=1: a launch would take one
     # stream): B1, and B2 and its scatter, a stream each inside the
     # capture, each reading its scalars from a row of the static buffers
@@ -4157,6 +4169,80 @@ def phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, smi):
     out["overflow"] = overflow_on_card()
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out))
+
+
+def check_fronts(label, eprog, ims, s, level, mbs, want) -> dict:
+    """Phase 26: a batch encode program that has run only host rows, all
+    B a call: each call overlapped the rows of every front but the last
+    and replayed each front graph and the back graph once; then the same
+    images on the card run as one graph (the whole body), overlapping no
+    row, with the same streams. Its counters."""
+    B, k = eprog.shape[0], eprog.rows_a_front
+    calls = eprog.staged_rows // B
+    fronts = len(eprog._fronts) if k < B else 0
+    last = (B - 1) // k * k if k < B else 0
+    check(eprog.staged_rows == calls * B and eprog.replays == calls
+          and eprog.overlap_rows == calls * last
+          and eprog.front_replays == calls * fronts,
+          f"{label} fronts of {k}: rows {eprog.staged_rows}, replays "
+          f"{eprog.replays}, overlap {eprog.overlap_rows}, fronts "
+          f"{eprog.front_replays} in {calls} calls")
+    row = {"rows_a_front": k, "fronts": fronts,
+           "staged_rows": eprog.staged_rows,
+           "overlap_rows": eprog.overlap_rows,
+           "overlap_share": eprog.overlap_rows / eprog.staged_rows,
+           "front_replays": eprog.front_replays,
+           "back_replays": eprog.replays, "pool_bytes": eprog.pool_bytes,
+           "static_bytes": eprog.static_bytes,
+           "warmup_and_capture_s": eprog.capture_s}
+    rows = [torch.as_tensor(im, device=DEV) for im in ims]
+    got = pt.encode_images_device(rows, s, level, mbs, device=DEV)
+    check([(e.encoded_bytes, e.max_n) for e in got] == want
+          and eprog.overlap_rows == row["overlap_rows"]
+          and eprog.front_replays == row["front_replays"]
+          and eprog.replays == calls + 1,
+          f"{label}: rows on the card: streams, or overlap "
+          f"{eprog.overlap_rows}, fronts {eprog.front_replays}")
+    row["card_rows_pool_bytes"] = eprog.pool_bytes
+    return row
+
+
+def phase_kodak_batch() -> dict:
+    """Phase 26: a Kodak-size batch (24 768x512 float32 images, budgets of
+    1 bpp with 0, -3 and 0.1 bpp among them) through
+    ``encode_images_device``: host rows in fronts of 4, a first call and a
+    replay, byte for byte the eager body's; then the same images on the
+    card as one graph (``check_fronts``)."""
+    tt = torch_transform
+    ims = [image(300 + b, (3, 512, 768)).astype(np.float32)
+           for b in range(24)]
+    mbs = [393216] * 24
+    mbs[5], mbs[9], mbs[17] = 0, -3, 39320
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    words, stat, mn = tt.encode_pipeline_batch_eager(CONFIG_A, None)(
+        torch.as_tensor(np.stack(ims), device=DEV), [max(m, 0) for m in mbs])
+    totals = [r[0] for r in encoder.check_stat(stat, "26 K24 eager B4")]
+    want = list(zip(encoder.batch_stream_bytes(words, totals), mn.tolist()))
+    del words, stat, mn
+    row = {}
+
+    def enc():
+        return pt.encode_images_device(ims, CONFIG_A, None, mbs, device=DEV)
+
+    for what in ("first", "replay"):
+        got, row[f"encode_{what}_ms"] = timed(enc)
+        check([(e.encoded_bytes, e.max_n) for e in got] == want,
+              f"26 K24 encode {what}: streams != the eager body's")
+    (prog,) = tt.programs()
+    check(prog.rows_a_front == 4 and len(prog._fronts) == 6,
+          f"26 K24: fronts of {prog.rows_a_front}, {len(prog._fronts)}")
+    row["fronts"] = check_fronts("26 K24", prog, ims, CONFIG_A, None, mbs,
+                                 want)
+    row["encode_program_ms"] = median_ms(enc)
+    tt.clear_programs()
+    torch.cuda.empty_cache()
+    return row
 
 
 def overflow_on_card():

@@ -93,6 +93,8 @@ __all__ = [
     "device_scalar",
     "encode_coeffs",
     "encode_coeffs_batch",
+    "row_tables",
+    "encode_rows_batch",
     "encode",
     "encode_batch",
     "check_stat",
@@ -648,13 +650,19 @@ def _budget(max_bits, cap_words: int) -> Tuple[int, bool]:
     return mb, max_bits > mb
 
 
+def _geometry_args(c: int, h: int, w: int, ll_h: int, ll_w: int,
+                   device) -> tuple:
+    """The machines' arguments 3-6, which the geometry alone fixes:
+    (child0, lip0, lis0, w)."""
+    tabs = machine_tables(c, h, w, ll_h, ll_w, device)
+    return (tabs["child0"], tabs["lip0"], tabs["lis0"], w)
+
+
 def _lead_args(arr: torch.Tensor, ll_h: int, ll_w: int) -> tuple:
     """The machines' first six arguments for an int32 (..., c, h, w) array
     on its device: (t1, t3s, child0, lip0, lis0, w)."""
-    c, h, w = arr.shape[-3:]
-    tabs = machine_tables(c, h, w, ll_h, ll_w, arr.device)
-    t1, t3s = encode_tables(arr, ll_h, ll_w)
-    return (t1, t3s, tabs["child0"], tabs["lip0"], tabs["lis0"], w)
+    return encode_tables(arr, ll_h, ll_w) + _geometry_args(
+        *arr.shape[-3:], ll_h, ll_w, arr.device)
 
 
 def machine_args(
@@ -711,6 +719,19 @@ def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits,
     already so clamped, with its ``cap_words`` (a program's static
     budgets, which the kernels read from device memory). A larger buffer,
     as a program's bucket is, gives every budget the same stream."""
+    arrs, budgets, cap_words = _batch_inputs(arrs, ll_h, ll_w, max_bits,
+                                             cap_words)
+    c, h, w = arrs.shape[1:]
+    return _lead_args(arrs, ll_h, ll_w) + (
+        device_max_n(arrs), budgets,
+        machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
+
+
+def _batch_inputs(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits,
+                  cap_words=None) -> tuple:
+    """(the batch contiguous, its budgets as an int32 (B,) tensor on its
+    device, the word buffer) as ``batch_machine_args`` takes them, the
+    batch and its geometry checked."""
     if arrs.dtype != torch.int32 or arrs.dim() != 4:
         raise ValueError("arrs must be an int32 (B, c, h, w) tensor")
     B, c, h, w = arrs.shape
@@ -719,15 +740,12 @@ def batch_machine_args(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits,
     if isinstance(max_bits, torch.Tensor):
         if cap_words is None:
             raise ValueError("a budget tensor needs its cap_words")
-        budgets = max_bits
-    else:
-        mbs = batch_budgets(max_bits, B)
-        if cap_words is None:
-            cap_words = cap_words_for(c, h, w, max(mbs, default=0))
-        budgets = torch.tensor(mbs, dtype=torch.int32).to(arrs.device)
-    return _lead_args(arrs, ll_h, ll_w) + (
-        device_max_n(arrs), budgets,
-        machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words)
+        return arrs, max_bits, cap_words
+    mbs = batch_budgets(max_bits, B)
+    if cap_words is None:
+        cap_words = cap_words_for(c, h, w, max(mbs, default=0))
+    return (arrs, torch.tensor(mbs, dtype=torch.int32).to(arrs.device),
+            cap_words)
 
 
 def encode_coeffs(
@@ -760,9 +778,32 @@ def encode_coeffs_batch(arrs: torch.Tensor, ll_h: int, ll_w: int, max_bits,
     Returns (words int32 (B, cap_words), stat (B, STAT_LEN), max_n (B,)),
     all on the batch's device; nothing is read back.
     """
-    args = batch_machine_args(arrs, ll_h, ll_w, max_bits, cap_words)
-    words, stat = _encode_batch_launches(*args, route, chunk)
-    return words, stat, args[6]
+    arrs, budgets, cap_words = _batch_inputs(arrs, ll_h, ll_w, max_bits,
+                                             cap_words)
+    t1, t3s, max_n = row_tables(arrs, ll_h, ll_w)
+    words, stat = encode_rows_batch(t1, t3s, max_n, arrs.shape[1:], ll_h,
+                                    ll_w, budgets, cap_words, route, chunk)
+    return words, stat, max_n
+
+
+def row_tables(arrs: torch.Tensor, ll_h: int, ll_w: int) -> tuple:
+    """(t1, t3s, max_n) of an int32 (..., c, h, w) array, as
+    ``encode_tables`` and ``device_max_n`` give them: each array's from
+    that array alone, so a batch's may be computed a chunk of rows at a
+    time."""
+    return encode_tables(arrs, ll_h, ll_w) + (device_max_n(arrs),)
+
+
+def encode_rows_batch(t1, t3s, max_n, shape, ll_h: int, ll_w: int, budgets,
+                      cap_words: int, route="ilv", chunk=None):
+    """``encode_coeffs_batch``'s (words, stat) from a batch's
+    ``row_tables`` of (c, h, w) arrays, its budgets an int32 (B,) tensor
+    on their device with its ``cap_words``."""
+    c, h, w = shape
+    return _encode_batch_launches(
+        t1, t3s, *_geometry_args(c, h, w, ll_h, ll_w, t1.device), max_n,
+        budgets, machine_caps(c, h, w, ll_h, ll_w, cap_words), cap_words,
+        route, chunk)
 
 
 def stream_bytes(words: torch.Tensor, total: int) -> bytes:

@@ -443,21 +443,30 @@ class _Program:
 
     The kernel wrappers count the launches they make, the warm-up's and
     the one the capture records, which every replay runs again; the
-    program counts its replays (``replays``). A call (``start`` and what
-    reads its outputs) holds ``lock``: calls from several threads take
-    their turns, and a call waits, on the device, for the last call's
-    reads of the outputs (``_done``) before it overwrites the buffers.
+    program counts its runs (``replays``: its one graph's replays, or its
+    back graph's, below). A call (``start`` and what reads its outputs)
+    holds ``lock``: calls from several threads take their turns, and a
+    call waits, on the device, for the last call's reads of the outputs
+    (``_done``) before it overwrites the buffers.
+
+    A program may run several graphs a call (``_replay``, a graph a part,
+    each captured at the part's first run; all in one memory pool, since
+    they replay in order on one stream), as the batch encode's fronts and
+    back do (``EncodeBatchProgram``).
 
     A call's phases are spans (``metrics.span``, named
     ``spiht/<key[0]>/<phase>``; recorded while a profiler records):
     ``stage`` from ``_begin`` through the last ``_put*`` before ``run``
-    (count ``bytes``: the host bytes copied), ``capture`` (a new key's
-    warm-up and capture), ``replay`` (the graph's replay enqueued, or the
+    (count ``bytes``: the host bytes copied), ``capture`` (a new part's
+    warm-up and capture), ``replay`` (a graph's replay enqueued, or the
     eager body off the card), and, where ``finish`` reads the outputs
     back, ``wait`` (its one sync) and ``read`` (from the sync until it
     returns; count ``bytes``: the stream bytes, or the image bytes,
-    returned). ``stage_s`` is the last call's stage in seconds, measured
-    whether or not spans record.
+    returned). A front's ``replay`` cuts the stage: ``stage`` and
+    ``replay`` spans alternate, siblings, each stage counting its own
+    bytes. ``stage_s`` is the last call's time from ``_begin`` to its
+    ``run``, the fronts' replays included, measured whether or not spans
+    record.
     """
 
     PHASES = ("stage", "capture", "replay", "wait", "read")
@@ -465,17 +474,18 @@ class _Program:
     def __init__(self, key, dev, body, statics):
         self.key, self.dev, self.body, self.statics = key, dev, body, statics
         self.lock = threading.RLock()
-        self.graph = None
         self.outputs = None
         self.replays = 0
-        self.held = []  # the constants and tables the graph reads
-        self.pool_bytes = 0  # reserved for the graph's pool by its capture
+        self.held = []  # the constants and tables the graphs read
+        self.pool_bytes = 0  # reserved for the graphs' pool by the captures
         self.static_bytes = sum(t.numel() * t.element_size()
                                 for t in statics.values())
         self.host_bytes = 0  # pinned staging
-        self.capture_s = None  # the first run's warm-up and capture
+        self.capture_s = None  # the warm-ups and captures
         self.stage_s = 0.0  # the last call's stage: _begin to its run
         self._names = {p: f"spiht/{key[0]}/{p}" for p in self.PHASES}
+        self._graphs = {}  # part -> (graph, its outputs)
+        self._pool = None  # the graphs' one memory pool
         self._stage = None  # the open stage span
         self._stage_ns = 0  # the stage's start
         self._stage_bytes = 0
@@ -487,43 +497,58 @@ class _Program:
     def device_bytes(self) -> int:
         return self.pool_bytes + self.static_bytes
 
-    def run(self):
-        if self._stage is None:
-            end = time.perf_counter_ns()
-        else:
-            end = (metrics.close_span(self._stage, bytes=self._stage_bytes)
-                   or time.perf_counter_ns())
-            self._stage = None
-        self.stage_s = (end - self._stage_ns) / 1e9
-        if self.dev.type != "cuda":
-            with metrics.span(self._names["replay"]):
-                self.outputs = self.body(**self.statics)
-            return self.outputs
-        with torch.cuda.device(self.dev):
-            if self.graph is None:
-                with metrics.span(self._names["capture"]):
-                    self._capture()
-            with metrics.span(self._names["replay"]):
-                self.graph.replay()
-        self.replays += 1
+    def run(self, part: str = "body", body=None):
+        """End the call's stage and run ``body`` (None: ``self.body``) as
+        the graph ``part``; its outputs are the call's."""
+        self.stage_s = (self._close_stage() - self._stage_ns) / 1e9
+        self.outputs = self._replay(part, body or self.body)
+        if self.dev.type == "cuda":
+            self.replays += 1
         return self.outputs
 
-    def _capture(self):
+    def _close_stage(self) -> int:
+        """Close the open stage span with its bytes; the time it closed."""
+        end = (metrics.close_span(self._stage, bytes=self._stage_bytes)
+               or time.perf_counter_ns())
+        self._stage, self._stage_bytes = None, 0
+        return end
+
+    def _replay(self, part, body):
+        """``body`` on the static buffers: eagerly off the card; on the
+        card the graph ``part`` (captured from ``body`` at its first run),
+        replayed, with no sync. Returns its outputs."""
+        if self.dev.type != "cuda":
+            with metrics.span(self._names["replay"]):
+                return body(**self.statics)
+        with torch.cuda.device(self.dev):
+            if part not in self._graphs:
+                with metrics.span(self._names["capture"]):
+                    self._graphs[part] = self._capture(body)
+            graph, outputs = self._graphs[part]
+            with metrics.span(self._names["replay"]):
+                graph.replay()
+        return outputs
+
+    def _capture(self, body):
+        """(graph, outputs) of ``body``: a warm-up, then a capture into
+        the program's pool."""
         t0 = time.perf_counter()
         try:
             with holding() as held:
-                self.body(**self.statics)  # the warm-up
+                body(**self.statics)  # the warm-up
                 # the graph's own __enter__ empties the cache too: what the
-                # capture reserves afterwards is the pool
+                # capture reserves afterwards is the pool's growth
                 torch.cuda.synchronize(self.dev)
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved(self.dev)
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
                 gc_on = gc.isenabled()
                 gc.disable()
                 try:
-                    with torch.cuda.graph(graph):
-                        outputs = self.body(**self.statics)
+                    with torch.cuda.graph(graph, pool=self._pool):
+                        outputs = body(**self.statics)
                 finally:
                     if gc_on:
                         gc.enable()
@@ -532,11 +557,12 @@ class _Program:
                 if _PROGRAMS.get(self.key) is self:
                     del _PROGRAMS[self.key]
             raise
-        self.pool_bytes = torch.cuda.memory_reserved(self.dev) - reserved
-        self.held, self.graph, self.outputs = held, graph, outputs
-        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes += torch.cuda.memory_reserved(self.dev) - reserved
+        self.held += held
+        self.capture_s = (self.capture_s or 0.0) + time.perf_counter() - t0
         with _LOCK:
             _evict(self.dev, keep=self)
+        return graph, outputs
 
     def _begin(self) -> None:
         """Open the call's stage; wait for the last call's copies from the
@@ -608,22 +634,31 @@ class _Program:
         runs while the host copies the next; rows past n repeat row n - 1.
         """
         static, n = self.statics[name], len(images)
-        if isinstance(images, torch.Tensor) and images.device.type != "cpu":
+        if _on_card(images):
             static[:n].copy_(images)
         else:
-            cuda = self.dev.type == "cuda"
-            buf = self._pin(name, static) if cuda else static
-            for b, row in enumerate(images):
-                if isinstance(row, torch.Tensor) and row.device.type != "cpu":
-                    static[b].copy_(row)
-                    continue
-                row = (row if isinstance(row, torch.Tensor)
-                       else torch.from_numpy(np.ascontiguousarray(row)))
-                buf[b].copy_(row)
-                self._stage_bytes += row.numel() * row.element_size()
-                if cuda:
-                    self._upload(static[b], buf[b])
+            self._stage_rows(images, 0, n, name)
         _pad_rows(static, n)
+
+    def _stage_rows(self, images, start: int, stop: int,
+                    name: str = "images") -> None:
+        """Copy ``images[start:stop]`` into the same rows of the static
+        input ``name``: a row on the card device to device, a host row into
+        its row of one pinned buffer and up from there."""
+        static = self.statics[name]
+        cuda = self.dev.type == "cuda"
+        buf = self._pin(name, static) if cuda else static
+        for b in range(start, stop):
+            row = images[b]
+            if _on_card(row):
+                static[b].copy_(row)
+                continue
+            row = (row if isinstance(row, torch.Tensor)
+                   else torch.from_numpy(np.ascontiguousarray(row)))
+            buf[b].copy_(row)
+            self._stage_bytes += row.numel() * row.element_size()
+            if cuda:
+                self._upload(static[b], buf[b])
 
     def _put_words(self, streams, nwords) -> None:
         """Copy n streams into the first n rows of the static word buffer
@@ -653,6 +688,11 @@ class _Program:
             if cuda:
                 self._upload(static[:n], buf[:n])
         _pad_rows(static, n)
+
+
+def _on_card(x) -> bool:
+    """Whether ``x`` is a tensor off the host."""
+    return isinstance(x, torch.Tensor) and x.device.type != "cpu"
 
 
 def _pad_rows(static: torch.Tensor, n: int) -> None:
@@ -1237,6 +1277,21 @@ def _batch_parts(n: int, shape, dev: torch.device):
     return m, [(s, min(s + m, n)) for s in range(0, n, m)]
 
 
+# the host bytes of input a front graph of the batch encode takes at
+# least (``EncodeBatchProgram.rows_a_front``). On an H100 a front costs
+# the host a graph launch (about 0.3 ms) and the card a fixed ~1.05 ms
+# (the deep DWT levels and the maps' small kernels run once a front)
+# beside ~0.97 ms a 768x512 image, and the last front is left exposed
+# after the copy (0.95-1.5 ms a 4.7 MB float32 row on one host thread):
+# few rows a front pay the fixed costs often, many leave a long tail. A
+# batch of 24 such images, median ms of 15 calls, in three processes:
+# one graph 53.0-58.0; rows a front 1: 53.3-53.6, 2: 38.5-38.6, 3:
+# 34.9-36.5, 4: 34.9-40.9, 5: 35.1-38.9, 6: 35.8-38.6, 8: 37.5-44.3, 12:
+# 42.3-46.4. Three to five rows are level within the spread; 16 MiB
+# takes 4 rows of a 768x512 float32 image and 3 of a 512x512 float64 one.
+FRONT_BYTES = 16 << 20
+
+
 class EncodeBatchProgram(_Program):
     """The batch encode pipeline of one key (``encode_batch_program``), the
     counterpart of the JAX package's ``_encode_pipeline_batch_jit``.
@@ -1251,27 +1306,71 @@ class EncodeBatchProgram(_Program):
     (words, stat, max_n) as the eager body returns them, or ``finish()``
     reads their stat rows and max_n (one read), raises as ``check_stat``
     does, and reads the streams. A call holds ``lock`` from ``start`` to
-    its read."""
+    its read.
+
+    Two or more host images are staged a chunk of ``rows_a_front`` rows
+    at a time, and each chunk's front graph (colour, DWT, scales,
+    quantize, then each row's machine tables and max_n,
+    ``encoder.row_tables``, into static (B, ...) buffers) is replayed as
+    soon as the chunk is up, so the card transforms a chunk while the
+    host copies the next; the rows past n take row n - 1's tables. Then
+    the budgets go up and the back graph (B4, or B1 a stream, over the
+    static tables) runs. ``rows_a_front`` is the fewest rows that hold
+    ``FRONT_BYTES`` of the static input, at most B: chunks of a batch of
+    24 768x512 float32 images hold four. Images on the card (no copy to
+    hide), one image, or a batch that one front takes (nothing to
+    overlap) run the front of all B rows and the back as one graph
+    (``body``), one replay.
+
+    Counters beside ``replays`` (calls: the back's replays, or the one
+    graph's): ``staged_rows``, the images of every call;
+    ``overlap_rows``, the rows whose front ran before the last chunk was
+    staged, (B - rows_a_front) of B rows of a full host batch, none of
+    images on the card, so ``overlap_rows / staged_rows`` is the share
+    engaged; ``front_replays``, the fronts' replays on the card."""
 
     def __init__(self, key, settings, level, dtype, shape, in_dtype, dev,
                  bucket, route, chunk):
         B, c, h, w = shape
         slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
-        _encoder.check_geometry(c, enc_h, enc_w, slices[0][1].stop,
-                                slices[0][2].stop)
+        ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+        _encoder.check_geometry(c, enc_h, enc_w, ll_h, ll_w)
         self.shape, self.cells, self.bucket = shape, (c, enc_h, enc_w), bucket
         self._words, self._n = bucket, B
 
-        def body(images, budgets):
-            arr, ll_h, ll_w = forward(images, settings, level, dtype)
-            words, stat, max_n = encode_coeffs_batch(
-                arr, ll_h, ll_w, budgets, bucket, route, chunk)
+        def front(s, e):
+            def fn(images, t1, t3s, max_n, **_):
+                arr, _, _ = forward(images[s:e], settings, level, dtype)
+                for static, x in zip((t1, t3s, max_n),
+                                     _encoder.row_tables(arr, ll_h, ll_w)):
+                    static[s:e].copy_(x)
+            return fn
+
+        def back(t1, t3s, max_n, budgets, **_):
+            words, stat = _encoder.encode_rows_batch(
+                t1, t3s, max_n, self.cells, ll_h, ll_w, budgets, bucket,
+                route, chunk)
             return words, torch.cat((stat, max_n[:, None]), 1)
 
+        def body(**statics):  # the whole batch: one front, then the back
+            front(0, B)(**statics)
+            return back(**statics)
+
+        tables = (B, c * enc_h * enc_w)
         super().__init__(key, dev, body, {
             "images": torch.empty(shape, dtype=in_dtype, device=dev),
             "budgets": torch.zeros(B, dtype=torch.int32, device=dev),
+            "t1": torch.empty(tables, dtype=torch.int32, device=dev),
+            "t3s": torch.empty(tables, dtype=torch.int32, device=dev),
+            "max_n": torch.empty(B, dtype=torch.int32, device=dev),
         })
+        row = self.statics["images"][0]
+        k = min(B, -(-FRONT_BYTES // (row.numel() * row.element_size())))
+        self.rows_a_front = k
+        self._fronts = [(s, min(s + k, B)) for s in range(0, B, k)]
+        self._front, self._back = front, back
+        self._side = self._up = None  # the uploads' stream, its events
+        self.staged_rows = self.overlap_rows = self.front_replays = 0
 
     def start(self, images, max_bits) -> None:
         n, B = len(images), self.shape[0]
@@ -1282,11 +1381,49 @@ class EncodeBatchProgram(_Program):
         if words > self.bucket:
             raise ValueError(f"max_bits {max(mbs)} does not fit the "
                              f"program's {self.bucket} words")
+        budgets = np.array(mbs + mbs[-1:] * (B - n), np.int32)
         self._begin()
-        self._put_rows(images)
-        self._put("budgets", np.array(mbs + mbs[-1:] * (B - n), np.int32))
-        self.run()
+        if (n < 2 or len(self._fronts) == 1
+                or all(_on_card(im) for im in images)):
+            self._put_rows(images)
+            self._put("budgets", budgets)
+            self.run()
+        else:
+            self._run_fronts(images, n)
+            self._put("budgets", budgets)
+            self.run("back", self._back)
+        self.staged_rows += n
         self._words, self._n = words, n
+
+    def _run_fronts(self, images, n: int) -> None:
+        """Stage the n host images a chunk at a time, replaying each
+        chunk's front graph once it is up, each replay cutting the stage
+        span; then the rows past n take row n - 1's tables. On the card
+        the uploads run on a side stream (after the stream's work so far),
+        so a chunk goes up while the last one's front runs, and each front
+        waits for its own chunk's (an event a front)."""
+        if self._side is None and self.dev.type == "cuda":
+            self._side = torch.cuda.Stream(self.dev)
+            self._up = [torch.cuda.Event() for _ in self._fronts]
+        if self._side is not None:
+            main = torch.cuda.current_stream(self.dev)
+            self._side.wait_stream(main)
+        fronts = [(s, e) for s, e in self._fronts if s < n]
+        for i, (s, e) in enumerate(fronts):
+            with torch.cuda.stream(self._side):  # None: no-op
+                self._stage_rows(images, s, min(e, n))
+                _pad_rows(self.statics["images"][:e], n)
+            if self._side is not None:
+                self._up[i].record(self._side)
+                main.wait_event(self._up[i])
+                self.front_replays += 1
+            if e < n:
+                self.overlap_rows += e - s
+            self._close_stage()
+            self._replay(("front", s), self._front(s, e))
+            self._stage = metrics.open_span(self._names["stage"])
+        for name in ("t1", "t3s", "max_n"):
+            _pad_rows(self.statics[name], fronts[-1][1])
 
     def on_device(self):
         """(words int32 (n, cap_words_for(largest budget)), stat (n,

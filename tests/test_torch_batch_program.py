@@ -365,3 +365,87 @@ def test_batch_bodies_read_no_value_back(case, route, monkeypatch):
         dp.start(*args)
     assert ep.finish() == got
     assert reads.seen == []
+
+
+# a program of 7 rows, its fronts of 3 (FRONT_BYTES set to 3 rows): 0-3,
+# 3-6 and 6-7; n of 1, 2, k, k + 1, B - 1 and B
+ROWS_B, ROWS_K = 7, 3
+ROWS_N = (1, 2, 3, 4, 6, 7)
+MIXED = [3000, 0, -7, 1500, 777, 2500, 4000]
+FORMS = {"list": list, "array": np.stack,
+         "tensor": lambda ims: torch.as_tensor(np.stack(ims))}
+
+
+@pytest.fixture(scope="module")
+def rows_reference():
+    """Seven images and the JAX package's (stream, max_n) of each at
+    ``MIXED``: each stream is its image's alone, so the first n are the
+    answers of any n."""
+    _, js, level = _case("A")
+    ims = _ims(ROWS_B, 110)
+    jers = spiht_tpu.encode_images_device(ims, js, level, MIXED)
+    return ims, [(e.encoded_bytes, e.max_n) for e in jers]
+
+
+def _chunked(monkeypatch, ims):
+    s, _, level = _case("A")
+    monkeypatch.setattr(tt, "FRONT_BYTES", ROWS_K * ims[0].nbytes)
+    prog = tt.encode_batch_program(s, (ROWS_B,) + SHAPE, level, device=CPU,
+                                   max_bits=max(MIXED))
+    assert prog.rows_a_front == ROWS_K
+    assert prog._fronts == [(0, 3), (3, 6), (6, 7)]
+    return prog
+
+
+@pytest.mark.parametrize("route", ["ilv", "map"])
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("n", ROWS_N)
+def test_chunked_batch_encode_equals_the_reference(n, form, route,
+                                                   rows_reference,
+                                                   monkeypatch):
+    """Host rows go up a chunk of ``rows_a_front`` at a time, each chunk's
+    front running once it is staged (eagerly here), then the back: the
+    streams and max_n equal the JAX package's and the eager body's, for
+    every n, input form and route, with budgets 0 and negative, after a
+    full call of other images (the rows past n, padded from row n - 1,
+    change no answer). ``overlap_rows`` counts the rows of every front
+    but the last (none for one image, which runs the whole body as one),
+    ``staged_rows`` every row."""
+    if route == "map":
+        monkeypatch.setenv("SPIHT_TPU_PALLAS_ILV_B", "1")
+    s, _, level = _case("A")
+    ims, want = rows_reference
+    prog = _chunked(monkeypatch, ims)
+    assert prog.key[10] == route
+    prog(_ims(ROWS_B, 120), [4000] * ROWS_B)
+    rows, overlap = prog.staged_rows, prog.overlap_rows
+    got = prog(FORMS[form](ims[:n]), MIXED[:n])
+    assert got == want[:n]
+    assert got == _eager_encode(ims[:n], s, level, MIXED[:n])
+    assert prog.staged_rows - rows == n
+    assert prog.overlap_rows - overlap == (n - 1) // ROWS_K * ROWS_K
+    assert prog.front_replays == prog.replays == 0  # no graph off the card
+
+
+@pytest.mark.parametrize("form", ["tensor", "rows"])
+def test_rows_on_the_card_run_one_graph(form, rows_reference, monkeypatch):
+    """Images on the card (mocked: every tensor counts as on it) have no
+    copy to hide: the front of all B rows and the back run as one part,
+    one replay, and no row overlaps; host images through the same program
+    then run a part a front and the back. The streams are the same."""
+    ims, want = rows_reference
+    prog = _chunked(monkeypatch, ims)
+    monkeypatch.setattr(tt, "_on_card",
+                        lambda x: isinstance(x, torch.Tensor))
+    parts, replay = [], prog._replay
+    monkeypatch.setattr(prog, "_replay",
+                        lambda part, body: parts.append(part)
+                        or replay(part, body))
+    x = torch.as_tensor(np.stack(ims))
+    assert prog(x if form == "tensor" else list(x), MIXED) == want
+    assert parts == ["body"]
+    assert prog.overlap_rows == 0 and prog.staged_rows == ROWS_B
+    del parts[:]
+    assert prog(ims, MIXED) == want
+    assert parts == [("front", 0), ("front", 3), ("front", 6), "back"]
+    assert prog.overlap_rows == ROWS_B - 1

@@ -267,3 +267,39 @@ def test_block_and_machine_spikes_equal_plain_versions(cuda):
             assert torch.equal(ttok.token_heads(x.to(cuda), k, kind).cpu(),
                                ttok.token_heads(x, k, kind))
     assert ttok.token_heads.launches == n0 + 3 * len(ttok.KINDS)
+
+
+def test_chunked_batch_encode_on_the_card(cuda, monkeypatch):
+    """The batch encode program on the card, host rows in fronts of 3
+    (``FRONT_BYTES`` set to 3 rows) and card rows as one graph: byte for
+    byte the eager body's on the card and the CPU program's, for 7, 4
+    and 2 images; each call overlaps the rows of every front but the
+    last, replays each front it staged and the back once."""
+    import spiht_tpu_torch as pt
+    from spiht_tpu_torch import torch_transform as tt
+
+    s = pt.SpihtSettings(wavelet="bior2.2", mode="reflect",
+                         color_model="ipt", quantization_scale=1.0,
+                         per_channel_quant_scales=[100, 20, 20])
+    rng = np.random.default_rng(2)
+    ims = [rng.random((3, 64, 80)) for _ in range(7)]
+    mbs = [3000, 0, -7, 1500, 777, 2500, 4000]
+    monkeypatch.setattr(tt, "FRONT_BYTES", 3 * ims[0].nbytes)
+    tt.clear_programs()
+    want = tt.encode_batch(s, ims, mbs, device="cpu")
+    words, stat, max_n = tt.encode_pipeline_batch_eager(s)(
+        torch.as_tensor(np.stack(ims), device=cuda), [max(m, 0) for m in mbs])
+    totals = [r[0] for r in encoder.check_stat(stat, "eager")]
+    assert list(zip(encoder.batch_stream_bytes(words, totals),
+                    max_n.tolist())) == want
+    prog = tt.encode_batch_program(s, (7, 3, 64, 80), device=cuda,
+                                   max_bits=4000)
+    assert prog._fronts == [(0, 3), (3, 6), (6, 7)]
+    for n in (7, 4, 2):
+        assert prog(ims[:n], mbs[:n]) == want[:n]
+    assert prog.overlap_rows == 6 + 3 + 0 and prog.staged_rows == 13
+    assert prog.front_replays == 3 + 2 + 1 and prog.replays == 3
+    assert prog(torch.as_tensor(np.stack(ims), device=cuda), mbs) == want
+    assert prog.overlap_rows == 9 and prog.front_replays == 6
+    assert prog.replays == 4
+    tt.clear_programs()

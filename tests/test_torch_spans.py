@@ -8,7 +8,14 @@ request; the counts (``images``; ``bytes`` staged and read back) equal
 the images' and streams' sizes; nothing is recorded with no profiler on;
 under a profiler the exported Chrome trace holds the same spans, which
 after one offset agree with the log's within 50 us; a span left open
-closes with its parent; ``stage_s`` is the stage span's interval."""
+closes with its parent; ``stage_s`` is the stage span's interval.
+
+The batch encode of two small images runs as one graph (one front takes
+both); with ``FRONT_BYTES`` set to a front an image (the ``fronts``
+fixture) its fronts cut its stage, so its ``stage`` and ``replay`` spans
+alternate, siblings, a front's replay after each image's stage and the
+back's after the budgets', each stage counting its own bytes, and its
+``stage_s`` runs from the first stage to the last."""
 
 import json
 import statistics
@@ -35,6 +42,18 @@ FUNCTIONS = ["encode_image_device", "decode_image_device",
 KIND = {"encode_image_device": "encode", "decode_image_device": "decode",
         "encode_images_device": "encode_batch",
         "decode_images_device": "decode_batch"}
+# the batch encode of two images in fronts of one: a front each, the back
+FRONTS = ["stage", "replay"] * 3 + ["wait", "read"]
+
+
+@pytest.fixture
+def fronts(monkeypatch):
+    """The batch encode's fronts take one image each (its programs made
+    afresh: a program fixes its fronts when it is made)."""
+    monkeypatch.setattr(tt, "FRONT_BYTES", 1)
+    tt.clear_programs()
+    yield
+    tt.clear_programs()
 
 
 @pytest.fixture(scope="module")
@@ -76,13 +95,23 @@ def _profiled(fn, images, results):
 
 @pytest.mark.parametrize("fn", FUNCTIONS)
 def test_an_api_call_is_one_request(fn, images, results):
+    _one_request(fn, images, results, PHASES)
+
+
+def test_the_batch_encode_fronts_are_one_request(images, results, fronts):
+    _one_request("encode_images_device", images, results, FRONTS)
+
+
+def _one_request(fn, images, results, phases):
+    """A call of ``fn`` is one top-level span with its program's spans
+    ``phases`` under it, in order, disjoint."""
     _, ims, log = _profiled(fn, images, results)
     top = [s for s in log if s.parent is None]
     assert [s.name for s in top] == [f"spiht/api/{fn}"]
     api = top[0]
     assert api.request == api.id and api.counts == {"images": len(ims)}
     under = sorted((s for s in log if s is not api), key=lambda s: s.start_ns)
-    assert [s.name for s in under] == [f"spiht/{KIND[fn]}/{p}" for p in PHASES]
+    assert [s.name for s in under] == [f"spiht/{KIND[fn]}/{p}" for p in phases]
     assert len({s.id for s in log}) == len(log)
     for s in under:
         assert s.parent == api.id and s.request == api.id
@@ -98,6 +127,32 @@ def test_counts_are_the_images_and_streams(fn, images, results):
     stream), ``read`` the stream bytes or image bytes returned."""
     out, ims, log = _profiled(fn, images, results)
     count = {s.name.rsplit("/", 1)[1]: s.counts for s in log}
+    staged, read = _staged_and_read(fn, out, ims, results)
+    assert count["stage"] == {"bytes": staged}
+    assert count["read"] == {"bytes": read}
+    assert count["replay"] == count["wait"] == {}
+
+
+def test_the_fronts_stages_count_their_images(images, results, fronts):
+    """The batch encode's stages in fronts of an image count an image
+    each, then the budgets, and sum to what one stage counts."""
+    fn = "encode_images_device"
+    out, ims, log = _profiled(fn, images, results)
+    staged, read = _staged_and_read(fn, out, ims, results)
+    by_phase = {}
+    for s in sorted(log, key=lambda s: s.start_ns):
+        by_phase.setdefault(s.name.rsplit("/", 1)[1], []).append(s.counts)
+    assert by_phase["stage"] == [{"bytes": im.nbytes} for im in ims] + [
+        {"bytes": 4 * len(ims)}]
+    assert sum(c["bytes"] for c in by_phase["stage"]) == staged
+    assert by_phase["read"] == [{"bytes": read}]
+    assert by_phase["replay"] == [{}] * 3 and by_phase["wait"] == [{}]
+
+
+def _staged_and_read(fn, out, ims, results):
+    """The host bytes a call of ``fn`` on ``ims`` stages (the images or
+    the streams, and the program's scalars: a budget an image, or nbits
+    and max_n a stream) and the bytes it returns (``out``'s)."""
     n = len(ims)
     if fn.startswith("encode"):
         ers = out if isinstance(out, list) else [out]
@@ -109,9 +164,7 @@ def test_counts_are_the_images_and_streams(fn, images, results):
         outs = out if isinstance(out, list) else [out]
         read = sum(t.numel() * t.element_size() for t in outs)
         assert read == sum(im.size for im in ims) * 8
-    assert count["stage"] == {"bytes": staged}
-    assert count["read"] == {"bytes": read}
-    assert count["replay"] == count["wait"] == {}
+    return staged, read
 
 
 @pytest.mark.parametrize("fn", FUNCTIONS)
@@ -123,9 +176,10 @@ def test_nothing_is_recorded_with_no_profiler_on(fn, images, results):
     assert metrics.open_span("z") is None
 
 
-def _trace_round(images, results, path):
-    """The worst disagreement, in us, of a round of the four calls' spans
-    with the Chrome trace's, after one offset (the median)."""
+def _trace_round(images, results, path, spans):
+    """The worst disagreement, in us, of a round of the four calls'
+    ``spans`` spans with the Chrome trace's, after one offset (the
+    median)."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _call(FUNCTIONS[0], images, results)
         metrics.clear_spans()
@@ -136,7 +190,7 @@ def _trace_round(images, results, path):
               if e.get("ph") == "X" and e.get("name", "").startswith("spiht/")]
     log = sorted(metrics.spans(), key=lambda s: s.start_ns)
     events = sorted(events, key=lambda e: e["ts"])[-len(log):]
-    assert len(log) == 4 * 5
+    assert len(log) == spans
     assert [e["name"] for e in events] == [s.name for s in log]
     offset = statistics.median(e["ts"] - s.start_ns / 1e3
                                for e, s in zip(events, log))
@@ -150,9 +204,20 @@ def test_the_chrome_trace_holds_the_spans(images, results, tmp_path):
     after one offset, each agrees with the log's within 50 us. A thread
     preempted between the trace's stamp and the log's (a busy test
     machine) misses by more: the best of three rounds is held to it."""
+    _trace_holds(images, results, tmp_path, 4 * 5)
+
+
+def test_the_chrome_trace_holds_the_fronts_spans(images, results, tmp_path,
+                                                 fronts):
+    """As above, with the batch encode's two fronts' stage and replay."""
+    _trace_holds(images, results, tmp_path, 4 * 5 + 4)
+
+
+def _trace_holds(images, results, tmp_path, spans):
     for fn in FUNCTIONS:
         _call(fn, images, results)
-    worst = [_trace_round(images, results, tmp_path / f"trace{k}.json")
+    worst = [_trace_round(images, results, tmp_path / f"trace{k}.json",
+                          spans)
              for k in range(3)]
     assert min(worst) < 50, worst
 
@@ -254,3 +319,17 @@ def test_threads_keep_their_own_nesting():
             parent = by_id[s.parent]
             assert parent.name == f"spiht/{thread}/{int(d) - 1}"
             assert s.request == parent.request
+
+
+def test_stage_s_spans_the_batch_encodes_fronts(images, fronts):
+    """The batch encode's ``stage_s`` runs from its first stage span's
+    start to its last one's end: the images' copies and the fronts'
+    replays between them."""
+    pt.encode_images_device(images, SETTINGS, None, BITS, "cpu")
+    (prog,) = [p for p in tt.programs() if p.key[0] == "encode_batch"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        metrics.clear_spans()
+        pt.encode_images_device(images, SETTINGS, None, BITS, "cpu")
+    stages = [s for s in metrics.spans() if s.name.endswith("/stage")]
+    assert len(stages) == 3
+    assert prog.stage_s == (stages[-1].end_ns - stages[0].start_ns) / 1e9
