@@ -193,7 +193,9 @@ Phases:
       at B = 16 and 128 (phase 8's images and budgets, tiled) and the B
       batch at B = 8, through encode_images_device and
       decode_images_device: a key's first call (B4 and B5 or batched B3
-      twice each) and a replay (none), streams equal to phases 8-10's and
+      twice each) and a replay (none), the programs' launch counts
+      (streams B in each, seq 1 in the decode at B's odd LL, else 0),
+      streams equal to phases 8-10's and
       to the eager bodies' (encode_pipeline_batch_eager,
       decode_pipeline_batch_eager), images equal to the eager body's; in
       a profiled round trip of replays, B4 and the batch decoder once
@@ -4079,6 +4081,13 @@ def phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, smi):
               "decode_batch" and eprog.replays == dprog.replays == 2,
               f"26 {label}: programs {[p.key[0] for p in tt.programs()]}, "
               f"replays {eprog.replays}, {dprog.replays}")
+        # the machine route: one launch of the B streams in each, the
+        # decode's through batched B3 at B's odd LL
+        seq = int(dec == "spiht_decode_seq_batch")
+        row["launch"] = [eprog.launch, dprog.launch]
+        check(row["launch"] == [{"streams": B, "seq": 0},
+                                {"streams": B, "seq": seq}],
+              f"26 {label}: launches {row['launch']}")
         check(eager_encode() == want,
               f"26 {label}: the eager body's streams != phases 8-10's")
         eager_imgs = eager_decode()

@@ -464,12 +464,14 @@ class _Program:
     returns; count ``bytes``: the stream bytes, or the image bytes,
     returned). A front's ``replay`` cuts the stage: ``stage`` and
     ``replay`` spans alternate, siblings, each stage counting its own
-    bytes. ``stage_s`` is the last call's time from ``_begin`` to its
-    ``run``, the fronts' replays included, measured whether or not spans
-    record.
+    bytes. The replay of the graph that ``run`` runs counts ``launch``
+    (a batch program's machine: ``streams`` and ``seq``). ``stage_s`` is
+    the last call's time from ``_begin`` to its ``run``, the fronts'
+    replays included, measured whether or not spans record.
     """
 
     PHASES = ("stage", "capture", "replay", "wait", "read")
+    launch = {}  # the counts of the replay span of ``run``'s graph
 
     def __init__(self, key, dev, body, statics):
         self.key, self.dev, self.body, self.statics = key, dev, body, statics
@@ -499,9 +501,10 @@ class _Program:
 
     def run(self, part: str = "body", body=None):
         """End the call's stage and run ``body`` (None: ``self.body``) as
-        the graph ``part``; its outputs are the call's."""
+        the graph ``part``, its replay span counting ``launch``; its
+        outputs are the call's."""
         self.stage_s = (self._close_stage() - self._stage_ns) / 1e9
-        self.outputs = self._replay(part, body or self.body)
+        self.outputs = self._replay(part, body or self.body, self.launch)
         if self.dev.type == "cuda":
             self.replays += 1
         return self.outputs
@@ -513,19 +516,21 @@ class _Program:
         self._stage, self._stage_bytes = None, 0
         return end
 
-    def _replay(self, part, body):
+    def _replay(self, part, body, counts=None):
         """``body`` on the static buffers: eagerly off the card; on the
         card the graph ``part`` (captured from ``body`` at its first run),
-        replayed, with no sync. Returns its outputs."""
+        replayed, with no sync; its replay span counts ``counts``. Returns
+        its outputs."""
+        counts = counts or {}
         if self.dev.type != "cuda":
-            with metrics.span(self._names["replay"]):
+            with metrics.span(self._names["replay"], **counts):
                 return body(**self.statics)
         with torch.cuda.device(self.dev):
             if part not in self._graphs:
                 with metrics.span(self._names["capture"]):
                     self._graphs[part] = self._capture(body)
             graph, outputs = self._graphs[part]
-            with metrics.span(self._names["replay"]):
+            with metrics.span(self._names["replay"], **counts):
                 graph.replay()
         return outputs
 
@@ -1241,6 +1246,16 @@ def batch_route(B: int):
     return ("ilv", chunk) if chunk >= 2 else ("map", None)
 
 
+def _launch(B: int, route: str, chunk, seq: bool) -> dict:
+    """The counts of a batch program's machine graph (``_Program.launch``):
+    ``streams``, those of its last machine launch (one on the ``map``
+    route, else the last launch's of ``chunk`` each), and ``seq``, 1 where
+    the B streams go through batched B3, else 0."""
+    if route == "map":
+        return {"streams": 1, "seq": 0}
+    return {"streams": B - (B - 1) // chunk * chunk, "seq": int(seq)}
+
+
 # ---------------------------------------------------------------------------
 # The batch programs: a batch of one shape, one CUDA graph a key
 # ---------------------------------------------------------------------------
@@ -1327,7 +1342,8 @@ class EncodeBatchProgram(_Program):
     ``overlap_rows``, the rows whose front ran before the last chunk was
     staged, (B - rows_a_front) of B rows of a full host batch, none of
     images on the card, so ``overlap_rows / staged_rows`` is the share
-    engaged; ``front_replays``, the fronts' replays on the card."""
+    engaged; ``front_replays``, the fronts' replays on the card. The
+    back's replay span counts ``launch`` (``_launch``; ``seq`` 0)."""
 
     def __init__(self, key, settings, level, dtype, shape, in_dtype, dev,
                  bucket, route, chunk):
@@ -1371,6 +1387,7 @@ class EncodeBatchProgram(_Program):
         self._front, self._back = front, back
         self._side = self._up = None  # the uploads' stream, its events
         self.staged_rows = self.overlap_rows = self.front_replays = 0
+        self.launch = _launch(B, route, chunk, False)
 
     def start(self, images, max_bits) -> None:
         n, B = len(images), self.shape[0]
@@ -1474,7 +1491,9 @@ class DecodeBatchProgram(_Program):
     B) device tensor, which B5 or batched B3 (or each single launch of the
     ``map`` route) reads, and runs the program, with no sync. ``finish()``
     reads the n stat rows (the one sync), raises as ``check_stat`` does,
-    and returns a fresh (n, ...) tensor of images."""
+    and returns a fresh (n, ...) tensor of images. Its replay span counts
+    ``launch`` (``_launch``: ``seq`` 1 where the B streams go through
+    batched B3, at an odd LL on the ``ilv`` route)."""
 
     def __init__(self, key, settings, h, w, level, c, dtype, as_uint8, dev,
                  B, bucket, route, chunk):
@@ -1485,6 +1504,7 @@ class DecodeBatchProgram(_Program):
         seq = _decoder.has_duplicate_parents(enc_h, enc_w, ll_h, ll_w)
         self.kernel = "spiht_decode_" + ("seq" if seq else "lsp") + "_batch"
         self.B, self.bucket, self._n = B, bucket, B
+        self.launch = _launch(B, route, chunk, seq)
 
         def body(words, scalars):
             rec, stat, _ = dec(words, scalars)

@@ -6,7 +6,8 @@ eagerly on its static buffers (on the card it replays a CUDA graph of the
 same body; ``chip_smoke.py`` phase 26 holds that to the eager body).
 
 Held here, at 3x64x80 (A-like: even LL 12x14, B5; B-like: odd LL 15x17,
-batched B3), B = 2-5: streams byte for byte and max_n exactly equal to
+batched B3), B = 2-5, and at a camera sweep of six 3x45x80 frames at
+level 2 (A's settings, odd LL 15x23 as a 1600x900 frame's 11x17): streams byte for byte and max_n exactly equal to
 the JAX package's ``encode_images_device`` and to the port's eager
 bodies, images within 1e-8 of the JAX package's jitted batch decode (its
 fused multiply-adds; ``tests/test_torch_program.py`` holds the same) and
@@ -39,15 +40,22 @@ SHAPE = (3, 64, 80)
 A = dict(wavelet="bior2.2", mode="reflect", color_model="ipt",
          per_channel_quant_scales=[100, 20, 20], quantization_scale=1.0)
 B = dict(wavelet="bior4.4", mode="symmetric")
-CASES = {"A": (A, None), "B": (B, 3)}
 BUDGETS = [FULL, 3000, 777]
+# a camera sweep: six frames of a 16:9 rig at level 2, LL 15x23 (odd in
+# both dimensions, as a 1600x900 frame's 11x17), at 0.1-2 bits a pixel
+SWEEP_SHAPE = (3, 45, 80)
+SWEEP_BUDGETS = [360, 896, 1800, 3600, 5400, 7200]
+# settings, level, image shape, a budget a stream, odd LL (batched B3)
+CASES = {"A": (A, None, SHAPE, BUDGETS, False),
+         "B": (B, 3, SHAPE, BUDGETS, True),
+         "sweep": (A, 2, SWEEP_SHAPE, SWEEP_BUDGETS, True)}
 # the JAX package's jitted inverse fuses multiply-adds (ROADMAP "Not
 # faults"): images within this of it, equal to the port's eager body
 TOL = 1e-8
 
 
 def _case(name):
-    kw, level = CASES[name]
+    kw, level = CASES[name][:2]
     return pt.SpihtSettings(**kw), spiht_tpu.SpihtSettings(**kw), level
 
 
@@ -63,9 +71,9 @@ def _eager_encode(ims, s, level, mbs):
                     max_n.tolist()))
 
 
-def _eager_decode(ers, s, level):
+def _eager_decode(ers, s, level, shape=SHAPE):
     words, nbits = decoder.words_batch([e.encoded_bytes for e in ers], CPU)
-    c, h, w = SHAPE
+    c, h, w = shape
     return tt.decode_pipeline_batch_eager(s, h, w, level, c)(
         words, nbits, [e.max_n for e in ers])
 
@@ -79,23 +87,29 @@ def _fresh_programs():
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_batch_programs_equal_the_reference_and_the_eager_body(case):
+    """The sweep case is a batch of six frames of a camera rig, its LL odd
+    as a 1600x900 frame's: one launch of the six streams through batched
+    B3."""
     s, js, level = _case(case)
-    ims = _ims(3)
-    ers = pt.encode_images_device(ims, s, level, BUDGETS, device=CPU)
-    jers = spiht_tpu.encode_images_device(ims, js, level, BUDGETS)
+    _, _, shape, mbs, odd = CASES[case]
+    n = len(mbs)
+    ims = _ims(n, 40, shape)
+    ers = pt.encode_images_device(ims, s, level, mbs, device=CPU)
+    jers = spiht_tpu.encode_images_device(ims, js, level, mbs)
     got = [(e.encoded_bytes, e.max_n) for e in ers]
     assert got == [(e.encoded_bytes, e.max_n) for e in jers]
-    assert got == _eager_encode(ims, s, level, BUDGETS)
+    assert got == _eager_encode(ims, s, level, mbs)
     imgs = pt.decode_images_device(ers, s, device=CPU)
-    eager = _eager_decode(ers, s, level)
+    eager = _eager_decode(ers, s, level, shape)
     for b, (img, jimg) in enumerate(zip(
             imgs, spiht_tpu.decode_images_device(jers, js))):
         assert torch.equal(img, eager[b])
         np.testing.assert_allclose(img.numpy(), np.asarray(jimg), rtol=0,
                                    atol=TOL)
     (prog,) = [p for p in tt.programs() if p.key[0] == "decode_batch"]
-    assert prog.key[9] == ("b3" if case == "B" else "b5")
-    assert prog.kernel.endswith("_batch")
+    assert prog.key[9:12] == ("b3" if odd else "b5", "ilv", n)
+    assert prog.kernel == f"spiht_decode_{'seq' if odd else 'lsp'}_batch"
+    assert prog.launch == {"streams": n, "seq": int(odd)}
 
 
 def test_budgets_and_stream_lengths_through_one_key():
@@ -133,14 +147,16 @@ def test_map_route_equals_the_batch_kernels(case, monkeypatch):
     images as the batch kernels, and the eager bodies take the same
     route."""
     s, _, level = _case(case)
-    ims = _ims(3, 60)
-    want = tt.encode_batch(s, ims, BUDGETS, level, device=CPU)
-    c, h, w = SHAPE
+    _, _, shape, mbs, odd = CASES[case]
+    n = len(mbs)
+    ims = _ims(n, 60, shape)
+    want = tt.encode_batch(s, ims, mbs, level, device=CPU)
+    c, h, w = shape
     args = (s, h, w, level, c, [d for d, _ in want],
             [len(d) * 8 for d, _ in want], [m for _, m in want])
     want_imgs = tt.decode_batch(*args, device=CPU)
     monkeypatch.setenv("SPIHT_TPU_PALLAS_ILV_B", "1")
-    assert tt.batch_route(3) == ("map", None)
+    assert tt.batch_route(n) == ("map", None)
     counts = {}
     for name, mod in (("encode_machine", encoder),
                       ("encode_machine_batch", encoder),
@@ -154,13 +170,13 @@ def test_map_route_equals_the_batch_kernels(case, monkeypatch):
             return _real(*a, **kw)
 
         monkeypatch.setattr(mod, name, spy)
-    got = tt.encode_batch(s, ims, BUDGETS, level, device=CPU)
-    assert got == want == _eager_encode(ims, s, level, BUDGETS)
-    assert counts == {"encode_machine": 6}  # the program and the eager body
+    got = tt.encode_batch(s, ims, mbs, level, device=CPU)
+    assert got == want == _eager_encode(ims, s, level, mbs)
+    assert counts == {"encode_machine": 2 * n}  # the program, the eager body
     counts.clear()
     imgs = tt.decode_batch(*args, device=CPU)
-    single = "decode_seq" if case == "B" else "decode_lsp"
-    assert counts == {single: 3}
+    single = "decode_seq" if odd else "decode_lsp"
+    assert counts == {single: n}
     assert torch.equal(imgs, want_imgs)
     assert [p.key[10:12] for p in tt.programs()][-2:] == [("map", None)] * 2
 
@@ -349,12 +365,13 @@ def test_batch_bodies_read_no_value_back(case, route, monkeypatch):
             return func(*args, **(kwargs or {}))
 
     s, _, level = _case(case)
-    ims = _ims(2, 100)
-    ep = tt.encode_batch_program(s, (2,) + SHAPE, level, device=CPU,
+    shape = CASES[case][2]
+    ims = _ims(2, 100, shape)
+    ep = tt.encode_batch_program(s, (2,) + shape, level, device=CPU,
                                  max_bits=3000)
     assert ep.key[10] == route
     got = ep(ims, [3000, 900])
-    c, h, w = SHAPE
+    c, h, w = shape
     dp = tt.decode_batch_program(s, h, w, level, c, 2, device=CPU,
                                  nbits=3000)
     args = ([d for d, _ in got], [len(d) * 8 for d, _ in got],
@@ -439,8 +456,8 @@ def test_rows_on_the_card_run_one_graph(form, rows_reference, monkeypatch):
                         lambda x: isinstance(x, torch.Tensor))
     parts, replay = [], prog._replay
     monkeypatch.setattr(prog, "_replay",
-                        lambda part, body: parts.append(part)
-                        or replay(part, body))
+                        lambda part, body, *counts: parts.append(part)
+                        or replay(part, body, *counts))
     x = torch.as_tensor(np.stack(ims))
     assert prog(x if form == "tensor" else list(x), MIXED) == want
     assert parts == ["body"]

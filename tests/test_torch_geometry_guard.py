@@ -21,6 +21,8 @@ from spiht_tpu_torch.codec import (
 )
 from spiht_tpu_torch import torch_transform
 
+from helpers.reference_native import load as reference_native
+
 torch.set_num_threads(1)
 
 CPU = "cpu"
@@ -38,6 +40,14 @@ IMAGES = [((1, 8, 21), dict(wavelet="db1", mode="zero"), 3),
           ((1, 24, 16), dict(wavelet="haar", mode="reflect"), None),
           ((3, 16, 16), dict(wavelet="haar", mode="smooth"), None),
           ((3, 2, 40), dict(), 0)]
+
+
+@pytest.fixture(autouse=True)
+def _reference_kernel():
+    """The reference's native kernel is loaded: its host path must refuse
+    through the native scheduler, not a numpy fallback that a half-written
+    in-place build left behind (``helpers/reference_native.py``)."""
+    reference_native()
 
 
 def _arr(shape, seed=0):

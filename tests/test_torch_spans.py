@@ -15,7 +15,12 @@ both); with ``FRONT_BYTES`` set to a front an image (the ``fronts``
 fixture) its fronts cut its stage, so its ``stage`` and ``replay`` spans
 alternate, siblings, a front's replay after each image's stage and the
 back's after the budgets', each stage counting its own bytes, and its
-``stage_s`` runs from the first stage to the last."""
+``stage_s`` runs from the first stage to the last.
+
+The batch programs' machine route (``launch``), which the machine
+graph's ``replay`` span counts: ``streams``, those of the last machine
+launch, and ``seq``, 1 in a decode at an odd LL (batched B3) and 0 at an
+even LL or in the encode."""
 
 import json
 import statistics
@@ -44,6 +49,10 @@ KIND = {"encode_image_device": "encode", "decode_image_device": "decode",
         "decode_images_device": "decode_batch"}
 # the batch encode of two images in fronts of one: a front each, the back
 FRONTS = ["stage", "replay"] * 3 + ["wait", "read"]
+# the counts of a batch program's machine replay at SHAPE (LL 9x10, odd:
+# duplicate parents): one launch of both streams, the decode's batched B3
+LAUNCH = {"encode_images_device": {"streams": 2, "seq": 0},
+          "decode_images_device": {"streams": 2, "seq": 1}}
 
 
 @pytest.fixture
@@ -124,13 +133,15 @@ def _one_request(fn, images, results, phases):
 def test_counts_are_the_images_and_streams(fn, images, results):
     """``stage`` counts the host bytes copied (the images or the streams,
     and the program's scalars: a budget an image, or nbits and max_n a
-    stream), ``read`` the stream bytes or image bytes returned."""
+    stream), ``read`` the stream bytes or image bytes returned, a batch
+    program's ``replay`` its machine launch (``LAUNCH``)."""
     out, ims, log = _profiled(fn, images, results)
     count = {s.name.rsplit("/", 1)[1]: s.counts for s in log}
     staged, read = _staged_and_read(fn, out, ims, results)
     assert count["stage"] == {"bytes": staged}
     assert count["read"] == {"bytes": read}
-    assert count["replay"] == count["wait"] == {}
+    assert count["replay"] == LAUNCH.get(fn, {})
+    assert count["wait"] == {}
 
 
 def test_the_fronts_stages_count_their_images(images, results, fronts):
@@ -146,7 +157,8 @@ def test_the_fronts_stages_count_their_images(images, results, fronts):
         {"bytes": 4 * len(ims)}]
     assert sum(c["bytes"] for c in by_phase["stage"]) == staged
     assert by_phase["read"] == [{"bytes": read}]
-    assert by_phase["replay"] == [{}] * 3 and by_phase["wait"] == [{}]
+    assert by_phase["replay"] == [{}] * 2 + [LAUNCH[fn]]
+    assert by_phase["wait"] == [{}]
 
 
 def _staged_and_read(fn, out, ims, results):
@@ -333,3 +345,62 @@ def test_stage_s_spans_the_batch_encodes_fronts(images, fronts):
     stages = [s for s in metrics.spans() if s.name.endswith("/stage")]
     assert len(stages) == 3
     assert prog.stage_s == (stages[-1].end_ns - stages[0].start_ns) / 1e9
+
+
+def _batch_programs():
+    return {k: p for p in tt.programs()
+            for k in ("encode_batch", "decode_batch") if p.key[0] == k}
+
+
+@pytest.mark.parametrize("shape, seq", [(SHAPE, 1), ((3, 48, 64), 0)],
+                         ids=["odd-ll", "even-ll"])
+def test_the_decode_replays_count_batched_b3(shape, seq):
+    """At an odd LL (duplicate parents) each decode call sends its B
+    streams through batched B3, its replay span counting ``seq`` 1; at an
+    even LL (B5) and in the encode ``seq`` is 0."""
+    rng = np.random.default_rng(23)
+    ims = [rng.random(shape) for _ in range(3)]
+    tt.clear_programs()
+    ers = pt.encode_images_device(ims, SETTINGS, None, BITS, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]):
+        metrics.clear_spans()
+        for _ in range(2):
+            pt.decode_images_device(ers, SETTINGS, device="cpu")
+    progs = _batch_programs()
+    assert progs["decode_batch"].key[9] == ("b3" if seq else "b5")
+    assert progs["decode_batch"].launch == {"streams": 3, "seq": seq}
+    assert progs["encode_batch"].launch == {"streams": 3, "seq": 0}
+    assert [s.counts for s in metrics.spans()
+            if s.name.endswith("/replay")] == [{"streams": 3, "seq": seq}] * 2
+    tt.clear_programs()
+
+
+@pytest.mark.parametrize("ilv_b, launch", [
+    (None, {"streams": 5, "seq": 1}),  # one launch of 5
+    ("2", {"streams": 1, "seq": 1}),  # launches of 2, 2 and 1
+    ("3", {"streams": 2, "seq": 1}),  # 3 and 2
+    ("1", {"streams": 1, "seq": 0}),  # the map route: B3 a stream
+])
+def test_launch_counts_the_last_machine_launch(ilv_b, launch, monkeypatch):
+    """``launch`` counts the streams of a call's last machine launch, in
+    the decode and the encode alike, and the machine graph's replay span
+    carries it; the fronts' replays carry nothing."""
+    if ilv_b is not None:
+        monkeypatch.setenv("SPIHT_TPU_PALLAS_ILV_B", ilv_b)
+    monkeypatch.setattr(tt, "FRONT_BYTES", 1)
+    rng = np.random.default_rng(24)
+    ims = [rng.random(SHAPE) for _ in range(5)]
+    tt.clear_programs()
+    ers = pt.encode_images_device(ims, SETTINGS, None, BITS, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]):
+        metrics.clear_spans()
+        pt.encode_images_device(ims, SETTINGS, None, BITS, "cpu")
+        pt.decode_images_device(ers, SETTINGS, device="cpu")
+    progs = _batch_programs()
+    enc = dict(launch, seq=0)
+    assert progs["encode_batch"].launch == enc
+    assert progs["decode_batch"].launch == launch
+    replays = [s.counts for s in metrics.spans()
+               if s.name.endswith("/replay")]
+    assert replays == [{}] * 5 + [enc, launch]
+    tt.clear_programs()
