@@ -242,6 +242,17 @@ Phases:
       program; (d) a replay of the trace, compact, forward and inverse
       programs under torch.cuda.set_sync_debug_mode("error") up to the
       reads
+  28. the decode's inverse DWT, kernel spiht_idwt_level (one launch a
+      level), at the cells' shapes: a Kodak batch of 24 3x512x768 images,
+      a nuScenes sweep of 6 3x900x1600 frames and one 3x2160x3840 UHD
+      frame at the bench's settings (A's), int32 coefficients of the
+      forward transform, in float64 and float32: bit for bit its plain
+      version's torch ops on the card, launches a call (counted from 0),
+      the kernel's ms (CUDA events) beside its bound (coefficients read
+      and image written once at the HBM rate) and the plain version's ms.
+      Its row of the result line takes its launches from phase 8's main
+      path (the A batch's first decode_images_device call: a launch a
+      level in the program's warm-up and in its capture).
 """
 
 from __future__ import annotations
@@ -273,6 +284,7 @@ from spiht_tpu_torch.native import runtime as native
 from spiht_tpu_torch.ops.quantize_kernels import (
     quantize_compact, quantize_compact_m,
 )
+from spiht_tpu_torch.ops import synthesis_kernels
 from spiht_tpu_torch.tools import (
     card, spike_hbm_table, spike_pallas_block, spike_pallas_ilp,
     spike_pallas_machine, spike_pallas_seq, spike_token_matmul,
@@ -369,6 +381,13 @@ KERNELS = {
         source="spiht_tpu_torch/csrc/spiht_encode.cu",
         replaces="spiht_tpu/codec/pallas_encoder.py:221",
     ),
+    # a level of the decode's inverse DWT (the JAX package leaves it to
+    # XLA: no Pallas kernel)
+    "spiht_idwt_level": dict(
+        wrapper=synthesis_kernels.waverec2_packed,
+        source="spiht_tpu_torch/csrc/spiht_synthesis.cu",
+        replaces=None,
+    ),
     # the dependent-chain spikes of tools/
     "spike_seq": dict(
         wrapper=spike_pallas_seq.seq_chain,
@@ -435,6 +454,12 @@ def reset_counts():
 
 def counts():
     return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+
+
+def levels_of(h, w, settings, level) -> int:
+    """The DWT levels of an (h, w) image: the launches of spiht_idwt_level
+    a decode makes."""
+    return len(get_slices_and_h_w(h, w, settings, level)[0]) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -604,7 +629,8 @@ def main_path(label, settings, level, im, max_bits, expect_dec):
     with the launch counts set to 0 just before and read just after: the
     first call of each key (no program cached), whose warm-up launches B1
     and the decoder and whose capture records the launch its replay runs
-    (two launches each)."""
+    (two launches each; the decode's inverse, spiht_idwt_level, a launch a
+    level in each)."""
     dev = DEV
     torch_transform.clear_programs()
     reset_counts()
@@ -615,6 +641,10 @@ def main_path(label, settings, level, im, max_bits, expect_dec):
     check(n["spiht_encode"] >= 1, f"{label}: B1 not launched on the path")
     check(n[expect_dec] >= 1, f"{label}: {expect_dec} not launched")
     c, h, w = im.shape
+    lv = levels_of(h, w, settings, level)
+    check(n["spiht_idwt_level"] == 2 * lv,
+          f"{label}: spiht_idwt_level launched {n['spiht_idwt_level']} "
+          f"times, want {2 * lv} (the decode program's warm-up and capture)")
     slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
     ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
     check(out.shape[0] == c and out.shape[1] >= h and out.shape[2] >= w,
@@ -821,7 +851,8 @@ def batch_main_path(label, settings, level, ims, mbs, expect_dec):
     the launch counts set to 0 just before and read just after: the first
     call of each batch program's key (none cached), whose warm-up launches
     B4 and the batch decoder and whose capture records the launch its
-    replay runs (two launches each). Then every stream held against the
+    replay runs (two launches each; the decode's inverse, spiht_idwt_level,
+    a launch a level in each). Then every stream held against the
     plain versions on the card's coefficients and against the
     single-image entry points."""
     dev = DEV
@@ -831,11 +862,12 @@ def batch_main_path(label, settings, level, ims, mbs, expect_dec):
     outs = pt.decode_images_device(ers, settings, device=dev)
     torch.cuda.synchronize()
     n = counts()
-    want = {k: 0 for k in n}
-    want.update({"spiht_encode_batch": 2, expect_dec: 2})
-    check(n == want, f"{label}: launches {n}, want {want}")
     B = len(ims)
     c, h, w = ims[0].shape
+    want = {k: 0 for k in n}
+    want.update({"spiht_encode_batch": 2, expect_dec: 2,
+                 "spiht_idwt_level": 2 * levels_of(h, w, settings, level)})
+    check(n == want, f"{label}: launches {n}, want {want}")
     slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
     ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
     check(len(outs) == B and all(
@@ -1205,7 +1237,9 @@ def phase_metadata(im_a, im_b, er_a, er_b):
     img, meta = pt.decode_image(er_b, CONFIG_B, return_metadata=True,
                                 device=DEV)
     torch.cuda.synchronize()
-    program_launch("spiht_decode_seq_log", "trace")  # trace_at B's key
+    # trace_at B's key, and the inverse program's first call
+    program_launch("spiht_decode_seq_log", "trace",
+                   idwt=2 * levels_of(er_b.h, er_b.w, CONFIG_B, 3))
     check(np.array_equal(meta, meta_b), "decode_image's trace at B")
     plain_img = pt.decode_image(er_b, CONFIG_B, device=DEV)
     check(np.array_equal(img, plain_img) and np.isfinite(img).all(),
@@ -1607,16 +1641,17 @@ def launched(name):
     reset_counts()
 
 
-def program_launch(name, kind):
+def program_launch(name, kind, idwt=0):
     """Check that the path just driven launched ``name`` as the program of
-    ``kind`` (``key[0]``) it last used launches it, and no other kernel:
-    twice on that key's first call (the warm-up's launch and the
-    capture's), not at all on a replay; the counts are set to 0 again.
-    Returns the program."""
+    ``kind`` (``key[0]``) it last used launches it, ``idwt`` launches of
+    spiht_idwt_level, and no other kernel: ``name`` twice on that key's
+    first call (the warm-up's launch and the capture's), not at all on a
+    replay; the counts are set to 0 again. Returns the program."""
     prog = [p for p in torch_transform.programs() if p.key[0] == kind][-1]
     n = counts()
     want = {k: 0 for k in n}
     want[name] = 2 if prog.replays == 1 else 0
+    want["spiht_idwt_level"] = idwt
     check(prog.replays >= 1 and n == want,
           f"launches {n}, want {want} ({prog.replays} replays of {kind})")
     reset_counts()
@@ -1734,7 +1769,8 @@ def phase_wave(ims16):
     # direction: its first call launches B4 or B5 twice (warm-up and
     # capture), its replays not at all
     want = {k: 0 for k in n}
-    want.update({"spiht_encode_batch": 2, "spiht_decode_lsp_batch": 2})
+    want.update({"spiht_encode_batch": 2, "spiht_decode_lsp_batch": 2,
+                 "spiht_idwt_level": 2 * levels_of(h, w, CONFIG_A, None)})
     wave_progs = [(p.key[0], p.key[2], p.replays)
                   for p in torch_transform.programs()]
     check(n == want and caps.kinds == ["encode_batch", "decode_batch"],
@@ -2769,7 +2805,7 @@ def phase_parallel(ims16, smi):
     reset_counts()
     rec, dec_ms = wall_ms(lambda: pt.decode_image_device(er, CONFIG_A,
                                                          device=DEV))
-    program_launched(dec)
+    program_launched(dec, levels_of(h, w, CONFIG_A, None))
     # the decode held against the native scheduler's: its coefficients one
     # for one (a second call of the decode kernel, outside the count), and
     # the image against the same inverse of the native coefficients
@@ -3462,6 +3498,8 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
     check([(e.encoded_bytes, e.max_n) for e in ers] == want_a,
           "phase 23: encode_images_device under ILV_B=4 != phase 8's")
     imgs = {}
+    # the program's inverse: a launch a level, in its warm-up and capture
+    idwt_a = 2 * levels_of(h, w, CONFIG_A, None)
     for label, env, n in (("decode_images_device unset", {}, 1),
                           ("decode_images_device ILV_B=4",
                            {"SPIHT_TPU_PALLAS_ILV_B": "4"}, 4)):
@@ -3469,7 +3507,8 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
         imgs[n] = switch_route(rows, label, env, lambda: pt.
                                decode_images_device(ers_a, CONFIG_A,
                                                     device=DEV),
-                               {"spiht_decode_lsp_batch": 2 * n})
+                               {"spiht_decode_lsp_batch": 2 * n,
+                                "spiht_idwt_level": idwt_a})
     check(all(torch.equal(x, y) for x, y in zip(imgs[1], imgs[4])),
           "phase 23: decode_images_device under ILV_B=4 != unset")
 
@@ -3596,16 +3635,23 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
         outs = pt.decode_images(ers, CONFIG_A, device=DEV)
         return [(e.encoded_bytes, e.max_n) for e in ers], outs
 
+    # no kernel of the codec: the budget path encodes, the native
+    # scheduler or the oracle decodes; the images come from the inverse
+    # program, whose key's first call (each route starts with none)
+    # launches spiht_idwt_level a level in its warm-up and its capture
+    idwt_s = {"spiht_idwt_level": 2 * levels_of(64, 64, CONFIG_A, None)}
+    torch_transform.clear_programs()
     ref_streams, ref_ims = switch_route(rows, "host codec 3x64x64 native",
-                                        {}, host_codec, {})
+                                        {}, host_codec, idwt_s)
     for value in ("1", "0"):
         label = f"host codec 3x64x64 NO_NATIVE={value}"
+        torch_transform.clear_programs()
         with Spy(native, "load") as loads, \
                 Spy(oracle, "encode_bits") as enc_bits, \
                 Spy(oracle, "decode_bits") as dec_bits:
             got, outs = switch_route(rows, label,
                                      {"SPIHT_TPU_NO_NATIVE": value},
-                                     host_codec, {})
+                                     host_codec, idwt_s)
         rows[-1]["oracle_calls"] = [enc_bits.calls, dec_bits.calls]
         check(loads.calls == 0, f"phase 23 {label}: {loads.calls} native "
               "loads")
@@ -3890,7 +3936,7 @@ def phase_ranks(ref, smi, side=SIDE_8K):
     rec = pt.decode_image_device(
         pt.EncodingResult(streams[0], h, w, 3, rows[0]["max_n"], None),
         CONFIG_A, device=DEV)
-    program_launched(ref["dec"])
+    program_launched(ref["dec"], levels_of(h, w, CONFIG_A, None))
     check(torch.equal(rec, ref["rec"]),
           "phase 24: B3's decode of rank 0's stream != phase 21's image")
     del rec
@@ -3939,17 +3985,20 @@ def program_rows(progs) -> list:
     } for p in progs]
 
 
-def program_launched(name):
+def program_launched(name, levels=0):
     """Check that the program call just made (``encode_image_device`` or
     ``decode_image_device``) launched ``name`` as a program launches it,
-    and no other kernel: its wrapper counts the warm-up's launch and the
-    one the capture records on a key's first call, and nothing on a later
-    call, which the program counts as a replay; the counts are set to 0
-    again. Returns the program."""
+    and no other kernel but, in a decode of ``levels`` DWT levels,
+    spiht_idwt_level ``levels`` times a run: its wrappers count the
+    warm-up's launches and those the capture records on a key's first
+    call, and nothing on a later call, which the program counts as a
+    replay; the counts are set to 0 again. Returns the program."""
     prog = torch_transform.programs()[-1]
     n = counts()
     want = {k: 0 for k in n}
-    want[name] = 2 if prog.replays == 1 else 0
+    first = prog.replays == 1
+    want[name] = 2 if first else 0
+    want["spiht_idwt_level"] = 2 * levels if first else 0
     check(prog.replays >= 1 and n == want,
           f"launches {n}, want {want} ({prog.replays} replays)")
     reset_counts()
@@ -3984,15 +4033,20 @@ def replayed_kernels(label, round_trip, progs, tries=3, names=PROFILED):
 
 class Captures:
     """The kinds (``key[0]``) of the programs captured while in a
-    ``with``, in order (``kinds``)."""
+    ``with``, in order (``kinds``): a program once, however many graphs
+    it captures (the batch encode captures a front graph a chunk of rows,
+    then its back graph)."""
 
     def __enter__(self):
         self.kinds = []
         real = self.real = torch_transform._Program._capture
+        seen = []
 
-        def capture(prog):
-            self.kinds.append(prog.key[0])
-            return real(prog)
+        def capture(prog, body):
+            if not any(p is prog for p in seen):
+                seen.append(prog)
+                self.kinds.append(prog.key[0])
+            return real(prog, body)
 
         torch_transform._Program._capture = capture
         return self
@@ -4072,7 +4126,8 @@ def phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, smi):
             imgs, row[f"decode_{what}_ms"] = timed(dec_imgs)
             torch.cuda.synchronize()
             n = nonzero()
-            check(n == ({dec: 2} if what == "first" else {}),
+            check(n == ({dec: 2, "spiht_idwt_level": 2 * levels_of(
+                h, w, s, level)} if what == "first" else {}),
                   f"26 {label} decode {what}: launches {n}")
             if what == "first":
                 first = imgs
@@ -4163,7 +4218,9 @@ def phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, smi):
                 pt.decode_images_device(ers_a, CONFIG_A, device=DEV)))
             torch.cuda.synchronize()
             n = nonzero()
-            check(n == ({"spiht_encode": n_want, "spiht_decode_lsp": n_want}
+            check(n == ({"spiht_encode": n_want, "spiht_decode_lsp": n_want,
+                         "spiht_idwt_level": 2 * levels_of(
+                             512, 512, CONFIG_A, None)}
                         if n_want else {})
                   and [(e.encoded_bytes, e.max_n) for e in got] == want
                   and all(torch.equal(a, b) for a, b in zip(imgs, imgs_a16)),
@@ -4339,7 +4396,7 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
                   f"25 {label} encode {what}: != phase 3-4's stream")
             img, row[f"decode_{what}_ms"] = timed(dec_img)
             torch.cuda.synchronize()
-            dprog = program_launched(dec)
+            dprog = program_launched(dec, levels_of(h, w, s, level))
             if what == "first":
                 first_img = img
         check(eprog.replays == dprog.replays == 2,
@@ -4419,7 +4476,8 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
         reset_counts()
         img = pt.decode_image_device(er_q, CONFIG_A, device=DEV)
         torch.cuda.synchronize()
-        program_launched("spiht_decode_lsp")
+        program_launched("spiht_decode_lsp",
+                         levels_of(h, w, CONFIG_A, None))
         check(torch.equal(img, want_q) and torch.equal(img, prev_q),
               "25 the quarter stream != the eager body's or phase 5's")
     out["programs_A_B"] = program_rows(tt.programs())
@@ -4437,7 +4495,7 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
     rec8, dms = timed(lambda: pt.decode_image_device(er8, CONFIG_A,
                                                      device=DEV))
     torch.cuda.synchronize()
-    program_launched(ref8k["dec"])
+    program_launched(ref8k["dec"], levels_of(h, w, CONFIG_A, None))
     check(torch.equal(rec8, ref8k["rec"]),
           "25 8K: the program's image != phase 21's")
     del rec8, im8
@@ -4693,11 +4751,17 @@ def phase_host_programs(im_a, im_b, er_a, er_b, ims_a, mbs_a, host_ers,
                                  dtype=f32))
     row["encode_budget_eager_ms"] = median_ms(lambda: eager_enc(mbs_a))
     ref = eager_dec(host_ers_b)
+    h, w = ims_a[0].shape[1:]
     for what in ("first", "replay"):
+        reset_counts()
         imgs, row[f"decode_{what}_ms"] = timed(
             lambda: pt.decode_images(host_ers_b, CONFIG_A, device=DEV))
-        check(all(np.array_equal(a, b) for a, b in zip(imgs, ref)),
-              f"27 decode_images {what}: images != the eager inverse's")
+        n = nonzero()
+        check(n == ({"spiht_idwt_level": 2 * levels_of(h, w, CONFIG_A, None)}
+                    if what == "first" else {})
+              and all(np.array_equal(a, b) for a, b in zip(imgs, ref)),
+              f"27 decode_images {what}: launches {n}, or images != the "
+              "eager inverse's")
     row["decode_program_ms"] = median_ms(
         lambda: pt.decode_images(host_ers_b, CONFIG_A, device=DEV))
     row["decode_eager_ms"] = median_ms(lambda: eager_dec(host_ers_b))
@@ -4722,11 +4786,15 @@ def phase_host_programs(im_a, im_b, er_a, er_b, ims_a, mbs_a, host_ers,
         got, row[f"analysis_{what}_ms"] = timed(synced(lambda: ana(x)))
         img, row[f"synthesis_{what}_ms"] = timed(synced(
             lambda: syn(got[0])))
-        check(not nonzero() and all(torch.equal(a, b) for a, b in
-                                    zip(got, (arr_e,) + maps_e))
+        # the inverse program: a launch a level in its warm-up and capture
+        n = nonzero()
+        check(n == ({"spiht_idwt_level": 2 * levels_of(h, w, CONFIG_A, None)}
+                    if what == "first" else {})
+              and all(torch.equal(a, b) for a, b in
+                      zip(got, (arr_e,) + maps_e))
               and torch.equal(img, img_e),
               f"27 analysis_fn / synthesis_fn {what}: launches "
-              f"{nonzero()} or != the eager forward, maps, inverse")
+              f"{n} or != the eager forward, maps, inverse")
     row["analysis_eager_ms"] = median_ms(synced(lambda: (
         lambda a: significance_maps(a[0], a[1], a[2]))(
             tt.forward(x, CONFIG_A, None))))
@@ -4901,6 +4969,9 @@ def run_phases() -> list:
     phase_ranks(ref8k, card())
     del ref8k
 
+    # ---- phase 28: the decode's inverse DWT, one kernel a level ----
+    syn = phase_synthesis()
+
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),
         "spiht_decode_lsp": (dec_a, n_a["spiht_decode_lsp"]),
@@ -4932,7 +5003,83 @@ def run_phases() -> list:
                           "plain_ms": stats["plain_ms"],
                           "bound_ms": bound,
                           "launches_on_its_main_path": launches}))
+    rows.append({
+        "name": "spiht_idwt_level", "route": "cuda",
+        "source": KERNELS["spiht_idwt_level"]["source"], "replaces": None,
+        "launches": nb_a["spiht_idwt_level"], "max_abs_err": 0.0,
+        "ms": syn["ms"], "plain_ms": syn["plain_ms"],
+        "bound_ms": syn["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    })
+    print(json.dumps({"kernel_timing": "spiht_idwt_level", "ms": syn["ms"],
+                      "plain_ms": syn["plain_ms"],
+                      "bound_ms": syn["bound_ms"],
+                      "launches_on_its_main_path": nb_a["spiht_idwt_level"]}))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the decode's inverse DWT as one kernel a level
+# ---------------------------------------------------------------------------
+
+# the cells' shapes: (label, images, (C, H, W))
+SYNTHESIS_CELLS = (("kodak_batch_24", 24, (3, 512, 768)),
+                   ("nuscenes_sweep_6", 6, (3, 900, 1600)),
+                   ("uhd_single", 1, (3, 2160, 3840)))
+
+
+def phase_synthesis() -> dict:
+    """Phase 28: ``spiht_idwt_level`` at the cells' shapes, in float64 and
+    float32, against its plain version on the card, the launches of a
+    call counted from 0. Returns the kernel's timings at the Kodak batch
+    in float64 (the bench's) for its row of the result line."""
+    s = CONFIG_A
+    kodak = None
+    for label, n, shape in SYNTHESIS_CELLS:
+        c, h, w = shape
+        ims = torch.as_tensor(np.stack([image(300 + b, shape)
+                                        for b in range(n)]), device=DEV)
+        arr, _, _ = forward(ims, s, None)
+        del ims
+        slices, _, _ = get_slices_and_h_w(h, w, s, None)
+        level = len(slices) - 1
+        for dtype in (torch.float64, torch.float32):
+            reset_counts()
+            got = synthesis_kernels.waverec2_packed(arr, slices, s, dtype)
+            torch.cuda.synchronize()
+            n = nonzero()
+            check(n == {"spiht_idwt_level": level},
+                  f"28 {label}: launches {n}, want {level} of "
+                  "spiht_idwt_level")
+            want = synthesis_kernels.waverec2_packed_plain(arr, slices, s,
+                                                           dtype)
+            bits = torch.int64 if dtype == torch.float64 else torch.int32
+            check(got.shape == want.shape
+                  and torch.equal(got.view(bits), want.view(bits)),
+                  f"28 {label} {dtype}: kernel != plain version")
+            moved = arr.numel() * arr.element_size() + (
+                got.numel() * got.element_size())
+            del got, want
+            args = (arr, slices, s, dtype)
+            row = {
+                "phase": "28 spiht_idwt_level", "shape": label,
+                "dtype": str(dtype).split(".")[-1], "levels": level,
+                "launches_a_call": level, "bit_equal_plain": True,
+                "ms": time_kernel(synthesis_kernels.waverec2_packed, args),
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": median_ms(
+                    lambda: synthesis_kernels.waverec2_packed_plain(*args)),
+                "card": card(),
+            }
+            print(json.dumps(row))
+            if label == "kodak_batch_24" and dtype == torch.float64:
+                kodak = row
+        del arr
+        torch.cuda.empty_cache()
+    print("phase 28 ok: spiht_idwt_level == its plain version bit for bit "
+          "at the Kodak batch, the nuScenes sweep and the UHD frame, "
+          "float64 and float32")
+    reset_counts()
+    return kodak
 
 
 def main(ranks_only=False) -> int:
@@ -4993,9 +5140,11 @@ def print_kernels(rows) -> None:
                              "flag), none a dependent chain of K reads or "
                              "of K decoder steps (S1-S4), none S5's block "
                              "iteration (scan, compaction and emission "
-                             "together), and none S6's token closure: a "
+                             "together), none S6's token closure: a "
                              "chain of K dependent windows, each seven "
-                             "thresholded squarings, not one product"}))
+                             "thresholded squarings, not one product, "
+                             "and none a level of the dequantizing "
+                             "inverse DWT (spiht_idwt_level)"}))
     print(json.dumps({"kernels": rows}))
 
 

@@ -77,6 +77,12 @@ SIGNATURES = {
             _P, _I64, ctypes.c_float, _P, _P, _P, _P, _P,
         ],
     },
+    "spiht_synthesis": {
+        "spiht_idwt_level_launch": [
+            _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+            _I, _I, _I64, _P, _I, _I, _I, _P, _I, _I, _P,
+        ],
+    },
     "spike_chains": {
         "spike_seq_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
         "spike_table_launch": [_P, _I, _I, _I, _I, _P, _P],

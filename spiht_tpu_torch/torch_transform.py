@@ -4,7 +4,9 @@
   DWT -> per-channel scales -> ``* quantization_scale`` -> truncating int32
   cast (-2^31 out of range, as numpy's cast of the host path gives it).
 * ``inverse`` (``_inverse_jit`` :149-193): ``/ per-channel scales``,
-  ``/ quantization_scale``, ``waverec2``, inverse colour, optional uint8.
+  ``/ quantization_scale``, ``waverec2``, inverse colour, optional uint8;
+  on the card the first three are one launch a level of kernel
+  ``spiht_idwt_level`` (``ops/synthesis_kernels.py``).
   No crop to (h, w): like the reference, the output can exceed the
   original dims for odd sizes.
 * ``encode_pipeline_fn`` / ``decode_pipeline_fn`` (:343-389, :242-293): the
@@ -82,6 +84,7 @@ from .codec.maps import significance_maps
 from .codec.maxn import device_max_n
 from .codec.planning import bits_per_plane_from_maps
 from .ops.quantize_kernels import quantize_compact
+from .ops.synthesis_kernels import waverec2_packed
 from .color import torch_models
 from .settings import SpihtSettings
 from .wavelets import dwt
@@ -332,16 +335,11 @@ def inverse(
     as_uint8: bool = False,
 ) -> torch.Tensor:
     """Packed (..., C, enc_h, enc_w) coefficients -> image(s) on their
-    device."""
+    device: dequantize and ``waverec2`` (``waverec2_packed``: one kernel
+    launch a level on the card, its plain version's torch ops on the CPU),
+    then the inverse colour model."""
     slices, _, _ = get_slices_and_h_w(h, w, settings, level)
-    rec = rec_arr.to(dtype)
-    if settings.per_channel_quant_scales is not None:
-        rec = rec / _mults(settings.per_channel_quant_scales, rec)
-    rec = rec / float(settings.quantization_scale)
-    coeffs = [rec[(...,) + slices[0][1:]]]
-    for d in slices[1:]:
-        coeffs.append({k: rec[(...,) + v[1:]] for k, v in d.items()})
-    image = dwt.waverec2(coeffs, settings.wavelet, settings.mode)
+    image = waverec2_packed(rec_arr, slices, settings, dtype)
     if settings.color_model is not None:
         image = torch_models.convert(image, settings.color_model, "RGB")
     if as_uint8:

@@ -303,3 +303,66 @@ def test_chunked_batch_encode_on_the_card(cuda, monkeypatch):
     assert prog.overlap_rows == 9 and prog.front_replays == 6
     assert prog.replays == 4
     tt.clear_programs()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("wavelet,mode", [("bior2.2", "reflect"),
+                                          ("coif4", "periodization"),
+                                          ("dmey", "symmetric")])
+def test_synthesis_kernel_equals_plain_version(cuda, wavelet, mode, dtype):
+    """``spiht_idwt_level`` (dmey's 102 taps past 48 KB of shared memory)
+    against the plain version on the CPU, bit for bit, at a stand-in of the
+    nuScenes geometry (int32, a crop) and of the UHD one (int16, odd LL),
+    one launch a level."""
+    from spiht_tpu_torch import SpihtSettings
+    from spiht_tpu_torch.ops import synthesis_kernels as sk
+    from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
+
+    rng = np.random.default_rng(7)
+    for lead, h, w, in_dtype in (((2, 3), 45, 80, torch.int32),
+                                 ((3,), 38, 61, torch.int16)):
+        s = SpihtSettings(wavelet=wavelet, mode=mode,
+                          per_channel_quant_scales=[100, 20, 20])
+        slices, enc_h, enc_w = get_slices_and_h_w(h, w, s, 2)
+        rec = torch.as_tensor(rng.integers(-3000, 3000, lead + (enc_h, enc_w))
+                              ).to(in_dtype)
+        n0 = sk.waverec2_packed.launches
+        got = sk.waverec2_packed(rec.to(cuda), slices, s, dtype)
+        torch.cuda.synchronize()
+        assert sk.waverec2_packed.launches == n0 + 2
+        want = sk.waverec2_packed_plain(rec, slices, s, dtype)
+        bits = torch.int64 if dtype == torch.float64 else torch.int32
+        assert torch.equal(got.cpu().view(bits), want.view(bits))
+
+
+def test_batch_decode_launches_the_synthesis_kernel_a_level(cuda):
+    """``decode_images_device`` at an even LL (B5) and an odd LL (batched
+    B3): the key's first call counts ``level`` launches for its warm-up
+    and ``level`` for its capture, as every kernel wrapper counts them, a
+    replay none; ``inverse`` alone ``level``; the images equal the CPU's."""
+    import spiht_tpu_torch as pt
+    from spiht_tpu_torch import torch_transform
+    from spiht_tpu_torch.ops import synthesis_kernels as sk
+    from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
+
+    rng = np.random.default_rng(8)
+    ims = [rng.random((3, 64, 64)) for _ in range(3)]
+    for s, level in ((pt.SpihtSettings(), 3),
+                     (pt.SpihtSettings(wavelet="bior4.4",
+                                       mode="symmetric"), 3)):
+        ers = pt.encode_images_device(ims, s, level, 20000, device=cuda)
+        n0 = sk.waverec2_packed.launches
+        got = pt.decode_images_device(ers, s, device=cuda)
+        assert sk.waverec2_packed.launches == n0 + 2 * level
+        again = pt.decode_images_device(ers, s, device=cuda)
+        assert sk.waverec2_packed.launches == n0 + 2 * level
+        want = pt.decode_images_device(ers, s, device="cpu")
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a.cpu(), c) and torch.equal(b, a)
+        _, enc_h, enc_w = get_slices_and_h_w(64, 64, s, level)
+        rec = torch.zeros((len(ims), 3, enc_h, enc_w), dtype=torch.int32,
+                          device=cuda)
+        n0 = sk.waverec2_packed.launches
+        torch_transform.inverse(rec, 64, 64, level, s)
+        assert sk.waverec2_packed.launches == n0 + level

@@ -27,6 +27,10 @@ unaligned loads everywhere) to its plain torch version and the Pallas
 kernel in interpret mode.
 The block spike's iterations (``block_spike``, ``csrc/spike_blocks.cu``)
 run on a host block of 128 threads against the spike's numpy model.
+The decode's inverse DWT (``idwt_level_block``, ``csrc/spiht_synthesis.cu``,
+built with ``-ffp-contract=off``) runs a level a launch through the
+wrapper's own level loop, every block on host fibers, bit for bit against
+the op-by-op ``inverse`` on the CPU.
 """
 
 import ctypes
@@ -58,6 +62,7 @@ HARNESS = r"""
 #include <memory>
 #include <random>
 #include <vector>
+#include <cmath>
 // The block's threads are fibers on one host thread: each runs until it
 // reaches a barrier (the block's, or its warp's, which every warp
 // collective passes twice) and parks; a barrier opens when all the threads
@@ -116,6 +121,7 @@ int32_t spiht_host_shfl_up(int lane, int32_t v, int d) {
 #include "spiht_decode.cu"
 #include "spiht_quantize.cu"
 #include "spike_blocks.cu"
+#include "spiht_synthesis.cu"
 template <class F> static void run_block(int nt, F f) {
   g_body = [&](int t) { f(t, nt); };
   g_f.resize(nt);
@@ -251,6 +257,33 @@ extern "C" void host_spike_block(const int32_t* mag, int32_t rows,
     block_spike(mag, rows, niter, out, lsp, lip, words, sh, tid);
   });
 }
+// one level of spiht_idwt_level: its launch's arguments, but the block's
+// host threads in place of the stream; every block on host fibers, its
+// shared memory NaN at the start, so a read of an unwritten element shows
+extern "C" int host_idwt_level(int32_t dtype, int32_t in_kind,
+    const void* rec, int32_t enc_h, int32_t enc_w, const void* prev,
+    int32_t prev_h, int32_t prev_w, int32_t ll_r, int32_t ll_c, int32_t ad_r,
+    int32_t ad_c, int32_t da_r, int32_t da_c, int32_t dd_r, int32_t dd_c,
+    int32_t h, int32_t w, int64_t planes, const void* consts, int32_t F,
+    int32_t n_scales, int32_t periodic, void* out, int32_t out_h,
+    int32_t out_w, int nt) {
+  const SynLevel g = syn_level(rec, enc_h, enc_w, prev, prev_h, prev_w, ll_r,
+                               ll_c, ad_r, ad_c, da_r, da_c, dd_r, dd_c, h, w,
+                               planes, consts, F, n_scales, periodic, out,
+                               out_h, out_w);
+  const bool known = syn_dispatch(dtype, in_kind, [&](auto t, auto in) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    using IN = std::remove_pointer_t<decltype(in)>;
+    std::vector<T> sh(syn_shared(F));
+    for (int64_t b = 0; b < syn_blocks(g); ++b) {
+      std::fill(sh.begin(), sh.end(), (T)NAN);
+      run_block(nt, [&](int tid, int n) {
+        idwt_level_block<T, IN>(g, sh.data(), b, tid, n);
+      });
+    }
+  });
+  return known ? 0 : -1;
+}
 extern "C" void host_encode_batch(int nt, int32_t n_streams,
     const int32_t* t1, const int32_t* t3s, const int32_t* child0,
     const int32_t* lip0, int32_t n_lip0, const int32_t* lis0, int32_t n_lis0,
@@ -296,7 +329,7 @@ def host_lib(tmp_path_factory):
     (d / "harness.cpp").write_text(HARNESS)
     so = d / "libhost_kernels.so"
     subprocess.run(
-        [gxx, "-O1", "-std=c++20", "-shared", "-fPIC",
+        [gxx, "-O1", "-std=c++20", "-shared", "-fPIC", "-ffp-contract=off",
          "-Wno-unknown-pragmas", "-I", str(CSRC), "-o", str(so),
          str(d / "harness.cpp")],
         check=True, capture_output=True, text=True,
@@ -894,3 +927,141 @@ def test_block_spike_source_equals_plain_version(host_lib, rows, niter):
     want = tblock.block(mag, niter)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# stand-ins of the cells' geometries: leading dims, (h, w), and the
+# settings' scales; bior2.2's LL at level 2 is the cell's kind of LL
+SYNTHESIS_GEOMETRIES = {
+    # even LL 12x16 (Kodak), no crop; the bench's scales
+    "kodak": ((2, 3), 36, 52, [100.0, 20.0, 20.0], 1.0),
+    # odd LL 13x19 (UHD), pywt's crop on both axes; no per-channel scales
+    "uhd": ((3,), 38, 61, None, 50.0),
+    # benchmark/conftest.py's nuScenes 3x45x80, LL 15x23, a crop on H
+    "nuscenes": ((2, 3), 45, 80, [100.0, 20.0, 20.0], 7.0),
+}
+
+
+def _host_synthesis(lib, rec, slices, settings, dtype, threads):
+    """``synthesis_kernels``'s levels with each launch run on the host:
+    every block of ``spiht_idwt_level`` on ``threads`` fibers."""
+    from spiht_tpu_torch import _build
+    from spiht_tpu_torch.ops import synthesis_kernels
+
+    fn = lib.host_idwt_level
+    fn.argtypes = (_build.SIGNATURES["spiht_synthesis"]
+                   ["spiht_idwt_level_launch"][:-1] + [ctypes.c_int])
+    fn.restype = ctypes.c_int
+
+    def launch(*args):
+        assert fn(*args, threads) == 0
+
+    return synthesis_kernels._levels(rec, slices, settings, dtype, launch)
+
+
+def _packed(rng, shape, in_dtype):
+    """Packed coefficients: a spread of small values, zeros, and the
+    dtype's extremes (past float32's 2^24 in int32)."""
+    top = {torch.int16: 2**15 - 1, torch.int32: 2**31 - 1}.get(in_dtype,
+                                                               2**40)
+    q = rng.integers(-3000, 3000, shape)
+    q[rng.random(shape) < 0.4] = 0
+    edge = rng.random(shape) < 0.02
+    q[edge] = rng.choice([-top, top, top - 1, -(top - 3)], int(edge.sum()))
+    return torch.as_tensor(q).to(in_dtype)
+
+
+def _float_bits(x):
+    return x.view(torch.int64 if x.dtype == torch.float64 else
+                  torch.int32).numpy()
+
+
+@pytest.mark.parametrize("geometry", list(SYNTHESIS_GEOMETRIES))
+@pytest.mark.parametrize("in_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", ["reflect", "periodization"])
+@pytest.mark.parametrize("wavelet", ["bior2.2", "bior4.4", "db1", "coif4"])
+def test_synthesis_source_equals_op_by_op_inverse(host_lib, wavelet, mode,
+                                                  dtype, in_dtype, geometry):
+    """``spiht_idwt_level`` a level, as host C++ on host fibers, through
+    the wrapper's level loop: bit for bit the op-by-op ``inverse`` on the
+    CPU (dequantize, ``dwt.waverec2``)."""
+    from spiht_tpu_torch import SpihtSettings
+    from spiht_tpu_torch.torch_transform import inverse
+    from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
+
+    lead, h, w, pcs, q = SYNTHESIS_GEOMETRIES[geometry]
+    settings = SpihtSettings(wavelet=wavelet, mode=mode, quantization_scale=q,
+                             per_channel_quant_scales=pcs)
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, 2)
+    rng = np.random.default_rng([len(lead), h, w, len(wavelet)])
+    rec = _packed(rng, lead + (enc_h, enc_w), in_dtype)
+    want = inverse(rec, h, w, 2, settings, dtype)
+    got = _host_synthesis(host_lib, rec, slices, settings, dtype,
+                          256 if geometry == "kodak" else 64)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(_float_bits(got), _float_bits(want))
+
+
+@pytest.mark.parametrize("level", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("wavelet", ["bior4.4", "db2", "db4"])
+def test_synthesis_source_at_other_levels_and_cast_inputs(host_lib, wavelet,
+                                                          level, dtype):
+    """Levels 0 (the dequantized LL, no launch), 1 and 3, a 2-D array under
+    per-channel scales (their broadcast makes the channels), and int64
+    coefficients, which the wrapper casts to the working dtype first, for
+    filters of 10, 4 and 8 taps: bit for bit the op-by-op ``inverse``."""
+    from spiht_tpu_torch import SpihtSettings
+    from spiht_tpu_torch.torch_transform import inverse
+    from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
+
+    settings = SpihtSettings(wavelet=wavelet, mode="symmetric",
+                             quantization_scale=3.0,
+                             per_channel_quant_scales=[100, 20, 20])
+    slices, enc_h, enc_w = get_slices_and_h_w(57, 70, settings, level)
+    rng = np.random.default_rng(level)
+    for shape, in_dtype in (((enc_h, enc_w), torch.int32),
+                            ((2, 3, enc_h, enc_w), torch.int64)):
+        rec = _packed(rng, shape, in_dtype)
+        want = inverse(rec, 57, 70, level, settings, dtype)
+        got = _host_synthesis(host_lib, rec, slices, settings, dtype, 64)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(_float_bits(got.contiguous()),
+                                      _float_bits(want.contiguous()))
+
+
+def test_synthesis_levels_refuse_a_short_packed_array():
+    """A packed array smaller than the subbands is refused before any
+    launch: the kernel would read past it."""
+    from spiht_tpu_torch import SpihtSettings
+    from spiht_tpu_torch.ops import synthesis_kernels
+    from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
+
+    s = SpihtSettings()
+    slices, enc_h, enc_w = get_slices_and_h_w(36, 52, s, 2)
+
+    def launch(*args):
+        raise AssertionError("launched")
+
+    for shape in ((3, enc_h - 1, enc_w), (3, enc_h, enc_w - 1)):
+        with pytest.raises(ValueError, match="do not hold"):
+            synthesis_kernels._levels(torch.zeros(shape, dtype=torch.int32),
+                                      slices, s, torch.float64, launch)
+
+
+def test_inverse_on_the_cpu_launches_no_synthesis_kernel():
+    """A CPU tensor takes the plain version: the kernel's launch counter
+    does not move."""
+    from spiht_tpu_torch import SpihtSettings
+    from spiht_tpu_torch.ops import synthesis_kernels
+    from spiht_tpu_torch.torch_transform import inverse
+
+    n0 = synthesis_kernels.waverec2_packed.launches
+    rec = torch.zeros((3, 40, 40), dtype=torch.int32)
+    rec[0, 1, 2] = 500
+    image = inverse(rec, 32, 32, 2, SpihtSettings(color_model="ipt"))
+    assert image.device.type == "cpu" and bool(torch.isfinite(image).all())
+    assert synthesis_kernels.waverec2_packed.launches == n0 == 0
