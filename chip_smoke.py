@@ -171,9 +171,10 @@ Phases:
       wall ms, DWT ms, device peak, and the calls and bytes of its
       collectives. With two or more cards, min(4, cards) ranks, one a
       card, over NCCL with the same checks; with one, "not run: 1 card"
-  25. the single-image round trip as one program a key (run before 24,
-      which needs the card's memory): at A and B, encode_image_device's
-      and decode_image_device's first call (warm-up, capture, replay) and
+  25. the single-image round trip as one program a key, the batch
+      programs at B = 1 (run before 24, which needs the card's memory): at
+      A and B, encode_image_device's and decode_image_device's first call
+      (warm-up, capture, replay) and
       a replay equal to phases 3-4's streams and to the eager body's
       images; B1 and B2 (A) or B3 (B) counted twice by their wrappers on
       a key's first call (the warm-up's launch and the capture's) and not
@@ -3968,7 +3969,8 @@ def phase_ranks(ref, smi, side=SIDE_8K):
 
 
 # ---------------------------------------------------------------------------
-# phase 25: the single-image round trip as one program a key
+# phase 25: the single-image round trip as one program a key (the batch
+# programs of one image)
 # ---------------------------------------------------------------------------
 
 
@@ -4414,13 +4416,14 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
               f"25 {label}: the replays' kernels {ran}")
         row["replay_kernels_profiled"] = ran
         # one encode key, every budget: the full stream's program
-        prog = tt.encode_program(s, im.shape, level, torch.float64,
-                                 torch.float64, DEV, FULL)
+        prog = tt.encode_batch_program(s, (1,) + im.shape, level,
+                                       torch.float64, torch.float64, DEV,
+                                       FULL)
         budgets = {"1.0 bpp": mb, "0.25 bpp": mb // 4, "1 bit": 1,
                    "full": FULL}
         streams = {}
         for name, budget in budgets.items():
-            data, _, mn = prog(im, budget)
+            ((data, mn),) = prog([im], [budget])
             check((data, mn) == eager_encode(budget),
                   f"25 {label} {name} through one key != the eager body")
             streams[name] = data
@@ -4431,27 +4434,27 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
         # the image returned first stays as it was
         data = er.encoded_bytes
         short = data[: len(data) * 3 // 4]
-        dprog = tt.decode_program(s, h, w, level, c, torch.float64, False,
-                                  DEV, len(data) * 8)
-        long_img = dprog(data, len(data) * 8, er.max_n)
+        dprog = tt.decode_batch_program(s, h, w, level, c, 1, torch.float64,
+                                        False, DEV, len(data) * 8)
+        (long_img,) = dprog([data], [len(data) * 8], [er.max_n])
         kept = long_img.clone()
-        short_img = dprog(short, len(short) * 8, er.max_n)
+        (short_img,) = dprog([short], [len(short) * 8], [er.max_n])
         check(torch.equal(long_img, want)
               and torch.equal(short_img, eager_decode(short))
               and torch.equal(long_img, kept),
               f"25 {label}: longer then shorter stream through one key")
         # a replay with no sync before the stat read
-        eprog = tt.encode_program(s, im.shape, level, torch.float64,
-                                  torch.float64, DEV, mb)
+        eprog = tt.encode_batch_program(s, (1,) + im.shape, level,
+                                        torch.float64, torch.float64, DEV, mb)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            eprog.start(im, mb)
-            dprog.start(data, len(data) * 8, er.max_n)
+            eprog.start([im], [mb])
+            dprog.start([data], [len(data) * 8], [er.max_n])
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        check(eprog.finish()[0] == er.encoded_bytes
-              and torch.equal(dprog.finish(), want),
+        check(eprog.finish() == [(er.encoded_bytes, er.max_n)]
+              and torch.equal(dprog.finish()[0], want),
               f"25 {label}: the replays without a sync")
         # timings: median of 5, eager body vs program
         row["encode_eager_ms"] = median_ms(lambda: eager_encode(mb))

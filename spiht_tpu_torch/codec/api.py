@@ -65,9 +65,7 @@ from ..torch_transform import (
     _rows_of,
     compact_program,
     decode_batch,
-    decode_program,
     encode_batch,
-    encode_program,
     forward_program,
     inverse_program,
     narrow_program,
@@ -619,10 +617,10 @@ def encode_image_device(
     dtype: torch.dtype = torch.float64,
 ) -> EncodingResult:
     """Encode a (C, H, W) image (numpy or tensor) on the device: colour ->
-    DWT -> quantize -> max_n -> SPIHT bit emission (kernel B1), as one
-    cached program a key (``torch_transform.encode_program``: on the card
-    a CUDA graph, as the JAX package runs one XLA program). Only the
-    finished stream comes back to the host. The call is the span
+    DWT -> quantize -> max_n -> SPIHT bit emission (kernel B1), as the
+    cached batch program of one image (``torch_transform.encode_batch``:
+    on the card a CUDA graph, as the JAX package runs one XLA program).
+    Only the finished stream comes back to the host. The call is the span
     ``spiht/api/encode_image_device`` (``metrics.span``)."""
     with metrics.span("spiht/api/encode_image_device", images=1):
         dev = resolve_device(device)
@@ -631,11 +629,11 @@ def encode_image_device(
         if image.dim() != 3:
             raise ValueError("image ndim must be 3: c,h,w")
         c, h, w = image.shape
-        # the program clamps the budget to what an int32 bit count holds
+        # the budget is clamped to what an int32 bit count holds, a
+        # negative one to 0 (``encoder.batch_budgets``)
         mb = _MAX_BITS if max_bits is None else max_bits
-        prog = encode_program(spiht_settings, image.shape, level, dtype,
-                              image.dtype, dev, mb)
-        data, _, max_n = prog(image, mb)
+        ((data, max_n),) = encode_batch(spiht_settings, [image], [mb],
+                                        level, dtype, dev)
         return EncodingResult(data, h, w, c, max_n, level)
 
 
@@ -648,8 +646,8 @@ def decode_image_device(
 ) -> torch.Tensor:
     """Decode an EncodingResult on the device: bit parse (kernel B2 and the
     rec scatter, or B3 for odd-LL geometries) -> dequantize -> inverse DWT
-    -> inverse colour, as one cached program a key
-    (``torch_transform.decode_program``). Returns the image as a fresh
+    -> inverse colour, as the cached batch program of one stream
+    (``torch_transform.decode_batch``). Returns the image as a fresh
     tensor on the device. The call is the span
     ``spiht/api/decode_image_device``."""
     with metrics.span("spiht/api/decode_image_device", images=1):
@@ -658,9 +656,11 @@ def decode_image_device(
         dev = resolve_device(device)
         h, w, c = encoding_result.h, encoding_result.w, encoding_result.c
         data = encoding_result.encoded_bytes
-        prog = decode_program(spiht_settings, h, w, encoding_result.level, c,
-                              dtype, as_uint8, dev, len(data) * 8)
-        return prog(data, len(data) * 8, int(encoding_result.max_n))
+        (image,) = decode_batch(spiht_settings, h, w, encoding_result.level,
+                                c, [data], [len(data) * 8],
+                                [int(encoding_result.max_n)], dtype,
+                                as_uint8, dev)
+        return image
 
 
 def _budgets(max_bits, n: int) -> list:

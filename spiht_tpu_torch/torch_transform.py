@@ -9,22 +9,22 @@
   ``spiht_idwt_level`` (``ops/synthesis_kernels.py``).
   No crop to (h, w): like the reference, the output can exceed the
   original dims for odd sizes.
-* ``encode_pipeline_fn`` / ``decode_pipeline_fn`` (:343-389, :242-293): the
-  whole encode (image -> stream words) and decode (stream words -> image)
-  on one device, through the bit-machine kernels, as one cached program
-  a key (``encode_program`` / ``decode_program``: a CUDA graph on the
-  card; the ``lru_cache``d jitted programs there). Their op-by-op bodies
-  are ``encode_pipeline_eager`` / ``decode_pipeline_eager``.
 * ``encode_pipeline_batch_fn`` / ``decode_pipeline_batch_fn`` (:535-662,
-  :393-500): the same over a (B, C, H, W) batch of one shape, through the
-  batched kernels (B4; B5 or batched B3), one launch per direction, as
-  cached programs a key (``encode_batch_program`` /
-  ``decode_batch_program``, at most ``batch_bound`` images each). Where a
-  launch would take fewer than two streams (``ilv_chunk(B)`` of 1), they
+  :393-500): the whole encode (images -> stream words) and decode (stream
+  words -> images) of a (B, C, H, W) batch of one shape on one device,
+  through the batched kernels (B4; B5 or batched B3), one launch per
+  direction, as cached programs a key (``encode_batch_program`` /
+  ``decode_batch_program``: a CUDA graph on the card, the jitted programs
+  there; at most ``batch_bound`` images each). Where a launch would take
+  fewer than two streams (``ilv_chunk(B)`` of 1, as at B = 1), they
   launch B1, and B2 or B3, a stream each, as the JAX package runs its
   ``lax.map`` of the single-stream machine there (``batch_route``). Their
   op-by-op bodies are ``encode_pipeline_batch_eager`` /
   ``decode_pipeline_batch_eager``.
+* ``encode_pipeline_fn`` / ``decode_pipeline_fn`` (:343-389, :242-293):
+  the single-image pipelines, the batch programs' batch of one. Their
+  op-by-op bodies are ``encode_pipeline_eager`` /
+  ``decode_pipeline_eager``, through the single-stream machines alone.
 
 * ``forward_compact`` (``_forward_compact_jit`` :103-146): the forward
   transform to int16 coefficients and an overflow flag, for the
@@ -78,7 +78,6 @@ from .codec import meta_expand as _meta
 from .codec.decoder import decode_coeffs
 from .codec.encoder import (
     batch_stream_bytes, check_stat, encode_coeffs, encode_coeffs_batch,
-    stream_bytes,
 )
 from .codec.maps import significance_maps
 from .codec.maxn import device_max_n
@@ -102,10 +101,6 @@ __all__ = [
     "decode_pipeline_fn",
     "encode_pipeline_eager",
     "decode_pipeline_eager",
-    "encode_program",
-    "decode_program",
-    "EncodeProgram",
-    "DecodeProgram",
     "trace_program",
     "TraceProgram",
     "programs",
@@ -393,7 +388,7 @@ def decode_pipeline_eager(
 
 
 # ---------------------------------------------------------------------------
-# The program cache: the single-image round trip, one CUDA graph a key
+# The program cache: one CUDA graph a key
 # ---------------------------------------------------------------------------
 
 # the cache's bounds: the programs it holds, and the share of a card's
@@ -422,13 +417,28 @@ def _settings_of(key: tuple) -> SpihtSettings:
                                                    else list(pcs)))
 
 
+@functools.lru_cache(maxsize=256)
+def _geometry(skey: tuple, h: int, w: int, level) -> tuple:
+    """(enc_h, enc_w, whether the LL is odd: duplicate parents) of an (h,
+    w) image at ``level`` under the settings of ``skey``, computed once a
+    key: the program factories run on every call."""
+    slices, enc_h, enc_w = get_slices_and_h_w(h, w, _settings_of(skey),
+                                              level)
+    ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
+    return enc_h, enc_w, _decoder.has_duplicate_parents(enc_h, enc_w, ll_h,
+                                                        ll_w)
+
+
 def _pow2(n: int) -> int:
     """The least power of two >= n (1 for n <= 1)."""
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
 class _Program:
-    """One pipeline at one key on its static buffers (``statics``).
+    """One pipeline at one key on its static buffers (``statics``): the
+    encode and decode (``EncodeBatchProgram``, ``DecodeBatchProgram``; a
+    single image is a batch of one), the metadata trace
+    (``TraceProgram``) and the transforms (``TransformProgram``).
 
     ``run()`` runs the body on the static buffers: eagerly on the CPU; on
     the card, the first run runs the body once eagerly as its warm-up
@@ -665,7 +675,7 @@ class _Program:
 
     def _put_words(self, streams, nwords) -> None:
         """Copy n streams into the first n rows of the static word buffer
-        (a single stream's buffer is one row), each row zeroed past the
+        (a trace program's buffer is one row), each row zeroed past the
         stream's first ``nwords[b]`` words, so that what the buffer held
         before cannot change a result; rows past n repeat row n - 1
         (``_pad_rows``). ``streams``: an (n, width) int32 tensor on the
@@ -714,154 +724,6 @@ def _stream_raw(stream) -> np.ndarray:
     if isinstance(stream, torch.Tensor):
         stream = stream.contiguous().numpy()
     return np.ascontiguousarray(stream).reshape(-1).view(np.uint8)
-
-
-class EncodeProgram(_Program):
-    """The encode pipeline of one key (``encode_program``), the
-    counterpart of the JAX package's ``_encode_pipeline_jit``.
-
-    ``start(image, max_bits)`` copies the image into the static input
-    buffer (through a pinned buffer from the host), writes the budget and
-    its capped flag into two static device scalars (``encoder._budget``
-    at the program's word buffer: every budget gives the pair it gives at
-    its own buffer) and runs the program, with no sync. Then either
-    ``on_device()`` returns fresh copies of (words, stat, max_n) on the
-    card, as the eager body returns them, with no sync; or ``finish()``
-    reads the stat row and max_n (one read, the one sync), raises as
-    ``check_stat`` does, and reads the stream's bytes. A call holds
-    ``lock`` from ``start`` to its read; ``__call__`` and
-    ``device_call`` do."""
-
-    def __init__(self, key, settings, level, dtype, shape, in_dtype, dev,
-                 bucket):
-        c, h, w = shape
-        slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
-        _encoder.check_geometry(c, enc_h, enc_w, slices[0][1].stop,
-                                slices[0][2].stop)
-        self.shape, self.cells, self.bucket = shape, (c, enc_h, enc_w), bucket
-        self._words = bucket  # the words the last budget's buffer holds
-
-        def body(image, scalars):
-            arr, ll_h, ll_w = forward(image, settings, level, dtype)
-            words, stat, max_n = encode_coeffs(
-                arr, ll_h, ll_w, (scalars[0], scalars[1]), None, bucket)
-            return words, torch.cat((stat, max_n.reshape(1)))
-
-        super().__init__(key, dev, body, {
-            "image": torch.empty(shape, dtype=in_dtype, device=dev),
-            "scalars": torch.zeros(2, dtype=torch.int32, device=dev),
-        })
-
-    def start(self, image, max_bits) -> None:
-        # a negative budget is 0, as the JAX package's device machines read
-        # it: an empty stream
-        mb = max(min(int(max_bits), 2**31 - 2), 0)
-        words = _encoder.cap_words_for(*self.cells, mb)
-        if words > self.bucket:
-            raise ValueError(f"max_bits {max_bits} does not fit the "
-                             f"program's {self.bucket} words")
-        budget, capped = _encoder._budget(mb, self.bucket)
-        self._begin()
-        self._put("image", image)
-        self._put("scalars", np.array([budget, int(capped)], np.int32))
-        self.run()
-        self._words = words
-
-    def on_device(self):
-        """(words int32[cap_words_for(budget)], stat, max_n 0-d), fresh
-        tensors on the program's device, equal to the eager body's."""
-        words, head = self.outputs
-        out = (words[: self._words].clone(),
-               head[: _encoder.STAT_LEN].clone(),
-               head[_encoder.STAT_LEN].clone())
-        self._end()
-        return out
-
-    def finish(self):
-        """(stream bytes, total bits, max_n), read back to the host."""
-        words, head = self.outputs
-        head = self._wait(head.tolist)
-        read = metrics.open_span(self._names["read"])
-        stat = check_stat(head[: _encoder.STAT_LEN], "spiht_encode")
-        data = stream_bytes(words, stat[0])
-        if read is not None:
-            metrics.close_span(read, bytes=len(data))
-        return data, stat[0], head[_encoder.STAT_LEN]
-
-    def device_call(self, image, max_bits):
-        with self.lock:
-            self.start(image, max_bits)
-            return self.on_device()
-
-    def __call__(self, image, max_bits):
-        with self.lock:
-            self.start(image, max_bits)
-            return self.finish()
-
-
-class DecodeProgram(_Program):
-    """The decode pipeline of one key (``decode_program``): stream ->
-    image, the counterpart of the JAX package's ``_decode_pipeline_jit``.
-
-    ``start(words, nbits, max_n)`` copies the stream's words into the
-    static word buffer (from bytes or the host through a pinned buffer),
-    zeroes the buffer past them, so that what it held before cannot
-    change a result, writes nbits and max_n into two static device
-    scalars, and runs the program, with no sync. ``finish()`` reads the
-    stat row (the one sync), raises as ``check_stat`` does (no image
-    comes back), and returns a fresh tensor: a clone of the graph's
-    output, which the next run overwrites. A call holds ``lock`` from
-    ``start`` to ``finish``; ``__call__`` does."""
-
-    def __init__(self, key, settings, h, w, level, c, dtype, as_uint8, dev,
-                 bucket):
-        slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
-        ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
-        core = _decoder._dec_core(c, enc_h, enc_w, ll_h, ll_w, bucket, None,
-                                  dev)
-        seq = _decoder.has_duplicate_parents(enc_h, enc_w, ll_h, ll_w)
-        self.kernel = "spiht_decode_" + ("seq" if seq else "lsp")
-        self.bucket = bucket
-
-        def body(words, scalars):
-            rec, stat, _ = core(words, scalars[0], scalars[1])
-            return inverse(rec.reshape(c, enc_h, enc_w), h, w, level,
-                           settings, dtype, as_uint8), stat
-
-        super().__init__(key, dev, body, {
-            "words": torch.zeros(bucket, dtype=torch.int32, device=dev),
-            "scalars": torch.zeros(2, dtype=torch.int32, device=dev),
-        })
-
-    def start(self, words, nbits, max_n) -> None:
-        nbits = int(nbits)
-        n = max((nbits + 31) // 32, 1)
-        if nbits < 0 or n > self.bucket:
-            raise ValueError(f"nbits {nbits} does not fit the program's "
-                             f"{self.bucket} words")
-        self._begin()
-        if isinstance(words, torch.Tensor) and words.device.type != "cpu":
-            words = words.reshape(1, -1)[:, :n]
-        else:
-            words = [words]
-        self._put_words(words, [n])
-        self._put("scalars", np.array([nbits, int(max_n)], np.int32))
-        self.run()
-
-    def finish(self) -> torch.Tensor:
-        image, stat = self.outputs
-        self._wait(check_stat, stat, self.kernel)
-        read = metrics.open_span(self._names["read"])
-        image = image.clone()
-        self._end()
-        if read is not None:
-            metrics.close_span(read, bytes=image.numel() * image.element_size())
-        return image
-
-    def __call__(self, words, nbits, max_n) -> torch.Tensor:
-        with self.lock:
-            self.start(words, nbits, max_n)
-            return self.finish()
 
 
 class TraceProgram(_Program):
@@ -1022,65 +884,6 @@ def clear_programs() -> None:
         _PROGRAMS.clear()
 
 
-def encode_program(
-    settings: SpihtSettings,
-    shape,
-    level: Optional[int] = None,
-    dtype: torch.dtype = torch.float64,
-    in_dtype: torch.dtype = torch.float64,
-    device=None,
-    max_bits: int = 2**31 - 2,
-) -> EncodeProgram:
-    """The cached encode program of a (C, H, W) image of ``in_dtype``.
-    Its key: the settings, c, h, w, level, the working dtype and the
-    image's, the device, the machine route (B1) and the word-buffer
-    bucket: the least power of two of the words ``max_bits`` needs, never
-    past the full stream's buffer, ``cap_words_for(c, h, w, 2**31 - 2)``,
-    so every budget a bucket takes gets the (budget, capped) pair and the
-    stream it gets at its own buffer."""
-    dev = resolve_device(device)
-    c, h, w = (int(v) for v in shape)
-    _, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
-    mb = min(int(max_bits), 2**31 - 2)
-    full = _encoder.cap_words_for(c, enc_h, enc_w, 2**31 - 2)
-    bucket = min(_pow2(_encoder.cap_words_for(c, enc_h, enc_w, max(mb, 0))),
-                 full)
-    skey = _settings_key(settings)
-    key = ("encode", skey, c, h, w, level, dtype, in_dtype, dev, "b1", bucket)
-    return _program(key, dev, lambda: EncodeProgram(
-        key, _settings_of(skey), level, dtype, (c, h, w), in_dtype, dev,
-        bucket))
-
-
-def decode_program(
-    settings: SpihtSettings,
-    h: int,
-    w: int,
-    level: Optional[int],
-    c: int,
-    dtype: torch.dtype = torch.float64,
-    as_uint8: bool = False,
-    device=None,
-    nbits: int = 0,
-) -> DecodeProgram:
-    """The cached decode program of an (h, w, c) image's streams. Its key:
-    the settings, c, h, w, level, dtype, the device, the machine route
-    (B2 and the scatter, or B3 at odd LL, as the geometry routes it), the
-    word-buffer bucket (the least power of two of the words ``nbits``
-    needs) and ``as_uint8``."""
-    dev = resolve_device(device)
-    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
-    seq = _decoder.has_duplicate_parents(enc_h, enc_w, slices[0][1].stop,
-                                         slices[0][2].stop)
-    bucket = _pow2(max((int(nbits) + 31) // 32, 1))
-    skey = _settings_key(settings)
-    key = ("decode", skey, c, h, w, level, dtype, dev,
-           "b3" if seq else "b2", bucket, bool(as_uint8))
-    return _program(key, dev, lambda: DecodeProgram(
-        key, _settings_of(skey), h, w, level, c, dtype, as_uint8, dev,
-        bucket))
-
-
 def trace_program(
     c: int,
     h: int,
@@ -1098,7 +901,7 @@ def trace_program(
     slices (``meta_expand.rect_key``, as ``_expand_fn``'s; none for the
     form "log"), the route (B2-log, or B3-log at odd LL), the word-buffer
     bucket (the least power of two of the words ``nbits`` needs, as
-    ``decode_program``'s), the device and the form: "log" (the decode and
+    ``decode_batch_program``'s), the device and the form: "log" (the decode and
     its raw log, as ``decode_event_log`` wants them), "trace" (the log
     expanded) or "expand" (a caller's log expanded)."""
     if form not in ("log", "trace", "expand"):
@@ -1144,15 +947,15 @@ def encode_pipeline_fn(
     max_n), all on ``device`` (None: the image's, the card for a numpy
     image), as the eager body returns them: colour -> DWT -> quantize ->
     max_n (exact float32-truncation semantics, no log2) -> maps -> kernel
-    B1, as one cached program a key (``encode_program``). Nothing is read
-    back to the host: the stream's words stay on the device for a
-    consumer there."""
+    B1, as the batch program of one image (``encode_pipeline_batch_fn``),
+    its row. Nothing is read back to the host: the stream's words stay on
+    the device for a consumer there."""
 
     def fn(image, max_bits: int):
-        img = _image_of(image)
-        return encode_program(
-            settings, img.shape, level, dtype, img.dtype,
-            _device_of(image, device), max_bits).device_call(img, max_bits)
+        batch = encode_pipeline_batch_fn(settings, level, dtype,
+                                         _device_of(image, device))
+        return tuple(x[0] for x in batch(_image_of(image)[None],
+                                         [max_bits]))
 
     return fn
 
@@ -1169,15 +972,19 @@ def decode_pipeline_fn(
 ):
     """fn(words, nbits, max_n) -> image on ``device`` (None: the words',
     the card for bytes or a numpy array), a fresh tensor: the whole decode
-    as one cached program a key (``decode_program``): kernel B2 (+ rec
-    scatter) or B3 -> dequantize -> ``waverec2`` -> inverse colour; raises
-    on a machine error. ``words``: stream bytes, or int32 words (a tensor
-    or a numpy array) holding at least ``nbits``."""
+    as the batch program of one stream (``decode_batch``): kernel B2 (+
+    rec scatter) or B3 -> dequantize -> ``waverec2`` -> inverse colour;
+    raises on a machine error. ``words``: stream bytes, or int32 words (a
+    tensor or a numpy array) holding at least ``nbits``."""
 
     def fn(words, nbits: int, max_n: int):
-        return decode_program(settings, h, w, level, c, dtype, as_uint8,
-                              _device_of(words, device), nbits)(
-            words, nbits, max_n)
+        dev = _device_of(words, device)
+        if _on_card(words):
+            words = words.reshape(1, -1)[:, : max((int(nbits) + 31) // 32, 1)]
+        else:
+            words = [words]
+        return decode_batch(settings, h, w, level, c, words, [nbits],
+                            [max_n], dtype, as_uint8, dev)[0]
 
     return fn
 
@@ -1554,19 +1361,23 @@ def encode_batch_program(
     device=None,
     max_bits: int = 2**31 - 2,
 ) -> EncodeBatchProgram:
-    """The cached encode program of a (B, C, H, W) batch of ``in_dtype``.
-    Its key: the single-image key (``encode_program``'s) with the batch
-    size B, the route (``batch_route``, read here: B4 in launches of
-    ``ilv_chunk(B)`` streams, or B1 a stream) and the word-buffer bucket
-    of the largest budget ``max_bits``."""
+    """The cached encode program of a (B, C, H, W) batch of ``in_dtype``
+    (a single image: B = 1). Its key: the settings, B, c, h, w, level, the
+    working dtype and the images', the device, the route (``batch_route``,
+    read here: B4 in launches of ``ilv_chunk(B)`` streams, or B1 a stream)
+    and the word-buffer bucket: the least power of two of the words the
+    largest budget ``max_bits`` needs, never past the full stream's
+    buffer, ``cap_words_for(c, h, w, 2**31 - 2)``, so every budget a bucket
+    takes gets the (budget, capped) pair and the stream it gets at its own
+    buffer."""
     dev = resolve_device(device)
     B, c, h, w = (int(v) for v in shape)
     route, chunk = batch_route(B)
-    _, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
+    skey = _settings_key(settings)
+    enc_h, enc_w, _ = _geometry(skey, h, w, level)
     mb = max(min(int(max_bits), 2**31 - 2), 0)
     full = _encoder.cap_words_for(c, enc_h, enc_w, 2**31 - 2)
     bucket = min(_pow2(_encoder.cap_words_for(c, enc_h, enc_w, mb)), full)
-    skey = _settings_key(settings)
     key = ("encode_batch", skey, B, c, h, w, level, dtype, in_dtype, dev,
            route, chunk, bucket)
     return _program(key, dev, lambda: EncodeBatchProgram(
@@ -1586,20 +1397,19 @@ def decode_batch_program(
     device=None,
     nbits: int = 0,
 ) -> DecodeBatchProgram:
-    """The cached decode program of B streams of an (h, w, c) image. Its
-    key: the single-image key (``decode_program``'s) with B, the route
-    (``batch_route``, read here: B5 and one scatter, or batched B3 at odd
-    LL, in launches of ``ilv_chunk(B)`` streams, or B2 and its scatter, or
-    B3, a stream) and the word-buffer bucket of the longest stream's
-    ``nbits``."""
+    """The cached decode program of B streams of an (h, w, c) image (a
+    single stream: B = 1). Its key: the settings, B, c, h, w, level,
+    dtype, the device, the machine (B5, or batched B3 at odd LL, as the
+    geometry routes it), the route (``batch_route``, read here: launches
+    of ``ilv_chunk(B)`` streams, or B2 and its scatter, or B3, a stream),
+    the word-buffer bucket (the least power of two of the words the
+    longest stream's ``nbits`` needs) and ``as_uint8``."""
     dev = resolve_device(device)
     B = int(B)
     route, chunk = batch_route(B)
-    slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
-    seq = _decoder.has_duplicate_parents(enc_h, enc_w, slices[0][1].stop,
-                                         slices[0][2].stop)
-    bucket = _pow2(max((int(nbits) + 31) // 32, 1))
     skey = _settings_key(settings)
+    seq = _geometry(skey, h, w, level)[2]
+    bucket = _pow2(max((int(nbits) + 31) // 32, 1))
     key = ("decode_batch", skey, B, c, h, w, level, dtype, dev,
            "b3" if seq else "b5", route, chunk, bucket, bool(as_uint8))
     return _program(key, dev, lambda: DecodeBatchProgram(

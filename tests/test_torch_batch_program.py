@@ -289,7 +289,7 @@ def test_batch_keys(field, monkeypatch):
 def test_eviction_counts_the_batch_programs(monkeypatch):
     monkeypatch.setattr(tt, "PROGRAM_LIMIT", 2)
     s = pt.SpihtSettings()
-    one = tt.encode_program(s, SHAPE, device=CPU)
+    one = tt.encode_batch_program(s, (1,) + SHAPE, device=CPU)
     batch = tt.encode_batch_program(s, (2,) + SHAPE, device=CPU)
     assert tt.programs() == [one, batch]
     dec = tt.decode_batch_program(s, 64, 80, None, 3, 4, device=CPU)
@@ -327,7 +327,9 @@ def test_mixed_shapes_go_one_by_one_in_input_order():
         one = pt.encode_image_device(im, s, level, 3000, device=CPU)
         assert (er.encoded_bytes, er.max_n, er.h) == (
             one.encoded_bytes, one.max_n, one.h)
-    assert {p.key[0] for p in tt.programs()} == {"encode"}
+    # the images of a shape alone go through the batch program of one
+    assert {(p.key[0], p.key[2]) for p in tt.programs()} == {
+        ("encode_batch", 1)}
 
 
 # reads of a value back to the host: on the card each is a sync, which a

@@ -1,16 +1,20 @@
-"""The program cache of ``torch_transform`` on the CPU: one program a key
-(``encode_program`` / ``decode_program``), which ``encode_image_device``
-and ``decode_image_device`` run. On the CPU a program runs its body
-eagerly on its static buffers (on the card it replays a CUDA graph of the
-same body; ``chip_smoke.py`` phase 25 holds that to the eager body).
+"""The program cache of ``torch_transform`` on the CPU through the
+single-image round trip: ``encode_image_device`` and
+``decode_image_device`` run the batch programs (``encode_batch_program``
+/ ``decode_batch_program``) at B = 1, a program a key. On the CPU a
+program runs its body eagerly on its static buffers (on the card it
+replays a CUDA graph of the same body; ``chip_smoke.py`` phase 25 holds
+that to the eager body).
 
 Held here: the key (one program a key, another when any field changes),
 equality with the JAX package's ``encode_image_device`` and with the
-port's eager body, several budgets and stream lengths through one key (a
-stale tail in the word buffer changes nothing), images that stay as they
-were returned, eviction at the count and memory bounds, threads that
-take turns through one key, and no tensor made from numpy on a key's
-second call."""
+port's single-stream eager bodies (``encode_pipeline_eager`` /
+``decode_pipeline_eager``, which share no code with the batch route's
+launches), several budgets and stream lengths through one key (a stale
+tail in the word buffer changes nothing), images that stay as they were
+returned, eviction at the count and memory bounds, threads that take
+turns through one key, no tensor made from numpy on a key's second call,
+and a single call and a batch call of one image through one program."""
 
 import sys
 import threading
@@ -67,15 +71,18 @@ def test_routes(case):
     odd = decoder.has_duplicate_parents(eh, ew, slices[0][1].stop,
                                         slices[0][2].stop)
     assert odd == (case == "B")
-    prog = tt.decode_program(s, *SHAPE[1:], level, SHAPE[0], device=CPU)
-    assert prog.kernel == ("spiht_decode_seq" if odd else "spiht_decode_lsp")
+    prog = tt.decode_batch_program(s, *SHAPE[1:], level, SHAPE[0], 1,
+                                   device=CPU)
+    assert prog.kernel == ("spiht_decode_seq_batch" if odd
+                           else "spiht_decode_lsp_batch")
+    assert prog.key[10:12] == ("map", None)  # B2 or B3 a stream
 
 
-ENC_FIELDS = {  # field -> encode_program keyword arguments that change it
+ENC_FIELDS = {  # field -> encode_batch_program keyword arguments
     "settings": dict(settings=pt.SpihtSettings(quantization_scale=40.0)),
-    "c": dict(shape=(1, 64, 80)),
-    "h": dict(shape=(3, 72, 80)),
-    "w": dict(shape=(3, 64, 88)),
+    "c": dict(shape=(1, 1, 64, 80)),
+    "h": dict(shape=(1, 3, 72, 80)),
+    "w": dict(shape=(1, 3, 64, 88)),
     "level": dict(level=2),
     "dtype": dict(dtype=torch.float32),
     "in_dtype": dict(in_dtype=torch.uint8),
@@ -87,14 +94,15 @@ ENC_FIELDS = {  # field -> encode_program keyword arguments that change it
 def test_encode_key(field):
     """The same key gives the same program; changing one field of it
     gives another."""
-    base = dict(settings=pt.SpihtSettings(), shape=SHAPE, level=3,
+    base = dict(settings=pt.SpihtSettings(), shape=(1,) + SHAPE, level=3,
                 dtype=torch.float64, in_dtype=torch.float64, device=CPU,
                 max_bits=1100)
-    p = tt.encode_program(**base)
-    assert tt.encode_program(**base) is p
-    assert tt.encode_program(**dict(base, max_bits=1900)) is p  # one bucket
+    p = tt.encode_batch_program(**base)
+    assert tt.encode_batch_program(**base) is p
+    # one bucket
+    assert tt.encode_batch_program(**dict(base, max_bits=1900)) is p
     assert CPU in p.key and p.bucket == 64
-    q = tt.encode_program(**dict(base, **ENC_FIELDS[field]))
+    q = tt.encode_batch_program(**dict(base, **ENC_FIELDS[field]))
     assert q is not p and q.key != p.key
 
 
@@ -112,14 +120,15 @@ DEC_FIELDS = {
 
 @pytest.mark.parametrize("field", sorted(DEC_FIELDS))
 def test_decode_key(field):
-    base = dict(settings=pt.SpihtSettings(), h=64, w=80, level=3, c=3,
+    base = dict(settings=pt.SpihtSettings(), h=64, w=80, level=3, c=3, B=1,
                 dtype=torch.float64, as_uint8=False, device=CPU,
                 nbits=1100)
-    p = tt.decode_program(**base)
-    assert tt.decode_program(**base) is p
-    assert tt.decode_program(**dict(base, nbits=1900)) is p  # one bucket
+    p = tt.decode_batch_program(**base)
+    assert tt.decode_batch_program(**base) is p
+    # one bucket
+    assert tt.decode_batch_program(**dict(base, nbits=1900)) is p
     assert CPU in p.key and p.bucket == 64
-    q = tt.decode_program(**dict(base, **DEC_FIELDS[field]))
+    q = tt.decode_batch_program(**dict(base, **DEC_FIELDS[field]))
     assert q is not p and q.key != p.key
 
 
@@ -154,27 +163,29 @@ def test_budgets_through_one_key(case):
     im = _image(32, SHAPE)
     fn = tt.encode_pipeline_fn(s, level, device=CPU)
     body = tt.encode_pipeline_eager(s, level)
-    p = tt.encode_program(s, SHAPE, level, device=CPU, max_bits=1100)
-    assert tt.encode_program(s, SHAPE, level, device=CPU, max_bits=1900) is p
+    one = (1,) + SHAPE
+    p = tt.encode_batch_program(s, one, level, device=CPU, max_bits=1100)
+    assert tt.encode_batch_program(s, one, level, device=CPU,
+                                   max_bits=1900) is p
     streams, outs = [], []
     for mb in (1100, 1900):
         got = fn(im, mb)
         want = body(torch.as_tensor(im), mb)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-        data, total, max_n = p(im, mb)
+        ((data, max_n),) = p([im], [mb])
         assert (data, max_n) == _eager_encode(im, s, level, mb)
-        assert total <= mb and total == int(got[1][0])
+        total = int(got[1][0])
+        assert total <= mb and len(data) == (total + 7) // 8
         streams.append(data)
         outs.append(got)
     assert streams[0] != streams[1]
     # the first call's tensors are the caller's: the second left them be
     assert torch.equal(outs[0][0], body(torch.as_tensor(im), 1100)[0])
-    full = tt.encode_program(s, SHAPE, level, device=CPU)
+    full = tt.encode_batch_program(s, one, level, device=CPU)
     for mb in (1, 700, 4000, FULL):
-        data, _, max_n = full(im, mb)
-        assert (data, max_n) == _eager_encode(im, s, level, mb)
+        assert full([im], [mb]) == [_eager_encode(im, s, level, mb)]
     with pytest.raises(ValueError, match="does not fit"):
-        p(im, 5000)
+        p([im], [5000])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -186,12 +197,12 @@ def test_longer_then_shorter_stream_through_one_key(case):
                                 device=CPU)
     data = er.encoded_bytes
     short = data[: len(data) * 3 // 4 + 1]
-    p = tt.decode_program(s, *SHAPE[1:], level, SHAPE[0], device=CPU,
-                          nbits=len(data) * 8)
-    assert tt.decode_program(s, *SHAPE[1:], level, SHAPE[0], device=CPU,
-                             nbits=len(short) * 8) is p
+    p = tt.decode_batch_program(s, *SHAPE[1:], level, SHAPE[0], 1,
+                                device=CPU, nbits=len(data) * 8)
+    assert tt.decode_batch_program(s, *SHAPE[1:], level, SHAPE[0], 1,
+                                   device=CPU, nbits=len(short) * 8) is p
     for d in (data, short, data, short[:5]):
-        got = p(d, len(d) * 8, er.max_n)
+        (got,) = p([d], [len(d) * 8], [er.max_n])
         assert torch.equal(got, _eager_decode(d, er.max_n, s, level))
     # words as a tensor, nbits the exact bit count of a budget cut
     e2 = pt.encode_image_device(_image(33, SHAPE), s, level, 2999,
@@ -213,10 +224,11 @@ def test_returned_image_stays_as_it_was():
     data = er.encoded_bytes
     cut = pt.EncodingResult(data[: len(data) * 3 // 4], *SHAPE[1:],
                             SHAPE[0], er.max_n, level)
-    p = tt.decode_program(s, *SHAPE[1:], level, SHAPE[0], device=CPU,
-                          nbits=len(data) * 8)
-    assert tt.decode_program(s, *SHAPE[1:], level, SHAPE[0], device=CPU,
-                             nbits=len(cut.encoded_bytes) * 8) is p
+    p = tt.decode_batch_program(s, *SHAPE[1:], level, SHAPE[0], 1,
+                                device=CPU, nbits=len(data) * 8)
+    assert tt.decode_batch_program(s, *SHAPE[1:], level, SHAPE[0], 1,
+                                   device=CPU,
+                                   nbits=len(cut.encoded_bytes) * 8) is p
     second = pt.decode_image_device(cut, s, device=CPU)
     assert not torch.equal(second, kept)
     assert torch.equal(first, kept)
@@ -243,12 +255,13 @@ def test_machine_error_raises_after_the_run(monkeypatch):
 def test_eviction_at_the_count_bound(monkeypatch):
     monkeypatch.setattr(tt, "PROGRAM_LIMIT", 3)
     s = pt.SpihtSettings(quantization_scale=33.0)
-    progs = [tt.encode_program(s, (3, 32, 32 + 8 * i), 2, device=CPU)
+    progs = [tt.encode_batch_program(s, (1, 3, 32, 32 + 8 * i), 2,
+                                     device=CPU)
              for i in range(4)]
     held = tt.programs()
     assert len(held) == 3 and held == progs[1:]
     assert progs[0] not in held
-    again = tt.encode_program(s, (3, 32, 32), 2, device=CPU)
+    again = tt.encode_batch_program(s, (1, 3, 32, 32), 2, device=CPU)
     assert again is not progs[0] and tt.programs() == progs[2:] + [again]
     tt.clear_programs()
     assert tt.programs() == []
@@ -264,7 +277,8 @@ def test_eviction_at_the_memory_share(monkeypatch):
     s = pt.SpihtSettings(quantization_scale=35.0)
 
     def make(i):
-        p = tt.encode_program(s, (3, 32, 32 + 8 * i), 2, device=CPU)
+        p = tt.encode_batch_program(s, (1, 3, 32, 32 + 8 * i), 2,
+                                    device=CPU)
         p.pool_bytes = 1000 - p.static_bytes  # 1000 bytes a program
         return p
 
@@ -317,7 +331,8 @@ def test_threads_through_one_key_take_turns(monkeypatch):
     for t in threads:
         t.join()
     assert not errors
-    assert len([p for p in tt.programs() if p.key[0] == "encode"]) == 1
+    assert len([p for p in tt.programs()
+                if p.key[0] == "encode_batch"]) == 1
     for i, want in enumerate(wants):
         assert got[i][0] == want
         assert torch.equal(got[i][1], _eager_decode(*want, s, level))
@@ -398,15 +413,16 @@ def _reads_of_round_trip(s, level, shape, dtype=torch.float64):
             return func(*args, **(kwargs or {}))
 
     im = _image(37, shape)
-    ep = tt.encode_program(s, shape, level, dtype, device=CPU, max_bits=3000)
-    data, _, max_n = ep(im, 3000)
-    dp = tt.decode_program(s, *shape[1:], level, shape[0], dtype, device=CPU,
-                           nbits=len(data) * 8)
-    dp(data, len(data) * 8, max_n)
+    ep = tt.encode_batch_program(s, (1,) + shape, level, dtype, device=CPU,
+                                 max_bits=3000)
+    ((data, max_n),) = ep([im], [3000])
+    dp = tt.decode_batch_program(s, *shape[1:], level, shape[0], 1, dtype,
+                                 device=CPU, nbits=len(data) * 8)
+    dp([data], [len(data) * 8], [max_n])
     with Reads() as reads:
-        ep.start(im, 3000)
-        dp.start(data, len(data) * 8, max_n)
-    assert ep.finish()[0] == data
+        ep.start([im], [3000])
+        dp.start([data], [len(data) * 8], [max_n])
+    assert ep.finish() == [(data, max_n)]
     return reads.seen
 
 
@@ -427,3 +443,32 @@ def test_colour_models_read_no_value_back(model):
     s = pt.SpihtSettings(color_model=model)
     for dtype in (torch.float64, torch.float32):
         assert _reads_of_round_trip(s, None, (3, 32, 32), dtype) == []
+
+
+@pytest.mark.parametrize("direction", ["encode", "decode"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_a_single_call_is_the_batch_of_one(case, direction):
+    """A single-image call and a batch call of the same one image run one
+    program, a batch program of B = 1, and give the same stream or
+    image."""
+    s, _, level = _case(case)
+    im = _image(38, SHAPE)
+    er = pt.encode_image_device(im, s, level, 3000, device=CPU)
+    tt.clear_programs()
+    if direction == "encode":
+        one = pt.encode_image_device(im, s, level, 3000, device=CPU)
+        progs = tt.programs()
+        (batch,) = pt.encode_images_device([im], s, level, 3000, device=CPU)
+        assert (one.encoded_bytes, one.max_n) == (batch.encoded_bytes,
+                                                  batch.max_n)
+        kind = tt.EncodeBatchProgram
+    else:
+        one = pt.decode_image_device(er, s, device=CPU)
+        progs = tt.programs()
+        (batch,) = pt.decode_images_device([er], s, device=CPU)
+        assert torch.equal(one, batch)
+        kind = tt.DecodeBatchProgram
+    (prog,) = progs
+    assert tt.programs() == progs
+    assert type(prog) is kind and prog.key[2] == 1
+    tt.clear_programs()

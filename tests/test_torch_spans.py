@@ -44,14 +44,19 @@ BITS = 2000
 PHASES = ["stage", "replay", "wait", "read"]
 FUNCTIONS = ["encode_image_device", "decode_image_device",
              "encode_images_device", "decode_images_device"]
-KIND = {"encode_image_device": "encode", "decode_image_device": "decode",
+# a single-image call runs the batch program of one image
+KIND = {"encode_image_device": "encode_batch",
+        "decode_image_device": "decode_batch",
         "encode_images_device": "encode_batch",
         "decode_images_device": "decode_batch"}
 # the batch encode of two images in fronts of one: a front each, the back
 FRONTS = ["stage", "replay"] * 3 + ["wait", "read"]
 # the counts of a batch program's machine replay at SHAPE (LL 9x10, odd:
-# duplicate parents): one launch of both streams, the decode's batched B3
-LAUNCH = {"encode_images_device": {"streams": 2, "seq": 0},
+# duplicate parents): one launch of both streams, the decode's batched B3;
+# a single image's, the one launch of B1 or B3 (the map route)
+LAUNCH = {"encode_image_device": {"streams": 1, "seq": 0},
+          "decode_image_device": {"streams": 1, "seq": 0},
+          "encode_images_device": {"streams": 2, "seq": 0},
           "decode_images_device": {"streams": 2, "seq": 1}}
 
 
@@ -140,7 +145,7 @@ def test_counts_are_the_images_and_streams(fn, images, results):
     staged, read = _staged_and_read(fn, out, ims, results)
     assert count["stage"] == {"bytes": staged}
     assert count["read"] == {"bytes": read}
-    assert count["replay"] == LAUNCH.get(fn, {})
+    assert count["replay"] == LAUNCH[fn]
     assert count["wait"] == {}
 
 
@@ -168,7 +173,7 @@ def _staged_and_read(fn, out, ims, results):
     n = len(ims)
     if fn.startswith("encode"):
         ers = out if isinstance(out, list) else [out]
-        staged = sum(im.nbytes for im in ims) + 4 * max(n, 2)
+        staged = sum(im.nbytes for im in ims) + 4 * n
         read = sum(len(er.encoded_bytes) for er in ers)
     else:
         streams = [er.encoded_bytes for er in results[:n]]
@@ -280,8 +285,8 @@ def test_stage_s_is_the_stage_span(images):
     """Every program measures its stage, traced or not; traced, its
     ``stage_s`` is the stage span's interval."""
     pt.encode_image_device(images[0], SETTINGS, None, BITS, "cpu")
-    (prog,) = [p for p in tt.programs() if p.key[0] == "encode"
-               and p.key[2:5] == SHAPE]
+    (prog,) = [p for p in tt.programs() if p.key[0] == "encode_batch"
+               and p.key[2:6] == (1,) + SHAPE]
     prog.stage_s = 0.0
     pt.encode_image_device(images[0], SETTINGS, None, BITS, "cpu")
     assert prog.stage_s > 0
