@@ -254,6 +254,17 @@ Phases:
       Its row of the result line takes its launches from phase 8's main
       path (the A batch's first decode_images_device call: a launch a
       level in the program's warm-up and in its capture).
+  29. IPT's inverse colour model, kernel spiht_ipt_inverse (one launch a
+      call), at the cells' shapes of phase 28 in float64 and float32, on
+      the IPT images of seeded RGB images and on a crop of each (its own
+      row stride, the vector accesses' ragged ends): bit for bit
+      torch_models.convert(image, "ipt", "RGB")'s torch ops on the card,
+      one launch a call (counted from 0), the kernel's ms (CUDA events)
+      beside its bound (the image read and written once at the HBM rate)
+      and the torch ops' ms. Every decode with A's settings launches it
+      once a run of the inverse (twice on a program's first call), so the
+      launch checks of phases 3-27 count it beside spiht_idwt_level; its
+      row of the result line takes its launches from phase 8's main path.
 """
 
 from __future__ import annotations
@@ -389,6 +400,13 @@ KERNELS = {
         source="spiht_tpu_torch/csrc/spiht_synthesis.cu",
         replaces=None,
     ),
+    # IPT's inverse colour model (the JAX package leaves it to XLA: no
+    # Pallas kernel)
+    "spiht_ipt_inverse": dict(
+        wrapper=synthesis_kernels.rgb_from_ipt,
+        source="spiht_tpu_torch/csrc/spiht_synthesis.cu",
+        replaces=None,
+    ),
     # the dependent-chain spikes of tools/
     "spike_seq": dict(
         wrapper=spike_pallas_seq.seq_chain,
@@ -461,6 +479,17 @@ def levels_of(h, w, settings, level) -> int:
     """The DWT levels of an (h, w) image: the launches of spiht_idwt_level
     a decode makes."""
     return len(get_slices_and_h_w(h, w, settings, level)[0]) - 1
+
+
+def inverse_launches(h, w, settings, level, runs=2) -> dict:
+    """The launches of ``runs`` runs of the decode's inverse at (h, w):
+    spiht_idwt_level a level, and spiht_ipt_inverse once where the
+    settings' colour model is IPT, the kernels with none left out. A
+    program's first call runs its inverse twice (warm-up and capture)."""
+    n = {"spiht_idwt_level": runs * levels_of(h, w, settings, level)}
+    if (settings.color_model or "").lower() == "ipt":
+        n["spiht_ipt_inverse"] = runs
+    return {k: v for k, v in n.items() if v}
 
 
 # ---------------------------------------------------------------------------
@@ -631,7 +660,7 @@ def main_path(label, settings, level, im, max_bits, expect_dec):
     first call of each key (no program cached), whose warm-up launches B1
     and the decoder and whose capture records the launch its replay runs
     (two launches each; the decode's inverse, spiht_idwt_level, a launch a
-    level in each)."""
+    level, and spiht_ipt_inverse at A, in each)."""
     dev = DEV
     torch_transform.clear_programs()
     reset_counts()
@@ -642,10 +671,12 @@ def main_path(label, settings, level, im, max_bits, expect_dec):
     check(n["spiht_encode"] >= 1, f"{label}: B1 not launched on the path")
     check(n[expect_dec] >= 1, f"{label}: {expect_dec} not launched")
     c, h, w = im.shape
-    lv = levels_of(h, w, settings, level)
-    check(n["spiht_idwt_level"] == 2 * lv,
-          f"{label}: spiht_idwt_level launched {n['spiht_idwt_level']} "
-          f"times, want {2 * lv} (the decode program's warm-up and capture)")
+    inv = inverse_launches(h, w, settings, level)
+    got_inv = {k: n[k] for k in ("spiht_idwt_level", "spiht_ipt_inverse")
+               if n[k]}
+    check(got_inv == inv,
+          f"{label}: the inverse launched {got_inv}, want {inv} (the decode "
+          "program's warm-up and capture)")
     slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
     ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
     check(out.shape[0] == c and out.shape[1] >= h and out.shape[2] >= w,
@@ -853,9 +884,9 @@ def batch_main_path(label, settings, level, ims, mbs, expect_dec):
     call of each batch program's key (none cached), whose warm-up launches
     B4 and the batch decoder and whose capture records the launch its
     replay runs (two launches each; the decode's inverse, spiht_idwt_level,
-    a launch a level in each). Then every stream held against the
-    plain versions on the card's coefficients and against the
-    single-image entry points."""
+    a launch a level, and spiht_ipt_inverse at A, in each). Then every
+    stream held against the plain versions on the card's coefficients and
+    against the single-image entry points."""
     dev = DEV
     torch_transform.clear_programs()
     reset_counts()
@@ -867,7 +898,7 @@ def batch_main_path(label, settings, level, ims, mbs, expect_dec):
     c, h, w = ims[0].shape
     want = {k: 0 for k in n}
     want.update({"spiht_encode_batch": 2, expect_dec: 2,
-                 "spiht_idwt_level": 2 * levels_of(h, w, settings, level)})
+                 **inverse_launches(h, w, settings, level)})
     check(n == want, f"{label}: launches {n}, want {want}")
     slices, enc_h, enc_w = get_slices_and_h_w(h, w, settings, level)
     ll_h, ll_w = slices[0][1].stop, slices[0][2].stop
@@ -1240,7 +1271,7 @@ def phase_metadata(im_a, im_b, er_a, er_b):
     torch.cuda.synchronize()
     # trace_at B's key, and the inverse program's first call
     program_launch("spiht_decode_seq_log", "trace",
-                   idwt=2 * levels_of(er_b.h, er_b.w, CONFIG_B, 3))
+                   inverse_launches(er_b.h, er_b.w, CONFIG_B, 3))
     check(np.array_equal(meta, meta_b), "decode_image's trace at B")
     plain_img = pt.decode_image(er_b, CONFIG_B, device=DEV)
     check(np.array_equal(img, plain_img) and np.isfinite(img).all(),
@@ -1642,17 +1673,18 @@ def launched(name):
     reset_counts()
 
 
-def program_launch(name, kind, idwt=0):
+def program_launch(name, kind, inverse=None):
     """Check that the path just driven launched ``name`` as the program of
-    ``kind`` (``key[0]``) it last used launches it, ``idwt`` launches of
-    spiht_idwt_level, and no other kernel: ``name`` twice on that key's
-    first call (the warm-up's launch and the capture's), not at all on a
-    replay; the counts are set to 0 again. Returns the program."""
+    ``kind`` (``key[0]``) it last used launches it, the inverse's
+    ``inverse`` (kernel -> launches), and no other kernel: ``name`` twice
+    on that key's first call (the warm-up's launch and the capture's), not
+    at all on a replay; the counts are set to 0 again. Returns the
+    program."""
     prog = [p for p in torch_transform.programs() if p.key[0] == kind][-1]
     n = counts()
     want = {k: 0 for k in n}
     want[name] = 2 if prog.replays == 1 else 0
-    want["spiht_idwt_level"] = idwt
+    want.update(inverse or {})
     check(prog.replays >= 1 and n == want,
           f"launches {n}, want {want} ({prog.replays} replays of {kind})")
     reset_counts()
@@ -1771,7 +1803,7 @@ def phase_wave(ims16):
     # capture), its replays not at all
     want = {k: 0 for k in n}
     want.update({"spiht_encode_batch": 2, "spiht_decode_lsp_batch": 2,
-                 "spiht_idwt_level": 2 * levels_of(h, w, CONFIG_A, None)})
+                 **inverse_launches(h, w, CONFIG_A, None)})
     wave_progs = [(p.key[0], p.key[2], p.replays)
                   for p in torch_transform.programs()]
     check(n == want and caps.kinds == ["encode_batch", "decode_batch"],
@@ -2806,7 +2838,7 @@ def phase_parallel(ims16, smi):
     reset_counts()
     rec, dec_ms = wall_ms(lambda: pt.decode_image_device(er, CONFIG_A,
                                                          device=DEV))
-    program_launched(dec, levels_of(h, w, CONFIG_A, None))
+    program_launched(dec, inverse_launches(h, w, CONFIG_A, None))
     # the decode held against the native scheduler's: its coefficients one
     # for one (a second call of the decode kernel, outside the count), and
     # the image against the same inverse of the native coefficients
@@ -3499,8 +3531,9 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
     check([(e.encoded_bytes, e.max_n) for e in ers] == want_a,
           "phase 23: encode_images_device under ILV_B=4 != phase 8's")
     imgs = {}
-    # the program's inverse: a launch a level, in its warm-up and capture
-    idwt_a = 2 * levels_of(h, w, CONFIG_A, None)
+    # the program's inverse: a launch a level and the IPT model's, in its
+    # warm-up and capture
+    inv_a = inverse_launches(h, w, CONFIG_A, None)
     for label, env, n in (("decode_images_device unset", {}, 1),
                           ("decode_images_device ILV_B=4",
                            {"SPIHT_TPU_PALLAS_ILV_B": "4"}, 4)):
@@ -3509,7 +3542,7 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
                                decode_images_device(ers_a, CONFIG_A,
                                                     device=DEV),
                                {"spiht_decode_lsp_batch": 2 * n,
-                                "spiht_idwt_level": idwt_a})
+                                **inv_a})
     check(all(torch.equal(x, y) for x, y in zip(imgs[1], imgs[4])),
           "phase 23: decode_images_device under ILV_B=4 != unset")
 
@@ -3639,11 +3672,12 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
     # no kernel of the codec: the budget path encodes, the native
     # scheduler or the oracle decodes; the images come from the inverse
     # program, whose key's first call (each route starts with none)
-    # launches spiht_idwt_level a level in its warm-up and its capture
-    idwt_s = {"spiht_idwt_level": 2 * levels_of(64, 64, CONFIG_A, None)}
+    # launches spiht_idwt_level a level and spiht_ipt_inverse in its
+    # warm-up and its capture
+    inv_s = inverse_launches(64, 64, CONFIG_A, None)
     torch_transform.clear_programs()
     ref_streams, ref_ims = switch_route(rows, "host codec 3x64x64 native",
-                                        {}, host_codec, idwt_s)
+                                        {}, host_codec, inv_s)
     for value in ("1", "0"):
         label = f"host codec 3x64x64 NO_NATIVE={value}"
         torch_transform.clear_programs()
@@ -3652,7 +3686,7 @@ def phase_switches(im_a, im_b, er_a, er_b, ims_a, mbs_a, ers_a, ers_b):
                 Spy(oracle, "decode_bits") as dec_bits:
             got, outs = switch_route(rows, label,
                                      {"SPIHT_TPU_NO_NATIVE": value},
-                                     host_codec, idwt_s)
+                                     host_codec, inv_s)
         rows[-1]["oracle_calls"] = [enc_bits.calls, dec_bits.calls]
         check(loads.calls == 0, f"phase 23 {label}: {loads.calls} native "
               "loads")
@@ -3937,7 +3971,7 @@ def phase_ranks(ref, smi, side=SIDE_8K):
     rec = pt.decode_image_device(
         pt.EncodingResult(streams[0], h, w, 3, rows[0]["max_n"], None),
         CONFIG_A, device=DEV)
-    program_launched(ref["dec"], levels_of(h, w, CONFIG_A, None))
+    program_launched(ref["dec"], inverse_launches(h, w, CONFIG_A, None))
     check(torch.equal(rec, ref["rec"]),
           "phase 24: B3's decode of rank 0's stream != phase 21's image")
     del rec
@@ -3987,11 +4021,11 @@ def program_rows(progs) -> list:
     } for p in progs]
 
 
-def program_launched(name, levels=0):
+def program_launched(name, inverse=None):
     """Check that the program call just made (``encode_image_device`` or
     ``decode_image_device``) launched ``name`` as a program launches it,
-    and no other kernel but, in a decode of ``levels`` DWT levels,
-    spiht_idwt_level ``levels`` times a run: its wrappers count the
+    and no other kernel but, in a decode, the inverse's ``inverse``
+    (``inverse_launches``: a key's first call): its wrappers count the
     warm-up's launches and those the capture records on a key's first
     call, and nothing on a later call, which the program counts as a
     replay; the counts are set to 0 again. Returns the program."""
@@ -4000,7 +4034,7 @@ def program_launched(name, levels=0):
     want = {k: 0 for k in n}
     first = prog.replays == 1
     want[name] = 2 if first else 0
-    want["spiht_idwt_level"] = 2 * levels if first else 0
+    want.update(inverse if first and inverse else {})
     check(prog.replays >= 1 and n == want,
           f"launches {n}, want {want} ({prog.replays} replays)")
     reset_counts()
@@ -4128,8 +4162,8 @@ def phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, smi):
             imgs, row[f"decode_{what}_ms"] = timed(dec_imgs)
             torch.cuda.synchronize()
             n = nonzero()
-            check(n == ({dec: 2, "spiht_idwt_level": 2 * levels_of(
-                h, w, s, level)} if what == "first" else {}),
+            check(n == ({dec: 2, **inverse_launches(h, w, s, level)}
+                        if what == "first" else {}),
                   f"26 {label} decode {what}: launches {n}")
             if what == "first":
                 first = imgs
@@ -4221,8 +4255,7 @@ def phase_batch_program(ims_a, mbs_a, ers_a, ims_b, ers_b, smi):
             torch.cuda.synchronize()
             n = nonzero()
             check(n == ({"spiht_encode": n_want, "spiht_decode_lsp": n_want,
-                         "spiht_idwt_level": 2 * levels_of(
-                             512, 512, CONFIG_A, None)}
+                         **inverse_launches(512, 512, CONFIG_A, None)}
                         if n_want else {})
                   and [(e.encoded_bytes, e.max_n) for e in got] == want
                   and all(torch.equal(a, b) for a, b in zip(imgs, imgs_a16)),
@@ -4398,7 +4431,7 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
                   f"25 {label} encode {what}: != phase 3-4's stream")
             img, row[f"decode_{what}_ms"] = timed(dec_img)
             torch.cuda.synchronize()
-            dprog = program_launched(dec, levels_of(h, w, s, level))
+            dprog = program_launched(dec, inverse_launches(h, w, s, level))
             if what == "first":
                 first_img = img
         check(eprog.replays == dprog.replays == 2,
@@ -4480,7 +4513,7 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
         img = pt.decode_image_device(er_q, CONFIG_A, device=DEV)
         torch.cuda.synchronize()
         program_launched("spiht_decode_lsp",
-                         levels_of(h, w, CONFIG_A, None))
+                         inverse_launches(h, w, CONFIG_A, None))
         check(torch.equal(img, want_q) and torch.equal(img, prev_q),
               "25 the quarter stream != the eager body's or phase 5's")
     out["programs_A_B"] = program_rows(tt.programs())
@@ -4498,7 +4531,7 @@ def phase_program(im_a, im_b, er_a, er_b, prev_q, ref8k, smi):
     rec8, dms = timed(lambda: pt.decode_image_device(er8, CONFIG_A,
                                                      device=DEV))
     torch.cuda.synchronize()
-    program_launched(ref8k["dec"], levels_of(h, w, CONFIG_A, None))
+    program_launched(ref8k["dec"], inverse_launches(h, w, CONFIG_A, None))
     check(torch.equal(rec8, ref8k["rec"]),
           "25 8K: the program's image != phase 21's")
     del rec8, im8
@@ -4760,7 +4793,7 @@ def phase_host_programs(im_a, im_b, er_a, er_b, ims_a, mbs_a, host_ers,
         imgs, row[f"decode_{what}_ms"] = timed(
             lambda: pt.decode_images(host_ers_b, CONFIG_A, device=DEV))
         n = nonzero()
-        check(n == ({"spiht_idwt_level": 2 * levels_of(h, w, CONFIG_A, None)}
+        check(n == (inverse_launches(h, w, CONFIG_A, None)
                     if what == "first" else {})
               and all(np.array_equal(a, b) for a, b in zip(imgs, ref)),
               f"27 decode_images {what}: launches {n}, or images != the "
@@ -4789,9 +4822,10 @@ def phase_host_programs(im_a, im_b, er_a, er_b, ims_a, mbs_a, host_ers,
         got, row[f"analysis_{what}_ms"] = timed(synced(lambda: ana(x)))
         img, row[f"synthesis_{what}_ms"] = timed(synced(
             lambda: syn(got[0])))
-        # the inverse program: a launch a level in its warm-up and capture
+        # the inverse program: a launch a level and the IPT model's, in its
+        # warm-up and capture
         n = nonzero()
-        check(n == ({"spiht_idwt_level": 2 * levels_of(h, w, CONFIG_A, None)}
+        check(n == (inverse_launches(h, w, CONFIG_A, None)
                     if what == "first" else {})
               and all(torch.equal(a, b) for a, b in
                       zip(got, (arr_e,) + maps_e))
@@ -4975,6 +5009,9 @@ def run_phases() -> list:
     # ---- phase 28: the decode's inverse DWT, one kernel a level ----
     syn = phase_synthesis()
 
+    # ---- phase 29: IPT's inverse colour model, one kernel ----
+    ipt = phase_ipt_inverse()
+
     runs = {
         "spiht_encode": (enc_a, n_a["spiht_encode"]),
         "spiht_decode_lsp": (dec_a, n_a["spiht_decode_lsp"]),
@@ -5017,6 +5054,18 @@ def run_phases() -> list:
                       "plain_ms": syn["plain_ms"],
                       "bound_ms": syn["bound_ms"],
                       "launches_on_its_main_path": nb_a["spiht_idwt_level"]}))
+    rows.append({
+        "name": "spiht_ipt_inverse", "route": "cuda",
+        "source": KERNELS["spiht_ipt_inverse"]["source"], "replaces": None,
+        "launches": nb_a["spiht_ipt_inverse"], "max_abs_err": 0.0,
+        "ms": ipt["ms"], "plain_ms": ipt["plain_ms"],
+        "bound_ms": ipt["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    })
+    print(json.dumps({"kernel_timing": "spiht_ipt_inverse", "ms": ipt["ms"],
+                      "plain_ms": ipt["plain_ms"],
+                      "bound_ms": ipt["bound_ms"],
+                      "launches_on_its_main_path":
+                          nb_a["spiht_ipt_inverse"]}))
     return rows
 
 
@@ -5085,6 +5134,77 @@ def phase_synthesis() -> dict:
     return kodak
 
 
+# ---------------------------------------------------------------------------
+# phase 29: IPT's inverse colour model as one kernel
+# ---------------------------------------------------------------------------
+
+# float64 operations a pixel besides its three pows: three 3x3 products (9
+# multiplies and 6 adds each) and the signed power's three multiplies
+IPT_OPS_A_PIXEL = 3 * (9 + 6) + 3
+FP64_OPS_PER_S = 33.5e12  # H100 SXM float64 outside the tensor cores
+
+
+def phase_ipt_inverse() -> dict:
+    """Phase 29: ``spiht_ipt_inverse`` at the cells' shapes, in float64
+    and float32, on the IPT image of seeded RGB images and on a crop of it:
+    bit for bit ``torch_models.convert(x, "ipt", "RGB")`` on the card, one
+    launch a call (counted from 0). Returns the plain version's and the
+    kernel's timings at the Kodak batch in float64 (the bench's) for its
+    row of the result line."""
+    kodak = None
+    for label, n, shape in SYNTHESIS_CELLS:
+        rgb = torch.as_tensor(np.stack([image(400 + b, shape)
+                                        for b in range(n)]), device=DEV)
+        if n == 1:
+            rgb = rgb[0]  # the single decode's (3, H, W)
+        for dtype in (torch.float64, torch.float32):
+            x = torch_models.convert(rgb.to(dtype), "RGB", "ipt")
+            for view, im in (("whole", x), ("crop", x[..., 1:-2, 3:-4])):
+                reset_counts()
+                got = synthesis_kernels.rgb_from_ipt(im)
+                torch.cuda.synchronize()
+                n_l = nonzero()
+                check(n_l == {"spiht_ipt_inverse": 1},
+                      f"29 {label} {view}: launches {n_l}")
+                want = torch_models.convert(im, "ipt", "RGB")
+                bits = torch.int64 if dtype == torch.float64 else torch.int32
+                check(got.shape == want.shape and got.is_contiguous()
+                      and torch.equal(got.view(bits), want.view(bits)),
+                      f"29 {label} {view} {dtype}: kernel != torch ops")
+                del got, want
+            pixels = x.numel() // 3
+            moved = 2 * x.numel() * x.element_size()
+            ms = time_kernel(synthesis_kernels.rgb_from_ipt, (x,))
+            row = {
+                "phase": "29 spiht_ipt_inverse", "shape": label,
+                "dtype": str(dtype).split(".")[-1], "launches_a_call": 1,
+                "bit_equal_torch_ops": True, "ms": ms,
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "gb_s": moved / ms / 1e6,
+                "pows_per_s": 3 * pixels / ms * 1e3,
+                "plain_ms": time_kernel(
+                    lambda im: torch_models.convert(im, "ipt", "RGB"), (x,)),
+                "card": card(),
+            }
+            if dtype == torch.float64:
+                # what each pow could take of the card's float64 rate, were
+                # the kernel bound by it
+                row["fp64_ops_a_pow_at_this_rate"] = (
+                    FP64_OPS_PER_S * ms / 1e3 - IPT_OPS_A_PIXEL * pixels) / (
+                    3 * pixels)
+            print(json.dumps(row))
+            if label == "kodak_batch_24" and dtype == torch.float64:
+                kodak = row
+            del x
+        del rgb
+        torch.cuda.empty_cache()
+    print("phase 29 ok: spiht_ipt_inverse == torch_models.convert's torch ops "
+          "bit for bit at the Kodak batch, the nuScenes sweep and the UHD "
+          "frame, whole and cropped, float64 and float32")
+    reset_counts()
+    return kodak
+
+
 def main(ranks_only=False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5146,8 +5266,10 @@ def print_kernels(rows) -> None:
                              "together), none S6's token closure: a "
                              "chain of K dependent windows, each seven "
                              "thresholded squarings, not one product, "
-                             "and none a level of the dequantizing "
-                             "inverse DWT (spiht_idwt_level)"}))
+                             "none a level of the dequantizing "
+                             "inverse DWT (spiht_idwt_level), and none "
+                             "IPT's inverse colour model "
+                             "(spiht_ipt_inverse)"}))
     print(json.dumps({"kernels": rows}))
 
 

@@ -82,6 +82,9 @@ SIGNATURES = {
             _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
             _I, _I, _I64, _P, _I, _I, _I, _P, _I, _I, _P,
         ],
+        "spiht_ipt_inverse_launch": [
+            _I, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P,
+        ],
     },
     "spike_chains": {
         "spike_seq_launch": [_P, _I, _I, _I, _I, _P, _P, _P],

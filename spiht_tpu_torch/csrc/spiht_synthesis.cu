@@ -1,5 +1,7 @@
-// One level of the decode's inverse 2D DWT (waverec2's idwt2) in one launch:
-// kernel spiht_idwt_level.
+// The decode's synthesis on the card: one level of the inverse 2D DWT
+// (waverec2's idwt2) in one launch, kernel spiht_idwt_level; and IPT's
+// inverse colour model in one pass over the image, kernel spiht_ipt_inverse
+// (below the level's launch).
 //
 // It replaces no Pallas kernel: the JAX package leaves the inverse DWT of
 // jax_transform._inverse_jit (spiht_tpu/jax_transform.py:150-193) to XLA,
@@ -53,6 +55,8 @@
 // runs it on host fibers against the op-by-op inverse).
 
 #include "spiht_common.cuh"
+
+#include <math.h>
 
 #include <type_traits>
 
@@ -357,6 +361,244 @@ extern "C" int spiht_idwt_level_launch(
     using T = std::remove_pointer_t<decltype(t)>;
     using IN = std::remove_pointer_t<decltype(in)>;
     rc = syn_launch<T, IN>(g, blocks, (cudaStream_t)stream);
+  });
+  return known ? rc : (int)cudaErrorInvalidValue;
+}
+
+#endif  // __CUDACC__
+
+// ---------------------------------------------------------------------------
+// IPT's inverse colour model: kernel spiht_ipt_inverse.
+//
+// It replaces no Pallas kernel: the JAX package leaves the colour model of
+// its inverse (color/jax_models.convert) to XLA. Written op by op in torch
+// (color/torch_models.py _rgb_from_ipt), it is ~50 elementwise kernels,
+// each reading and writing whole planes; this kernel computes the same
+// values, reading the image once and writing the result once.
+//
+// What it computes, for each pixel of a (N, 3, H, W) image (N the product
+// of the leading dims, any strides): LMS' = LMS_FROM_IPT x, LMS =
+// sign(LMS') * |LMS'| ** (1 / IPT_EXP), XYZ = XYZ_FROM_LMS_IPT LMS, RGB =
+// XYZ_TO_RGB XYZ, written to a fresh contiguous (N, 3, H, W) tensor. Each
+// row of a 3x3 product is (x0 * m0 + x1 * m1) + x2 * m2, as torch's ops
+// evaluate it, through the _rn intrinsics, so nothing is contracted into
+// an FMA; the signed power is s * pow(|x|, p) with s = (0 < x) - (x < 0),
+// the device's own pow (powf in float32), as torch.sign, torch.abs and
+// torch.pow compute it on the card. The three matrices (row-major) and p
+// come from a constant tensor in the working dtype (the wrapper builds it
+// from color/models.py), so the source holds no IPT number.
+//
+// What bounds it on an H100: 48 bytes a pixel in float64 (0.135 ms for a
+// Kodak batch of 24 768x512 images at 3.35 TB/s) would, but the three
+// float64 pows a pixel (the device's accurate pow, a called function of
+// a few hundred instructions; 45 multiplies and adds besides) take longer:
+// the float64 kernel runs at ~2.2x its byte bound, the float32 one at
+// ~1.8x (PERF.md's kernel table). Each item is 16 bytes of one row of each
+// channel (2 pixels in float64, 4 in float32): loaded and stored as one
+// vector access a channel where the addresses are 16-byte aligned and the
+// row holds the whole item, element by element elsewhere (a row's ragged
+// end, an unaligned view, a column stride). The threads take consecutive
+// items, so a warp's accesses are consecutive along W, in a grid-stride
+// loop over a grid of 16 blocks an SM. Capped at 64 registers (4 blocks of
+// 256 threads resident an SM, against 2 at the 116 it takes uncapped), the
+// float64 kernel ran 13% faster on an H100 and the float32 one 1% slower.
+
+#define IPT_THREADS 256
+#define IPT_BLOCKS_RESIDENT 4  // an SM, at most 64 registers a thread
+#define IPT_BLOCKS_AN_SM 16
+#define IPT_CONSTS 28  // three 3x3 matrices, then the exponent
+
+// the device's pow and fabs under nvcc (libm's in the host build)
+SPIHT_HD double ipt_pow(double x, double p) { return pow(x, p); }
+SPIHT_HD float ipt_pow(float x, float p) { return powf(x, p); }
+SPIHT_HD double ipt_abs(double x) { return fabs(x); }
+SPIHT_HD float ipt_abs(float x) { return fabsf(x); }
+
+// The image's geometry: in[i * sn + c * sc + y * sh + x * sw] is channel c
+// of pixel (y, x) of image i < n; out is contiguous (n, 3, h, w). consts
+// holds, in T, LMS_FROM_IPT, XYZ_FROM_LMS_IPT and XYZ_TO_RGB row by row,
+// then 1 / IPT_EXP.
+struct IptImage {
+  const void* in;
+  int64_t n, h, w;
+  int64_t sn, sc, sh, sw;
+  const void* consts;
+  void* out;
+};
+
+// Elements of T in an item: 16 bytes.
+template <class T>
+SYN_HHD constexpr int ipt_vec() { return 16 / (int)sizeof(T); }
+
+template <class T>
+SYN_HHD int64_t ipt_items(const IptImage& g) {
+  return g.n * g.h * ((g.w + ipt_vec<T>() - 1) / ipt_vec<T>());
+}
+
+// One row of a 3x3 product: (x0 * m[0] + x1 * m[1]) + x2 * m[2].
+template <class T>
+SPIHT_HD T ipt_row(const T* m, T x0, T x1, T x2) {
+  return syn_add(syn_add(syn_mul(x0, m[0]), syn_mul(x1, m[1])),
+                 syn_mul(x2, m[2]));
+}
+
+// sign(x) * |x| ** p, as torch.sign(x) * torch.abs(x) ** p.
+template <class T>
+SPIHT_HD T ipt_signed_pow(T x, T p) {
+  const T s = (T)((int)((T)0 < x) - (int)(x < (T)0));
+  return syn_mul(s, ipt_pow(ipt_abs(x), p));
+}
+
+// One pixel: (I, P, T) in v[0..2] -> (R, G, B) in place; k the consts.
+template <class T>
+SPIHT_HD void ipt_pixel(const T* k, T* v) {
+  T a[3], b[3];
+#pragma unroll
+  for (int o = 0; o < 3; ++o) a[o] = ipt_row(k + 3 * o, v[0], v[1], v[2]);
+#pragma unroll
+  for (int o = 0; o < 3; ++o) a[o] = ipt_signed_pow(a[o], k[27]);
+#pragma unroll
+  for (int o = 0; o < 3; ++o) b[o] = ipt_row(k + 9 + 3 * o, a[0], a[1], a[2]);
+#pragma unroll
+  for (int o = 0; o < 3; ++o) v[o] = ipt_row(k + 18 + 3 * o, b[0], b[1], b[2]);
+}
+
+SPIHT_HD bool ipt_aligned(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// 16 bytes at p (16-byte aligned) into v, and back.
+SPIHT_HD void ipt_load(const double* p, double* v) {
+#ifdef __CUDACC__
+  const double2 d = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = d.x;
+  v[1] = d.y;
+#else
+  v[0] = p[0];
+  v[1] = p[1];
+#endif
+}
+SPIHT_HD void ipt_load(const float* p, float* v) {
+#ifdef __CUDACC__
+  const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+#else
+  for (int j = 0; j < 4; ++j) v[j] = p[j];
+#endif
+}
+SPIHT_HD void ipt_store(double* p, const double* v) {
+#ifdef __CUDACC__
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+#else
+  p[0] = v[0];
+  p[1] = v[1];
+#endif
+}
+SPIHT_HD void ipt_store(float* p, const float* v) {
+#ifdef __CUDACC__
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+#else
+  for (int j = 0; j < 4; ++j) p[j] = v[j];
+#endif
+}
+
+// Block `block` of `blocks`, on threads tid of nt: items block * nt + tid,
+// then every blocks * nt items on. An item is ipt_vec<T>() pixels of one
+// row, item j of a row starting at column j * ipt_vec<T>().
+template <class T>
+SPIHT_HD void ipt_inverse_block(const IptImage g, int64_t block,
+                                int64_t blocks, int tid, int nt) {
+  constexpr int V = ipt_vec<T>();
+  T k[IPT_CONSTS];
+  for (int i = 0; i < IPT_CONSTS; ++i) k[i] = SYN_LDG((const T*)g.consts + i);
+  const int64_t per_row = (g.w + V - 1) / V;
+  const int64_t items = ipt_items<T>(g);
+  const int64_t plane = g.h * g.w;
+  for (int64_t i = block * nt + tid; i < items; i += blocks * nt) {
+    const int64_t row = i / per_row;  // image * h + y
+    const int64_t x0 = (i - row * per_row) * V;
+    const int64_t img = row / g.h, y = row - img * g.h;
+    const T* src = (const T*)g.in + img * g.sn + y * g.sh + x0 * g.sw;
+    T* dst = (T*)g.out + img * 3 * plane + y * g.w + x0;
+    const int64_t left = g.w - x0;
+    const bool vec = left >= V && g.sw == 1 && ipt_aligned(src) &&
+                     ipt_aligned(src + g.sc) && ipt_aligned(dst) &&
+                     ipt_aligned(dst + plane);
+    T v[3][V];
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) ipt_load(src + c * g.sc, v[c]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          v[c][j] = j < left ? SYN_LDG(src + c * g.sc + j * g.sw) : (T)0;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      T p[3] = {v[0][j], v[1][j], v[2][j]};
+      ipt_pixel(k, p);
+      v[0][j] = p[0];
+      v[1][j] = p[1];
+      v[2][j] = p[2];
+    }
+    if (vec) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) ipt_store(dst + c * plane, v[c]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (j < left) dst[c * plane + j] = v[c][j];
+    }
+  }
+}
+
+// fn((T*)0) for the working dtype (0 float32, 1 float64); false if none.
+template <class Fn>
+bool ipt_dispatch(int32_t dtype, Fn fn) {
+  if (dtype == 1) return fn((double*)0), true;
+  if (dtype == 0) return fn((float*)0), true;
+  return false;
+}
+
+#ifdef __CUDACC__
+
+template <class T>
+__global__ void __launch_bounds__(IPT_THREADS, IPT_BLOCKS_RESIDENT)
+spiht_ipt_inverse_kernel(const IptImage g) {
+  ipt_inverse_block<T>(g, blockIdx.x, gridDim.x, threadIdx.x, blockDim.x);
+}
+
+// IPT -> RGB over the image (see IptImage). dtype: 0 float32, 1 float64;
+// strides in elements; out is fresh, contiguous and does not overlap in.
+extern "C" int spiht_ipt_inverse_launch(
+    int32_t dtype, const void* in, int64_t n, int64_t h, int64_t w,
+    int64_t sn, int64_t sc, int64_t sh, int64_t sw, const void* consts,
+    void* out, void* stream) {
+  const IptImage g{in, n, h, w, sn, sc, sh, sw, consts, out};
+  if (n < 0 || h < 0 || w < 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (!rc)
+    rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+  if (rc) return rc;
+  const bool known = ipt_dispatch(dtype, [&](auto t) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    const int64_t items = ipt_items<T>(g);
+    if (items == 0) return;
+    const int64_t want = (items + IPT_THREADS - 1) / IPT_THREADS;
+    const int64_t fill = (int64_t)sms * IPT_BLOCKS_AN_SM;
+    const unsigned blocks = (unsigned)(want < fill ? want : fill);
+    spiht_ipt_inverse_kernel<T><<<blocks, IPT_THREADS, 0,
+                                  (cudaStream_t)stream>>>(g);
+    rc = (int)cudaGetLastError();
   });
   return known ? rc : (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-"""The decode's inverse DWT: packed integer coefficients -> the plane that
-the colour model reads, one launch a level of ``csrc/spiht_synthesis.cu``
-(kernel ``spiht_idwt_level``).
+"""The decode's synthesis on the card: the inverse DWT, packed integer
+coefficients -> the plane that the colour model reads, one launch a level
+of ``csrc/spiht_synthesis.cu`` (kernel ``spiht_idwt_level``); and IPT's
+inverse colour model, one launch of ``spiht_ipt_inverse`` (``rgb_from_ipt``).
 
 ``waverec2_packed`` dequantizes the packed array (``/`` the per-channel
 scales, then ``/ quantization_scale``) and runs ``waverec2`` over it:
@@ -8,6 +9,10 @@ through the kernel for a CUDA tensor, through the plain version,
 ``waverec2_packed_plain`` (the torch ops of ``dwt.waverec2``), for a CPU
 one. The kernel computes the plain version's values bit for bit, in
 float64 and in float32.
+
+``rgb_from_ipt`` is ``torch_models.convert(image, "ipt", "RGB")``: through
+the kernel for a CUDA tensor, the same values as those torch ops on the card
+bit for bit, in float64 and in float32; through the torch ops for a CPU one.
 """
 
 from __future__ import annotations
@@ -17,11 +22,13 @@ from typing import List
 
 import torch
 
+from ..color import models as _models
+from ..color import torch_models
 from ..device import constant
 from ..wavelets import dwt
 from ..wavelets.filters import build_wavelet
 
-__all__ = ["waverec2_packed", "waverec2_packed_plain"]
+__all__ = ["waverec2_packed", "waverec2_packed_plain", "rgb_from_ipt"]
 
 # the packed coefficients' dtypes the kernel reads as they are (in_kind)
 _IN_KINDS = {torch.int16: 0, torch.int32: 1}
@@ -165,3 +172,62 @@ def waverec2_packed(rec_arr: torch.Tensor, slices, settings,
 
 
 waverec2_packed.launches = 0
+
+
+@constant
+def _ipt_consts(dtype, device) -> torch.Tensor:
+    """LMS_FROM_IPT, XYZ_FROM_LMS_IPT and XYZ_TO_RGB row by row, then
+    1 / IPT_EXP, in ``dtype`` on ``device``: each rounded from the Python
+    float as torch rounds a scalar operand of a ``dtype`` tensor."""
+    vals = [float(v) for m in (_models.LMS_FROM_IPT, _models.XYZ_FROM_LMS_IPT,
+                               _models.XYZ_TO_RGB) for row in m for v in row]
+    return torch.tensor(vals + [1.0 / _models.IPT_EXP], dtype=dtype,
+                        device=device)
+
+
+def _ipt_inverse(image: torch.Tensor, launch) -> torch.Tensor:
+    """The kernel's launch: ``launch(*args)`` takes the arguments of
+    ``spiht_ipt_inverse_launch`` but the stream, with the output allocated
+    on ``image``'s device. Returns the output."""
+    h, w = image.shape[-2:]
+    x = image.reshape(-1, 3, h, w)  # a view wherever the leading dims allow
+    out = torch.empty(image.shape, dtype=image.dtype, device=image.device)
+    if out.numel():
+        launch(_DTYPES[image.dtype], x.data_ptr(), x.shape[0], h, w,
+               *x.stride(), _ipt_consts(image.dtype, image.device).data_ptr(),
+               out.data_ptr())
+    return out
+
+
+def rgb_from_ipt(image: torch.Tensor) -> torch.Tensor:
+    """A (..., 3, H, W) IPT image in float32 or float64 -> RGB in a fresh
+    contiguous tensor of its dtype, on its device: one launch of
+    ``spiht_ipt_inverse`` for a CUDA tensor (any strides), the plain
+    version (``torch_models.convert(image, "ipt", "RGB")``) for a CPU one."""
+    if image.dim() < 3 or image.shape[-3] != 3:
+        raise ValueError(f"an IPT image is (..., 3, H, W), got "
+                         f"{tuple(image.shape)}")
+    if image.dtype not in _DTYPES:
+        raise ValueError(f"the working dtype must be float32 or float64, "
+                         f"got {image.dtype}")
+    dev = image.device
+    if dev.type == "cpu":
+        return torch_models.convert(image, "ipt", "RGB")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .. import _build
+
+    lib = _build.load("spiht_synthesis")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(*args):
+        rc = lib.spiht_ipt_inverse_launch(*args, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"spiht_ipt_inverse launch failed: CUDA error {rc}")
+        rgb_from_ipt.launches += 1
+
+    return _ipt_inverse(image, launch)
+
+
+rgb_from_ipt.launches = 0

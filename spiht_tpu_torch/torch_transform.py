@@ -6,7 +6,8 @@
 * ``inverse`` (``_inverse_jit`` :149-193): ``/ per-channel scales``,
   ``/ quantization_scale``, ``waverec2``, inverse colour, optional uint8;
   on the card the first three are one launch a level of kernel
-  ``spiht_idwt_level`` (``ops/synthesis_kernels.py``).
+  ``spiht_idwt_level``, and IPT's inverse colour model one launch of
+  ``spiht_ipt_inverse`` (``ops/synthesis_kernels.py``).
   No crop to (h, w): like the reference, the output can exceed the
   original dims for odd sizes.
 * ``encode_pipeline_batch_fn`` / ``decode_pipeline_batch_fn`` (:535-662,
@@ -83,7 +84,7 @@ from .codec.maps import significance_maps
 from .codec.maxn import device_max_n
 from .codec.planning import bits_per_plane_from_maps
 from .ops.quantize_kernels import quantize_compact
-from .ops.synthesis_kernels import waverec2_packed
+from .ops.synthesis_kernels import rgb_from_ipt, waverec2_packed
 from .color import torch_models
 from .settings import SpihtSettings
 from .wavelets import dwt
@@ -332,11 +333,17 @@ def inverse(
     """Packed (..., C, enc_h, enc_w) coefficients -> image(s) on their
     device: dequantize and ``waverec2`` (``waverec2_packed``: one kernel
     launch a level on the card, its plain version's torch ops on the CPU),
-    then the inverse colour model."""
+    then the inverse colour model (IPT on the card: one launch of
+    ``rgb_from_ipt``; every other model, and any model on the CPU: the
+    torch ops of ``torch_models.convert``)."""
     slices, _, _ = get_slices_and_h_w(h, w, settings, level)
     image = waverec2_packed(rec_arr, slices, settings, dtype)
-    if settings.color_model is not None:
-        image = torch_models.convert(image, settings.color_model, "RGB")
+    model = settings.color_model
+    if model is not None:
+        if model.lower() == "ipt" and image.device.type == "cuda":
+            image = rgb_from_ipt(image)
+        else:
+            image = torch_models.convert(image, model, "RGB")
     if as_uint8:
         image = torch.round(torch.clamp(image, 0.0, 1.0) * 255.0).to(
             torch.uint8

@@ -366,3 +366,36 @@ def test_batch_decode_launches_the_synthesis_kernel_a_level(cuda):
         n0 = sk.waverec2_packed.launches
         torch_transform.inverse(rec, 64, 64, level, s)
         assert sk.waverec2_packed.launches == n0 + level
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_ipt_inverse_kernel_equals_torch_ops(cuda, dtype):
+    """``spiht_ipt_inverse`` against ``torch_models.convert``'s torch ops
+    on the card, bit for bit, on a batch, a crop, channels last and odd W,
+    one launch a call; a batch decode at IPT launches it on a key's first
+    call twice (warm-up and capture), on a replay not at all."""
+    import spiht_tpu_torch as pt
+    from spiht_tpu_torch.color import torch_models
+    from spiht_tpu_torch.ops import synthesis_kernels as sk
+
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.uniform(-1.0, 2.0, (2, 3, 40, 72)),
+                        device=cuda).to(dtype)
+    for im in (x, x[..., 3:37, 5:66], x.permute(0, 2, 3, 1).contiguous()
+               .permute(0, 3, 1, 2), x[1, :, :, :61]):
+        n0 = sk.rgb_from_ipt.launches
+        got = sk.rgb_from_ipt(im)
+        assert sk.rgb_from_ipt.launches == n0 + 1
+        assert got.is_contiguous()
+        assert torch.equal(got, torch_models.convert(im, "ipt", "RGB"))
+    s = pt.SpihtSettings(color_model="ipt")
+    ims = [rng.random((3, 64, 64)) for _ in range(3)]
+    ers = pt.encode_images_device(ims, s, 3, 20000, device=cuda)
+    n0 = sk.rgb_from_ipt.launches
+    got = pt.decode_images_device(ers, s, device=cuda, dtype=dtype)
+    assert sk.rgb_from_ipt.launches == n0 + 2
+    again = pt.decode_images_device(ers, s, device=cuda, dtype=dtype)
+    assert sk.rgb_from_ipt.launches == n0 + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)

@@ -30,7 +30,13 @@ run on a host block of 128 threads against the spike's numpy model.
 The decode's inverse DWT (``idwt_level_block``, ``csrc/spiht_synthesis.cu``,
 built with ``-ffp-contract=off``) runs a level a launch through the
 wrapper's own level loop, every block on host fibers, bit for bit against
-the op-by-op ``inverse`` on the CPU.
+the op-by-op ``inverse`` on the CPU. IPT's inverse colour model
+(``ipt_inverse_block``, the same file) runs through its wrapper's launch on
+a few host blocks, bit for bit against ``torch_models.convert``'s torch ops
+with their power taken by the kernel's own ``pow``: torch's CPU ``pow`` is a
+vectorized approximation that differs from libm's in the last bit on ~6% of
+inputs, while on the card the kernel and ``torch.pow`` call the same
+device ``pow`` (``chip_smoke.py`` phase 29 holds them there unpatched).
 """
 
 import ctypes
@@ -281,6 +287,36 @@ extern "C" int host_idwt_level(int32_t dtype, int32_t in_kind,
         idwt_level_block<T, IN>(g, sh.data(), b, tid, n);
       });
     }
+  });
+  return known ? 0 : -1;
+}
+// spiht_ipt_inverse: its launch's arguments, but `blocks` blocks of nt
+// threads on host fibers in place of the stream's grid, the last block
+// first where `reverse` (with one item a block, a write past an item's
+// pixels then lands on pixels already written)
+extern "C" int host_ipt_inverse(int32_t dtype, const void* in, int64_t n,
+    int64_t h, int64_t w, int64_t sn, int64_t sc, int64_t sh, int64_t sw,
+    const void* consts, void* out, int64_t blocks, int nt, int reverse) {
+  const IptImage g{in, n, h, w, sn, sc, sh, sw, consts, out};
+  const bool known = ipt_dispatch(dtype, [&](auto t) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    for (int64_t i = 0; i < blocks; ++i) {
+      const int64_t b = reverse ? blocks - 1 - i : i;
+      run_block(nt, [&](int tid, int n_t) {
+        ipt_inverse_block<T>(g, b, blocks, tid, n_t);
+      });
+    }
+  });
+  return known ? 0 : -1;
+}
+// the kernel's pow (ipt_pow) over n elements, at p rounded to the working
+// dtype as the kernel's constants round it
+extern "C" int host_ipt_pow(int32_t dtype, const void* x, int64_t n,
+    double p, void* out) {
+  const bool known = ipt_dispatch(dtype, [&](auto t) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    for (int64_t i = 0; i < n; ++i)
+      ((T*)out)[i] = ipt_pow(((const T*)x)[i], (T)p);
   });
   return known ? 0 : -1;
 }
@@ -1065,3 +1101,159 @@ def test_inverse_on_the_cpu_launches_no_synthesis_kernel():
     image = inverse(rec, 32, 32, 2, SpihtSettings(color_model="ipt"))
     assert image.device.type == "cpu" and bool(torch.isfinite(image).all())
     assert synthesis_kernels.waverec2_packed.launches == n0 == 0
+
+
+def _ipt_image(case, dtype):
+    """An IPT image of each kind the kernel reads: a contiguous batch (16-byte
+    accesses throughout), a crop with its own row stride and a base off 16
+    bytes, odd W (each row's ragged end, rows that alternate alignment),
+    channels last (a column stride), leading dims that do not flatten into
+    one stride (the wrapper's copy), and the edges: zeros, signed zeros,
+    negative LMS', values far outside [0, 1] and subnormals."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+
+    def draw(*shape):
+        return torch.as_tensor(rng.uniform(-1.0, 2.0, shape)).to(dtype)
+
+    if case == "batch":
+        return draw(2, 3, 6, 16)
+    if case == "crop":
+        return draw(2, 3, 11, 29)[:, :, 2:9, 3:20]
+    if case == "odd_w":  # rows 16 apart in, 13 out: every 4th row aligned
+        return draw(3, 3, 4, 16)[..., :13]
+    if case == "channels_last":
+        return draw(2, 7, 9, 3).permute(0, 3, 1, 2)
+    if case == "leading":
+        return draw(2, 2, 3, 5, 8).transpose(0, 1)
+    tiny = torch.finfo(dtype).smallest_normal
+    edge = torch.tensor([0.0, -0.0, tiny / 4, -tiny / 4, tiny * 1e-3, tiny,
+                         -3.5, 1e3, -1e3, 7.0, 0.5, -0.25], dtype=dtype)
+    x = draw(3, 3, 4, 12)
+    x[:, 0] = edge  # every row of I: each value against each P and T below
+    x[1, 1:] = edge.flip(0)
+    x[2, 1] = 0.0
+    return x
+
+
+def _host_ipt_pow(lib, x, p):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    assert lib.host_ipt_pow(_i(x.dtype == torch.float64), _p(x),
+                            ctypes.c_int64(x.numel()), ctypes.c_double(p),
+                            _p(out)) == 0
+    return out
+
+
+@pytest.mark.parametrize("grid", ["3x64", "one_item_reversed"])
+@pytest.mark.parametrize("case", ["batch", "crop", "odd_w", "channels_last",
+                                  "leading", "edges"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_ipt_inverse_source_equals_op_by_op_model(host_lib, monkeypatch,
+                                                  dtype, case, grid):
+    """``spiht_ipt_inverse`` as host C++, through ``rgb_from_ipt``'s launch,
+    on 3 host blocks of 64 fibers (a grid-stride loop of several rounds),
+    or on one fiber a block and an item a block, the last block first:
+    bit for bit ``torch_models.convert(x, "ipt", "RGB")``, its power taken
+    by the kernel's own ``pow``, into a fresh contiguous tensor."""
+    from spiht_tpu_torch import _build
+    from spiht_tpu_torch.color import torch_models
+    from spiht_tpu_torch.ops import synthesis_kernels
+
+    fn = host_lib.host_ipt_inverse
+    fn.argtypes = (_build.SIGNATURES["spiht_synthesis"]
+                   ["spiht_ipt_inverse_launch"][:-1]
+                   + [ctypes.c_int64, ctypes.c_int, ctypes.c_int])
+    fn.restype = ctypes.c_int
+
+    def launch(*args):
+        if grid == "3x64":
+            assert fn(*args, 3, 64, 0) == 0
+        else:
+            n, h, w = args[2:5]
+            v = 16 // x.element_size()
+            assert fn(*args, n * h * -(-w // v), 1, 1) == 0
+
+    x = _ipt_image(case, dtype)
+    got = synthesis_kernels._ipt_inverse(x, launch)
+    lms_p = torch_models._apply_mat(x, torch_models._nm.LMS_FROM_IPT)
+    if case == "edges":
+        assert bool((lms_p < 0).any()) and bool((lms_p.abs() > 1).any())
+        assert bool(((x != 0) & (x.abs() < torch.finfo(dtype)
+                                 .smallest_normal)).any())
+    monkeypatch.setattr(torch_models, "_signed_pow", lambda t, p: (
+        torch.sign(t) * _host_ipt_pow(host_lib, torch.abs(t), p)))
+    want = torch_models.convert(x, "ipt", "RGB")
+    assert got.is_contiguous() and got.dtype == dtype
+    assert got.shape == want.shape == x.shape
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(_float_bits(got), _float_bits(want))
+
+
+@pytest.mark.parametrize("image,why", [
+    (torch.zeros((2, 4, 5, 5)), "3, H, W"),
+    (torch.zeros((3, 5)), "3, H, W"),
+    (torch.zeros((3, 5, 5), dtype=torch.int32), "float32 or float64"),
+    (torch.zeros((3, 5, 5), dtype=torch.float16), "float32 or float64"),
+    (torch.zeros((3, 5, 5), device="meta"), "unsupported device"),
+], ids=["c4", "2d", "int32", "float16", "meta"])
+def test_rgb_from_ipt_refuses_what_the_kernel_cannot_take(image, why):
+    """Four channels, a 2-D array, an integer or half dtype and a device
+    that is neither the CPU nor CUDA: a ValueError, no launch."""
+    from spiht_tpu_torch.ops import synthesis_kernels
+
+    n0 = synthesis_kernels.rgb_from_ipt.launches
+    with pytest.raises(ValueError, match=why):
+        synthesis_kernels.rgb_from_ipt(image)
+    assert synthesis_kernels.rgb_from_ipt.launches == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_rgb_from_ipt_on_the_cpu_runs_the_torch_ops(monkeypatch, dtype):
+    """A CPU tensor goes through ``torch_models.convert`` itself, as it is:
+    its output, no launch."""
+    from spiht_tpu_torch.color import torch_models
+    from spiht_tpu_torch.ops import synthesis_kernels
+
+    calls = []
+    real = torch_models.convert
+
+    def spy(*args):
+        calls.append(args[1:])
+        return real(*args)
+
+    monkeypatch.setattr(torch_models, "convert", spy)
+    x = _ipt_image("crop", dtype)
+    n0 = synthesis_kernels.rgb_from_ipt.launches
+    got = synthesis_kernels.rgb_from_ipt(x)
+    assert calls == [("ipt", "RGB")]
+    assert torch.equal(got, real(x, "ipt", "RGB"))
+    assert synthesis_kernels.rgb_from_ipt.launches == n0 == 0
+
+
+@pytest.mark.parametrize("model", ["ipt", "IPT", "oklab"])
+def test_inverse_on_the_cpu_keeps_the_op_by_op_model(model):
+    """``inverse`` on the CPU, for IPT in either case and for another model:
+    the plain DWT's plane through ``torch_models.convert``, bit for bit, and
+    neither kernel's launch counter moves."""
+    from spiht_tpu_torch import SpihtSettings
+    from spiht_tpu_torch.color import torch_models
+    from spiht_tpu_torch.ops import synthesis_kernels
+    from spiht_tpu_torch.torch_transform import inverse
+    from spiht_tpu_torch.wavelets.geometry import get_slices_and_h_w
+
+    s = SpihtSettings(color_model=model, per_channel_quant_scales=[100, 20,
+                                                                   20])
+    slices, enc_h, enc_w = get_slices_and_h_w(36, 52, s, 2)
+    rec = _packed(np.random.default_rng(5), (2, 3, enc_h, enc_w),
+                  torch.int32)
+    n0 = (synthesis_kernels.rgb_from_ipt.launches,
+          synthesis_kernels.waverec2_packed.launches)
+    got = inverse(rec, 36, 52, 2, s)
+    plane = synthesis_kernels.waverec2_packed_plain(rec, slices, s,
+                                                    torch.float64)
+    want = torch_models.convert(plane, model, "RGB")
+    assert torch.equal(got, want)
+    assert (synthesis_kernels.rgb_from_ipt.launches,
+            synthesis_kernels.waverec2_packed.launches) == n0 == (0, 0)
